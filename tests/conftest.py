@@ -33,3 +33,8 @@ def run_multidevice(script: str, n_devices: int = 8, timeout: int = 600):
 @pytest.fixture(scope="session")
 def multidevice():
     return run_multidevice
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU with CUDA (skips elsewhere)")

@@ -1,0 +1,155 @@
+"""The flash-attention forward: the kernel's plain PyTorch version against the
+reference Pallas kernel (interpret mode, as tests/test_kernels.py runs it), the
+wrapper's input checks, and — on a CUDA card only — the kernel against its
+plain version. The module imports no JAX, so the card's tests also run on the
+GPU machine, which has none:
+``PYTHONPATH=src python -m pytest tests/test_torch_flash.py -m cuda``."""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as tf
+from repro_torch.kernels.ref import flash_attention_ref
+
+torch.set_num_threads(1)
+
+# shrunk copies of tests/test_kernels.py::FLASH_CASES, plus q_offset and a case
+# with fully masked rows: (b, hq, hkv, s, t, hd, causal, window, softcap, q_offset)
+CASES = [
+    (1, 4, 2, 64, 64, 32, True, 0, 0.0, 0),
+    (1, 2, 2, 64, 64, 32, True, 16, 0.0, 0),
+    (1, 2, 1, 50, 50, 32, True, 0, 30.0, 0),          # non-divisible seq
+    (1, 4, 2, 64, 64, 64, False, 0, 0.0, 0),
+    (1, 2, 2, 32, 96, 32, True, 0, 0.0, 0),           # cross lengths
+    (1, 2, 1, 32, 32, 256, True, 4096, 50.0, 0),      # gemma2-like head dim
+    (1, 4, 2, 40, 90, 32, True, 0, 0.0, 50),          # q_offset
+    (1, 2, 1, 64, 16, 32, True, 8, 0.0, 64),          # fully masked rows
+]
+# o in fp32 to 3e-5; o in bf16 to 2 bf16 ulps of the reference (both sides round
+# an fp32 result once); lse, fp32 math on the same inputs in both dtypes, to 1e-5
+# relative. A KV tile dropped or counted twice moves o by tens of ulps.
+O_ABS_F32, O_ULPS_BF16, LSE_REL = 3e-5, 2.0, 1e-5
+
+
+def _ulps(err, ref):
+    """|err| in bf16 ulps of |ref|, with |ref| floored at 2^-10 so that the fp32
+    noise (~1e-6) on an output near zero is not counted in ulps of zero."""
+    e = torch.frexp(ref.float().abs().clamp(min=2 ** -10)).exponent
+    return err.abs() / torch.ldexp(torch.ones_like(err), e - 8)
+
+
+def _errors(o, lse, ro, rlse):
+    """(o error, its tolerance, lse relative error): o in bf16 ulps for bf16,
+    absolute for fp32."""
+    ro, rlse = ro.float(), rlse.float()
+    err = o.float() - ro
+    lse_err = ((lse - rlse).abs() / rlse.abs().clamp(min=1.0)).max().item()
+    if o.dtype == torch.bfloat16:
+        return _ulps(err, ro).max().item(), O_ULPS_BF16, lse_err
+    return err.abs().max().item(), O_ABS_F32, lse_err
+
+
+def _assert_matches(o, lse, ro, rlse):
+    o_err, o_tol, lse_err = _errors(o, lse, ro, rlse)
+    assert o_err <= o_tol and lse_err <= LSE_REL, (o_err, lse_err)
+
+
+def _inputs(case, dtype, seed):
+    """fp32 numpy arrays and the same values as torch tensors of ``dtype``."""
+    b, hq, hkv, s, t, hd = case[:6]
+    rng = np.random.default_rng(seed)
+    arrs = [rng.standard_normal(shape).astype(np.float32)
+            for shape in ((b, hq, s, hd), (b, hkv, t, hd), (b, hkv, t, hd))]
+    return arrs, [torch.from_numpy(a).to(getattr(torch, dtype)) for a in arrs]
+
+
+def _kw(case):
+    return dict(causal=case[6], window=case[7], softcap=case[8], q_offset=case[9])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_version_matches_pallas_kernel(case, dtype):
+    import jax.numpy as jnp
+    from repro.kernels.flash_attention import flash_attention_lse
+    arrs, (qt, kt, vt) = _inputs(case, dtype, seed=sum(case[:6]))
+    qj, kj, vj = (jnp.asarray(a, getattr(jnp, dtype)) for a in arrs)
+    ro, rlse = flash_attention_lse(qj, kj, vj, interpret=True, **_kw(case))
+    o, lse = tf.flash_attention_lse(qt, kt, vt, **_kw(case))   # CPU: plain version
+    assert o.dtype == qt.dtype and lse.dtype == torch.float32
+    _assert_matches(o, lse, torch.from_numpy(np.asarray(ro, np.float32)),
+                    torch.from_numpy(np.asarray(rlse)))
+    dead = lse.numpy() < -1e29
+    if case == CASES[-1]:
+        assert dead.any() and np.all(o.float().numpy()[dead] == 0)
+    assert not torch.isnan(o).any() and not torch.isnan(lse).any()
+
+
+@pytest.mark.parametrize("change", ["drop_tile", "double_tile", "drop_key"])
+def test_tolerance_catches_a_wrong_kv_tile(change):
+    """What the bf16 tolerance is for: attention that skips one 64-key tile,
+    counts it twice, or skips one key fails it on o and on lse alike."""
+    _, (q, k, v) = _inputs((1, 8, 2, 128, 256, 128), "bfloat16", seed=4)
+    po, plse = tf.flash_attention_lse_plain(q, k, v, causal=False)
+    keys = torch.arange(256)
+    keys = {"drop_tile": torch.cat([keys[:64], keys[128:]]),
+            "double_tile": torch.cat([keys, keys[64:128]]),
+            "drop_key": torch.cat([keys[:100], keys[101:]])}[change]
+    o, lse = tf.flash_attention_lse_plain(q, k[:, :, keys], v[:, :, keys], causal=False)
+    o_err, o_tol, lse_err = _errors(o, lse, po, plse)
+    assert o_err > 4 * o_tol and lse_err > 4 * LSE_REL, (o_err, lse_err)
+
+
+def test_plain_version_matches_oracle():
+    case = (2, 4, 2, 24, 24, 32, True, 6, 20.0, 0)
+    _, (q, k, v) = _inputs(case, "float32", seed=1)
+    kw = _kw(case)
+    del kw["q_offset"]
+    np.testing.assert_allclose(tf.flash_attention(q, k, v, **kw).numpy(),
+                               flash_attention_ref(q, k, v, **kw).numpy(),
+                               rtol=3e-5, atol=3e-5)
+
+
+def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
+    _, (q, k, v) = _inputs(CASES[0], "float32", seed=2)
+    before = tf.flash_attention_lse.launches
+    o, lse = tf.flash_attention_lse(q, k, v)
+    po, plse = tf.flash_attention_lse_plain(q, k, v)
+    assert torch.equal(o, po) and torch.equal(lse, plse)
+    assert tf.flash_attention_lse.launches == before
+
+
+@pytest.mark.parametrize("bad", ["kv_shape", "heads", "dtype", "window"])
+def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    q = torch.zeros(1, 4, 8, 32)
+    k = v = torch.zeros(1, 2, 8, 32)
+    kw = {}
+    if bad == "kv_shape":
+        v = torch.zeros(1, 2, 9, 32)
+    elif bad == "heads":
+        k = v = torch.zeros(1, 3, 8, 32)
+    elif bad == "dtype":
+        k = v = k.to(torch.bfloat16)
+    else:
+        kw = {"window": -1}
+    with pytest.raises(ValueError):
+        tf.flash_attention_lse(q, k, v, **kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES)
+def test_kernel_matches_plain_version_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    _, inputs = _inputs(case, dtype, seed=3)
+    # batch-major storage, head-major views: the layout the model passes
+    q, k, v = (x.transpose(1, 2).contiguous().cuda().transpose(1, 2) for x in inputs)
+    before = tf.flash_attention_lse.launches
+    o, lse = tf.flash_attention_lse(q, k, v, **_kw(case))
+    torch.cuda.synchronize()
+    assert tf.flash_attention_lse.launches == before + 1
+    po, plse = tf.flash_attention_lse_plain(q, k, v, **_kw(case))
+    _assert_matches(o, lse, po, plse)
+    assert torch.isfinite(o).all() and torch.isfinite(lse).all()
