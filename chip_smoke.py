@@ -1,28 +1,47 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA H100 and check its kernels.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA H100 and
+check its kernels.
 
 Run from the repository root: ``python3 chip_smoke.py``. Phases, in order:
 
-1. device  — require CUDA with compute capability 9.0; print the card's name
+1. device   — require CUDA with compute capability 9.0; print the card's name
    and power limit as nvidia-smi reports them;
-2. build   — compile every CUDA source of the path (one nvcc each, in parallel);
-3. kernels — hold each kernel against its plain PyTorch version on the card
-   (o: fp32 to 3e-5, bf16 to 2 bf16 ulps; lse to 1e-5 relative), including
-   fully masked rows and the serving path's own shape;
-4. serving — qwen2.5-14b at full width (48 layers, random bf16 weights from a
+2. build    — compile every CUDA source of the paths (one nvcc each, in parallel);
+3. kernels  — hold each kernel against its plain PyTorch version on the card:
+   the flash forward (o: fp32 to 3e-5, bf16 to 2 bf16 ulps; lse to 1e-5
+   relative) and the backward's dq and dk/dv kernels (fp32 to 1e-5 of each
+   tensor's largest value, bf16 to 2 bf16 ulps), fully masked rows included,
+   at the paths' own shapes, with merged softmax statistics, and through the
+   autograd Function;
+4. serving  — qwen2.5-14b at full width (48 layers, random bf16 weights from a
    seed): prefill of 4 x 1000 tokens, then 32 greedy decode steps, with the
    flash kernel's launches counted; the kernel held to its plain version, to
    the same tolerance, on every layer's own q/k/v from three full-width
    prefills (and, as a reading only, how far their logits drift from a
    prefill with plain attention); and a small smoke-config model on the card
    against the same model on the CPU;
-5. times   — each kernel's time at the path's shape beside its bound, its plain
+5. training — the qwen1.5-4b smoke config on the card against the CPU (5 steps,
+   loss and grad norm to 1e-4) and under the three remat modes (grads to 1e-6);
+   the 200-step quickstart recipe (loss below 2.5 at the end); then qwen1.5-4b
+   at full width (40 layers, 3.95 B parameters, fp32 masters, bf16 compute,
+   remat "full", 2 microbatches of 1 x 4096 tokens): the backward kernels held
+   to their plain version on every layer's own inputs, then one warm-up and
+   three timed train steps with the kernels' launches counted, and a profile;
+6. times    — each kernel's time at its path's shape beside its bound, its plain
    version's time and the library call's, printed as one JSON line.
 
 Any failure raises: the script exits non-zero and prints no final line. The
 last line is ``{"ok": true, "device": {...}}``.
 """
 
+import os
+
+# the full-width train step holds ~74 GB; segments that grow in place keep the
+# allocator from failing on fragmentation near the card's 80 GB
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+
+import functools
+import gc
 import json
 import subprocess
 import sys
@@ -60,6 +79,19 @@ FLASH_CASES = [
 O_ABS_F32, O_ULPS_BF16, LSE_REL = 3e-5, 2.0, 1e-5
 TOLERANCE = "o: fp32 3e-5 abs, bf16 2 ulps of |plain| (floor 2^-10); lse: 1e-5 rel"
 PROMPT_SEEDS = (0, 1, 2)      # prompts of the real-input layer check
+
+# the backward kernels: dq, dk, dv judged against the largest |value| of the
+# plain version's tensor (gradients have no fixed scale). fp32 within 1e-5 of
+# it; bf16 within 2 bf16 ulps of each value, |value| floored at 2^-10 of the
+# largest. A KV tile dropped or doubled in the dq sweep, or a query tile in the
+# dk/dv sweep, misses by more than 4x (tests/test_torch_flash_bwd.py).
+GRAD_REL_F32, GRAD_ULPS_BF16 = 1e-5, 2.0
+GRAD_TOLERANCE = ("dq/dk/dv: fp32 1e-5 of the tensor's max |value|, bf16 2 ulps of "
+                  "|plain| (floor 2^-10 of the max)")
+TRAIN_ARCH = "qwen1.5-4b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 2, 2     # train_4k's sequence length
+TRAIN_STEPS = 3                                    # timed, after one warm-up
+TRAIN_CASE = (1, 20, 20, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)   # one microbatch
 
 
 def log(*args):
@@ -107,11 +139,67 @@ def within_tolerance(dtype, o_abs, o_ulps, lse_rel):
     return o_ok and lse_rel <= LSE_REL
 
 
+def grad_error(x, ref):
+    """(max |x - ref|, the error in the limit's own measure: bf16 ulps of
+    |ref| floored at 2^-10 of the tensor's largest |value|, or for fp32 the
+    fraction of that largest |value|)."""
+    ref = ref.float()
+    err = (x.float() - ref).abs()
+    big = ref.abs().max().clamp(min=1e-30)
+    if x.dtype == torch.bfloat16:
+        e = torch.frexp(torch.maximum(ref.abs(), big * 2 ** -10)).exponent
+        ulps = err / torch.ldexp(torch.ones_like(err), e - 8)
+        return err.max().item(), ulps.max().item()
+    return err.max().item(), (err.max() / big).item()
+
+
+def grads_within(dtype, errs):
+    limit = GRAD_ULPS_BF16 if dtype == torch.bfloat16 else GRAD_REL_F32
+    return all(e[1] <= limit for e in errs)
+
+
+def fmt_grad_errors(errs):
+    return ", ".join(f"{n} {a:.3e} ({u:.2e})" for n, (a, u) in zip(("dq", "dk", "dv"), errs))
+
+
 def batch_major(gen, b, h, n, hd, dtype):
     """A head-major (B, H, N, hd) view of a batch-major tensor, as the model
     hands the kernel its q/k/v."""
     x = torch.randn(b, n, h, hd, generator=gen, device="cuda", dtype=torch.float32)
     return x.to(dtype).transpose(1, 2)
+
+
+def bwd_inputs(gen, case, dtype, t_stats=None):
+    """q, k, v, do (head-major views of batch-major tensors) and the softmax
+    statistics of attention over the first ``t_stats`` keys (all by default):
+    lse from the plain forward and delta = rowsum(dO * O), as the autograd
+    Function takes it (O in the input dtype)."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_plain
+    b, hq, hkv, s, t, hd, causal, window, cap, q_offset = case
+    q = batch_major(gen, b, hq, s, hd, dtype)
+    k = batch_major(gen, b, hkv, t, hd, dtype)
+    v = batch_major(gen, b, hkv, t, hd, dtype)
+    do = batch_major(gen, b, hq, s, hd, dtype)
+    tt = t if t_stats is None else t_stats
+    o, lse = flash_attention_lse_plain(q, k[:, :, :tt], v[:, :, :tt], causal=causal,
+                                       window=window, softcap=cap, q_offset=q_offset)
+    return q, k, v, do, lse, (do.float() * o.float()).sum(-1)
+
+
+def case_kw(case):
+    return dict(causal=case[6], window=case[7], softcap=case[8], q_offset=case[9])
+
+
+def bwd_counts():
+    from repro_torch.kernels.flash_attention import flash_attention_bwd as bwd
+    return bwd.dq_launches, bwd.dkv_launches
+
+
+def reset_counts():
+    from repro_torch.kernels.flash_attention import (flash_attention_bwd,
+                                                     flash_attention_lse)
+    flash_attention_lse.launches = 0
+    flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
 
 
 def to_cuda(tree):
@@ -159,7 +247,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_fwd"])
+    logs = build.build(["flash_fwd", "flash_bwd"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -276,7 +364,8 @@ def phase_serving():
 
     smoke_agreement()
     cfg = get_config(ARCH)
-    model = build_model(cfg, ParallelPlan(compute_dtype="bfloat16"))
+    model = build_model(cfg, ParallelPlan(compute_dtype="bfloat16",
+                                         param_dtype="bfloat16"))
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
@@ -334,12 +423,320 @@ def phase_serving():
     del cache
     profile_window("prefill", lambda: model.prefill(params, batch, max_seq=MAX_SEQ))
 
-    plain = build_model(cfg, ParallelPlan(compute_dtype="bfloat16", attn_impl="plain"))
+    plain = build_model(cfg, ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16",
+                                         attn_impl="plain"))
     real_ulps = kernel_on_real_inputs(model, plain, params, cfg)
     return launches, real_ulps
 
 
-def phase_times(launches, path_errs, real_ulps):
+def phase_kernels_bwd():
+    """The dq and dk/dv kernels against their plain version: every FLASH_CASES
+    row and the training shape in both dtypes, merged softmax statistics, and
+    the autograd Function. Returns the errors at the training shape (bf16)."""
+    from repro_torch.kernels import flash_attention as tf
+    from repro_torch.models.layers import attention_chunk_grads
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    train_errs = None
+    for case in FLASH_CASES + [TRAIN_CASE]:
+        kw = case_kw(case)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do, lse, delta = bwd_inputs(gen, case, dtype)
+            before = bwd_counts()
+            grads = tf.flash_attention_bwd(q, k, v, do, lse, delta, **kw)
+            torch.cuda.synchronize()
+            if bwd_counts() != (before[0] + 1, before[1] + 1):
+                raise AssertionError("flash_attention_bwd did not launch both kernels")
+            ref = tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
+            errs = [grad_error(g, r) for g, r in zip(grads, ref)]
+            finite = all(bool(torch.isfinite(g).all()) for g in grads)
+            dead = lse < -1e29                   # fully masked rows
+            dead_ok = bool((grads[0].float()[dead] == 0).all())
+            log(f"check bwd {case} {str(dtype)[6:]}: {fmt_grad_errors(errs)}, "
+                f"masked rows {int(dead.sum())}")
+            if not (grads_within(dtype, errs) and finite and dead_ok):
+                raise AssertionError(f"flash_bwd disagrees with its plain version "
+                                     f"on {case} {dtype}")
+            if case == TRAIN_CASE and dtype == torch.bfloat16:
+                train_errs = errs
+            del q, k, v, do, lse, delta, grads, ref
+
+    # the chunk entry: statistics of attention over all 512 keys, gradients of
+    # the first 256 only, against attention_chunk_grads
+    case = (1, 4, 2, 256, 512, 128, True, 0, 0.0, 256)
+    kw = case_kw(case)
+    hm = lambda x: x.transpose(1, 2)                     # noqa: E731
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, do, lse, delta = bwd_inputs(gen, case, dtype)
+        kh, vh = k[:, :, :256], v[:, :, :256]
+        grads = tf.flash_attention_bwd(q, kh, vh, do, lse, delta, **kw)
+        ref = attention_chunk_grads(hm(q), hm(kh), hm(vh), hm(do), hm(lse), hm(delta), **kw)
+        errs = [grad_error(g, hm(r)) for g, r in zip(grads, ref)]
+        log(f"check bwd merged statistics {case} {str(dtype)[6:]}: {fmt_grad_errors(errs)}")
+        if not grads_within(dtype, errs):
+            raise AssertionError(f"flash_bwd disagrees with attention_chunk_grads ({dtype})")
+
+    # the autograd Function, fp32: grads of sum(flash_attention(q, k, v) * w)
+    # against autograd through the plain forward. (In bf16 the Function takes
+    # delta from the bf16-rounded O, as the reference does, while autograd
+    # through the plain forward uses the unrounded one.)
+    for case in (FLASH_CASES[0], FLASH_CASES[2], FLASH_CASES[6], FLASH_CASES[7]):
+        kw = case_kw(case)
+        b, hq, hkv, s, t, hd = case[:6]
+        q, k, v, w = (batch_major(gen, b, h, n, hd, torch.float32).detach().requires_grad_()
+                      for h, n in ((hq, s), (hkv, t), (hkv, t), (hq, s)))
+        before = (tf.flash_attention_lse.launches, *bwd_counts())
+        grads = torch.autograd.grad((tf.flash_attention(q, k, v, **kw) * w).sum(), (q, k, v))
+        if (tf.flash_attention_lse.launches, *bwd_counts()) != tuple(x + 1 for x in before):
+            raise AssertionError("the autograd Function did not launch B1, B2 and B3 once")
+        ref = torch.autograd.grad((tf.flash_attention_lse_plain(q, k, v, **kw)[0] * w).sum(),
+                                  (q, k, v))
+        errs = [grad_error(g, r) for g, r in zip(grads, ref)]
+        log(f"check autograd Function {case} float32: {fmt_grad_errors(errs)}")
+        if not grads_within(torch.float32, errs):
+            raise AssertionError(f"the autograd Function's grads disagree on {case}")
+    return train_errs
+
+
+def train_smoke_agreement():
+    """The qwen1.5-4b smoke config, fp32: 5 train steps on the card (kernels)
+    against the same steps on the CPU (plain path), from the same weights and
+    batches; then the three remat modes' grads on the card."""
+    from repro_torch.core import REMAT_MODES, InputShape, ParallelPlan, get_smoke_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
+    cfg = get_smoke_config(TRAIN_ARCH)
+    plan = ParallelPlan(compute_dtype="float32")
+    hyper = Hyper(peak_lr=5e-3, warmup_steps=2, total_steps=5)
+    ds = SyntheticDataset(cfg, InputShape("smoke", 64, 8, "train"))
+    cpu = build_model(cfg, plan, device="cpu")
+    cparams = cpu.init(torch.Generator().manual_seed(1))
+    runs = {}
+    for name, model, params in (("card", build_model(cfg, plan), to_cuda(cparams)),
+                                ("cpu", cpu, cparams)):
+        for p in leaves(params):
+            p.requires_grad_(True)
+        step, state, out = make_train_step(model, plan, hyper), \
+            TrainState(params, adamw_init(params)), []
+        for i in range(5):
+            batch = {k: torch.from_numpy(v).to(model.device) for k, v in ds.batch(i).items()}
+            state, m = step(state, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        runs[name] = out
+    rel = max(abs(a - b) / abs(b) for pc, pp in zip(runs["card"], runs["cpu"])
+              for a, b in zip(pc, pp))
+    log(f"train smoke {TRAIN_ARCH} fp32, card vs cpu, 5 steps: (loss, grad_norm) card "
+        f"{runs['card']}, cpu {runs['cpu']}; max relative difference {rel:.3e}")
+    if rel > 1e-4:
+        raise AssertionError("the card's smoke-config training disagrees with the CPU's")
+
+    params = to_cuda(cpu.init(torch.Generator().manual_seed(2)))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    batch = {k: torch.from_numpy(v).cuda() for k, v in ds.batch(7).items()}
+    grads = {}
+    for mode in REMAT_MODES:
+        model = build_model(cfg, ParallelPlan(compute_dtype="float32", remat=mode))
+        loss, _ = make_loss_fn(model, Hyper())(params, batch)
+        grads[mode] = torch.autograd.grad(loss, leaves(params))
+    for mode in ("full", "selective"):
+        rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
+                  for a, b in zip(grads[mode], grads["none"]))
+        same = all(torch.equal(a, b) for a, b in zip(grads[mode], grads["none"]))
+        log(f"remat {mode} vs none on the card: max relative grad difference {rel:.3e}, "
+            f"bit-identical {same}")
+        if rel > 1e-6:
+            raise AssertionError(f"remat={mode} changes the grads")
+
+
+def train_flops(cfg, seq, tokens):
+    """Reckoned FLOPs of one train step (forward + backward, no recompute):
+    6 per matmul parameter per token (the embedding gather does none) plus
+    causal attention, 6 L Hq hd (S + 1) per token."""
+    n_matmul = cfg.param_count() - cfg.vocab * cfg.d_model
+    attn = 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * (seq + 1)
+    return (6 * n_matmul + attn) * tokens
+
+
+def backward_on_real_inputs(model, params, cfg, batch):
+    """One microbatch's forward + backward at full width, no optimizer state:
+    on every layer, B2 and B3 held to their plain version on that layer's own
+    (q, k, v, dO, lse, delta), then discarded. As a reading only, the same
+    step with attn_impl="plain": its loss and grad-norm difference."""
+    import dataclasses
+    from repro_torch.kernels import flash_attention as tf
+    from repro_torch.models import build_model
+    from repro_torch.optim import global_norm
+    from repro_torch.core.tree import leaves, map_tree
+    from repro_torch.train import Hyper, make_loss_fn
+    real_bwd, errs = tf.flash_attention_bwd, []
+
+    # The seam FlashAttention.backward calls: its own backward runs unchanged,
+    # and each layer's kernel grads are held to the plain version on the same
+    # arguments. functools.wraps copies the launch counters onto the wrapper,
+    # so these launches leave the real counts alone.
+    @functools.wraps(real_bwd)
+    def checked_bwd(q, k, v, do, lse, delta, **kw):
+        grads = real_bwd(q, k, v, do, lse, delta, **kw)
+        ref = tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
+        errs.append([grad_error(g, r) for g, r in zip(grads, ref)])
+        return grads
+
+    mb = {k: v[:1] for k, v in batch.items()}
+    tf.flash_attention_bwd = checked_bwd
+    try:
+        loss, _ = make_loss_fn(model, Hyper())(params, mb)
+        loss.backward()
+    finally:
+        tf.flash_attention_bwd = real_bwd
+    gnorm = global_norm(map_tree(lambda p: p.grad, params)).item()
+    loss = loss.item()
+    if len(errs) != cfg.n_layers:
+        raise AssertionError(f"checked {len(errs)} layers' backward, expected {cfg.n_layers}")
+    worst = [max(e[i][1] for e in errs) for i in range(3)]
+    worst_abs = [max(e[i][0] for e in errs) for i in range(3)]
+    log(f"real inputs, full-width backward: {len(errs)} layers, max error dq/dk/dv "
+        f"{worst_abs[0]:.3e}/{worst_abs[1]:.3e}/{worst_abs[2]:.3e} = "
+        f"{worst[0]:.2f}/{worst[1]:.2f}/{worst[2]:.2f} bf16 ulps")
+    if max(worst) > GRAD_ULPS_BF16:
+        raise AssertionError("flash_bwd disagrees with its plain version on the "
+                             "full-width step's own inputs")
+    for p in leaves(params):
+        p.grad = None
+    plain = build_model(cfg, dataclasses.replace(model.plan, attn_impl="plain"))
+    ploss, _ = make_loss_fn(plain, Hyper())(params, mb)
+    ploss.backward()
+    pnorm = global_norm(map_tree(lambda p: p.grad, params)).item()
+    for p in leaves(params):
+        p.grad = None
+    log(f"reading: full-width loss {loss:.6f} (kernels) vs {ploss.item():.6f} (plain "
+        f"attention), grad norm {gnorm:.6f} vs {pnorm:.6f}: relative differences "
+        f"{abs(loss - ploss.item()) / abs(ploss.item()):.3e} and "
+        f"{abs(gnorm - pnorm) / pnorm:.3e} (bf16 drift)")
+    return max(worst[1:]), worst[0]
+
+
+def phase_training():
+    """Smoke agreement, remat modes, the quickstart recipe, then qwen1.5-4b at
+    full width: the real-input backward check, one warm-up step and
+    TRAIN_STEPS timed steps with the launches counted, and a profile."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.examples.quickstart import run as quickstart
+    from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_lse
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import Hyper, TrainState, make_train_step
+
+    train_smoke_agreement()
+    t0 = time.perf_counter()
+    losses = quickstart()
+    log(f"quickstart on the card: {len(losses)} steps in {time.perf_counter() - t0:.1f} s; "
+        f"losses {[round(x, 4) for x in losses]}")
+    if not losses[-1] < 2.5:
+        raise AssertionError(f"quickstart loss at step {len(losses) - 1} is {losses[-1]}")
+
+    cfg = get_config(TRAIN_ARCH)
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
+                        microbatches=TRAIN_MICRO)
+    model = build_model(cfg, plan)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"init {TRAIN_ARCH}: {n_params / 1e9:.3f} B params (fp32) in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(TRAIN_STEPS + 2)]
+    real = backward_on_real_inputs(model, params, cfg, batches[0])
+
+    state = TrainState(params, adamw_init(params))
+    del params
+    step = make_train_step(model, plan, Hyper())
+    state, m = step(state, batches[0])                 # warm-up
+    log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], None
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = (flash_attention_lse.launches, flash_attention_bwd.dq_launches,
+                    flash_attention_bwd.dkv_launches)
+        log(f"train step {i}: {times[-1] * 1e3:.1f} ms, loss {loss:.6f}, grad_norm "
+            f"{gnorm:.6f}, lr {m['lr']:.3e}, launches B1/B2/B3 {launches}")
+        want = (2 * TRAIN_MICRO * cfg.n_layers, TRAIN_MICRO * cfg.n_layers,
+                TRAIN_MICRO * cfg.n_layers)
+        if launches != want:
+            raise AssertionError(f"a train step launched B1/B2/B3 {launches} times, "
+                                 f"expected {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError("the full-width train step's loss or grad norm is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times) / len(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_SEQ, tokens)
+    log(f"training {TRAIN_ARCH} full width ({TRAIN_BATCH} x {TRAIN_SEQ}, microbatches "
+        f"{TRAIN_MICRO}, remat full): step {step_s * 1e3:.1f} ms (mean of {TRAIN_STEPS}), "
+        f"{tokens / step_s:.0f} tokens/s, reckoned {flops:.4e} FLOP/step, mfu "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    profile_window("train step", lambda: step(state, batches[-1]))
+    return {"launches": launches, "real_dkv_ulps": real[0], "real_dq_ulps": real[1]}
+
+
+def backward_times():
+    """B1, B2 and B3 at the training shape (CUDA events), the plain backward
+    and the library's backward."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tf
+    b, hq, hkv, s, t, hd, causal, window, cap, q_offset = TRAIN_CASE
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    q, k, v, do, lse, delta = bwd_inputs(gen, TRAIN_CASE, torch.bfloat16)
+    kw = dict(case_kw(TRAIN_CASE), scale=hd ** -0.5)
+    out = [torch.empty_like(x) for x in (q, k, v)]
+    res = {which: cuda_ms(lambda: tf._bwd_launch(which, q, k, v, do, lse, delta, *out,
+                                                 **kw), 20)
+           for which in (0, 1)}
+    plain_ms = cuda_ms(lambda: tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw),
+                       3, warmup=1)
+    ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
+    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True), 20)
+    fwd_ms = cuda_ms(lambda: tf.flash_attention_lse(q, k, v, **case_kw(TRAIN_CASE)), 20)
+    fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
+    log(f"flash_bwd at the training shape: dq {res[0]:.4f} ms, dk/dv {res[1]:.4f} ms")
+    pairs = attended_pairs(s, t, causal, window, q_offset) * b * hq
+    in_bytes = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * b * hq * s
+    bounds = {}
+    for which, flops, nbytes in ((0, 6 * hd * pairs, in_bytes + 2 * q.numel()),
+                                 (1, 8 * hd * pairs, in_bytes + 2 * (k.numel() + v.numel()))):
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        bounds[which] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+        log(f"  {('dq', 'dk/dv')[which]} bound {bounds[which][0]:.4f} ms ({flops:.3e} FLOP, "
+            f"{nbytes / 1e6:.1f} MB)")
+    fwd_bound = max(4 * hd * pairs / PEAK_BF16_FLOPS,
+                    (2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b * hq * s)
+                    / PEAK_BYTES) * 1e3
+    log(f"training shape: plain backward {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) "
+        f"{library_ms:.4f} ms; flash_fwd {fwd_ms:.4f} ms (bound {fwd_bound:.4f}, sdpa "
+        f"{fwd_lib_ms:.4f})")
+    return {"ms": res, "bounds": bounds, "plain_ms": plain_ms,
+            "library_ms": library_ms, "fwd_ms": fwd_ms, "fwd_lib_ms": fwd_lib_ms,
+            "fwd_bound_ms": fwd_bound}
+
+
+def phase_times(launches, path_errs, real_ulps, train_errs, train):
     from repro_torch.kernels.flash_attention import (flash_attention_lse,
                                                      flash_attention_lse_plain)
     import torch.nn.functional as F
@@ -361,12 +758,16 @@ def phase_times(launches, path_errs, real_ulps):
     log(f"flash_fwd at the path's shape: {ms:.4f} ms, bound {bound_ms:.4f} ms "
         f"({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
         f"sdpa {library_ms:.4f} ms")
-    entry = {
+    del q, k, v
+    bt = backward_times()
+    b1_train, b2_train, b3_train = train["launches"]
+    entries = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:97",
-        "launches": launches,
+        "launches": launches + b1_train,
+        "launches_by_path": {"prefill": launches, "train_step": b1_train},
         "max_abs_err": path_errs[0],
         "max_err_bf16_ulps": path_errs[1],
         "lse_max_rel_err": path_errs[2],
@@ -377,9 +778,36 @@ def phase_times(launches, path_errs, real_ulps):
         "bound_ms": bound_ms,
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": library_ms,
+        "train_shape_ms": bt["fwd_ms"],
+        "train_shape_bound_ms": bt["fwd_bound_ms"],
+        "train_shape_library_ms": bt["fwd_lib_ms"],
         "check": "pass",
-    }
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    }]
+    for which, name, line, count, real in (
+            (0, "flash_bwd_dq", 242, b2_train, train["real_dq_ulps"]),
+            (1, "flash_bwd_dkv", 278, b3_train, train["real_dkv_ulps"])):
+        errs = train_errs[:1] if which == 0 else train_errs[1:]
+        entries.append({
+            "name": name,
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention.py:{line}",
+            "launches": count,
+            "launches_by_path": {"train_step": count},
+            "max_abs_err": max(e[0] for e in errs),
+            "max_err_bf16_ulps": max(e[1] for e in errs),
+            "real_inputs_max_err_bf16_ulps": real,
+            "tolerance": GRAD_TOLERANCE,
+            "ms": bt["ms"][which],
+            "plain_ms": bt["plain_ms"],
+            "plain_covers": "dq, dk and dv in one call",
+            "bound_ms": bt["bounds"][which][0],
+            "bound_by": bt["bounds"][which][1],
+            "library_ms": bt["library_ms"],
+            "library_covers": "dq, dk and dv: SDPA's backward, set against dq + dk/dv",
+            "check": "pass",
+        })
+    print(json.dumps({"kernels": entries}), flush=True)
 
 
 def main():
@@ -388,8 +816,14 @@ def main():
     resolve_device()                       # fp32 matmuls in full fp32
     phase_build()
     path_errs = phase_kernels()
+    train_errs = phase_kernels_bwd()
     launches, real_ulps = phase_serving()
-    phase_times(launches, path_errs, real_ulps)
+    gc.collect()
+    torch.cuda.empty_cache()               # the serving model's 30 GB
+    train = phase_training()
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_times(launches, path_errs, real_ulps, train_errs, train)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -3,6 +3,7 @@
 - config.py    ModelConfig / ParallelPlan / assigned input shapes (own copy)
 - registry.py  ``--arch <id>`` resolution for the 10 assigned architectures
 - device.py    entry-point device (default ``cuda``) and dtype names
+- tree.py      ``leaves`` / ``map_tree`` over nested dict/list param trees
 """
 
 from .config import (
@@ -14,10 +15,12 @@ from .config import (
     ModelConfig,
     MoEConfig,
     ParallelPlan,
+    REMAT_MODES,
     SSMConfig,
 )
 from .device import resolve_device, resolve_dtype
 from .registry import ARCH_IDS, all_configs, get_config, get_smoke_config, register
+from .tree import leaves, map_tree
 
 __all__ = [
     "ATTN_IMPLS",
@@ -28,11 +31,14 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "ParallelPlan",
+    "REMAT_MODES",
     "SSMConfig",
     "ARCH_IDS",
     "all_configs",
     "get_config",
     "get_smoke_config",
+    "leaves",
+    "map_tree",
     "register",
     "resolve_device",
     "resolve_dtype",

@@ -11,6 +11,9 @@ differently here, because the port has different implementations:
     attention; ``"cuda"`` forces the kernel (a CPU tensor raises). Resolved
     per call site by ``repro_torch.kernels.dispatch.select_impl``.
 
+``ParallelPlan.param_dtype`` is read here, where the reference declares it but
+always keeps fp32: ``Model.init`` holds matrices, biases and embeddings in it.
+
 ``RecoveryPolicy`` waits for the fault-tolerance slice.
 """
 
@@ -22,6 +25,7 @@ from typing import Optional, Tuple
 from .device import resolve_dtype
 
 ATTN_IMPLS = ("auto", "plain", "cuda")
+REMAT_MODES = ("none", "full", "selective")
 
 
 class Family:
@@ -174,19 +178,34 @@ class ModelConfig:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """The reference's plan, cut to the knobs this slice reads (same names and
-    defaults). The reference's parallel axes (tp, cp, pp, ep, dp_shard), remat,
-    ZeRO, MoE and SSM knobs come with the slices that implement them, so a plan
+    """The reference's plan, cut to the knobs the port reads (same names and
+    defaults). The reference's parallel axes (tp, cp, pp, ep, dp_shard), ZeRO,
+    MoE and SSM knobs come with the slices that implement them, so a plan
     cannot ask for a placement the port would quietly ignore."""
+    microbatches: int = 1          # grad-accumulation microbatches
+    remat: str = "full"            # "none" | "full" | "selective", per decoder
+                                   # layer (train/executor.py ``decoder_layer``)
     pad_vocab_to_multiple: int = 0 # padded logits are masked to -1e9
     attn_impl: str = "auto"        # "auto" | "plain" | "cuda" (module docstring)
     compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"   # matrices, biases and embeddings as held by
+                                   # ``Model.init``; norm scales stay fp32. The
+                                   # reference always keeps fp32 masters; a
+                                   # serving run asks for the compute dtype
+                                   # (the same bits, half the memory).
 
     def validate(self, cfg: ModelConfig) -> None:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(
                 f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(
+                f"remat must be one of {REMAT_MODES}, got {self.remat!r}")
+        if not isinstance(self.microbatches, int) or self.microbatches < 1:
+            raise ValueError(f"microbatches must be an int >= 1, "
+                             f"got {self.microbatches!r}")
         resolve_dtype(self.compute_dtype)            # raises on an unknown name
+        resolve_dtype(self.param_dtype)
         if self.pad_vocab_to_multiple < 0:
             raise ValueError(f"pad_vocab_to_multiple must be >= 0, "
                              f"got {self.pad_vocab_to_multiple}")

@@ -6,8 +6,14 @@ with ``ParallelPlan.attn_impl``, resolved by :func:`select_impl`:
 
 - ``"plain"`` — always the plain PyTorch twin (``attention_direct``, or
   ``attention_blockwise`` for long KV).
-- ``"cuda"``  — always the hand-written CUDA kernel; a CPU tensor raises.
-- ``"auto"``  — the kernel on a CUDA tensor, the plain twin on a CPU tensor.
+- ``"cuda"``  — always the hand-written CUDA kernels; a CPU tensor raises.
+- ``"auto"``  — the kernels on a CUDA tensor, the plain twin on a CPU tensor.
+
+The kernel path is differentiable: ``flash_attention`` is the autograd
+Function over the forward kernel (B1) and the two backward kernels (B2, B3),
+and the plain twin differentiates through autograd. The reference's
+``dispatch_attention_lse`` and ``dispatch_attention_chunk_bwd`` come with the
+context-parallel slice.
 
 On CUDA the kernel takes the head dims it has bodies for
 (``flash_attention.HEAD_DIMS``) and the call raises for any other; it never

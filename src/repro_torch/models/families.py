@@ -12,10 +12,12 @@
 Params are nested dicts of tensors with the reference's leaf names; ``layers``
 is a list of per-layer dicts (the reference stacks them on a leading L dim and
 scans). Layers run as a Python loop, so each layer's sliding window is a plain
-``int``. The reference keeps fp32 masters and casts them at every use; the port
-holds the matrices, biases and embeddings once in the compute dtype (same bits)
-and the norm scales in fp32, as ``rms_norm`` reads them. The KV cache is
-written in place. MoE, SSM, hybrid and encoder-decoder families come with
+``int``, and ``plan.remat`` applies per decoder layer (``train/executor.py``).
+Matrices, biases and embeddings are held in ``plan.param_dtype`` (fp32 masters
+by default, as in the reference) and cast to the compute dtype at every use;
+a serving run asks for ``param_dtype="bfloat16"``, the same bits as the cast
+in half the memory. Norm scales stay fp32, as ``rms_norm`` reads them. The KV
+cache is written in place. MoE, SSM, hybrid and encoder-decoder families come with
 their own slices.
 """
 
@@ -102,6 +104,7 @@ class Model:
         self.plan = plan or ParallelPlan()
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.plan.compute_dtype)
+        self.param_dtype = resolve_dtype(self.plan.param_dtype)
         self.windows = _layer_windows(cfg)
         self._layer = exlib.decoder_layer(cfg, self.plan, self.dtype)
         self._layer_kv = exlib.decoder_layer(cfg, self.plan, self.dtype,
@@ -110,8 +113,9 @@ class Model:
     # -- params ------------------------------------------------------------
 
     def init(self, gen: torch.Generator) -> Dict[str, Any]:
-        """Random params drawn from ``gen`` (a generator on ``self.device``)."""
-        cfg, dtype = self.cfg, self.dtype
+        """Random params drawn from ``gen`` (a generator on ``self.device``),
+        held in ``plan.param_dtype`` (norm scales fp32)."""
+        cfg, dtype = self.cfg, self.param_dtype
         vp = _padded_vocab(cfg, self.plan)
         params = {
             "embed": {"tok": dense_init(gen, (vp, cfg.d_model), in_axis=-1).to(dtype)},
@@ -161,11 +165,13 @@ class Model:
         return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
                 "v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
 
+    @torch.no_grad()
     def prefill(self, params, batch, max_seq: int):
         """Process a prompt in parallel and return (logits, filled cache).
 
         The serving flow: prefill once (full forward, KV emitted per layer) then
-        call decode_step from position S onward.
+        call decode_step from position S onward. Serving records no autograd
+        graph, so ``plan.remat`` does not apply here.
         """
         b, s = batch["tokens"].shape
         if s > max_seq:

@@ -9,7 +9,10 @@ Attention comes in the reference's exact implementations:
   score matrix; fine for short sequences.
 - :func:`attention_blockwise` — online-softmax loop over KV blocks; O(S·block)
   live memory.
-- ``repro_torch.kernels.flash_attention`` — the hand-written CUDA kernel.
+- ``repro_torch.kernels.flash_attention`` — the hand-written CUDA kernels.
+
+:func:`attention_chunk_grads` is the plain twin of the backward kernels: one KV
+chunk's (dq, dk, dv) against given softmax statistics.
 
 :func:`attention` routes between them via ``repro_torch.kernels.dispatch``
 (``ParallelPlan.attn_impl``). All support GQA (grouped queries, never
@@ -154,6 +157,44 @@ def attention_direct_lse(q, k, v, *, causal=True, window=0, softcap=0.0,
     lse = m + torch.log(l)
     return (out.reshape(b, s, hq, hd).to(q.dtype),
             lse.permute(0, 3, 1, 2).reshape(b, s, hq))
+
+
+def attention_chunk_grads(q, k, v, do, lse, delta, *, causal=True, window=0,
+                          softcap=0.0, q_offset=0,
+                          scale: Optional[float] = None):
+    """One KV chunk's (dq, dk, dv) against externally merged softmax stats.
+
+    Plain twin of the backward kernels (``flash_attention_bwd``): ``lse`` and
+    ``delta`` (B, S, Hq) may come from a softmax over more keys than (k, v),
+    so ``p = exp(s - lse)`` is each pair's share of the whole attention and the
+    gradients are this chunk's contribution. q/do (B, S, Hq, hd), k/v
+    (B, T, Hkv, hd). All math fp32; outputs in the inputs' dtypes.
+    """
+    b, s, hq, hd = q.shape
+    t, hkv = k.shape[1], k.shape[2]
+    scale = scale if scale is not None else hd ** -0.5
+    g = hq // hkv
+    qg = _group_q(q, hkv).float()
+    kf, vf = k.float(), v.float()
+    dog = _group_q(do, hkv).float()
+    s_raw = torch.einsum("bskgd,btkd->bkgst", qg, kf) * scale
+    th = torch.tanh(s_raw / softcap) if softcap else None
+    s_c = softcap * th if softcap else s_raw
+    mask = attn_mask(q_offset + torch.arange(s, device=q.device),
+                     torch.arange(t, device=q.device), causal=causal, window=window)
+    lse_g = lse.float().reshape(b, s, hkv, g).permute(0, 2, 3, 1)   # (b, kv, g, s)
+    delta_g = delta.float().reshape(b, s, hkv, g).permute(0, 2, 3, 1)
+    # where() before exp: fully masked rows carry lse ~ NEG_INF, and
+    # exp(s - lse) would overflow before the mask could zero it
+    p = torch.exp(torch.where(mask, s_c - lse_g[..., None], NEG_INF))
+    dp = torch.einsum("bskgd,btkd->bkgst", dog, vf)
+    ds = p * (dp - delta_g[..., None])
+    if th is not None:
+        ds = ds * (1.0 - th * th)
+    dq = (torch.einsum("bkgst,btkd->bskgd", ds, kf) * scale).reshape(b, s, hq, hd)
+    dk = torch.einsum("bkgst,bskgd->btkd", ds, qg) * scale
+    dv = torch.einsum("bkgst,bskgd->btkd", p, dog)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def attention_blockwise(q, k, v, *, causal=True, window=0, softcap=0.0, q_offset=0,

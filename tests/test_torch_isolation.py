@@ -109,14 +109,18 @@ def test_plan_validates_attn_impl():
         ParallelPlan(attn_impl="xla").validate(cfg)
 
 
-@pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "remat", "param_dtype"])
+@pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "zero_stage",
+                                  "moe_gemm_impl"])
 def test_plan_has_no_knob_the_port_does_not_implement(knob):
     with pytest.raises(TypeError, match=knob):
         ParallelPlan(**{knob: 2})
 
 
 @pytest.mark.parametrize("plan", [ParallelPlan(compute_dtype="float16"),
-                                  ParallelPlan(pad_vocab_to_multiple=-1)])
+                                  ParallelPlan(pad_vocab_to_multiple=-1),
+                                  ParallelPlan(remat="partial"),
+                                  ParallelPlan(microbatches=0),
+                                  ParallelPlan(param_dtype="float16")])
 def test_plan_validate_rejects_bad_values(plan):
     with pytest.raises(ValueError):
         plan.validate(get_smoke_config("qwen2.5-14b"))

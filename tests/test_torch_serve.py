@@ -177,13 +177,18 @@ def test_prefill_rejects_prompt_longer_than_cache():
 
 
 def test_init_holds_matrices_in_compute_dtype():
+    """Matrices, biases and embeddings in ``plan.param_dtype``: fp32 masters by
+    default, bf16 when a serving run asks for it; norm scales fp32 either way."""
     _, tcfg = _configs("gemma2-9b")
-    tmodel = torch_build_model(tcfg, TorchPlan(compute_dtype="bfloat16"), device="cpu")
-    params = tmodel.init(torch.Generator().manual_seed(0))
-    lp = params["layers"][0]
-    assert len(params["layers"]) == tcfg.n_layers
-    assert lp["attn"]["wq"].dtype == torch.bfloat16
-    assert params["embed"]["tok"].dtype == torch.bfloat16
-    for norm in ("norm1", "norm2", "norm1_post", "norm2_post"):
-        assert lp[norm]["scale"].dtype == torch.float32
-    assert "lm_head" not in params          # gemma2 ties its embeddings
+    for kw, want in (({}, torch.float32), ({"param_dtype": "bfloat16"}, torch.bfloat16)):
+        tmodel = torch_build_model(tcfg, TorchPlan(compute_dtype="bfloat16", **kw),
+                                   device="cpu")
+        params = tmodel.init(torch.Generator().manual_seed(0))
+        lp = params["layers"][0]
+        assert len(params["layers"]) == tcfg.n_layers
+        assert lp["attn"]["wq"].dtype == want and lp["mlp"]["down"].dtype == want
+        assert params["embed"]["tok"].dtype == want
+        for norm in ("norm1", "norm2", "norm1_post", "norm2_post"):
+            assert lp[norm]["scale"].dtype == torch.float32
+        assert params["final_norm"]["scale"].dtype == torch.float32
+        assert "lm_head" not in params          # gemma2 ties its embeddings
