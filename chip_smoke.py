@@ -2,7 +2,8 @@
 """Drive the PyTorch port's serving and training paths on one NVIDIA H100 and
 check its kernels.
 
-Run from the repository root: ``python3 chip_smoke.py``. Phases, in order:
+Run from the repository root: ``python3 chip_smoke.py``. Phases, in order (each
+prints its seconds):
 
 1. device   — require CUDA with compute capability 9.0; print the card's name
    and power limit as nvidia-smi reports them;
@@ -12,7 +13,11 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order:
    relative) and the backward's dq and dk/dv kernels (fp32 to 1e-5 of each
    tensor's largest value, bf16 to 2 bf16 ulps), fully masked rows included,
    at the paths' own shapes, with merged softmax statistics, and through the
-   autograd Function;
+   autograd Function; the grouped expert GEMM (fp32 to 5e-5 of the tensor's
+   largest value, bf16 to 2 bf16 ulps, padding rows and experts with no load
+   exactly 0) in its three uses — forward and dx (through a w^T view) in rows
+   mode, dw (through an x^T view) in contract mode — at the MoE paths' shapes
+   and a ragged one;
 4. serving  — qwen2.5-14b at full width (48 layers, random bf16 weights from a
    seed): prefill of 4 x 1000 tokens, then 32 greedy decode steps, with the
    flash kernel's launches counted; the kernel held to its plain version, to
@@ -27,7 +32,21 @@ Run from the repository root: ``python3 chip_smoke.py``. Phases, in order:
    remat "full", 2 microbatches of 1 x 4096 tokens): the backward kernels held
    to their plain version on every layer's own inputs, then one warm-up and
    three timed train steps with the kernels' launches counted, and a profile;
-6. times    — each kernel's time at its path's shape beside its bound, its plain
+6. MoE serving — the deepseek-moe-16b smoke config on the card against the
+   CPU; deepseek-moe-16b at full width and depth (28 layers, 16.9 B parameters,
+   random bf16 weights from a seed): prefill of 4 x 1000 tokens under the
+   einsum dispatch and under the scatter dispatch, 32 greedy decode steps, the
+   kernels' launches counted (B1 28 and B4 84 per prefill, B4 84 per decode
+   step); B4 held to its plain version on every layer's own inputs of a
+   prefill; readings: the einsum-vs-scatter and kernel-vs-plain-GEMM logit
+   drift and the one-hot dispatch einsums' time; profiles;
+7. MoE training — the smoke config on the card against the CPU and under the
+   three remat modes; deepseek-moe-16b at full width and 4 of its 28 layers
+   (fp32 masters, remat "full", 2 microbatches of 1 x 4096): B4's every call of
+   one microbatch (forward, recompute, dx, dw) held to its plain version, then
+   one warm-up and three timed steps with the launches counted (B4 72 in rows
+   mode and 24 in contract mode per step), and a profile;
+8. times    — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's, printed as one JSON line.
 
 Any failure raises: the script exits non-zero and prints no final line. The
@@ -40,6 +59,7 @@ import os
 # allocator from failing on fragmentation near the card's 80 GB
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import dataclasses
 import functools
 import gc
 import json
@@ -92,6 +112,26 @@ TRAIN_ARCH = "qwen1.5-4b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 2, 2     # train_4k's sequence length
 TRAIN_STEPS = 3                                    # timed, after one warm-up
 TRAIN_CASE = (1, 20, 20, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)   # one microbatch
+
+MOE_ARCH = "deepseek-moe-16b"
+# training keeps 4 of the 28 layers: fp32 masters, grads and two moments take 16
+# bytes a parameter, 270 GB for all 28 layers, 44 GB for these 4
+MOE_TRAIN_LAYERS = 4
+# B4 at the MoE paths' shapes (E, C, d, f), C = int(n * 6 / 64 * 1.25) for the n
+# tokens of a call: the prefill (n 4 x 1000), a decode step (n 4), a training
+# microbatch (n 4096); each GEMM also runs with d and f swapped (the down
+# projection), and a ragged case
+GEMM_CASES = [(64, 468, 2048, 1408), (64, 468, 1408, 2048), (64, 1, 2048, 1408),
+              (64, 1, 1408, 2048), (64, 480, 2048, 1408), (64, 480, 1408, 2048),
+              (5, 100, 136, 72)]
+# fp32 within 5e-5 of the tensor's largest |value|; bf16 within 2 bf16 ulps of
+# each value (both sides round one fp32 sum; |value| floored at 2^-10 of the
+# largest); padding rows (rows mode) and experts with no load exactly 0. A
+# dropped contraction tile or a row of another expert misses by far more
+# (tests/test_torch_grouped_gemm.py).
+GEMM_REL_F32, GEMM_ULPS_BF16 = 5e-5, 2.0
+GEMM_TOLERANCE = ("fp32 5e-5 of the tensor's max |value|, bf16 2 ulps of |plain| "
+                  "(floor 2^-10 of the max); padding rows and zero-load experts exactly 0")
 
 
 def log(*args):
@@ -195,11 +235,50 @@ def bwd_counts():
     return bwd.dq_launches, bwd.dkv_launches
 
 
+def gemm_counts():
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
+    return grouped_gemm.rows_launches, grouped_gemm.contract_launches
+
+
+def all_counts():
+    """Launches of B1, B2, B3 and B4 (rows mode, contract mode)."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+    return (flash_attention_lse.launches, *bwd_counts(), *gemm_counts())
+
+
 def reset_counts():
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_lse)
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
     flash_attention_lse.launches = 0
     flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
+    grouped_gemm.rows_launches = grouped_gemm.contract_launches = 0
+
+
+def gemm_check(out, a, b, gs, mask):
+    """B4's result against its plain version on the same inputs: (max |error|,
+    the error in the limit's measure, whether padding rows and experts with no
+    load are exactly 0, whether the error is within the limit)."""
+    from repro_torch.kernels.grouped_gemm import grouped_gemm_plain
+    ref = grouped_gemm_plain(a, b, gs, mask=mask)
+    abs_err, err = grad_error(out, ref)
+    limit = GEMM_ULPS_BF16 if out.dtype == torch.bfloat16 else GEMM_REL_F32
+    zeros = True
+    if gs is not None:
+        o = out.float()
+        zeros = bool((o[gs == 0] == 0).all())
+        if mask == "rows":
+            rows = torch.arange(o.shape[1], device=o.device)[None, :, None]
+            zeros &= bool((o[(rows >= gs[:, None, None]).expand_as(o)] == 0).all())
+    ok = err <= limit and zeros and bool(torch.isfinite(out).all())
+    return abs_err, err, zeros, ok
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"phase {name}: {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def to_cuda(tree):
@@ -247,7 +326,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_fwd", "flash_bwd"])
+    logs = build.build(["flash_fwd", "flash_bwd", "grouped_gemm"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -284,12 +363,12 @@ def phase_kernels():
     return path_errs
 
 
-def smoke_agreement():
+def smoke_agreement(arch=ARCH):
     """A small model on the card (kernel path) against the same weights on the
     CPU (plain path), fp32: prefill and decode logits to 1e-4."""
     from repro_torch.core import ParallelPlan, get_smoke_config
     from repro_torch.models import build_model
-    cfg = get_smoke_config(ARCH)
+    cfg = get_smoke_config(arch)
     plan = ParallelPlan(compute_dtype="float32")
     gpu, cpu = build_model(cfg, plan), build_model(cfg, plan, device="cpu")
     cparams = cpu.init(torch.Generator().manual_seed(1))
@@ -303,7 +382,7 @@ def smoke_agreement():
         lg, cache = gpu.decode_step(params, cache, tokens[:, pos].cuda(), pos)
         clg, ccache = cpu.decode_step(cparams, ccache, tokens[:, pos], pos)
         errs.append((lg.cpu() - clg).abs().max().item())
-    log(f"smoke {ARCH} fp32, card vs cpu: max logit diff {max(errs):.3e}")
+    log(f"smoke {arch} fp32, card vs cpu: max logit diff {max(errs):.3e}")
     if max(errs) > 1e-4:
         raise AssertionError("the card's smoke-config logits disagree with the CPU's")
 
@@ -497,17 +576,17 @@ def phase_kernels_bwd():
     return train_errs
 
 
-def train_smoke_agreement():
-    """The qwen1.5-4b smoke config, fp32: 5 train steps on the card (kernels)
-    against the same steps on the CPU (plain path), from the same weights and
-    batches; then the three remat modes' grads on the card."""
+def train_smoke_agreement(arch=TRAIN_ARCH):
+    """A smoke config, fp32: 5 train steps on the card (kernels) against the
+    same steps on the CPU (plain path), from the same weights and batches; then
+    the three remat modes' grads on the card."""
     from repro_torch.core import REMAT_MODES, InputShape, ParallelPlan, get_smoke_config
     from repro_torch.data import SyntheticDataset
     from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.core.tree import leaves
     from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
-    cfg = get_smoke_config(TRAIN_ARCH)
+    cfg = get_smoke_config(arch)
     plan = ParallelPlan(compute_dtype="float32")
     hyper = Hyper(peak_lr=5e-3, warmup_steps=2, total_steps=5)
     ds = SyntheticDataset(cfg, InputShape("smoke", 64, 8, "train"))
@@ -527,7 +606,7 @@ def train_smoke_agreement():
         runs[name] = out
     rel = max(abs(a - b) / abs(b) for pc, pp in zip(runs["card"], runs["cpu"])
               for a, b in zip(pc, pp))
-    log(f"train smoke {TRAIN_ARCH} fp32, card vs cpu, 5 steps: (loss, grad_norm) card "
+    log(f"train smoke {arch} fp32, card vs cpu, 5 steps: (loss, grad_norm) card "
         f"{runs['card']}, cpu {runs['cpu']}; max relative difference {rel:.3e}")
     if rel > 1e-4:
         raise AssertionError("the card's smoke-config training disagrees with the CPU's")
@@ -545,7 +624,8 @@ def train_smoke_agreement():
         rel = max(((a - b).abs().max() / b.abs().max().clamp(min=1e-30)).item()
                   for a, b in zip(grads[mode], grads["none"]))
         same = all(torch.equal(a, b) for a, b in zip(grads[mode], grads["none"]))
-        log(f"remat {mode} vs none on the card: max relative grad difference {rel:.3e}, "
+        log(f"remat {mode} vs none on the card ({arch}): max relative grad difference "
+            f"{rel:.3e}, "
             f"bit-identical {same}")
         if rel > 1e-6:
             raise AssertionError(f"remat={mode} changes the grads")
@@ -553,9 +633,11 @@ def train_smoke_agreement():
 
 def train_flops(cfg, seq, tokens):
     """Reckoned FLOPs of one train step (forward + backward, no recompute):
-    6 per matmul parameter per token (the embedding gather does none) plus
-    causal attention, 6 L Hq hd (S + 1) per token."""
-    n_matmul = cfg.param_count() - cfg.vocab * cfg.d_model
+    6 per matmul parameter a token uses (``active_param_count``: for MoE the
+    router, the top-k and shared experts; the embedding gather does none) plus
+    causal attention, 6 L Hq hd (S + 1) per token. Neither the recompute nor
+    the MoE one-hot dispatch einsums are counted."""
+    n_matmul = cfg.active_param_count() - cfg.vocab * cfg.d_model
     attn = 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * (seq + 1)
     return (6 * n_matmul + attn) * tokens
 
@@ -736,7 +818,362 @@ def backward_times():
             "fwd_bound_ms": fwd_bound}
 
 
-def phase_times(launches, path_errs, real_ulps, train_errs, train):
+def phase_kernels_gemm():
+    """B4 against its plain version in its three uses at every GEMM_CASES
+    shape, fp32 and bf16, with group sizes that include 0, C and a value that
+    straddles a 64-row tile. Returns the errors at the prefill shape's forward
+    (bf16)."""
+    from repro_torch.kernels.grouped_gemm import grouped_gemm
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    path_errs = None
+    for case in GEMM_CASES:
+        e, c, d, f = case
+        gs = torch.randint(0, c + 1, (e,), generator=gen, device="cuda", dtype=torch.int32)
+        gs[0], gs[1] = 0, c
+        gs[2] = min(c, 67)                       # straddles the second row tile
+        for dtype in (torch.float32, torch.bfloat16):
+            x, w, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                       for shape in ((e, c, d), (e, d, f), (e, c, f)))
+            for use, a, b, mask in (("forward", x, w, "rows"),
+                                    ("dx", g, w.transpose(1, 2), "rows"),
+                                    ("dw", x.transpose(1, 2), g, "contract")):
+                before = gemm_counts()
+                out = grouped_gemm(a, b, gs, mask=mask)
+                torch.cuda.synchronize()
+                if gemm_counts() != (before[0] + (mask == "rows"),
+                                     before[1] + (mask == "contract")):
+                    raise AssertionError("grouped_gemm did not count one launch")
+                abs_err, err, zeros, ok = gemm_check(out, a, b, gs, mask)
+                unit = "bf16 ulps" if dtype == torch.bfloat16 else "of the max"
+                log(f"check grouped_gemm {case} {str(dtype)[6:]} {use} ({mask}): err "
+                    f"{abs_err:.3e} = {err:.3g} {unit}, zeros exact {zeros}")
+                if not ok:
+                    raise AssertionError(f"grouped_gemm disagrees with its plain version on "
+                                         f"{case} {dtype} {use}")
+                if case == GEMM_CASES[0] and dtype == torch.bfloat16 and use == "forward":
+                    path_errs = (abs_err, err)
+            del x, w, g
+    return path_errs
+
+
+class GemmCapture:
+    """Within the block, every call of B4's wrapper is held to its plain version
+    on its own inputs, and the inputs of some calls are kept for timing: those
+    whose indices are in ``keep`` and, with ``backward``, the first dw call
+    (contract mode) as "dw" and the dx call just before it as "dx".
+    ``functools.wraps`` copies the launch counters onto the wrapper, so these
+    launches leave the real counts alone."""
+
+    def __init__(self, keep=(), backward=False):
+        self.keep, self.kept, self.errs = set(keep), {}, []
+        self.backward, self.last = backward, None
+
+    def __enter__(self):
+        from repro_torch.kernels import grouped_gemm as tg
+        self.real = real = tg.grouped_gemm
+
+        @functools.wraps(real)
+        def checked(a, b, gs=None, *, mask="rows"):
+            out = real(a, b, gs, mask=mask)
+            self.errs.append((mask, *gemm_check(out, a, b, gs, mask)))
+            call = (a, b, gs, mask)
+            if len(self.errs) - 1 in self.keep:
+                self.kept[len(self.errs) - 1] = call
+            if self.backward and mask == "contract" and "dw" not in self.kept:
+                self.kept.update(dx=self.last, dw=call)
+            self.last = call if self.backward and "dw" not in self.kept else None
+            return out
+        tg.grouped_gemm = checked
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import grouped_gemm as tg
+        tg.grouped_gemm = self.real
+
+    def summary(self, what):
+        worst = {m: max((e[2] for e in self.errs if e[0] == m), default=0.0)
+                 for m in ("rows", "contract")}
+        n = {m: sum(e[0] == m for e in self.errs) for m in ("rows", "contract")}
+        log(f"real inputs, {what}: B4 held to its plain version on {n['rows']} rows-mode "
+            f"and {n['contract']} contract-mode calls; worst {worst['rows']:.3g} / "
+            f"{worst['contract']:.3g} bf16 ulps, zeros exact "
+            f"{all(e[3] for e in self.errs)}")
+        if not all(e[4] for e in self.errs):
+            raise AssertionError(f"grouped_gemm disagrees with its plain version on the "
+                                 f"{what}'s own inputs")
+        return max(worst.values())
+
+
+def dispatch_times(cfg, n):
+    """CUDA-event ms of one MoE layer's dispatch and combine at n tokens under
+    both dispatch modes (random routing; the einsums' cost does not depend on
+    the values)."""
+    from repro_torch.models import moe as tmoe
+    e = cfg.moe
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    cap = max(int(n * e.top_k / e.num_experts * e.capacity_factor), 1)
+    xf = torch.randn(n, cfg.d_model, generator=gen, device="cuda").bfloat16()
+    probs = torch.softmax(torch.randn(n, e.num_experts, generator=gen, device="cuda"), -1)
+    dispatch, combine = tmoe.topk_dispatch(probs, cfg, cap)
+    h = torch.einsum("nec,nd->ecd", dispatch.bfloat16(), xf)
+    slot, wts = tmoe.topk_scatter_dispatch(probs, cfg, cap)
+    out = {
+        "einsum_route": cuda_ms(lambda: tmoe.topk_dispatch(probs, cfg, cap), 10),
+        "einsum_dispatch": cuda_ms(
+            lambda: torch.einsum("nec,nd->ecd", dispatch.bfloat16(), xf), 10),
+        "einsum_combine": cuda_ms(
+            lambda: torch.einsum("nec,ecd->nd", combine.bfloat16(), h), 10),
+        "scatter_route": cuda_ms(lambda: tmoe.topk_scatter_dispatch(probs, cfg, cap), 10),
+        "scatter_dispatch": cuda_ms(lambda: tmoe._scatter_to_buffers(xf, slot, cfg, cap), 10),
+        "scatter_combine": cuda_ms(
+            lambda: tmoe._gather_from_buffers(h, slot, wts, torch.bfloat16), 10),
+    }
+    log(f"one layer's dispatch + combine at n = {n} (capacity {cap}), ms: " +
+        ", ".join(f"{k} {v:.4f}" for k, v in out.items()))
+    return out
+
+
+def phase_moe_serving():
+    """deepseek-moe-16b at full width and depth: the smoke config against the
+    CPU, prefill under both dispatch modes, decode, B4 on every layer's own
+    inputs, drift readings, profiles. Returns launches, errors, kept inputs."""
+    from repro_torch.core import ParallelPlan, get_config, leaves
+    from repro_torch.models import build_model
+
+    smoke_agreement(MOE_ARCH)
+    cfg = get_config(MOE_ARCH)
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16")
+    model = build_model(cfg, plan)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"init {MOE_ARCH}: {n_params / 1e9:.2f} B params (bf16) in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (BATCH, PROMPT), generator=gen,
+                                     device="cuda")}
+
+    lg, cache = model.prefill(params, batch, max_seq=MAX_SEQ)        # warm-up
+    model.decode_step(params, cache, lg[:, -1].argmax(-1), PROMPT)
+    del lg, cache
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_counts()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, batch, max_seq=MAX_SEQ)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    prefill_launches = all_counts()
+    want = (cfg.n_layers, 0, 0, 3 * cfg.n_layers, 0)
+    if prefill_launches != want:
+        raise AssertionError(f"the MoE prefill launched B1, B2, B3, B4 rows/contract "
+                             f"{prefill_launches} times, expected {want}")
+    if not torch.isfinite(logits).all():
+        raise AssertionError("MoE prefill logits are not finite")
+    last = logits[:, -1].clone()
+    tok = last.argmax(-1)
+    del logits
+    reset_counts()
+    t0 = time.perf_counter()
+    out, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+    for i in range(DECODE_STEPS):
+        lg, cache = model.decode_step(params, cache, tok, PROMPT + i)
+        finite &= torch.isfinite(lg).all()
+        tok = lg.argmax(-1)
+        out.append(tok)
+    torch.cuda.synchronize()
+    t_decode = (time.perf_counter() - t0) / DECODE_STEPS
+    decode_launches = all_counts()
+    want = (0, 0, 0, 3 * cfg.n_layers * DECODE_STEPS, 0)
+    if decode_launches != want:
+        raise AssertionError(f"{DECODE_STEPS} MoE decode steps launched B1, B2, B3, B4 "
+                             f"{decode_launches} times, expected {want}")
+    if not finite:
+        raise AssertionError("MoE decode logits are not finite")
+    peak = torch.cuda.max_memory_allocated()
+    log(f"serving {MOE_ARCH}: prefill {BATCH}x{PROMPT} (einsum dispatch) in "
+        f"{t_prefill * 1e3:.1f} ms = {BATCH * PROMPT / t_prefill:.0f} tokens/s; decode "
+        f"{t_decode * 1e3:.2f} ms/step (batch {BATCH}); peak memory {peak / 1e9:.2f} GB; "
+        f"launches per prefill B1 {prefill_launches[0]}, B4 {prefill_launches[3]}; per "
+        f"decode step B4 {decode_launches[3] // DECODE_STEPS}")
+    log(f"generated tokens, row 0: {torch.stack(out, 1)[0, :10].tolist()}")
+
+    scatter = build_model(cfg, dataclasses.replace(plan, moe_dispatch="scatter"))
+    scatter.prefill(params, batch, max_seq=MAX_SEQ)                   # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    slogits, _ = scatter.prefill(params, batch, max_seq=MAX_SEQ)
+    torch.cuda.synchronize()
+    t_scatter = time.perf_counter() - t0
+    if all_counts() != prefill_launches:
+        raise AssertionError(f"the scatter prefill launched {all_counts()}, expected "
+                             f"{prefill_launches}")
+    sdrift = ((slogits[:, -1] - last).abs().max() / last.abs().max()).item()
+    del slogits
+    log(f"serving {MOE_ARCH}: prefill (scatter dispatch) in {t_scatter * 1e3:.1f} ms = "
+        f"{BATCH * PROMPT / t_scatter:.0f} tokens/s; last-position logits, scatter vs "
+        f"einsum: max diff / max |logit| = {sdrift:.3e} (reading)")
+    dispatch_times(cfg, BATCH * PROMPT)
+
+    profile_window("MoE decode step", lambda: model.decode_step(
+        params, cache, tok, PROMPT + DECODE_STEPS))
+    del cache
+    profile_window("MoE prefill (einsum)", lambda: model.prefill(params, batch, max_seq=MAX_SEQ))
+    profile_window("MoE prefill (scatter)",
+                   lambda: scatter.prefill(params, batch, max_seq=MAX_SEQ))
+
+    # B4 on every layer's own inputs of a prefill and a decode step; layer 0's
+    # gate (call 0) and down (call 2) GEMMs kept for timing
+    with GemmCapture(keep=(0, 2)) as cap:
+        logits, cache = model.prefill(params, batch, max_seq=MAX_SEQ)
+    real_ulps = cap.summary(f"{MOE_ARCH} prefill ({cfg.n_layers} layers)")
+    kept = {"prefill": cap.kept[0], "prefill_down": cap.kept[2]}
+    with GemmCapture(keep=(0,)) as cap:
+        model.decode_step(params, cache, logits[:, -1].argmax(-1), PROMPT)
+    real_ulps = max(real_ulps, cap.summary(f"{MOE_ARCH} decode step"))
+    kept["decode"] = cap.kept[0]
+    del cache
+    plain = build_model(cfg, dataclasses.replace(plan, moe_gemm_impl="plain"))
+    ref = plain.prefill(params, batch, max_seq=MAX_SEQ)[0][:, -1]
+    drift = ((logits[:, -1] - ref).abs().max() / ref.abs().max()).item()
+    log(f"reading: {MOE_ARCH} prefill last-position logits, B4 vs the plain expert GEMM: "
+        f"max diff / max |logit| = {drift:.3e}")
+    del logits, ref
+    return {"prefill_b4": prefill_launches[3], "decode_b4": decode_launches[3],
+            "real_ulps": real_ulps, "times": gemm_times(kept)}
+
+
+def phase_moe_training():
+    """The MoE smoke config against the CPU and under the remat modes, then
+    deepseek-moe-16b at full width and MOE_TRAIN_LAYERS layers: B4 held to its
+    plain version on every call of one microbatch, warm-up, timed steps with the
+    launches counted, a profile."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.core.tree import map_tree
+    from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
+
+    train_smoke_agreement(MOE_ARCH)
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
+                        microbatches=TRAIN_MICRO)
+    model = build_model(cfg, plan)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"init {MOE_ARCH} ({MOE_TRAIN_LAYERS} of 28 layers): {n_params / 1e9:.3f} B params "
+        f"(fp32) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, TRAIN_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(TRAIN_STEPS + 2)]
+
+    # one microbatch's forward + backward: every B4 call held to its plain
+    # version; the first dw call and the dx call just before it kept for timing
+    mb = {k: v[:1] for k, v in batches[0].items()}
+    with GemmCapture(backward=True) as cap:
+        loss, _ = make_loss_fn(model, Hyper())(params, mb)
+        loss.backward()
+    real_ulps = cap.summary(f"{MOE_ARCH} training microbatch ({MOE_TRAIN_LAYERS} layers)")
+    b4_times = gemm_times({"train_dx": cap.kept["dx"], "train_dw": cap.kept["dw"]})
+    del cap
+    log(f"full-width microbatch: loss {loss.item():.6f}, grad norm "
+        f"{global_norm(map_tree(lambda p: p.grad, params)).item():.6f}")
+    for p in leaves(params):
+        p.grad = None
+
+    state = TrainState(params, adamw_init(params))
+    del params
+    step = make_train_step(model, plan, Hyper())
+    state, m = step(state, batches[0])                 # warm-up
+    log(f"warm-up step: loss {float(m['loss']):.6f}, moe_aux {float(m['moe_aux']):.6f}, "
+        f"grad_norm {float(m['grad_norm']):.6f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], None
+    n_mb = TRAIN_MICRO * cfg.n_layers
+    want = (2 * n_mb, n_mb, n_mb, 9 * n_mb, 3 * n_mb)
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = all_counts()
+        log(f"MoE train step {i}: {times[-1] * 1e3:.1f} ms, loss {loss:.6f}, moe_aux "
+            f"{float(m['moe_aux']):.6f}, grad_norm {gnorm:.6f}, launches B1/B2/B3/B4 rows/"
+            f"B4 contract {launches}")
+        if launches != want:
+            raise AssertionError(f"a MoE train step launched {launches}, expected {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError("the MoE train step's loss or grad norm is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times) / len(times)
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_SEQ, tokens)
+    log(f"training {MOE_ARCH} full width, {MOE_TRAIN_LAYERS} layers ({TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}, microbatches {TRAIN_MICRO}, remat full): step {step_s * 1e3:.1f} ms "
+        f"(mean of {TRAIN_STEPS}), {tokens / step_s:.0f} tokens/s, reckoned {flops:.4e} "
+        f"FLOP/step (active params, no recompute, no dispatch einsums), mfu "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    profile_window("MoE train step", lambda: step(state, batches[-1]))
+    return {"train_b4_rows": launches[3], "train_b4_contract": launches[4],
+            "real_ulps": real_ulps, "times": b4_times}
+
+
+def gemm_times(kept):
+    """B4 (CUDA events) on each kept path input beside its bound, its plain
+    version and one ``torch.bmm`` on the masked inputs. The bound counts what
+    this input needs: the real rows of the activations, the weights of experts
+    with a load, the whole output written, 2 FLOP a multiply-add of real rows."""
+    from repro_torch.kernels import grouped_gemm as tg
+    res = {}
+    for name, (a, b, gs, mask) in kept.items():
+        e, m, k = a.shape
+        n = b.shape[2]
+        ms = cuda_ms(lambda: tg.grouped_gemm(a, b, gs, mask=mask), 20)
+        plain_ms = cuda_ms(lambda: tg.grouped_gemm_plain(a, b, gs, mask=mask), 5, warmup=1)
+        g = gs[:, None, None]
+        if mask == "rows":
+            am = torch.where(torch.arange(m, device="cuda")[None, :, None] < g, a, 0)
+            bm = b
+        else:
+            ks = torch.arange(k, device="cuda")
+            am = torch.where(ks[None, None, :] < g, a, 0)
+            bm = torch.where(ks[None, :, None] < g, b, 0)
+        library_ms = cuda_ms(lambda: torch.bmm(am, bm), 20)
+        real = int(gs.sum())
+        active = int((gs > 0).sum())
+        if mask == "rows":
+            flops = 2 * real * k * n
+            nbytes = 2 * (real * k + active * k * n + e * m * n)
+        else:
+            flops = 2 * real * m * n
+            nbytes = 2 * (real * m + real * n + e * m * n)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        res[name] = {"shape": [e, m, k, n], "mask": mask, "real_rows": real,
+                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+        log(f"grouped_gemm {name} {(e, m, k, n)} {mask}, {real} real rows: {ms:.4f} ms, "
+            f"bound {res[name]['bound_ms']:.4f} ms ({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB, "
+            f"{res[name]['bound_by']}), plain {plain_ms:.4f} ms, bmm {library_ms:.4f} ms")
+        del am, bm
+    return res
+
+
+def phase_times(launches, path_errs, real_ulps, train_errs, train, gemm_errs, moe_serve,
+                moe_train):
     from repro_torch.kernels.flash_attention import (flash_attention_lse,
                                                      flash_attention_lse_plain)
     import torch.nn.functional as F
@@ -807,23 +1244,64 @@ def phase_times(launches, path_errs, real_ulps, train_errs, train):
             "library_covers": "dq, dk and dv: SDPA's backward, set against dq + dk/dv",
             "check": "pass",
         })
+    gt = {**moe_serve["times"], **moe_train["times"]}
+    head = gt["prefill"]
+    decode_steps = moe_serve["decode_b4"]
+    entries.append({
+        "name": "grouped_gemm",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
+        "replaces": "src/repro/kernels/grouped_gemm.py:50",
+        "launches": moe_serve["prefill_b4"] + decode_steps + moe_train["train_b4_rows"]
+        + moe_train["train_b4_contract"],
+        "launches_by_path": {"prefill": moe_serve["prefill_b4"],
+                             "decode_step": decode_steps // DECODE_STEPS,
+                             f"decode_{DECODE_STEPS}_steps": decode_steps,
+                             "train_step_rows": moe_train["train_b4_rows"],
+                             "train_step_contract": moe_train["train_b4_contract"]},
+        "max_abs_err": gemm_errs[0],
+        "max_err_bf16_ulps": gemm_errs[1],
+        "real_inputs_max_err_bf16_ulps": max(moe_serve["real_ulps"], moe_train["real_ulps"]),
+        "tolerance": GEMM_TOLERANCE,
+        "ms": head["ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_covers": "one torch.bmm on the row-masked inputs at the same shape",
+        "shapes": {k: {kk: v[kk] for kk in ("shape", "mask", "real_rows", "ms", "plain_ms",
+                                             "bound_ms", "bound_by", "library_ms")}
+                   for k, v in gt.items()},
+        "check": "pass",
+    })
     print(json.dumps({"kernels": entries}), flush=True)
 
 
+def free():
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
+    t0 = time.perf_counter()
     kind = phase_device()
     from repro_torch.core import resolve_device
     resolve_device()                       # fp32 matmuls in full fp32
-    phase_build()
-    path_errs = phase_kernels()
-    train_errs = phase_kernels_bwd()
-    launches, real_ulps = phase_serving()
-    gc.collect()
-    torch.cuda.empty_cache()               # the serving model's 30 GB
-    train = phase_training()
-    gc.collect()
-    torch.cuda.empty_cache()
-    phase_times(launches, path_errs, real_ulps, train_errs, train)
+    timed("build", phase_build)
+    path_errs = timed("kernels (B1)", phase_kernels)
+    train_errs = timed("kernels (B2, B3)", phase_kernels_bwd)
+    gemm_errs = timed("kernels (B4)", phase_kernels_gemm)
+    launches, real_ulps = timed("serving", phase_serving)
+    free()                                 # the serving model's 30 GB
+    train = timed("training", phase_training)
+    free()
+    moe_serve = timed("MoE serving", phase_moe_serving)
+    free()                                 # the MoE model's 34 GB
+    moe_train = timed("MoE training", phase_moe_training)
+    free()
+    timed("times", phase_times, launches, path_errs, real_ulps, train_errs, train,
+          gemm_errs, moe_serve, moe_train)
+    log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

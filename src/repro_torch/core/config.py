@@ -11,6 +11,10 @@ differently here, because the port has different implementations:
     attention; ``"cuda"`` forces the kernel (a CPU tensor raises). Resolved
     per call site by ``repro_torch.kernels.dispatch.select_impl``.
 
+``ParallelPlan.moe_gemm_impl`` reads the same way for the MoE expert GEMMs
+(the reference's ``"xla"`` is ``"plain"`` here, its ``"pallas"`` ``"cuda"``),
+resolved by ``repro_torch.kernels.dispatch.select_gemm_impl``.
+
 ``ParallelPlan.param_dtype`` is read here, where the reference declares it but
 always keeps fp32: ``Model.init`` holds matrices, biases and embeddings in it.
 
@@ -24,7 +28,8 @@ from typing import Optional, Tuple
 
 from .device import resolve_dtype
 
-ATTN_IMPLS = ("auto", "plain", "cuda")
+ATTN_IMPLS = ("auto", "plain", "cuda")    # also the choices of moe_gemm_impl
+MOE_DISPATCH_MODES = ("einsum", "scatter")
 REMAT_MODES = ("none", "full", "selective")
 
 
@@ -179,14 +184,19 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's parallel axes (tp, cp, pp, ep, dp_shard), ZeRO,
-    MoE and SSM knobs come with the slices that implement them, so a plan
-    cannot ask for a placement the port would quietly ignore."""
+    defaults). The reference's parallel axes (tp, cp, pp, ep, dp_shard), ZeRO
+    and SSM knobs come with the slices that implement them, so a plan cannot
+    ask for a placement the port would quietly ignore."""
     microbatches: int = 1          # grad-accumulation microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
                                    # layer (train/executor.py ``decoder_layer``)
     pad_vocab_to_multiple: int = 0 # padded logits are masked to -1e9
+    moe_dispatch: str = "einsum"   # "einsum": GShard one-hot dispatch/combine;
+                                   # "scatter": index gather/scatter, the same
+                                   # routing (models/moe.py)
     attn_impl: str = "auto"        # "auto" | "plain" | "cuda" (module docstring)
+    moe_gemm_impl: str = "auto"    # the same choices, for the three expert GEMMs
+                                   # of every MoE layer (module docstring)
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"   # matrices, biases and embeddings as held by
                                    # ``Model.init``; norm scales stay fp32. The
@@ -195,9 +205,13 @@ class ParallelPlan:
                                    # (the same bits, half the memory).
 
     def validate(self, cfg: ModelConfig) -> None:
-        if self.attn_impl not in ATTN_IMPLS:
-            raise ValueError(
-                f"attn_impl must be one of {ATTN_IMPLS}, got {self.attn_impl!r}")
+        for knob in ("attn_impl", "moe_gemm_impl"):
+            if getattr(self, knob) not in ATTN_IMPLS:
+                raise ValueError(f"{knob} must be one of {ATTN_IMPLS}, "
+                                 f"got {getattr(self, knob)!r}")
+        if self.moe_dispatch not in MOE_DISPATCH_MODES:
+            raise ValueError(f"moe_dispatch must be one of {MOE_DISPATCH_MODES}, "
+                             f"got {self.moe_dispatch!r}")
         if self.remat not in REMAT_MODES:
             raise ValueError(
                 f"remat must be one of {REMAT_MODES}, got {self.remat!r}")

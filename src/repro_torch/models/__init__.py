@@ -1,4 +1,4 @@
-"""Model families (this slice: the dense and VLM decoders)."""
+"""Model families (so far: the dense, MoE and VLM decoders)."""
 
 from .families import Model, build_model
 

@@ -1,4 +1,4 @@
-"""Model assembly: the dense decoder and its VLM variant (port of
+"""Model assembly: the dense decoder and its MoE and VLM variants (port of
 ``repro/models/families.py``).
 
 ``build_model`` returns a :class:`Model` with the reference's API:
@@ -17,8 +17,9 @@ Matrices, biases and embeddings are held in ``plan.param_dtype`` (fp32 masters
 by default, as in the reference) and cast to the compute dtype at every use;
 a serving run asks for ``param_dtype="bfloat16"``, the same bits as the cast
 in half the memory. Norm scales stay fp32, as ``rms_norm`` reads them. The KV
-cache is written in place. MoE, SSM, hybrid and encoder-decoder families come with
-their own slices.
+cache is written in place. A MoE layer's router and experts (``models/moe.py``)
+are held like the other matrices. SSM, hybrid and encoder-decoder families come
+with their own slices.
 """
 
 from __future__ import annotations
@@ -30,9 +31,11 @@ import torch
 
 from repro_torch.core.config import Family, ModelConfig, ParallelPlan
 from repro_torch.core.device import resolve_device, resolve_dtype
+from repro_torch.core.tree import map_tree
 from repro_torch.serve.attention import decode_attention
 from .layers import (dense_init, init_attn, init_mlp, mlp_block, qkv_proj,
                      rms_norm, rope, sinusoidal_pos_emb)
+from .moe import init_moe, moe_block
 
 
 def _layer_windows(cfg: ModelConfig) -> List[int]:
@@ -89,13 +92,16 @@ def _init_decoder_layer(cfg: ModelConfig, gen: torch.Generator, dtype):
     if cfg.post_norm:
         p["norm1_post"] = {"scale": zeros()}
         p["norm2_post"] = {"scale": zeros()}
-    p["mlp"] = {k: w.to(dtype) for k, w in
-                init_mlp(gen, cfg.d_model, cfg.d_ff).items()}
+    if cfg.family == Family.MOE:
+        p["moe"] = map_tree(lambda w: w.to(dtype), init_moe(gen, cfg))
+    else:
+        p["mlp"] = {k: w.to(dtype) for k, w in
+                    init_mlp(gen, cfg.d_model, cfg.d_ff).items()}
     return p
 
 
 class Model:
-    """The dense / VLM decoder on one device (see the module docstring)."""
+    """The dense / MoE / VLM decoder on one device (see the module docstring)."""
 
     def __init__(self, cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
                  device=None):
@@ -205,7 +211,10 @@ class Model:
                 a = rms_norm(a, lp["norm1_post"]["scale"], cfg.rms_eps)
             x = x + a
             h = rms_norm(x, lp["norm2"]["scale"], cfg.rms_eps)
-            m = mlp_block(lp["mlp"], h, dtype)
+            if cfg.family == Family.MOE:
+                m, _ = moe_block(lp["moe"], h, cfg, dtype, self.plan)
+            else:
+                m = mlp_block(lp["mlp"], h, dtype)
             if cfg.post_norm:
                 m = rms_norm(m, lp["norm2_post"]["scale"], cfg.rms_eps)
             x = x + m
@@ -216,13 +225,12 @@ class Model:
 _LATER = {
     Family.SSM: "the Mamba2 slice",
     Family.HYBRID: "the Mamba2/hybrid slice",
-    Family.MOE: "the MoE slice",
 }
 
 
 def build_model(cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
                 device=None) -> Model:
-    """Dense and VLM decoders; ``device`` defaults to the CUDA card."""
+    """Dense, MoE and VLM decoders; ``device`` defaults to the CUDA card."""
     if plan is not None:
         plan.validate(cfg)
     if cfg.is_enc_dec:

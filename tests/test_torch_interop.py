@@ -13,7 +13,8 @@ from repro_torch.interop import params_from_numpy, params_to_numpy
 
 torch.set_num_threads(1)
 
-ARCHS = ["qwen1.5-4b", "qwen2.5-14b", "codeqwen1.5-7b", "gemma2-9b", "pixtral-12b"]
+ARCHS = ["qwen1.5-4b", "qwen2.5-14b", "codeqwen1.5-7b", "gemma2-9b", "pixtral-12b",
+         "olmoe-1b-7b", "deepseek-moe-16b"]
 
 
 def _reference_params(arch):

@@ -102,6 +102,36 @@ def test_select_impl_reads_the_kernels_head_dims():
         assert ok, hd
 
 
+@pytest.mark.parametrize("impl,device,expected", [
+    ("plain", "cuda", "plain"),
+    ("plain", "cpu", "plain"),
+    ("auto", "cuda", "cuda"),
+    ("auto", "cpu", "plain"),
+    ("cuda", "cuda", "cuda"),
+    ("cuda", "cpu", ValueError),          # "cuda" forces the kernel: no CPU mode
+    ("xla", "cpu", ValueError),
+])
+def test_select_gemm_impl_rules(impl, device, expected):
+    if expected is ValueError:
+        with pytest.raises(ValueError):
+            dispatch.select_gemm_impl(impl, device=device)
+    else:
+        assert dispatch.select_gemm_impl(impl, device=device) == expected
+
+
+def test_dispatch_takes_the_plain_expert_gemm_on_cpu():
+    from repro_torch.kernels import grouped_gemm as tg
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3, 6, 8, generator=g)
+    w = torch.randn(3, 8, 5, generator=g)
+    gs = torch.tensor([6, 0, 2], dtype=torch.int32)
+    before = (tg.grouped_gemm.rows_launches, tg.grouped_gemm.contract_launches)
+    out = dispatch.dispatch_expert_gemm(x, w, gs, impl="auto")
+    assert (tg.grouped_gemm.rows_launches, tg.grouped_gemm.contract_launches) == before
+    rows = torch.arange(6)[None, :, None] < gs[:, None, None]
+    assert torch.equal(out, torch.einsum("ecd,edf->ecf", torch.where(rows, x, 0), w))
+
+
 def test_plan_validates_attn_impl():
     cfg = get_smoke_config("qwen2.5-14b")
     ParallelPlan(attn_impl="cuda").validate(cfg)
@@ -110,7 +140,7 @@ def test_plan_validates_attn_impl():
 
 
 @pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "zero_stage",
-                                  "moe_gemm_impl"])
+                                  "ssm_impl"])
 def test_plan_has_no_knob_the_port_does_not_implement(knob):
     with pytest.raises(TypeError, match=knob):
         ParallelPlan(**{knob: 2})
@@ -120,7 +150,9 @@ def test_plan_has_no_knob_the_port_does_not_implement(knob):
                                   ParallelPlan(pad_vocab_to_multiple=-1),
                                   ParallelPlan(remat="partial"),
                                   ParallelPlan(microbatches=0),
-                                  ParallelPlan(param_dtype="float16")])
+                                  ParallelPlan(param_dtype="float16"),
+                                  ParallelPlan(moe_gemm_impl="pallas"),
+                                  ParallelPlan(moe_dispatch="sparse")])
 def test_plan_validate_rejects_bad_values(plan):
     with pytest.raises(ValueError):
         plan.validate(get_smoke_config("qwen2.5-14b"))
