@@ -46,8 +46,25 @@ prints its seconds):
    one microbatch (forward, recompute, dx, dw) held to its plain version, then
    one warm-up and three timed steps with the launches counted (B4 72 in rows
    mode and 24 in contract mode per step), and a profile;
-8. times    — each kernel's time at its path's shapes beside its bound, its plain
-   version's time and the library call's, printed as one JSON line.
+8. SSD kernels — the Mamba2 chunk scan's forward (B5: y, entering and final
+   states, to 2e-4 of max(1, max |plain|)) and backward (B6: ddt and dA to 1e-4
+   of that measure, the bf16 dx, dB, dC to 2 bf16 ulps) against their plain
+   versions at both families' serving and training shapes (a ragged 8000),
+   chunks 16, 24 and 1, G = 2 and 4, a non-zero final-state cotangent, fp32 and
+   bf16, and through the autograd Function;
+9. mamba2-370m and zamba2-1.2b, each: the smoke config on the card against the
+   CPU; serving at full width and depth (random bf16 weights and conv taps from
+   a seed): a forward over 4 x 8000 tokens (B5 48 or 38 launches, B1 6 for the
+   hybrid's shared block), a 16-token prompt through decode_step and 32 greedy
+   steps, B5 held to its plain version on every layer's own inputs; training at
+   full width and depth (fp32 masters, remat "full", 2 microbatches of 4 or 2 x
+   4096): the smoke config card vs CPU and under the three remat modes, B5/B6
+   held to their plain versions on every call of one microbatch, one warm-up
+   and three timed steps with the launches counted (B5 192/152, B6 96/76, and
+   B1/B2/B3 12 each for the hybrid), profiles;
+10. times   — each kernel's time at its path's shapes beside its bound, its plain
+   version's time and the library call's (none for B5/B6), printed as one JSON
+   line.
 
 Any failure raises: the script exits non-zero and prints no final line. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -132,6 +149,38 @@ GEMM_CASES = [(64, 468, 2048, 1408), (64, 468, 1408, 2048), (64, 1, 2048, 1408),
 GEMM_REL_F32, GEMM_ULPS_BF16 = 5e-5, 2.0
 GEMM_TOLERANCE = ("fp32 5e-5 of the tensor's max |value|, bf16 2 ulps of |plain| "
                   "(floor 2^-10 of the max); padding rows and zero-load experts exactly 0")
+
+SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-1.2b"
+# serving: a forward over 4 x 8000 tokens (62 chunks of 128 and a ragged 64), then a
+# 16-token prompt through decode_step and DECODE_STEPS greedy steps
+SSM_BATCH, SSM_PROMPT, SSM_DECODE_PROMPT = 4, 8000, 16
+# training: TRAIN_MICRO microbatches of 4 sequences (mamba2; B5's grid 4 x 32 = 128
+# blocks) or 2 (zamba2: 2 x 64) of TRAIN_SEQ tokens
+SSM_TRAIN_BATCH = {SSM_ARCH: 8, HYBRID_ARCH: 4}
+# B5/B6 at (b, l, h, p, g, n, chunk): the four path shapes, the decode check's
+# 16-token prompt (chunk 16), chunk 24 with G 4, G 2 on a ragged length, chunk 1
+SSD_PATH_CASES = {
+    "mamba2_serving": (SSM_BATCH, SSM_PROMPT, 32, 64, 1, 128, 128),
+    "mamba2_training": (4, TRAIN_SEQ, 32, 64, 1, 128, 128),
+    "zamba2_serving": (SSM_BATCH, SSM_PROMPT, 64, 64, 1, 64, 128),
+    "zamba2_training": (2, TRAIN_SEQ, 64, 64, 1, 64, 128),
+}
+SSD_CASES = list(SSD_PATH_CASES.values()) + [
+    (SSM_BATCH, SSM_DECODE_PROMPT, 32, 64, 1, 128, 16),
+    (1, 96, 4, 8, 4, 8, 24),
+    (2, 100, 4, 32, 2, 16, 16),
+    (1, 7, 2, 4, 1, 4, 1),
+]
+# The reference's limits (y and states 2e-4, tests/test_kernels.py; gradients 1e-4,
+# tests/test_kernels_grad.py) read against max(1, the tensor's largest |value|); a
+# bf16 result (dx, dB, dC of bf16 inputs) within 2 bf16 ulps of each value (both
+# sides round one fp32 value; floor 2^-10 of the max). A dropped chunk state or decay
+# rates 0.1% off miss by 3x or more (tests/test_torch_ssd.py).
+SSD_Y_TOL, SSD_GRAD_TOL, SSD_ULPS_BF16 = 2e-4, 1e-4, 2.0
+SSD_FWD_TOLERANCE = "y, entering and final states: 2e-4 of max(1, max |plain|)"
+SSD_BWD_TOLERANCE = ("ddt, dA: 1e-4 of max(1, max |plain|); dx, dB, dC (bf16): 2 ulps of "
+                     "|plain| (floor 2^-10 of the max); fp32 inputs: all 1e-4")
+BWD_NAMES = ("dx", "ddt", "dA", "dB", "dC")
 
 
 def log(*args):
@@ -291,11 +340,13 @@ def to_cuda(tree):
 
 def profile_window(name, fn):
     """Kernel time by name over one call of ``fn``, and the device's busy share
-    of the profiled wall time (the profiler's own overhead included)."""
+    of the profiled wall time (the profiler's own overhead included). Only the
+    CUDA activity is traced: the host-side op events add nothing these numbers
+    read and cost ~30 s of trace processing for a step of ~30,000 ops."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -326,7 +377,7 @@ def phase_device():
 def phase_build():
     from repro_torch.kernels import build
     t0 = time.perf_counter()
-    logs = build.build(["flash_fwd", "flash_bwd", "grouped_gemm"])
+    logs = build.build(["flash_fwd", "flash_bwd", "grouped_gemm", "ssd_fwd", "ssd_bwd"])
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
@@ -592,6 +643,7 @@ def train_smoke_agreement(arch=TRAIN_ARCH):
     ds = SyntheticDataset(cfg, InputShape("smoke", 64, 8, "train"))
     cpu = build_model(cfg, plan, device="cpu")
     cparams = cpu.init(torch.Generator().manual_seed(1))
+    random_conv_taps(cparams, torch.Generator().manual_seed(3))
     runs = {}
     for name, model, params in (("card", build_model(cfg, plan), to_cuda(cparams)),
                                 ("cpu", cpu, cparams)):
@@ -611,7 +663,9 @@ def train_smoke_agreement(arch=TRAIN_ARCH):
     if rel > 1e-4:
         raise AssertionError("the card's smoke-config training disagrees with the CPU's")
 
-    params = to_cuda(cpu.init(torch.Generator().manual_seed(2)))
+    params = cpu.init(torch.Generator().manual_seed(2))
+    random_conv_taps(params, torch.Generator().manual_seed(3))
+    params = to_cuda(params)
     for p in leaves(params):
         p.requires_grad_(True)
     batch = {k: torch.from_numpy(v).cuda() for k, v in ds.batch(7).items()}
@@ -631,15 +685,40 @@ def train_smoke_agreement(arch=TRAIN_ARCH):
             raise AssertionError(f"remat={mode} changes the grads")
 
 
-def train_flops(cfg, seq, tokens):
-    """Reckoned FLOPs of one train step (forward + backward, no recompute):
-    6 per matmul parameter a token uses (``active_param_count``: for MoE the
-    router, the top-k and shared experts; the embedding gather does none) plus
-    causal attention, 6 L Hq hd (S + 1) per token. Neither the recompute nor
-    the MoE one-hot dispatch einsums are counted."""
-    n_matmul = cfg.active_param_count() - cfg.vocab * cfg.d_model
-    attn = 6 * cfg.n_layers * cfg.n_heads * cfg.head_dim * (seq + 1)
-    return (6 * n_matmul + attn) * tokens
+def train_flops(cfg, seq, tokens, params=None):
+    """Reckoned FLOPs of one train step (forward + backward, no recompute): 6 per
+    matmul parameter a token uses, plus causal attention, 6 Hq hd (S + 1) per
+    token and attention layer, plus the SSD scans. Dense and MoE count their
+    parameters analytically (``active_param_count``: for MoE the router, the
+    top-k and shared experts; the embedding gather does none; a tied LM head
+    counts once, as the head). The SSM and hybrid families count the model's
+    real matrices (``params``; the analytic ``param_count`` omits the hybrid's
+    shared MLP), the hybrid's shared block once per application, its attention
+    on those applications only, and each layer's SSD forward and backward
+    (``ssd_flops``). Neither the recompute nor the MoE one-hot dispatch einsums
+    are counted."""
+    from repro_torch.core import Family, leaves
+    if cfg.family in (Family.SSM, Family.HYBRID):
+        apps = n_apps(cfg)
+        n_matmul = sum(t.numel() for lp in params["layers"] for t in leaves(lp) if t.dim() > 1)
+        if apps:
+            n_matmul += apps * sum(t.numel() for t in leaves(params["shared_attn"])
+                                   if t.dim() > 1)
+        n_matmul += (params["lm_head"]["w"] if "lm_head" in params
+                     else params["embed"]["tok"]).numel()
+        n_attn = apps
+        s = cfg.ssm
+        heads = s.expand * cfg.d_model // s.head_dim
+        b = tokens // seq
+        scan = cfg.n_layers * sum(ssd_flops(b, seq, heads, s.head_dim, s.d_state, s.chunk,
+                                            backward=bw) for bw in (False, True))
+    else:
+        n_matmul = cfg.active_param_count() - cfg.vocab * cfg.d_model
+        if cfg.tie_embeddings:
+            n_matmul += cfg.vocab * cfg.d_model
+        n_attn, scan = cfg.n_layers, 0
+    attn = 6 * n_attn * cfg.n_heads * cfg.head_dim * (seq + 1)
+    return (6 * n_matmul + attn) * tokens + scan
 
 
 def backward_on_real_inputs(model, params, cfg, batch):
@@ -1172,8 +1251,503 @@ def gemm_times(kept):
     return res
 
 
+# ---------------------------------------------------------------------------
+# Mamba2 and the zamba2 hybrid: the SSD chunk scan (B5 forward, B6 backward)
+
+
+def ssd_counts():
+    from repro_torch.kernels import ssd_scan as ts
+    return ts.ssd_chunk_scan_fwd.launches, ts.ssd_chunk_scan_bwd.launches
+
+
+def reset_ssd_counts():
+    from repro_torch.kernels import ssd_scan as ts
+    ts.ssd_chunk_scan_fwd.launches = ts.ssd_chunk_scan_bwd.launches = 0
+
+
+def ssd_error(x, ref):
+    """(max |x - ref|, the error in the limit's measure): bf16 ulps of |ref| for
+    a bf16 result (as ``grad_error``), else the fraction of max(1, max |ref|)."""
+    if x.dtype == torch.bfloat16:
+        return grad_error(x, ref)
+    ref = ref.float()
+    err = (x.float() - ref).abs().max()
+    return err.item(), (err / ref.abs().max().clamp(min=1.0)).item()
+
+
+def ssd_ok(x, err, limit):
+    return bool(torch.isfinite(x).all()) and err[1] <= (
+        SSD_ULPS_BF16 if x.dtype == torch.bfloat16 else limit)
+
+
+def fmt_ssd(names, errs):
+    return ", ".join(f"{n} {a:.3e} ({u:.2e})" for n, (a, u) in zip(names, errs))
+
+
+def ssd_inputs(gen, case, dtype):
+    """Head-major views of model-layout x, dt, B, C (as the dispatcher hands them
+    to the kernels), x/B/C in ``dtype``; dt in [0.01, 0.2) and A in (-2, -0.5],
+    the reference's test draws."""
+    b, l, h, p, g, n, _ = case
+    x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+    dt = (0.01 + 0.19 * torch.rand(b, l, h, generator=gen, device="cuda")).transpose(1, 2)
+    A = -(0.5 + 1.5 * torch.rand(h, generator=gen, device="cuda"))
+    B, C = (torch.randn(b, l, g, n, generator=gen, device="cuda").to(dtype).transpose(1, 2)
+            for _ in range(2))
+    return x, dt, A, B, C
+
+
+def ssd_check_fwd(ins, chunk, out):
+    from repro_torch.kernels import ssd_scan as ts
+    ref = ts.ssd_chunk_scan_fwd_plain(*ins, chunk=chunk)
+    errs = [ssd_error(o, r) for o, r in zip(out, ref) if o is not None]
+    return errs, all(ssd_ok(o, e, SSD_Y_TOL) for o, e in
+                     zip([o for o in out if o is not None], errs))
+
+
+def ssd_check_bwd(ins, dy, dfinal, chunk, grads):
+    from repro_torch.kernels import ssd_scan as ts
+    ref = ts.ssd_chunk_scan_bwd_plain(*ins, dy, dfinal, chunk=chunk)
+    errs = [ssd_error(g, r) for g, r in zip(grads, ref)]
+    return errs, all(ssd_ok(g, e, SSD_GRAD_TOL) and g.dtype == r.dtype
+                     for g, e, r in zip(grads, errs, ref))
+
+
+def phase_kernels_ssd():
+    """B5 (y, entering states, final state) and B6 (dx, ddt, dA, dB, dC, with a
+    non-zero final-state cotangent) against their plain versions at every
+    SSD_CASES shape in fp32 and bf16, and the autograd Function through the
+    dispatcher. Returns the errors at each path shape (bf16)."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import ssd_scan as ts
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    path_errs = {}
+    for case in SSD_CASES:
+        b, l, h, p, g, n, chunk = case
+        for dtype in (torch.float32, torch.bfloat16):
+            ins = ssd_inputs(gen, case, dtype)
+            before = ssd_counts()
+            out = ts.ssd_chunk_scan_fwd(*ins, chunk=chunk, save_enters=True)
+            torch.cuda.synchronize()
+            ferrs, fok = ssd_check_fwd(ins, chunk, out)
+            dy = torch.randn(b, l, h, p, generator=gen, device="cuda").transpose(1, 2)
+            dfinal = torch.randn(b, h, p, n, generator=gen, device="cuda")
+            grads = ts.ssd_chunk_scan_bwd(*ins, out[1], dy, dfinal, chunk=chunk)
+            torch.cuda.synchronize()
+            if ssd_counts() != (before[0] + 1, before[1] + 1):
+                raise AssertionError("ssd_chunk_scan_fwd/bwd did not count one launch each")
+            berrs, bok = ssd_check_bwd(ins, dy, dfinal, chunk, grads)
+            log(f"check ssd {case} {str(dtype)[6:]}: "
+                f"{fmt_ssd(('y', 'enters', 'state'), ferrs)}; "
+                f"{fmt_ssd(BWD_NAMES, berrs)}")
+            if not (fok and bok):
+                raise AssertionError(f"the SSD kernels disagree with their plain versions "
+                                     f"on {case} {dtype}")
+            for path, pcase in SSD_PATH_CASES.items():
+                if case == pcase and dtype == torch.bfloat16:
+                    path_errs[path] = (ferrs, berrs)
+            del ins, out, dy, dfinal, grads
+
+    # the autograd Function through the dispatcher, model layout, G = 2, ragged,
+    # a loss on the final state too, against autograd through the plain dispatch
+    for case in ((2, 200, 4, 64, 2, 128, 128), (1, 96, 4, 8, 4, 8, 24)):
+        b, l, h, p, g, n, chunk = case
+        base = [t.transpose(1, 2).contiguous() if t.dim() > 1 else t
+                for t in ssd_inputs(gen, case, torch.float32)]
+        w = torch.randn(b, l, h, p, generator=gen, device="cuda")
+        grads = {}
+        for impl in ("cuda", "plain"):
+            ins = [t.detach().clone().requires_grad_() for t in base]
+            before = ssd_counts()
+            y, st = dispatch.dispatch_ssd_scan(*ins, chunk=chunk, impl=impl)
+            grads[impl] = torch.autograd.grad((y * w).sum() + st.square().sum(), ins)
+            want = (before[0] + 1, before[1] + 1) if impl == "cuda" else before
+            if ssd_counts() != want:
+                raise AssertionError(f"the {impl} dispatch launched {ssd_counts()}, "
+                                     f"expected {want}")
+        errs = [ssd_error(a, r) for a, r in zip(grads["cuda"], grads["plain"])]
+        log(f"check ssd autograd Function {case} float32: "
+            f"{fmt_ssd(BWD_NAMES, errs)}")
+        if not all(e[1] <= SSD_GRAD_TOL for e in errs):
+            raise AssertionError(f"the SSD autograd Function's grads disagree on {case}")
+    return path_errs
+
+
+class SSDCapture:
+    """Within the block, every call of B5's and B6's wrappers is held to its
+    plain version on its own inputs, and the first call of each is kept for
+    timing. ``functools.wraps`` copies the launch counters onto the wrappers,
+    so these launches leave the real counts alone."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ssd_scan as ts
+        self.real = (ts.ssd_chunk_scan_fwd, ts.ssd_chunk_scan_bwd)
+        real_fwd, real_bwd = self.real
+        self.fwd_errs, self.bwd_errs, self.kept = [], [], {}
+
+        @functools.wraps(real_fwd)
+        def checked_fwd(x, dt, A, Bm, Cm, *, chunk=128, save_enters=False):
+            out = real_fwd(x, dt, A, Bm, Cm, chunk=chunk, save_enters=save_enters)
+            self.fwd_errs.append(ssd_check_fwd((x, dt, A, Bm, Cm), chunk, out))
+            self.kept.setdefault("fwd", ((x, dt, A, Bm, Cm), chunk, save_enters))
+            return out
+
+        @functools.wraps(real_bwd)
+        def checked_bwd(x, dt, A, Bm, Cm, enters, dy, dfinal, *, chunk=128):
+            grads = real_bwd(x, dt, A, Bm, Cm, enters, dy, dfinal, chunk=chunk)
+            self.bwd_errs.append(ssd_check_bwd((x, dt, A, Bm, Cm), dy, dfinal, chunk, grads))
+            self.kept.setdefault("bwd", ((x, dt, A, Bm, Cm, enters, dy, dfinal), chunk))
+            return grads
+        ts.ssd_chunk_scan_fwd, ts.ssd_chunk_scan_bwd = checked_fwd, checked_bwd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ssd_scan as ts
+        ts.ssd_chunk_scan_fwd, ts.ssd_chunk_scan_bwd = self.real
+
+    def summary(self, what):
+        """Log and check the calls; returns each output's worst error in its
+        limit's measure (y, state, ddt, dA: of max(1, max |ref|); dx, dB, dC:
+        bf16 ulps)."""
+        worst = {}
+        for errs, names in ((self.fwd_errs, ("y", "state")), (self.bwd_errs, BWD_NAMES)):
+            for e, _ in errs:
+                pairs = zip(names, (e[0], e[-1])) if names[0] == "y" else zip(names, e)
+                for name, (_, err) in pairs:
+                    worst[name] = max(worst.get(name, 0.0), err)
+        log(f"real inputs, {what}: B5 held to its plain version on {len(self.fwd_errs)} "
+            f"calls, B6 on {len(self.bwd_errs)}; worst " +
+            ", ".join(f"{k} {v:.3g}" for k, v in worst.items()))
+        if not all(ok for _, ok in self.fwd_errs + self.bwd_errs):
+            raise AssertionError(f"the SSD kernels disagree with their plain versions on "
+                                 f"the {what}'s own inputs")
+        return worst
+
+
+def random_conv_taps(params, gen):
+    """The reference initialises an SSM block's conv taps to zero, which zeroes
+    x, B and C and so every SSD input and output at init. Draw them as PyTorch's
+    depthwise Conv1d does (kaiming-uniform: U(-1/sqrt(K), 1/sqrt(K)), K = 4
+    taps), in place, so the paths do real work. No-op for other families."""
+    with torch.no_grad():
+        for lp in params["layers"]:
+            for k in ("conv_x", "conv_B", "conv_C") if "ssm" in lp else ():
+                w = lp["ssm"][k]
+                u = torch.rand(w.shape, generator=gen, device=gen.device)
+                w.copy_((2 * u - 1) / w.shape[-1] ** 0.5)
+
+
+def ssd_flops(b, l, h, p, n, chunk, backward=False):
+    """The multiply-adds x 2 an SSD pass needs on these shapes, counting only
+    the causal half (j <= i) of each chunk's (q, q) products. Forward per chunk
+    of q real positions: C B^T and scores (x dt) over T = q(q+1)/2 pairs, C
+    state^T and the state update, 2 q P N. Backward: scores and dscores, dxd's,
+    dC's and dB's (q, q) terms (T (3N + 2P)) and five (q, P, N) products."""
+    total = 0
+    for start in range(0, l, chunk):
+        q = min(chunk, l - start)
+        t = q * (q + 1) // 2
+        total += t * (3 * n + 2 * p) + 5 * q * p * n if backward else \
+            t * (n + p) + 2 * q * p * n
+    return 2 * b * h * total
+
+
+def ssd_times(name, kept):
+    """B5 and B6 (CUDA events) on a path's kept inputs beside their bounds and
+    plain versions. B5's bytes: x, dt, B, C read once, y and the final state
+    (and, under the VJP, the entering states) written; B6's: x, dt, B, C, the
+    entering states, dy and dS_final read, its per-head fp32 dx, ddt, dda, dB, dC
+    written. Operations at the bf16 tensor-core rate (989 TFLOP/s): the inputs
+    arrive in bf16. There is no PyTorch call that computes an SSD scan."""
+    from repro_torch.kernels import ssd_scan as ts
+    res = {}
+    (x, dt, A, Bm, Cm), chunk, save = kept["fwd"]
+    b, h, l, p = x.shape
+    g, n = Bm.shape[1], Bm.shape[3]
+    nc = -(-l // chunk)
+    esz = x.element_size()
+    io = esz * (x.numel() + Bm.numel() + Cm.numel()) + 4 * dt.numel()
+    units = [("fwd", lambda: ts.ssd_chunk_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk,
+                                                   save_enters=save),
+              lambda: ts.ssd_chunk_scan_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk),
+              ssd_flops(b, l, h, p, n, chunk),
+              io + 4 * (x.numel() + b * h * p * n + (b * h * nc * p * n if save else 0)))]
+    if "bwd" in kept:
+        (xb, dtb, Ab, Bb, Cb, enters, dy, dfinal), chunk_b = kept["bwd"]
+        args = (xb, dtb.float(), Ab.float().contiguous(), Bb, Cb, enters.contiguous(),
+                dy.float().contiguous(), dfinal.contiguous(), chunk_b)
+        bb, hb, lb, pb = xb.shape
+        nb = Bb.shape[3]
+        io_b = xb.element_size() * (xb.numel() + Bb.numel() + Cb.numel()) + 4 * dtb.numel()
+        units.append(("bwd", lambda: ts._bwd_launch(*args),
+                      lambda: ts.ssd_chunk_scan_bwd_plain(xb, dtb, Ab, Bb, Cb, dy, dfinal,
+                                                          chunk=chunk_b),
+                      ssd_flops(bb, lb, hb, pb, nb, chunk_b, backward=True),
+                      io_b + 4 * (enters.numel() + dy.numel() + dfinal.numel()
+                                  + xb.numel() + 2 * bb * hb * lb + 2 * bb * hb * lb * nb)))
+    for kind, kernel, plain, flops, nbytes in units:
+        ms = cuda_ms(kernel, 10)
+        plain_ms = cuda_ms(plain, 2, warmup=1)
+        t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+        shape = list((xb if kind == "bwd" else x).shape)
+        res[kind] = {"shape_bhlp": shape, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                     "flops": flops, "bytes": nbytes}
+        log(f"ssd_{kind} at {name} {tuple(shape)}: {ms:.4f} ms, bound "
+            f"{res[kind]['bound_ms']:.4f} ms ({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB, "
+            f"{res[kind]['bound_by']}), plain {plain_ms:.4f} ms")
+    return res
+
+
+def ssm_smoke_agreement(arch):
+    """A small model on the card (kernel path) against the same weights on the
+    CPU (plain path), fp32: forward logits over 37 tokens (one ragged chunk)
+    and 5 decode steps, to 1e-4."""
+    from repro_torch.core import ParallelPlan, get_smoke_config
+    from repro_torch.models import build_model
+    cfg = get_smoke_config(arch)
+    plan = ParallelPlan(compute_dtype="float32")
+    gpu, cpu = build_model(cfg, plan), build_model(cfg, plan, device="cpu")
+    cparams = cpu.init(torch.Generator().manual_seed(1))
+    random_conv_taps(cparams, torch.Generator().manual_seed(4))
+    params = to_cuda(cparams)
+    tokens = torch.randint(0, cfg.vocab, (2, 37), generator=torch.Generator().manual_seed(2))
+    with torch.no_grad():
+        before = ssd_counts()[0]
+        lg = gpu.forward(params, {"tokens": tokens.cuda()})[0]
+        if ssd_counts()[0] != before + cfg.n_layers:
+            raise AssertionError("the smoke forward did not run B5 on every layer")
+        errs = [(lg.cpu() - cpu.forward(cparams, {"tokens": tokens})[0]).abs().max().item()]
+        cache, ccache = gpu.init_cache(2, 8), cpu.init_cache(2, 8)
+        for pos in range(5):
+            lg, cache = gpu.decode_step(params, cache, tokens[:, pos].cuda(), pos)
+            clg, ccache = cpu.decode_step(cparams, ccache, tokens[:, pos], pos)
+            errs.append((lg.cpu() - clg).abs().max().item())
+    log(f"smoke {arch} fp32, card vs cpu: max logit diff {max(errs):.3e}")
+    if max(errs) > 1e-4:
+        raise AssertionError("the card's smoke-config logits disagree with the CPU's")
+
+
+def n_apps(cfg):
+    return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
+
+
+def phase_ssm_serving(arch):
+    """``arch`` (mamba2-370m or zamba2-1.2b) at full width and depth, random bf16
+    weights from a seed: the smoke config against the CPU; forward under
+    no_grad over SSM_BATCH x SSM_PROMPT tokens (the prefill metric) with the
+    launches counted; a SSM_DECODE_PROMPT-token prompt through decode_step, then
+    DECODE_STEPS greedy steps; profiles; B5 held to its plain version on every
+    layer's own inputs of the forward; B5 timed on them."""
+    from repro_torch.core import ParallelPlan, get_config, leaves
+    from repro_torch.models import build_model
+
+    ssm_smoke_agreement(arch)
+    cfg = get_config(arch)
+    model = build_model(cfg, ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    random_conv_taps(params, gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"init {arch}: {n_params / 1e6:.1f} M params (bf16) in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    batch = {"tokens": torch.randint(0, cfg.vocab, (SSM_BATCH, SSM_PROMPT), generator=gen,
+                                     device="cuda")}
+    apps = n_apps(cfg)
+    with torch.no_grad():
+        model.forward(params, batch)                                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        reset_ssd_counts()
+        t0 = time.perf_counter()
+        logits, _ = model.forward(params, batch)
+        torch.cuda.synchronize()
+        t_fwd = time.perf_counter() - t0
+        fwd_launches = (*all_counts(), *ssd_counts())
+        want = (apps, 0, 0, 0, 0, cfg.n_layers, 0)
+        if fwd_launches != want:
+            raise AssertionError(f"the {arch} forward launched B1, B2, B3, B4 rows/contract, "
+                                 f"B5, B6 {fwd_launches} times, expected {want}")
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"{arch} forward logits are not finite")
+        del logits
+
+        # the reference's serving flow for these families: the prompt through
+        # decode_step, then greedy steps
+        prompt = batch["tokens"][:, :SSM_DECODE_PROMPT]
+        cache = model.init_cache(SSM_BATCH, SSM_DECODE_PROMPT + DECODE_STEPS + 1)
+        steps = []
+        for t in range(SSM_DECODE_PROMPT):
+            lg, cache = model.decode_step(params, cache, prompt[:, t], t)
+            steps.append(lg)
+        ref = model.forward(params, {"tokens": prompt})[0]
+        drift = ((torch.stack(steps, 1) - ref).abs().max() / ref.abs().max()).item()
+        tok = lg.argmax(-1)
+        reset_counts()
+        reset_ssd_counts()
+        t0 = time.perf_counter()
+        out, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+        for i in range(DECODE_STEPS):
+            lg, cache = model.decode_step(params, cache, tok, SSM_DECODE_PROMPT + i)
+            finite &= torch.isfinite(lg).all()
+            tok = lg.argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / DECODE_STEPS
+        if (*all_counts(), *ssd_counts()) != (0,) * 7:
+            raise AssertionError(f"{arch} decode launched {(*all_counts(), *ssd_counts())}")
+        if not finite:
+            raise AssertionError(f"{arch} decode logits are not finite")
+        peak = torch.cuda.max_memory_allocated()
+        log(f"serving {arch}: forward {SSM_BATCH}x{SSM_PROMPT} in {t_fwd * 1e3:.1f} ms = "
+            f"{SSM_BATCH * SSM_PROMPT / t_fwd:.0f} tokens/s; decode {t_decode * 1e3:.2f} "
+            f"ms/step (batch {SSM_BATCH}); peak memory {peak / 1e9:.2f} GB; launches per "
+            f"forward B5 {fwd_launches[5]}, B1 {fwd_launches[0]}")
+        log(f"reading: {arch} decode-form logits over the {SSM_DECODE_PROMPT}-token prompt "
+            f"vs forward's: max diff / max |logit| = {drift:.3e} (bf16)")
+        log(f"generated tokens, row 0: {torch.stack(out, 1)[0, :10].tolist()}")
+        profile_window(f"{arch} decode step", lambda: model.decode_step(
+            params, cache, tok, SSM_DECODE_PROMPT + DECODE_STEPS))
+        del cache
+        profile_window(f"{arch} forward", lambda: model.forward(params, batch))
+        with SSDCapture() as cap:
+            model.forward(params, batch)
+        real = cap.summary(f"{arch} forward ({cfg.n_layers} layers)")
+        times = ssd_times(f"{arch} serving", cap.kept)
+    return {"b5": fwd_launches[5], "b1": fwd_launches[0], "real": real, "times": times}
+
+
+def phase_ssm_training(arch, batch_size):
+    """The smoke config against the CPU and under the remat modes, then
+    ``arch`` at full width and depth (fp32 masters, bf16 compute, remat "full",
+    TRAIN_MICRO microbatches of batch_size / TRAIN_MICRO x TRAIN_SEQ): B5 and B6
+    held to their plain versions on every call of one microbatch and timed on
+    them, one warm-up and TRAIN_STEPS timed steps with the launches counted, a
+    profile."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.core.tree import map_tree
+    from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
+
+    timed(f"{arch} smoke training", train_smoke_agreement, arch)
+    cfg = get_config(arch)
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
+                        microbatches=TRAIN_MICRO)
+    model = build_model(cfg, plan)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    random_conv_taps(params, gen)
+    for p in leaves(params):
+        p.requires_grad_(True)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"init {arch}: {n_params / 1e6:.1f} M params (fp32) in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, batch_size, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(TRAIN_STEPS + 2)]
+
+    mb = {k: v[:batch_size // TRAIN_MICRO] for k, v in batches[0].items()}
+    with SSDCapture() as cap:
+        loss, _ = make_loss_fn(model, Hyper())(params, mb)
+        loss.backward()
+    real = cap.summary(f"{arch} training microbatch ({cfg.n_layers} layers)")
+    times = ssd_times(f"{arch} training", cap.kept)
+    del cap
+    log(f"full-width microbatch: loss {loss.item():.6f}, grad norm "
+        f"{global_norm(map_tree(lambda p: p.grad, params)).item():.6f}")
+    for p in leaves(params):
+        p.grad = None
+
+    state = TrainState(params, adamw_init(params))
+    del params
+    step = make_train_step(model, plan, Hyper())
+    state, m = step(state, batches[0])                 # warm-up
+    log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    apps = n_apps(cfg)
+    want = (TRAIN_MICRO * apps, TRAIN_MICRO * apps, TRAIN_MICRO * apps, 0, 0,
+            2 * TRAIN_MICRO * cfg.n_layers, TRAIN_MICRO * cfg.n_layers)
+    times_s, launches = [], None
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        reset_ssd_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times_s.append(time.perf_counter() - t0)
+        launches = (*all_counts(), *ssd_counts())
+        log(f"{arch} train step {i}: {times_s[-1] * 1e3:.1f} ms, loss {loss:.6f}, grad_norm "
+            f"{gnorm:.6f}, launches B1/B2/B3/B4 rows/B4 contract/B5/B6 {launches}")
+        if launches != want:
+            raise AssertionError(f"a {arch} train step launched {launches}, expected {want}")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"the {arch} train step's loss or grad norm is not finite")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times_s) / len(times_s)
+    tokens = batch_size * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_SEQ, tokens, params=state.params)
+    log(f"training {arch} full width and depth ({batch_size} x {TRAIN_SEQ}, microbatches "
+        f"{TRAIN_MICRO}, remat full): step {step_s * 1e3:.1f} ms (mean of {TRAIN_STEPS}), "
+        f"{tokens / step_s:.0f} tokens/s, reckoned {flops:.4e} FLOP/step, mfu "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    timed(f"{arch} train step profile", profile_window, f"{arch} train step",
+          lambda: step(state, batches[-1]))
+    return {"launches": launches, "real": real, "times": times}
+
+
+def ssd_entries(ssd_errs, ssm):
+    """The kernels-line entries of B5 and B6. ``ssd_errs``: the bf16 kernel
+    checks at each path shape; ``ssm``: {arch: (serving, training)} results."""
+    by_path = {"ssd_fwd": {}, "ssd_bwd": {}}
+    for arch, (serve, train) in ssm.items():
+        by_path["ssd_fwd"][f"{arch}_forward"] = serve["b5"]
+        by_path["ssd_fwd"][f"{arch}_train_step"] = train["launches"][5]
+        by_path["ssd_bwd"][f"{arch}_train_step"] = train["launches"][6]
+    out = []
+    for name, kind, line, i, names, tol in (
+            ("ssd_fwd", "fwd", 79, 0, ("y", "enters", "state"), SSD_FWD_TOLERANCE),
+            ("ssd_bwd", "bwd", 179, 1, BWD_NAMES, SSD_BWD_TOLERANCE)):
+        head = ssm[SSM_ARCH][0 if kind == "fwd" else 1]["times"][kind]
+        out.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/ssd_scan.py:{line}",
+            "launches": sum(by_path[name].values()),
+            "launches_by_path": by_path[name],
+            "max_abs_err": max(a for errs in ssd_errs.values() for a, _ in errs[i]),
+            "errors_at_path_shapes": {path: {n: e for n, (_, e) in zip(names, errs[i])}
+                                      for path, errs in ssd_errs.items()},
+            "real_inputs_worst": {f"{arch}_{which}": r["real"] for arch, pair in ssm.items()
+                                  for which, r in zip(("serving", "training"), pair)},
+            "tolerance": tol,
+            "ms": head["ms"],
+            "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"],
+            "bound_by": head["bound_by"],
+            "library_ms": None,
+            "library_covers": "no PyTorch call computes an SSD chunk scan",
+            "shapes": {f"{arch}_{which}": r["times"][kind] for arch, pair in ssm.items()
+                       for which, r in zip(("serving", "training"), pair)
+                       if kind in r["times"]},
+            "check": "pass",
+        })
+    return out
+
+
 def phase_times(launches, path_errs, real_ulps, train_errs, train, gemm_errs, moe_serve,
-                moe_train):
+                moe_train, ssd_errs, ssm):
     from repro_torch.kernels.flash_attention import (flash_attention_lse,
                                                      flash_attention_lse_plain)
     import torch.nn.functional as F
@@ -1274,6 +1848,7 @@ def phase_times(launches, path_errs, real_ulps, train_errs, train, gemm_errs, mo
                    for k, v in gt.items()},
         "check": "pass",
     })
+    entries += ssd_entries(ssd_errs, ssm)
     print(json.dumps({"kernels": entries}), flush=True)
 
 
@@ -1299,8 +1874,17 @@ def main():
     free()                                 # the MoE model's 34 GB
     moe_train = timed("MoE training", phase_moe_training)
     free()
+    ssd_errs = timed("kernels (B5, B6)", phase_kernels_ssd)
+    free()
+    ssm = {}
+    for arch in (SSM_ARCH, HYBRID_ARCH):
+        serve = timed(f"{arch} serving", phase_ssm_serving, arch)
+        free()
+        train_r = timed(f"{arch} training", phase_ssm_training, arch, SSM_TRAIN_BATCH[arch])
+        free()
+        ssm[arch] = (serve, train_r)
     timed("times", phase_times, launches, path_errs, real_ulps, train_errs, train,
-          gemm_errs, moe_serve, moe_train)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -13,10 +13,13 @@ differently here, because the port has different implementations:
 
 ``ParallelPlan.moe_gemm_impl`` reads the same way for the MoE expert GEMMs
 (the reference's ``"xla"`` is ``"plain"`` here, its ``"pallas"`` ``"cuda"``),
-resolved by ``repro_torch.kernels.dispatch.select_gemm_impl``.
+resolved by ``repro_torch.kernels.dispatch.select_gemm_impl``, and
+``ParallelPlan.ssm_impl`` for the Mamba2 SSD chunk scan, resolved by
+``repro_torch.kernels.dispatch.select_ssd_impl``.
 
 ``ParallelPlan.param_dtype`` is read here, where the reference declares it but
-always keeps fp32: ``Model.init`` holds matrices, biases and embeddings in it.
+always keeps fp32: ``Model.init`` holds matrices, biases and embeddings in it
+(an SSM block's ``dt_bias``, ``A_log``, ``D`` and norm scale stay fp32).
 
 ``RecoveryPolicy`` waits for the fault-tolerance slice.
 """
@@ -28,7 +31,7 @@ from typing import Optional, Tuple
 
 from .device import resolve_dtype
 
-ATTN_IMPLS = ("auto", "plain", "cuda")    # also the choices of moe_gemm_impl
+ATTN_IMPLS = ("auto", "plain", "cuda")    # also the choices of moe_gemm_impl, ssm_impl
 MOE_DISPATCH_MODES = ("einsum", "scatter")
 REMAT_MODES = ("none", "full", "selective")
 
@@ -184,12 +187,12 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's parallel axes (tp, cp, pp, ep, dp_shard), ZeRO
-    and SSM knobs come with the slices that implement them, so a plan cannot
-    ask for a placement the port would quietly ignore."""
+    defaults). The reference's parallel axes (tp, cp, pp, ep, dp_shard) and
+    ZeRO knobs come with the slices that implement them, so a plan cannot ask
+    for a placement the port would quietly ignore."""
     microbatches: int = 1          # grad-accumulation microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
-                                   # layer (train/executor.py ``decoder_layer``)
+                                   # or Mamba2 layer (train/executor.py)
     pad_vocab_to_multiple: int = 0 # padded logits are masked to -1e9
     moe_dispatch: str = "einsum"   # "einsum": GShard one-hot dispatch/combine;
                                    # "scatter": index gather/scatter, the same
@@ -197,6 +200,8 @@ class ParallelPlan:
     attn_impl: str = "auto"        # "auto" | "plain" | "cuda" (module docstring)
     moe_gemm_impl: str = "auto"    # the same choices, for the three expert GEMMs
                                    # of every MoE layer (module docstring)
+    ssm_impl: str = "auto"         # the same choices, for the SSD chunk scan of
+                                   # every Mamba2 layer (module docstring)
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"   # matrices, biases and embeddings as held by
                                    # ``Model.init``; norm scales stay fp32. The
@@ -205,7 +210,7 @@ class ParallelPlan:
                                    # (the same bits, half the memory).
 
     def validate(self, cfg: ModelConfig) -> None:
-        for knob in ("attn_impl", "moe_gemm_impl"):
+        for knob in ("attn_impl", "moe_gemm_impl", "ssm_impl"):
             if getattr(self, knob) not in ATTN_IMPLS:
                 raise ValueError(f"{knob} must be one of {ATTN_IMPLS}, "
                                  f"got {getattr(self, knob)!r}")

@@ -19,6 +19,7 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device, resolve_dtype
+from repro_torch.models.ssm import FP32_LEAVES
 
 
 def _map(tree, fn, path=()):
@@ -27,17 +28,24 @@ def _map(tree, fn, path=()):
     return fn(path, tree)
 
 
-def _is_norm_scale(path) -> bool:
-    return len(path) >= 2 and path[-1] == "scale" and "norm" in path[-2]
+def _keeps_fp32(path) -> bool:
+    """Norm scales, and the SSM leaves read in fp32 (``models.ssm.FP32_LEAVES``:
+    ``dt_bias``, ``A_log``, ``D`` and the gated-norm ``scale``)."""
+    if len(path) < 2:
+        return False
+    if path[-2] == "ssm":
+        return path[-1] in FP32_LEAVES
+    return path[-1] == "scale" and "norm" in path[-2]
 
 
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *, device=None,
                       dtype="float32") -> Dict[str, Any]:
     """Reference params (nested dicts of numpy arrays) -> the port's params.
 
-    Matrices, biases and embeddings go to ``dtype`` (the model's compute
-    dtype: the reference casts its fp32 masters to it at every use, so
-    holding them cast gives the same bits); norm scales stay fp32.
+    Matrices, biases, embeddings and conv taps go to ``dtype`` (the model's
+    compute dtype: the reference casts its fp32 masters to it at every use, so
+    holding them cast gives the same bits); norm scales and the SSM leaves the
+    reference reads in fp32 stay fp32.
     """
     device = resolve_device(device)
     dtype = resolve_dtype(dtype)
@@ -45,7 +53,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *, device=None,
     def leaf(path, a):
         t = torch.tensor(np.asarray(a))    # a copy: the numpy array may be read-only
         return t.to(device=device,
-                    dtype=torch.float32 if _is_norm_scale(path) else dtype)
+                    dtype=torch.float32 if _keeps_fp32(path) else dtype)
 
     stacked = tree["layers"]
     n = {a.shape[0] for a in _flatten(stacked)}

@@ -1,11 +1,13 @@
-"""Kernel dispatch — pick an implementation per call site (attention and MoE
-expert-GEMM parts of ``repro/kernels/dispatch.py``).
+"""Kernel dispatch — pick an implementation per call site (attention, MoE
+expert-GEMM and SSD parts of ``repro/kernels/dispatch.py``).
 
 Model code calls :func:`dispatch_attention` (via ``repro_torch.models.layers``)
 with ``ParallelPlan.attn_impl``, resolved by :func:`select_impl`, and
 :func:`dispatch_expert_gemm` (via ``repro_torch.models.moe``) with
-``ParallelPlan.moe_gemm_impl``, resolved by :func:`select_gemm_impl` under the
-same three rules:
+``ParallelPlan.moe_gemm_impl``, resolved by :func:`select_gemm_impl`, and
+:func:`dispatch_ssd_scan` (via ``repro_torch.models.ssm``) with
+``ParallelPlan.ssm_impl``, resolved by :func:`select_ssd_impl`, under the same
+three rules:
 
 - ``"plain"`` — always the plain PyTorch twin (``attention_direct``, or
   ``attention_blockwise`` for long KV).
@@ -15,8 +17,9 @@ same three rules:
 The kernel paths are differentiable: ``flash_attention`` is the autograd
 Function over the forward kernel (B1) and the two backward kernels (B2, B3),
 ``expert_gemm`` the one over the grouped GEMM (B4: forward and dx in rows
-mode, dw in contract mode), and the plain twins differentiate through
-autograd. The reference's
+mode, dw in contract mode), ``ssd_chunk_scan`` the one over the SSD forward
+(B5) and backward (B6), and the plain twins differentiate through autograd.
+The reference's
 ``dispatch_attention_lse`` and ``dispatch_attention_chunk_bwd`` come with the
 context-parallel slice.
 
@@ -42,12 +45,13 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.core.config import ATTN_IMPLS
 from repro_torch.models import layers as _layers
+from repro_torch.models.ssm import ssd_scan
 from .flash_attention import HEAD_DIMS, flash_attention
 from .grouped_gemm import expert_gemm
+from .ssd_scan import ssd_chunk_scan
 
 
 def _resolve(impl: str, knob: str, device) -> str:
@@ -73,13 +77,6 @@ def select_impl(impl: str, *, head_dim: int, device) -> str:
     return "cuda"
 
 
-def _pad_seq(x, axis: int, target: int):
-    if x.shape[axis] == target:
-        return x
-    pads = [0, 0] * (x.dim() - 1 - axis) + [0, target - x.shape[axis]]
-    return F.pad(x, pads)
-
-
 def dispatch_attention(q, k, v, *, impl: str = "auto", causal: bool = True,
                        window: int = 0, softcap: float = 0.0, q_offset: int = 0,
                        block_size: int = 1024, scale: Optional[float] = None):
@@ -102,7 +99,7 @@ def dispatch_attention(q, k, v, *, impl: str = "auto", causal: bool = True,
         # O(S·T) direct path just because the context length is unaligned
         t_pad = -(-t // block_size) * block_size
         return _layers.attention_blockwise(
-            q, _pad_seq(k, 1, t_pad), _pad_seq(v, 1, t_pad), causal=causal,
+            q, _layers.pad_seq(k, 1, t_pad), _layers.pad_seq(v, 1, t_pad), causal=causal,
             window=window, softcap=softcap, q_offset=q_offset,
             block_size=block_size, scale=scale, kv_len=t)
     return _layers.attention_blockwise(
@@ -130,3 +127,50 @@ def dispatch_expert_gemm(x, w, group_sizes=None, *, impl: str = "auto"):
         rows = torch.arange(x.shape[1], device=x.device)[None, :, None]
         x = torch.where(rows < group_sizes.detach()[:, None, None], x, 0)
     return torch.einsum("ecd,edf->ecf", x, w)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD chunk scan
+
+
+def select_ssd_impl(impl: str, *, device, has_initial_state: bool = False) -> str:
+    """Resolve the SSD impl for a call on ``device`` -> "plain" | "cuda".
+
+    The kernels start from a zero state. Where the reference silently takes its
+    XLA twin for a caller's initial state, the port raises on a CUDA tensor under
+    "auto" and "cuda": the context-parallel slice (ROADMAP A13.3) must give the
+    kernel an initial state first. The plain twin honours one."""
+    choice = _resolve(impl, "ssm_impl", device)
+    if choice == "cuda" and has_initial_state:
+        raise NotImplementedError(
+            f"ssm_impl={impl!r}: the SSD kernels start from a zero state; an initial "
+            f"state comes with the context-parallel slice (ROADMAP A13.3), or use "
+            f"ssm_impl='plain'")
+    return choice
+
+
+def dispatch_ssd_scan(x, dt, A, B, C, *, chunk: int, impl: str = "auto",
+                      initial_state=None):
+    """Model layout: x (B, L, H, P), dt (B, L, H), A (H,), B/C (B, L, G, N).
+    Returns (y (B, L, H, P) fp32, final_state (B, H, P, N) fp32).
+
+    ``chunk = min(chunk, L)``. An unaligned length is padded to the chunk boundary
+    with dt = 0 steps (decay exp(0) = 1, zero input: the state rides through
+    unchanged) and y is cut back to L, never collapsed into one whole-sequence
+    chunk with an O(L^2) decay matrix. The kernel does that padding as a masked
+    load of the ragged last chunk; the plain twin pads. The kernel reads the
+    head-major views through strides.
+    """
+    l = x.shape[1]
+    chunk = min(int(chunk), l)
+    choice = select_ssd_impl(impl, device=x.device,
+                             has_initial_state=initial_state is not None)
+    if choice == "cuda":
+        y, state = ssd_chunk_scan(x.transpose(1, 2), dt.transpose(1, 2), A,
+                                  B.transpose(1, 2), C.transpose(1, 2), chunk=chunk)
+        return y.transpose(1, 2), state
+    l_pad = -(-l // chunk) * chunk
+    y, state = ssd_scan(_layers.pad_seq(x, 1, l_pad), _layers.pad_seq(dt, 1, l_pad), A,
+                        _layers.pad_seq(B, 1, l_pad), _layers.pad_seq(C, 1, l_pad), chunk=chunk,
+                        initial_state=initial_state)
+    return y[:, :l], state

@@ -1,12 +1,14 @@
-"""Model assembly: the dense decoder and its MoE and VLM variants (port of
-``repro/models/families.py``).
+"""Model assembly: the dense decoder and its MoE and VLM variants, the Mamba2
+SSM and the zamba2 hybrid (port of ``repro/models/families.py``).
 
 ``build_model`` returns a :class:`Model` with the reference's API:
 
 - ``init(gen) -> params``
 - ``forward(params, batch) -> (logits, aux)``            (parallel pass)
 - ``init_cache(batch, max_seq) -> cache``                 (zeros)
-- ``prefill(params, batch, max_seq) -> (logits, cache)``  (prompt + KV cache)
+- ``prefill(params, batch, max_seq) -> (logits, cache)``  (prompt + KV cache;
+  decoders only: the reference's SSM and hybrid models have none, and serve a
+  prompt through ``decode_step``)
 - ``decode_step(params, cache, tokens, pos) -> (logits, cache)``
 
 Params are nested dicts of tensors with the reference's leaf names; ``layers``
@@ -18,8 +20,9 @@ by default, as in the reference) and cast to the compute dtype at every use;
 a serving run asks for ``param_dtype="bfloat16"``, the same bits as the cast
 in half the memory. Norm scales stay fp32, as ``rms_norm`` reads them. The KV
 cache is written in place. A MoE layer's router and experts (``models/moe.py``)
-are held like the other matrices. SSM, hybrid and encoder-decoder families come
-with their own slices.
+are held like the other matrices. An SSM block holds ``dt_bias``, ``A_log``,
+``D`` and its gated-norm ``scale`` in fp32 (``models/ssm.py``). The
+encoder-decoder family comes with its own slice.
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ from repro_torch.serve.attention import decode_attention
 from .layers import (dense_init, init_attn, init_mlp, mlp_block, qkv_proj,
                      rms_norm, rope, sinusoidal_pos_emb)
 from .moe import init_moe, moe_block
+from . import ssm as ssm_lib
 
 
 def _layer_windows(cfg: ModelConfig) -> List[int]:
@@ -222,22 +226,187 @@ class Model:
         return _logits(params, x[:, 0, :], cfg, dtype), cache
 
 
-_LATER = {
-    Family.SSM: "the Mamba2 slice",
-    Family.HYBRID: "the Mamba2/hybrid slice",
-}
+class SSMModel:
+    """The Mamba2 SSM (the reference's ``build_ssm``): embedding, the Mamba2
+    layers (``train/executor.ssm_layer``, ``plan.remat`` per layer),
+    ``final_norm``, the tied (or separate) LM head. The decode cache stacks the
+    per-layer conv buffers and fp32 states on a leading layer dim, as the
+    reference does, and is written in place."""
+
+    def __init__(self, cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
+                 device=None):
+        from repro_torch.train import executor as exlib  # noqa: PLC0415 (import cycle)
+        self.cfg = cfg
+        self.plan = plan or ParallelPlan()
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(self.plan.compute_dtype)
+        self.param_dtype = resolve_dtype(self.plan.param_dtype)
+        self._layer = exlib.ssm_layer(cfg, self.plan, self.dtype)
+
+    def _norm(self, gen):
+        return {"scale": torch.zeros((self.cfg.d_model,), dtype=torch.float32,
+                                     device=gen.device)}
+
+    def _init_layers(self, gen):
+        return [{"norm1": self._norm(gen),
+                 "ssm": ssm_lib.hold(ssm_lib.init_ssm(gen, self.cfg), self.param_dtype)}
+                for _ in range(self.cfg.n_layers)]
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        cfg, dtype = self.cfg, self.param_dtype
+        vp = _padded_vocab(cfg, self.plan)
+        params = {
+            "embed": {"tok": dense_init(gen, (vp, cfg.d_model), in_axis=-1).to(dtype)},
+            "layers": self._init_layers(gen),
+            "final_norm": self._norm(gen),
+        }
+        if not cfg.tie_embeddings:
+            params["lm_head"] = {"w": dense_init(gen, (cfg.d_model, vp)).to(dtype)}
+        return params
+
+    def _head(self, params, x):
+        x = rms_norm(x, params["final_norm"]["scale"], self.cfg.rms_eps)
+        return _logits(params, x, self.cfg, self.dtype)
+
+    def forward(self, params, batch):
+        x = _embed(params, batch["tokens"], self.cfg, self.dtype)
+        for lp in params["layers"]:
+            x, _ = self._layer(x, lp)
+        return self._head(params, x), torch.zeros((), dtype=torch.float32,
+                                                  device=x.device)
+
+    def init_cache(self, batch: int, max_seq: int):
+        one = ssm_lib.init_ssm_cache(self.cfg, batch, self.dtype, self.device)
+        return {k: torch.zeros((self.cfg.n_layers,) + v.shape, dtype=v.dtype,
+                               device=self.device) for k, v in one.items()}
+
+    def _ssm_step(self, x, lp, cache, i):
+        """One layer's decode step; writes layer ``i`` of the cache in place."""
+        h = rms_norm(x, lp["norm1"]["scale"], self.cfg.rms_eps)
+        y, new = ssm_lib.ssm_step(lp["ssm"], h, {k: v[i] for k, v in cache.items()},
+                                  self.cfg, self.dtype)
+        for k, v in new.items():
+            cache[k][i].copy_(v)
+        return x + y
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """One token per sequence (``pos`` is not read: the state carries it)."""
+        x = _embed(params, tokens, self.cfg, self.dtype)                # (B, d)
+        for i, lp in enumerate(params["layers"]):
+            x = self._ssm_step(x, lp, cache, i)
+        return self._head(params, x), cache
+
+
+class HybridModel(SSMModel):
+    """The zamba2 hybrid (the reference's ``build_hybrid``): the Mamba2 layers
+    in ``n_apps`` groups of ``shared_attn_every``, each group followed by one
+    weight-shared block (norm1, attention through ``dispatch_attention``,
+    ``wo``, norm2, SwiGLU MLP), then the ``rest`` tail layers; ``lm_head`` is
+    always present. As in the reference, ``plan.remat`` applies to the SSM
+    layers only, not to the shared block. The decode cache adds the shared
+    block's K/V per application, (n_apps, B, max_seq, Hkv, hd), written in
+    place by ``decode_attention``."""
+
+    def __init__(self, cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
+                 device=None):
+        super().__init__(cfg, plan, device=device)
+        self.every = cfg.shared_attn_every
+        self.n_apps = cfg.n_layers // self.every
+        self.covered = self.n_apps * self.every
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        cfg, dtype = self.cfg, self.param_dtype
+        vp = _padded_vocab(cfg, self.plan)
+        return {
+            "embed": {"tok": dense_init(gen, (vp, cfg.d_model), in_axis=-1).to(dtype)},
+            "layers": self._init_layers(gen),
+            "shared_attn": {
+                "norm1": self._norm(gen),
+                "norm2": self._norm(gen),
+                "attn": {k: w.to(dtype) for k, w in init_attn(gen, cfg).items()},
+                "mlp": {k: w.to(dtype) for k, w in
+                        init_mlp(gen, cfg.d_model, cfg.d_ff).items()},
+            },
+            "final_norm": self._norm(gen),
+            "lm_head": {"w": dense_init(gen, (cfg.d_model, vp)).to(dtype)},
+        }
+
+    def _groups(self, layers):
+        """(group index or None for the tail, that group's layer indices)."""
+        for gi in range(self.n_apps):
+            yield gi, range(gi * self.every, (gi + 1) * self.every)
+        yield None, range(self.covered, len(layers))
+
+    def _shared(self, sp, x, positions):
+        cfg, dtype = self.cfg, self.dtype
+        from repro_torch.kernels.dispatch import dispatch_attention  # noqa: PLC0415 (cycle)
+        h = rms_norm(x, sp["norm1"]["scale"], cfg.rms_eps)
+        q, k, v = qkv_proj(sp["attn"], h, cfg, dtype)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        a = dispatch_attention(q, k, v, impl=self.plan.attn_impl, causal=True,
+                               window=cfg.sliding_window)
+        x = x + a.reshape(x.shape[0], x.shape[1], -1) @ sp["attn"]["wo"].to(dtype)
+        h = rms_norm(x, sp["norm2"]["scale"], cfg.rms_eps)
+        return x + mlp_block(sp["mlp"], h, dtype)
+
+    def forward(self, params, batch):
+        tokens = batch["tokens"]
+        x = _embed(params, tokens, self.cfg, self.dtype)
+        positions = torch.arange(tokens.shape[1], device=x.device)
+        layers = params["layers"]
+        for gi, idx in self._groups(layers):
+            for i in idx:
+                x, _ = self._layer(x, layers[i])
+            if gi is not None:
+                x = self._shared(params["shared_attn"], x, positions)
+        return self._head(params, x), torch.zeros((), dtype=torch.float32,
+                                                  device=x.device)
+
+    def init_cache(self, batch: int, max_seq: int):
+        cfg = self.cfg
+        shape = (self.n_apps, batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+        return {"ssm": super().init_cache(batch, max_seq),
+                "attn_k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "attn_v": torch.zeros(shape, dtype=self.dtype, device=self.device)}
+
+    def _shared_step(self, sp, x, kc, vc, pos):
+        cfg, dtype = self.cfg, self.dtype
+        positions = torch.full((1,), pos, device=x.device)
+        xs = x[:, None, :]
+        h = rms_norm(xs, sp["norm1"]["scale"], cfg.rms_eps)
+        q, k, v = qkv_proj(sp["attn"], h, cfg, dtype)
+        q = rope(q, positions, cfg.rope_theta)
+        k = rope(k, positions, cfg.rope_theta)
+        a, _, _ = decode_attention(q, kc, vc, k, v, pos, window=cfg.sliding_window)
+        xs = xs + a.reshape(a.shape[0], 1, -1) @ sp["attn"]["wo"].to(dtype)
+        h = rms_norm(xs, sp["norm2"]["scale"], cfg.rms_eps)
+        return (xs + mlp_block(sp["mlp"], h, dtype))[:, 0, :]
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """One token per sequence at position ``pos``; writes the cache in place."""
+        x = _embed(params, tokens, self.cfg, self.dtype)                # (B, d)
+        layers = params["layers"]
+        for gi, idx in self._groups(layers):
+            for i in idx:
+                x = self._ssm_step(x, layers[i], cache["ssm"], i)
+            if gi is not None:
+                x = self._shared_step(params["shared_attn"], x, cache["attn_k"][gi],
+                                      cache["attn_v"][gi], pos)
+        return self._head(params, x), cache
 
 
 def build_model(cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
-                device=None) -> Model:
-    """Dense, MoE and VLM decoders; ``device`` defaults to the CUDA card."""
+                device=None):
+    """Dense, MoE, VLM, SSM and hybrid models; ``device`` defaults to the CUDA card."""
     if plan is not None:
         plan.validate(cfg)
     if cfg.is_enc_dec:
         raise NotImplementedError(
             f"{cfg.arch_id}: encoder-decoder models come with the port's "
             "encoder-decoder slice")
-    if cfg.family in _LATER:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: the {cfg.family} family comes with {_LATER[cfg.family]}")
+    if cfg.family == Family.SSM:
+        return SSMModel(cfg, plan, device=device)
+    if cfg.family == Family.HYBRID:
+        return HybridModel(cfg, plan, device=device)
     return Model(cfg, plan, device=device)

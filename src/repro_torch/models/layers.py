@@ -80,6 +80,14 @@ def rope(x, positions, theta=10_000.0):
     return out.to(x.dtype)
 
 
+def pad_seq(x, axis: int, target: int):
+    """Zero-pad ``x`` along ``axis`` up to length ``target``."""
+    if x.shape[axis] == target:
+        return x
+    pads = [0, 0] * (x.dim() - 1 - axis) + [0, target - x.shape[axis]]
+    return F.pad(x, pads)
+
+
 # ---------------------------------------------------------------------------
 # masking
 

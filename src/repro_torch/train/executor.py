@@ -1,4 +1,5 @@
-"""The decoder-layer body, local placement (port of ``repro/train/executor.py``).
+"""The decoder-layer and Mamba2-layer bodies, local placement (port of
+``repro/train/executor.py``).
 
 The reference's executor defines each family's math once and lets a
 ``ParallelContext`` place it (tp / cp rings, or local with identity
@@ -8,11 +9,14 @@ collectives). The port has the local placement only — the
 context argument has no counterpart yet. The MLP is the plain ``mlp_block``
 (the reference's ``mlp_block_ex`` adds only tp placement), and the MoE sublayer
 is ``models.moe.moe_block`` (the local branch of the reference's
-``moe_block_ex``). The tp / cp / ep placements come with the distributed slices.
+``moe_block_ex``). :func:`ssm_layer` is the reference's ``ssm_layer`` over the
+local branch of ``ssm_block_ex`` (``models.ssm.ssm_block``). The tp / cp / ep
+placements come with the distributed slices.
 
 The layer is written as three pieces around the attention call, so that
 ``remat="selective"`` can recompute the glue on either side and keep what the
-attention kernels saved (``decoder_layer``).
+attention kernels saved (``decoder_layer``); the Mamba2 layer likewise around
+the SSD scan (``ssm_layer``).
 """
 
 from __future__ import annotations
@@ -21,9 +25,10 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core.config import Family, ModelConfig, ParallelPlan
-from repro_torch.kernels.dispatch import dispatch_attention
+from repro_torch.kernels.dispatch import dispatch_attention, dispatch_ssd_scan
 from repro_torch.models.layers import mlp_block, qkv_proj, rms_norm, rope
 from repro_torch.models.moe import moe_block
+from repro_torch.models.ssm import ssm_block, ssm_in_part, ssm_out_part
 
 
 def decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype,
@@ -94,4 +99,46 @@ def decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype,
         if collect_kv:
             return out, aux, kv
         return out, aux
+    return layer
+
+
+def ssm_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
+    """The Mamba2 layer body: ``(x + ssm_block(norm1(x)), 0)``. ``window`` and
+    ``positions`` are taken for the decoder layer's signature and not read.
+
+    ``plan.remat`` (applied only while autograd records): ``"none"`` saves
+    every intermediate; ``"full"`` checkpoints the whole layer, so the backward
+    reruns it, the SSD forward kernel included; ``"selective"`` checkpoints the
+    norm, projections and convs before the scan and the skip term, gated norm and
+    out-projection after it separately, so what the scan saved for its backward
+    (the reference's ``ssd_out`` and ``ssd_state``: y and the entering states)
+    stays and the backward does not rerun the SSD forward.
+    """
+    remat = plan.remat
+
+    def pre(x, lp):
+        h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
+        return ssm_in_part(lp["ssm"], h, cfg, dtype)
+
+    def post(x, y, xh, z, lp):
+        return x + ssm_out_part(lp["ssm"], y, xh, z, cfg, dtype)
+
+    def body(x, lp):
+        h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
+        return x + ssm_block(lp["ssm"], h, cfg, dtype, plan=plan)
+
+    def layer(x, lp, window=0, positions=None):
+        del window, positions
+        if not torch.is_grad_enabled() or remat == "none":
+            out = body(x, lp)
+        elif remat == "full":
+            out = checkpoint(body, x, lp, use_reentrant=False)
+        elif remat == "selective":
+            xh, dt, A, Bv, Cv, z = checkpoint(pre, x, lp, use_reentrant=False)
+            y, _ = dispatch_ssd_scan(xh, dt, A, Bv, Cv, chunk=cfg.ssm.chunk,
+                                     impl=plan.ssm_impl)
+            out = checkpoint(post, x, y, xh, z, lp, use_reentrant=False)
+        else:
+            raise ValueError(f"unknown remat mode {remat!r}")
+        return out, torch.zeros((), dtype=torch.float32, device=x.device)
     return layer

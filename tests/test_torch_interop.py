@@ -14,7 +14,7 @@ from repro_torch.interop import params_from_numpy, params_to_numpy
 torch.set_num_threads(1)
 
 ARCHS = ["qwen1.5-4b", "qwen2.5-14b", "codeqwen1.5-7b", "gemma2-9b", "pixtral-12b",
-         "olmoe-1b-7b", "deepseek-moe-16b"]
+         "olmoe-1b-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-1.2b"]
 
 
 def _reference_params(arch):
@@ -49,6 +49,25 @@ def test_layout_and_dtypes():
     assert lp["mlp"]["down"].dtype == torch.bfloat16
     assert lp["norm2_post"]["scale"].dtype == torch.float32
     assert params["final_norm"]["scale"].dtype == torch.float32
+
+
+def test_bf16_conversion_keeps_the_ssm_fp32_leaves():
+    """dt_bias, A_log, D and the SSM's gated-norm scale are read in fp32 by the
+    block, so a bf16 conversion keeps them fp32 (and bit-exact); the matrices
+    and conv taps go to bf16."""
+    arch = "zamba2-1.2b"
+    ref = _reference_params(arch)
+    cfg = torch_smoke_config(arch)
+    params = params_from_numpy(ref, cfg, device="cpu", dtype="bfloat16")
+    for i, lp in enumerate(params["layers"]):
+        for k in ("dt_bias", "A_log", "D", "scale"):
+            assert lp["ssm"][k].dtype == torch.float32, k
+            assert np.array_equal(lp["ssm"][k].numpy(), ref["layers"]["ssm"][k][i])
+        for k in ("wz", "wx", "wdt", "conv_x", "out_proj"):
+            assert lp["ssm"][k].dtype == torch.bfloat16, k
+        assert lp["norm1"]["scale"].dtype == torch.float32
+    assert params["shared_attn"]["norm2"]["scale"].dtype == torch.float32
+    assert params["shared_attn"]["mlp"]["gate"].dtype == torch.bfloat16
 
 
 def test_layer_count_mismatch_raises():

@@ -139,11 +139,34 @@ def test_plan_validates_attn_impl():
         ParallelPlan(attn_impl="xla").validate(cfg)
 
 
-@pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "zero_stage",
-                                  "ssm_impl"])
+@pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "zero_stage"])
 def test_plan_has_no_knob_the_port_does_not_implement(knob):
     with pytest.raises(TypeError, match=knob):
         ParallelPlan(**{knob: 2})
+
+
+@pytest.mark.parametrize("impl", ["auto", "plain", "cuda", "xla", "pallas"])
+def test_plan_validates_ssm_impl(impl):
+    cfg = get_smoke_config("mamba2-370m")
+    if impl in ("auto", "plain", "cuda"):
+        ParallelPlan(ssm_impl=impl).validate(cfg)
+    else:
+        with pytest.raises(ValueError, match="ssm_impl"):
+            ParallelPlan(ssm_impl=impl).validate(cfg)
+
+
+def test_dispatch_takes_the_plain_ssd_scan_on_cpu():
+    from repro_torch.kernels import ssd_scan as ts
+    from repro_torch.models.ssm import ssd_scan
+    g = torch.Generator().manual_seed(3)
+    x, B, C = (torch.randn(1, 16, *s, generator=g) for s in ((2, 4), (1, 4), (1, 4)))
+    dt = torch.rand(1, 16, 2, generator=g) * 0.1
+    A = -torch.rand(2, generator=g)
+    before = (ts.ssd_chunk_scan_fwd.launches, ts.ssd_chunk_scan_bwd.launches)
+    y, s = dispatch.dispatch_ssd_scan(x, dt, A, B, C, chunk=8, impl="auto")
+    assert (ts.ssd_chunk_scan_fwd.launches, ts.ssd_chunk_scan_bwd.launches) == before
+    ry, rs = ssd_scan(x, dt, A, B, C, chunk=8)
+    assert torch.equal(y, ry) and torch.equal(s, rs)
 
 
 @pytest.mark.parametrize("plan", [ParallelPlan(compute_dtype="float16"),

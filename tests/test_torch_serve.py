@@ -101,9 +101,7 @@ def test_bf16_forward_matches_reference():
     assert err < 3e-2, err
 
 
-@pytest.mark.parametrize("arch,slice_name", [("mamba2-370m", "Mamba2"),
-                                             ("zamba2-1.2b", "hybrid"),
-                                             ("whisper-small", "encoder-decoder")])
+@pytest.mark.parametrize("arch,slice_name", [("whisper-small", "encoder-decoder")])
 def test_other_families_name_their_slice(arch, slice_name):
     with pytest.raises(NotImplementedError, match=slice_name):
         torch_build_model(torch_smoke_config(arch), device="cpu")

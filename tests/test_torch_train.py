@@ -167,8 +167,31 @@ def test_loss_grads_match_reference(arch):
     _assert_trees_close(grads, leaves(_to_torch(ref, tcfg)), GRAD_REL)
 
 
-def test_train_step_matches_reference():
-    """One whole step (clip + AdamW at step 0): params, moments and metrics."""
+B1 = 0.9                           # AdamW's first-moment decay (both packages)
+
+
+def _step_within_bound(new, ref_new, mu, ref_mu, lr, eps=1e-8):
+    """Whether each param after the first AdamW step agrees with the
+    reference's to lr * (1e-4 + the update's sensitivity to the frameworks'
+    gradient difference). At step 0, u = g / (|g| + eps) and du/dg =
+    eps / (|g| + eps)^2, largest at the smaller |g|; each element's real
+    gradient difference is known, since mu = (1 - b1) g at step 0: it is
+    |mu - mu_ref| / (1 - b1). Where the two signs differ, u passes through
+    g = 0, so the sensitivity is taken there."""
+    for o, r, m, rm in zip(leaves(new), leaves(ref_new), leaves(mu), leaves(ref_mu)):
+        g, rg = m / (1.0 - B1), rm / (1.0 - B1)
+        diff = (g - rg).abs()
+        small = torch.where(torch.sign(g) == torch.sign(rg),
+                            torch.minimum(g.abs(), rg.abs()), torch.zeros_like(g))
+        tol = lr * (1e-4 + eps * diff / (small + eps) ** 2)
+        if not ((o.detach() - r.detach()).abs() <= tol).all():
+            return False
+    return True
+
+
+def _first_steps():
+    """One whole step (clip + AdamW at step 0) in both packages from the same
+    weights and batch: the port's state and metrics, the reference's."""
     jcfg, tcfg, model, params, tmodel, tparams, plan, jb, tb = _setup("qwen1.5-4b")
     hyper = Hyper(peak_lr=1e-3, warmup_steps=2)
     state, metrics = make_train_step(model, ParallelPlan(remat="none",
@@ -176,19 +199,39 @@ def test_train_step_matches_reference():
                                      hyper)(init_train_state(model, jax.random.PRNGKey(0)), jb)
     tstate, tmetrics = ttrain.make_train_step(tmodel, plan, ttrain.Hyper(*hyper))(
         ttrain.TrainState(tparams, topt.adamw_init(tparams)), tb)
+    return tcfg, tstate, tmetrics, state, metrics
+
+
+def test_train_step_matches_reference():
+    """One whole step (clip + AdamW at step 0): params, moments and metrics."""
+    tcfg, tstate, tmetrics, state, metrics = _first_steps()
     for name in ("loss", "grad_norm", "lr"):
         assert float(tmetrics[name]) == pytest.approx(float(metrics[name]), rel=1e-5)
     # On this first step AdamW moves each param by lr * u, u = g / (|g| + eps):
-    # lr * sign(g), except where |g| is within a few hundred eps of 0. There
-    # du/dg = eps / (|g| + eps)^2, so fp32 noise in g (~1e-6 of the leaf's
-    # largest grad) can move u by far more than g's own relative error. Each param agrees to lr * (1e-4 + that sensitivity).
-    lr, eps = float(metrics["lr"]), 1e-8
-    for o, r in zip(leaves(tstate.params), leaves(_to_torch(state.params, tcfg))):
-        g = o.grad.abs()
-        noise = 1e-6 * g.max()
-        tol = lr * (1e-4 + eps * noise / (g + eps) ** 2)
-        assert ((o.detach() - r.detach()).abs() <= tol).all()
-    _assert_trees_close(tstate.opt.mu, leaves(_to_torch(state.opt.mu, tcfg)), GRAD_REL)
+    # lr * sign(g), except where |g| is within a few hundred eps of 0, where the
+    # frameworks' fp32 gradient difference moves u by far more than its own
+    # relative size (_step_within_bound).
+    ref_mu = _to_torch(state.opt.mu, tcfg)
+    assert _step_within_bound(tstate.params, _to_torch(state.params, tcfg),
+                              tstate.opt.mu, ref_mu, float(metrics["lr"]))
+    _assert_trees_close(tstate.opt.mu, leaves(ref_mu), GRAD_REL)
+
+
+def test_step_bound_fails_a_wrong_update():
+    """The bound of test_train_step_matches_reference fails an update that
+    drops AdamW's bias correction (m / (sqrt(v) + eps) instead of
+    m_hat / (sqrt(v_hat) + eps): ~3.2x the step at b1 0.9, b2 0.95)."""
+    tcfg, tstate, _, state, metrics = _first_steps()
+    lr = float(metrics["lr"])
+    ref_new, ref_mu = _to_torch(state.params, tcfg), _to_torch(state.opt.mu, tcfg)
+    assert _step_within_bound(tstate.params, ref_new, tstate.opt.mu, ref_mu, lr)
+    wrong = []
+    with torch.no_grad():
+        for p, m, v in zip(leaves(tstate.params), leaves(tstate.opt.mu),
+                           leaves(tstate.opt.nu)):
+            right = (m / (1 - B1)) / ((v / (1 - 0.95)).sqrt() + 1e-8)
+            wrong.append(p - lr * (m / (v.sqrt() + 1e-8) - right))
+    assert not _step_within_bound(wrong, ref_new, tstate.opt.mu, ref_mu, lr)
 
 
 def test_microbatches_match_one_batch():
