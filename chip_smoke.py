@@ -12,10 +12,13 @@ prints its seconds):
    the flash forward (o: fp32 to 3e-5, bf16 to 2 bf16 ulps; lse to 1e-5
    relative) and the backward's dq and dk/dv kernels (fp32 to 1e-5 of each
    tensor's largest value, bf16 to 2 bf16 ulps), fully masked rows included,
-   at the paths' own shapes, with merged softmax statistics, and through the
-   autograd Function; the grouped expert GEMM (fp32 to 5e-5 of the tensor's
-   largest value, bf16 to 2 bf16 ulps, padding rows and experts with no load
-   exactly 0) in its three uses — forward and dx (through a w^T view) in rows
+   at the paths' own shapes and at the edges of the Hopper body (hd 64 and
+   128: ragged and short S/T, window, softcap, q_offset, GQA 40/8), with merged
+   softmax statistics, and through the autograd Function; two launches at each
+   training path's shape (qwen1.5-4b's, hd 128; zamba2's, hd 64)
+   bit-identical; the grouped expert GEMM (fp32 to 5e-5 of the
+   tensor's largest value, bf16 to 2 bf16 ulps, padding rows and experts with
+   no load exactly 0) in its three uses — forward and dx (through a w^T view) in rows
    mode, dw (through an x^T view) in contract mode — at the MoE paths' shapes
    and a ragged one;
 4. serving  — qwen2.5-14b at full width (48 layers, random bf16 weights from a
@@ -59,12 +62,15 @@ prints its seconds):
    steps, B5 held to its plain version on every layer's own inputs; training at
    full width and depth (fp32 masters, remat "full", 2 microbatches of 4 or 2 x
    4096): the smoke config card vs CPU and under the three remat modes, B5/B6
-   held to their plain versions on every call of one microbatch, one warm-up
+   (and, for the hybrid, B2/B3 on its 6 attention applications) held to their
+   plain versions on every call of one microbatch, one warm-up
    and three timed steps with the launches counted (B5 192/152, B6 96/76, and
    B1/B2/B3 12 each for the hybrid), profiles;
 10. times   — each kernel's time at its path's shapes beside its bound, its plain
-   version's time and the library call's (none for B5/B6), printed as one JSON
-   line.
+   version's time and the library call's (none for B5/B6); for B2/B3 also the
+   whole FlashAttention.backward (delta pass, dq, dk/dv) beside SDPA's backward,
+   at the training shape and at zamba2's (2 x 32 heads x 4096, hd 64); printed
+   as one JSON line.
 
 Any failure raises: the script exits non-zero and prints no final line. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -129,6 +135,27 @@ TRAIN_ARCH = "qwen1.5-4b"
 TRAIN_SEQ, TRAIN_BATCH, TRAIN_MICRO = 4096, 2, 2     # train_4k's sequence length
 TRAIN_STEPS = 3                                    # timed, after one warm-up
 TRAIN_CASE = (1, 20, 20, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)   # one microbatch
+# B2/B3 in bf16 at hd 64 and 128 run the Hopper body (128-row blocks, 64-row
+# streamed tiles). These are its edges; tests/test_torch_flash_bwd.py runs the
+# same list on the card, so a new edge is one line here.
+BWD_CASES = [
+    (1, 4, 4, 1000, 1000, 128, True, 0, 0.0, 0),       # ragged S and T, group 1
+    (1, 40, 8, 256, 256, 128, True, 0, 0.0, 0),        # GQA 40/8
+    (2, 4, 2, 1000, 1000, 64, True, 0, 0.0, 0),        # ragged, GQA 2
+    (1, 4, 2, 300, 40, 64, False, 0, 0.0, 0),          # T shorter than one tile
+    (1, 2, 1, 200, 40, 128, True, 0, 0.0, 180),        # q_offset, short T
+    (1, 4, 4, 512, 512, 128, True, 100, 30.0, 0),      # window edge, softcap
+    (1, 2, 1, 192, 64, 64, True, 16, 0.0, 48),         # rows 31.. see no key
+    (2, 8, 8, 512, 512, 64, False, 0, 0.0, 0),         # interior tiles only
+    (1, 20, 20, 1024, 1024, 128, True, 0, 0.0, 0),     # training heads, cut S
+    # windows of 64 m + 63 without softcap: interior tiles, and tiles whose last
+    # pair lies exactly on the window edge, where only the window clause of the
+    # interior test says "straddles"
+    (1, 4, 4, 1000, 1000, 128, True, 191, 0.0, 0),
+    (2, 4, 2, 1000, 1000, 64, True, 255, 0.0, 0),
+]
+# zamba2's shared attention in one training microbatch, where B2/B3 are also timed
+HYBRID_ATTN_CASE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64, True, 0, 0.0, 0)
 
 MOE_ARCH = "deepseek-moe-16b"
 # training keeps 4 of the 28 layers: fp32 masters, grads and two moments take 16
@@ -381,7 +408,7 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.1f} s")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "Compiling entry" in line or "Used" in line or "spill" in line:
+            if any(w in line for w in ("Compiling entry", "Used", "spill", "wgmma", "warning")):
                 log(f"  {name}: {line.strip()}")
 
 
@@ -561,13 +588,16 @@ def phase_serving():
 
 def phase_kernels_bwd():
     """The dq and dk/dv kernels against their plain version: every FLASH_CASES
-    row and the training shape in both dtypes, merged softmax statistics, and
-    the autograd Function. Returns the errors at the training shape (bf16)."""
+    and BWD_CASES row and the two training paths' shapes (qwen1.5-4b's, hd 128,
+    and zamba2's, hd 64) in both dtypes, merged softmax statistics, and the
+    autograd Function; two launches at each path shape bit-identical. Returns
+    the bf16 errors at the path shapes: {"train": ..., "hybrid": ...}."""
     from repro_torch.kernels import flash_attention as tf
     from repro_torch.models.layers import attention_chunk_grads
     gen = torch.Generator(device="cuda").manual_seed(5)
-    train_errs = None
-    for case in FLASH_CASES + [TRAIN_CASE]:
+    path_errs = {}
+    paths = {TRAIN_CASE: "train", HYBRID_ATTN_CASE: "hybrid"}
+    for case in FLASH_CASES + BWD_CASES + list(paths):
         kw = case_kw(case)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, lse, delta = bwd_inputs(gen, case, dtype)
@@ -586,8 +616,14 @@ def phase_kernels_bwd():
             if not (grads_within(dtype, errs) and finite and dead_ok):
                 raise AssertionError(f"flash_bwd disagrees with its plain version "
                                      f"on {case} {dtype}")
-            if case == TRAIN_CASE and dtype == torch.bfloat16:
-                train_errs = errs
+            if case in paths and dtype == torch.bfloat16:
+                path_errs[paths[case]] = errs
+                again = tf.flash_attention_bwd(q, k, v, do, lse, delta, **kw)
+                same = all(torch.equal(a, b) for a, b in zip(grads, again))
+                log(f"check bwd {case} bfloat16: a second launch bit-identical: {same}")
+                if not same:
+                    raise AssertionError(f"two launches of flash_bwd at {case} differ")
+                del again
             del q, k, v, do, lse, delta, grads, ref
 
     # the chunk entry: statistics of attention over all 512 keys, gradients of
@@ -624,7 +660,7 @@ def phase_kernels_bwd():
         log(f"check autograd Function {case} float32: {fmt_grad_errors(errs)}")
         if not grads_within(torch.float32, errs):
             raise AssertionError(f"the autograd Function's grads disagree on {case}")
-    return train_errs
+    return path_errs
 
 
 def train_smoke_agreement(arch=TRAIN_ARCH):
@@ -721,49 +757,66 @@ def train_flops(cfg, seq, tokens, params=None):
     return (6 * n_matmul + attn) * tokens + scan
 
 
+class FlashBwdCapture:
+    """Within the block, every call of the backward kernels' wrapper (B2 and
+    B3, as FlashAttention.backward makes it) is held to the plain version on
+    its own (q, k, v, dO, lse, delta). ``functools.wraps`` copies the launch
+    counters onto the wrapper, so these launches leave the real counts alone."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as tf
+        self.real, self.errs = tf.flash_attention_bwd, []
+        real = self.real
+
+        @functools.wraps(real)
+        def checked_bwd(q, k, v, do, lse, delta, **kw):
+            grads = real(q, k, v, do, lse, delta, **kw)
+            ref = tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
+            self.errs.append([grad_error(g, r) for g, r in zip(grads, ref)])
+            return grads
+        tf.flash_attention_bwd = checked_bwd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as tf
+        tf.flash_attention_bwd = self.real
+
+    def summary(self, what, calls):
+        """Check that ``calls`` calls were held and log them; returns the worst
+        (dk/dv, dq) errors in bf16 ulps (None when no call was expected)."""
+        if len(self.errs) != calls:
+            raise AssertionError(f"checked {len(self.errs)} attention backwards on the "
+                                 f"{what}, expected {calls}")
+        if not calls:
+            return None
+        worst = [max(e[i][1] for e in self.errs) for i in range(3)]
+        worst_abs = [max(e[i][0] for e in self.errs) for i in range(3)]
+        log(f"real inputs, {what}: B2/B3 held to their plain version on {calls} calls, "
+            f"max error dq/dk/dv {worst_abs[0]:.3e}/{worst_abs[1]:.3e}/{worst_abs[2]:.3e} = "
+            f"{worst[0]:.2f}/{worst[1]:.2f}/{worst[2]:.2f} bf16 ulps")
+        if max(worst) > GRAD_ULPS_BF16:
+            raise AssertionError(f"flash_bwd disagrees with its plain version on the "
+                                 f"{what}'s own inputs")
+        return max(worst[1:]), worst[0]
+
+
 def backward_on_real_inputs(model, params, cfg, batch):
     """One microbatch's forward + backward at full width, no optimizer state:
     on every layer, B2 and B3 held to their plain version on that layer's own
     (q, k, v, dO, lse, delta), then discarded. As a reading only, the same
     step with attn_impl="plain": its loss and grad-norm difference."""
-    import dataclasses
-    from repro_torch.kernels import flash_attention as tf
     from repro_torch.models import build_model
     from repro_torch.optim import global_norm
     from repro_torch.core.tree import leaves, map_tree
     from repro_torch.train import Hyper, make_loss_fn
-    real_bwd, errs = tf.flash_attention_bwd, []
-
-    # The seam FlashAttention.backward calls: its own backward runs unchanged,
-    # and each layer's kernel grads are held to the plain version on the same
-    # arguments. functools.wraps copies the launch counters onto the wrapper,
-    # so these launches leave the real counts alone.
-    @functools.wraps(real_bwd)
-    def checked_bwd(q, k, v, do, lse, delta, **kw):
-        grads = real_bwd(q, k, v, do, lse, delta, **kw)
-        ref = tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
-        errs.append([grad_error(g, r) for g, r in zip(grads, ref)])
-        return grads
 
     mb = {k: v[:1] for k, v in batch.items()}
-    tf.flash_attention_bwd = checked_bwd
-    try:
+    with FlashBwdCapture() as cap:
         loss, _ = make_loss_fn(model, Hyper())(params, mb)
         loss.backward()
-    finally:
-        tf.flash_attention_bwd = real_bwd
     gnorm = global_norm(map_tree(lambda p: p.grad, params)).item()
     loss = loss.item()
-    if len(errs) != cfg.n_layers:
-        raise AssertionError(f"checked {len(errs)} layers' backward, expected {cfg.n_layers}")
-    worst = [max(e[i][1] for e in errs) for i in range(3)]
-    worst_abs = [max(e[i][0] for e in errs) for i in range(3)]
-    log(f"real inputs, full-width backward: {len(errs)} layers, max error dq/dk/dv "
-        f"{worst_abs[0]:.3e}/{worst_abs[1]:.3e}/{worst_abs[2]:.3e} = "
-        f"{worst[0]:.2f}/{worst[1]:.2f}/{worst[2]:.2f} bf16 ulps")
-    if max(worst) > GRAD_ULPS_BF16:
-        raise AssertionError("flash_bwd disagrees with its plain version on the "
-                             "full-width step's own inputs")
+    worst = cap.summary(f"full-width backward ({cfg.n_layers} layers)", cfg.n_layers)
     for p in leaves(params):
         p.grad = None
     plain = build_model(cfg, dataclasses.replace(model.plan, attn_impl="plain"))
@@ -776,7 +829,7 @@ def backward_on_real_inputs(model, params, cfg, batch):
         f"attention), grad norm {gnorm:.6f} vs {pnorm:.6f}: relative differences "
         f"{abs(loss - ploss.item()) / abs(ploss.item()):.3e} and "
         f"{abs(gnorm - pnorm) / pnorm:.3e} (bf16 drift)")
-    return max(worst[1:]), worst[0]
+    return worst
 
 
 def phase_training():
@@ -856,27 +909,23 @@ def phase_training():
     return {"launches": launches, "real_dkv_ulps": real[0], "real_dq_ulps": real[1]}
 
 
-def backward_times():
-    """B1, B2 and B3 at the training shape (CUDA events), the plain backward
-    and the library's backward."""
+def bwd_times_at(case, gen):
+    """B2 and B3 at one causal bf16 shape (CUDA events) beside their bounds; the
+    whole FlashAttention.backward (the delta pass, B2 and B3) and SDPA's
+    backward, both through autograd on the same q, k, v and dO."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tf
-    b, hq, hkv, s, t, hd, causal, window, cap, q_offset = TRAIN_CASE
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    q, k, v, do, lse, delta = bwd_inputs(gen, TRAIN_CASE, torch.bfloat16)
-    kw = dict(case_kw(TRAIN_CASE), scale=hd ** -0.5)
+    b, hq, hkv, s, t, hd, causal, window, cap, q_offset = case
+    q, k, v, do, lse, delta = bwd_inputs(gen, case, torch.bfloat16)
+    kw = dict(case_kw(case), scale=hd ** -0.5)
     out = [torch.empty_like(x) for x in (q, k, v)]
-    res = {which: cuda_ms(lambda: tf._bwd_launch(which, q, k, v, do, lse, delta, *out,
-                                                 **kw), 20)
-           for which in (0, 1)}
-    plain_ms = cuda_ms(lambda: tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw),
-                       3, warmup=1)
+    ms = {which: cuda_ms(lambda: tf._bwd_launch(which, q, k, v, do, lse, delta, *out, **kw), 20)
+          for which in (0, 1)}
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
-    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+    o = tf.flash_attention(ql, kl, vl, **case_kw(case))
+    whole_ms = cuda_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True), 20)
+    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=hq != hkv)
     library_ms = cuda_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True), 20)
-    fwd_ms = cuda_ms(lambda: tf.flash_attention_lse(q, k, v, **case_kw(TRAIN_CASE)), 20)
-    fwd_lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True), 20)
-    log(f"flash_bwd at the training shape: dq {res[0]:.4f} ms, dk/dv {res[1]:.4f} ms")
     pairs = attended_pairs(s, t, causal, window, q_offset) * b * hq
     in_bytes = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * b * hq * s
     bounds = {}
@@ -884,17 +933,39 @@ def backward_times():
                                  (1, 8 * hd * pairs, in_bytes + 2 * (k.numel() + v.numel()))):
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         bounds[which] = (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
-        log(f"  {('dq', 'dk/dv')[which]} bound {bounds[which][0]:.4f} ms ({flops:.3e} FLOP, "
-            f"{nbytes / 1e6:.1f} MB)")
-    fwd_bound = max(4 * hd * pairs / PEAK_BF16_FLOPS,
-                    (2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b * hq * s)
-                    / PEAK_BYTES) * 1e3
-    log(f"training shape: plain backward {plain_ms:.4f} ms, sdpa backward (dq+dk+dv) "
-        f"{library_ms:.4f} ms; flash_fwd {fwd_ms:.4f} ms (bound {fwd_bound:.4f}, sdpa "
-        f"{fwd_lib_ms:.4f})")
-    return {"ms": res, "bounds": bounds, "plain_ms": plain_ms,
-            "library_ms": library_ms, "fwd_ms": fwd_ms, "fwd_lib_ms": fwd_lib_ms,
-            "fwd_bound_ms": fwd_bound}
+    log(f"flash_bwd at {case}: dq {ms[0]:.4f} ms (bound {bounds[0][0]:.4f}, "
+        f"{bounds[0][1]}), dk/dv {ms[1]:.4f} ms (bound {bounds[1][0]:.4f}, {bounds[1][1]}); "
+        f"dq + dk/dv {ms[0] + ms[1]:.4f} ms; FlashAttention.backward (delta, dq, dk/dv) "
+        f"{whole_ms:.4f} ms; sdpa backward {library_ms:.4f} ms")
+    return {"ms": ms, "bounds": bounds, "whole_ms": whole_ms, "library_ms": library_ms,
+            "inputs": (q, k, v, do, lse, delta, kw)}
+
+
+def backward_times():
+    """B2 and B3 at the training shape and at zamba2's (bwd_times_at), the plain
+    backward at the training shape, and B1 there beside SDPA."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tf
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    res = bwd_times_at(TRAIN_CASE, gen)
+    q, k, v, do, lse, delta, kw = res.pop("inputs")
+    res["plain_ms"] = cuda_ms(lambda: tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw),
+                              3, warmup=1)
+    b, hq, _, s, t, hd, causal, window, _, q_offset = TRAIN_CASE
+    res["fwd_ms"] = cuda_ms(lambda: tf.flash_attention_lse(q, k, v, **case_kw(TRAIN_CASE)), 20)
+    res["fwd_lib_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+                                20)
+    pairs = attended_pairs(s, t, causal, window, q_offset) * b * hq
+    res["fwd_bound_ms"] = max(4 * hd * pairs / PEAK_BF16_FLOPS,
+                              (2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * lse.numel())
+                              / PEAK_BYTES) * 1e3
+    log(f"training shape: plain backward {res['plain_ms']:.4f} ms; flash_fwd "
+        f"{res['fwd_ms']:.4f} ms (bound {res['fwd_bound_ms']:.4f}, sdpa {res['fwd_lib_ms']:.4f})")
+    del q, k, v, do, lse, delta
+    hybrid = bwd_times_at(HYBRID_ATTN_CASE, gen)
+    hybrid.pop("inputs")
+    res["hybrid"] = hybrid
+    return res
 
 
 def phase_kernels_gemm():
@@ -1207,6 +1278,7 @@ def phase_moe_training():
         f"{peak / 1e9:.2f} GB")
     profile_window("MoE train step", lambda: step(state, batches[-1]))
     return {"train_b4_rows": launches[3], "train_b4_contract": launches[4],
+            "train_b2": launches[1], "train_b3": launches[2],
             "real_ulps": real_ulps, "times": b4_times}
 
 
@@ -1625,9 +1697,9 @@ def phase_ssm_training(arch, batch_size):
     """The smoke config against the CPU and under the remat modes, then
     ``arch`` at full width and depth (fp32 masters, bf16 compute, remat "full",
     TRAIN_MICRO microbatches of batch_size / TRAIN_MICRO x TRAIN_SEQ): B5 and B6
-    held to their plain versions on every call of one microbatch and timed on
-    them, one warm-up and TRAIN_STEPS timed steps with the launches counted, a
-    profile."""
+    (and B2/B3 on the hybrid's attention applications) held to their plain
+    versions on every call of one microbatch, B5/B6 timed on them, one warm-up
+    and TRAIN_STEPS timed steps with the launches counted, a profile."""
     from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
     from repro_torch.data import SyntheticDataset
     from repro_torch.models import build_model
@@ -1655,10 +1727,14 @@ def phase_ssm_training(arch, batch_size):
                for i in range(TRAIN_STEPS + 2)]
 
     mb = {k: v[:batch_size // TRAIN_MICRO] for k, v in batches[0].items()}
-    with SSDCapture() as cap:
+    apps = n_apps(cfg)
+    with SSDCapture() as cap, FlashBwdCapture() as attn:
         loss, _ = make_loss_fn(model, Hyper())(params, mb)
         loss.backward()
     real = cap.summary(f"{arch} training microbatch ({cfg.n_layers} layers)")
+    real_attn = attn.summary(f"{arch} training microbatch ({apps} attention applications)",
+                             apps)
+    del attn
     times = ssd_times(f"{arch} training", cap.kept)
     del cap
     log(f"full-width microbatch: loss {loss.item():.6f}, grad norm "
@@ -1673,7 +1749,6 @@ def phase_ssm_training(arch, batch_size):
     log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    apps = n_apps(cfg)
     want = (TRAIN_MICRO * apps, TRAIN_MICRO * apps, TRAIN_MICRO * apps, 0, 0,
             2 * TRAIN_MICRO * cfg.n_layers, TRAIN_MICRO * cfg.n_layers)
     times_s, launches = [], None
@@ -1703,7 +1778,7 @@ def phase_ssm_training(arch, batch_size):
         f"{peak / 1e9:.2f} GB")
     timed(f"{arch} train step profile", profile_window, f"{arch} train step",
           lambda: step(state, batches[-1]))
-    return {"launches": launches, "real": real, "times": times}
+    return {"launches": launches, "real": real, "real_attn": real_attn, "times": times}
 
 
 def ssd_entries(ssd_errs, ssm):
@@ -1746,7 +1821,7 @@ def ssd_entries(ssd_errs, ssm):
     return out
 
 
-def phase_times(launches, path_errs, real_ulps, train_errs, train, gemm_errs, moe_serve,
+def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
                 moe_train, ssd_errs, ssm):
     from repro_torch.kernels.flash_attention import (flash_attention_lse,
                                                      flash_attention_lse_plain)
@@ -1794,17 +1869,23 @@ def phase_times(launches, path_errs, real_ulps, train_errs, train, gemm_errs, mo
         "train_shape_library_ms": bt["fwd_lib_ms"],
         "check": "pass",
     }]
+    hybrid_train = ssm[HYBRID_ARCH][1]["launches"]
+    hybrid_real = ssm[HYBRID_ARCH][1]["real_attn"]            # (dk/dv, dq) in bf16 ulps
     for which, name, line, count, real in (
             (0, "flash_bwd_dq", 242, b2_train, train["real_dq_ulps"]),
             (1, "flash_bwd_dkv", 278, b3_train, train["real_dkv_ulps"])):
-        errs = train_errs[:1] if which == 0 else train_errs[1:]
+        errs, hy_errs = ((e[:1] if which == 0 else e[1:])
+                         for e in (bwd_errs["train"], bwd_errs["hybrid"]))
+        by_path = {"train_step": count, "moe_train_step": moe_train[f"train_b{which + 2}"],
+                   f"{HYBRID_ARCH}_train_step": hybrid_train[which + 1]}
+        hy = bt["hybrid"]
         entries.append({
             "name": name,
             "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_bwd.cu",
             "replaces": f"src/repro/kernels/flash_attention.py:{line}",
-            "launches": count,
-            "launches_by_path": {"train_step": count},
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             "max_abs_err": max(e[0] for e in errs),
             "max_err_bf16_ulps": max(e[1] for e in errs),
             "real_inputs_max_err_bf16_ulps": real,
@@ -1816,6 +1897,16 @@ def phase_times(launches, path_errs, real_ulps, train_errs, train, gemm_errs, mo
             "bound_by": bt["bounds"][which][1],
             "library_ms": bt["library_ms"],
             "library_covers": "dq, dk and dv: SDPA's backward, set against dq + dk/dv",
+            "whole_backward_ms": bt["whole_ms"],
+            "whole_backward_covers": "FlashAttention.backward: the delta pass, dq and dk/dv",
+            f"{HYBRID_ARCH}_shape": {"shape": list(HYBRID_ATTN_CASE[:6]), "ms": hy["ms"][which],
+                                     "bound_ms": hy["bounds"][which][0],
+                                     "bound_by": hy["bounds"][which][1],
+                                     "whole_backward_ms": hy["whole_ms"],
+                                     "library_ms": hy["library_ms"],
+                                     "max_abs_err": max(e[0] for e in hy_errs),
+                                     "max_err_bf16_ulps": max(e[1] for e in hy_errs),
+                                     "real_inputs_max_err_bf16_ulps": hybrid_real[1 - which]},
             "check": "pass",
         })
     gt = {**moe_serve["times"], **moe_train["times"]}
@@ -1864,7 +1955,7 @@ def main():
     resolve_device()                       # fp32 matmuls in full fp32
     timed("build", phase_build)
     path_errs = timed("kernels (B1)", phase_kernels)
-    train_errs = timed("kernels (B2, B3)", phase_kernels_bwd)
+    bwd_errs = timed("kernels (B2, B3)", phase_kernels_bwd)
     gemm_errs = timed("kernels (B4)", phase_kernels_gemm)
     launches, real_ulps = timed("serving", phase_serving)
     free()                                 # the serving model's 30 GB
@@ -1883,7 +1974,7 @@ def main():
         train_r = timed(f"{arch} training", phase_ssm_training, arch, SSM_TRAIN_BATCH[arch])
         free()
         ssm[arch] = (serve, train_r)
-    timed("times", phase_times, launches, path_errs, real_ulps, train_errs, train,
+    timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
           gemm_errs, moe_serve, moe_train, ssd_errs, ssm)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {

@@ -13,58 +13,96 @@
 //
 // Design. The TPU kernels carry their accumulators in VMEM across sequential
 // grid steps. Hopper blocks run in parallel and carry nothing, so:
-//  - dq (B2): one block owns one (batch, q-head, q-tile), loops over the
+//  - dq (B2): one block owns a q tile of one (batch, q-head), loops over the
 //    relevant KV tiles and writes its dq rows once.
-//  - dk/dv (B3): one block owns one (batch, kv-head, kv-tile), loops over the
+//  - dk/dv (B3): one block owns a KV tile of one (batch, kv-head), loops over the
 //    group's q-heads and, for each, over the relevant query tiles (the reverse
 //    relevance range: the first query tile that can see the tile's first key up
 //    to the last one within the window of its last key). dk/dv land on the KV
 //    heads directly: no per-q-head fp32 buffer and no group-sum pass.
 // Neither uses atomics, so both are deterministic run to run. A fully masked row
 // (lse ~ -1e30) gets p = 0 from the mask test before the exp, so dq = 0 there
-// and it adds nothing to dk/dv: no inf * 0. Ragged S and T are masked in the
-// kernel (zero-filled tile rows); q/k/v/dO/dq/dk/dv go through batch/head/
-// sequence strides with the head dim contiguous.
+// and it adds nothing to dk/dv: no inf * 0. q/k/v/dO/dq/dk/dv go through
+// batch/head/sequence strides with the head dim contiguous.
 //
-// Bodies:
-//  - bf16 (mma.sync m16n8k16, bf16 in, fp32 accumulate): 4 warps of 16 rows.
-//    dq: 64-row q tiles, 64-key KV tiles; S = Q K^T and dP = dO V^T, then
-//    dq += dS K. dk/dv: each warp owns 16 keys and computes the transposed
-//    tiles S^T = K Q^T and dP^T = V dO^T over 64-query tiles, then
-//    dv += P^T dO and dk += dS^T Q. The accumulators are HD/2 fp32 registers
-//    per thread each; at HD 256 two warps share a key row block, each keeping
-//    half of the head dim (32-key tiles), so no thread holds more than 128.
-//    The reference keeps p and ds in fp32. They enter the second products as
-//    two bf16 terms (head + remainder, ~16 bits), which doubles those
-//    products' mma count. Both choices were measured once at the training
-//    shape (H100 80GB HBM3, 700 W, chip_smoke.py): two terms cost 0-3% more
-//    time than one bf16 rounding (2^-9 relative per term) and keep dq, dk and
-//    dv within 1 bf16 ulp of the plain version, while one term misses by 268
-//    (dq) and 102 (dk/dv) ulps on small values, far outside the stated limit.
-//    So the kernels always take two terms.
-//  - fp32 (plain FMA on the CUDA cores; TF32 would miss the fp32 tolerance):
-//    32-row / 32-key tiles, 4 warps of 8 rows (dq) or 8 keys (dk/dv); lanes own
-//    keys (dq) or queries (dk/dv) for the scores and head-dim columns for the
-//    accumulators.
+// Bodies, by dtype and head dim:
+//  - bf16 at hd 64 and 128 (every path's head dim: qwen1.5-4b and
+//    deepseek-moe-16b 128, zamba2's shared attention 64): the Hopper body,
+//    flash_bwd_dq_sm90 / flash_bwd_dkv_sm90. 384 threads: a producer
+//    warpgroup (setmaxnreg down to 24; one thread issues the TMA loads, in
+//    dk/dv its warp also copies the lse/delta rows by cp.async) and two
+//    consumer warpgroups (240 registers each) that each own 64 rows of the
+//    block's 128-row tile (dq: 128 queries; dk/dv: 128 keys). The block's own
+//    tile is loaded once; the
+//    streamed 64-row tiles (dq: K and V; dk/dv: Q and dO of each q-head) pass
+//    through a ring of 3 (hd 128) or 4 (hd 64) stages with full/empty
+//    mbarriers. TMA reads 4-D tensor maps (head dim, sequence, head, batch)
+//    built per call from the tensors' strides, in boxes of 64 columns with the
+//    128-byte swizzle; rows past S or T arrive as zeros. Every product is a
+//    warpgroup wgmma (m64, bf16 in, fp32 accumulate): S = Q K^T and dP = dO V^T
+//    (dk/dv: S^T = K Q^T, dP^T = V dO^T) with both operands in shared memory,
+//    then dq += dS K (dk/dv: dv += P^T dO, dk += dS^T Q) with A from registers
+//    (the accumulator of a 16-column slice is already wgmma's A fragment, so P
+//    and dS never touch shared memory) and B read MN-major through the
+//    descriptor, so K, Q and dO serve untransposed. Grids put the tile index
+//    on y, heaviest causal tiles first across all heads.
+//  - bf16 at hd 32 and 256 (gemma2's head dims, on no path of the port yet):
+//    the mma.sync m16n8k16 body of the first version, 4 warps of 16 rows, 64-row
+//    tiles, cp.async loads waited out per tile; at hd 256 two warps share a key
+//    row block, each keeping half of the head dim, so no thread holds more than
+//    128 accumulators.
+//  - fp32, every head dim (plain FMA on the CUDA cores; TF32 would miss the fp32
+//    tolerance): 32-row / 32-key tiles, 4 warps of 8 rows (dq) or 8 keys (dk/dv);
+//    lanes own keys (dq) or queries (dk/dv) for the scores and head-dim columns
+//    for the accumulators.
+// In both bf16 bodies the reference's fp32 p and ds enter the second products
+// as two bf16 terms (head + remainder, ~16 bits), which doubles those products'
+// tensor-core work: one bf16 rounding was measured at the training shape (H100
+// 80GB HBM3, 700 W, chip_smoke.py) 0-3% faster but 268 (dq) and 102 (dk/dv) ulps
+// off the plain version on small values, far outside the stated limit; two
+// terms stay within 1 ulp.
+//
 // Bound at the training shape (B 1, Hq = Hkv = 20, S = T = 4096, hd 128, causal,
 // bf16): dq does 3 products per attended pair (6 hd FLOP), 1.29e11 FLOP =
 // 130 us at 989 TFLOP/s; dk/dv 4 products (8 hd FLOP), 1.72e11 FLOP = 174 us;
-// the bytes (~105-127 MB each, ~31-38 us at 3.35 TB/s) weigh less. No TMA, no
-// wgmma and no load pipeline yet: mma.sync issue rate, the elementwise
-// recompute and the loads each tile waits for are the suspects for the gap to
-// the bound (~10x, PERF.md), unmeasured.
+// the bytes (~105-127 MB each, ~31-38 us at 3.35 TB/s) weigh less. With the two
+// bf16 terms the kernels issue 4 (dq) and 6 (dk/dv) products' worth of
+// tensor-core work, 173 us and 260 us at the peak rate.
+// What the Hopper body does about what held the mma.sync body to ~10x its bound:
+//  1. instruction: wgmma, the only path to the bf16 rate, replaces mma.sync;
+//  2. shared-memory traffic: one descriptor per 16-column slice feeds a whole
+//     warpgroup, where 4 warps each read the whole B tile as scalar loads;
+//  3. load latency: TMA fills the next stages while the consumers compute, and
+//     no thread spends registers or instructions on addresses;
+//  4. masking and the recompute: only tiles that straddle the causal diagonal,
+//     the window edge or a ragged end test each element; interior tiles skip
+//     it, and without softcap p = 2^(q.k * scale log2 e - lse log2 e) is one
+//     FFMA and one MUFU.EX2 (with expf, the mask test and the softcap branch
+//     on every element the first Hopper version took dq 0.79 and dk/dv 1.02
+//     ms);
+//  5. block size: 128-row tiles in 384-thread blocks halve how often each
+//     streamed tile is read from L2;
+//  6. the two bf16 terms of p and ds share one B descriptor per slice.
+// Measured at the training shape (chip_smoke.py, H100 80GB HBM3, 700 W): dq
+// 0.305 ms and dk/dv 0.444 ms, 2.3x and 2.6x their bounds (the mma.sync body:
+// 1.45 and 1.67 ms). -Xptxas -v (CUDA 12.8): all four Hopper kernels (hd 64
+// and 128) 168 registers at launch, 0 bytes of stack or spills, no wgmma
+// serialisation; setmaxnreg then gives each consumer thread 240 and each
+// producer thread 24. At 232/40 ptxas serialised dk/dv's wgmmas at hd 128 for
+// want of registers (C7512).
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
 // and bound with ctypes through the C entry point flash_bwd at the end.
 
+#include <cuda.h>            // CUtensorMap and its enums; no -lcuda (see tensor_map_encoder)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 128;
+constexpr int kThreads = 128;        // the mma.sync and fp32 bodies
 
 struct Params {
   const void* q;
@@ -138,7 +176,7 @@ __device__ __forceinline__ void relevant_range(const Params& p, bool over_k, int
 }
 
 // ---------------------------------------------------------------------------
-// bf16 body: mma.sync m16n8k16 on the tensor cores.
+// bf16 body at hd 32 and 256: mma.sync m16n8k16 on the tensor cores.
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -669,6 +707,635 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(Params p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// Hopper bf16 body (hd 64 and 128): TMA loads into a ring of mbarrier-guarded
+// stages, warpgroup wgmma for every product, a producer warpgroup and two
+// consumer warpgroups.
+
+constexpr int kWg = 128;                      // threads of a warpgroup
+constexpr int kSm90Threads = 3 * kWg;         // producer + two consumers
+constexpr int kProducerRegs = 24;             // setmaxnreg: 128 x 24 + 256 x 240 <= 64 K
+constexpr int kConsumerRegs = 240;
+// Codes above every cudaError_t value (cudaErrorUnknown is 999), so the caller
+// can tell them from a launch error.
+constexpr int kErrNoEncoder = 20000;          // the driver has no tensor-map encoder
+constexpr int kErrTensorMap = 20001;          // + the CUresult of a failed encode
+
+// Shared memory of one block (offsets from a 1024-byte aligned base). The block's
+// own tile (dq: Q and dO of 128 queries; dk/dv: K and V of 128 keys) stays for the
+// whole block; the streamed tiles (dq: K/V, dk/dv: Q/dO, 64 rows each) cycle
+// through kStages stages. Every tile is stored as HD/64 boxes of 64 columns, one
+// 128-byte row per tile row, in TMA's 128-byte swizzle, which is the layout wgmma
+// reads through a descriptor.
+template <int HD>
+struct Sm90 {
+  static constexpr int kBoxes = HD / 64;
+  static constexpr int kStages = HD == 128 ? 3 : 4;
+  static constexpr int kOwnRows = 128;                      // 2 consumers x 64
+  static constexpr int kStreamRows = 64;
+  static constexpr int kOwnBox = kOwnRows * 128;            // bytes of one box
+  static constexpr int kStreamBox = kStreamRows * 128;
+  static constexpr int kOwnBytes = kBoxes * kOwnBox;        // one tensor's tile
+  static constexpr int kStreamBytes = kBoxes * kStreamBox;
+  static constexpr int kRingOff = 2 * kOwnBytes;            // stage s: 2 tensors
+  static constexpr int kStatsOff = kRingOff + kStages * 2 * kStreamBytes;
+  static constexpr int kBarOff = kStatsOff + kStages * 2 * 64 * 4;   // lse, delta
+  static constexpr int kSmemBytes = kBarOff + (2 * kStages + 1) * 8 + 1024;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* ptr) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(ptr));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  }
+}
+
+// One box of a 4-D tensor map (head dim, sequence, head, batch) into shared memory;
+// completion is counted in bytes on the mbarrier.
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int col, int row, int head, int batch) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(col), "r"(row), "r"(head),
+         "r"(batch), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accesses of wgmma registers across the wait.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// wgmma descriptor of a tile in 128-byte-swizzled rows, 8-row groups 1024 bytes
+// apart (the stride offset). A K-major operand steps 32 bytes per 16 columns
+// inside a 64-column box; an MN-major one steps 16 rows (2048 bytes) per slice
+// and finds the next 64 columns lbo bytes on (the leading offset).
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// D (64 x 64, fp32) = A B^T + (scale_d ? D : 0): A and B from shared memory, both
+// K-major (rows of 16 bf16 along the contraction), through descriptors.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// D (64 x 64, fp32) += A B: A (64 x 16 bf16) from registers in the m64k16
+// fragment layout, B (16 x 64) from shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// D (64 x 128, fp32) += A B: A (64 x 16 bf16) from registers in the m64k16
+// fragment layout, B (16 x 128) from shared memory MN-major (transposed).
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// acc (64 x 64) = A B^T over the head dim, for one warpgroup: A is the 64 rows at
+// a, B the 64 rows at b, both K-major; boxes of 64 columns a_box / b_box bytes apart.
+template <int HD>
+__device__ __forceinline__ void wg_abt(float (&acc)[32], uint32_t a, int a_box, uint32_t b,
+                                       int b_box) {
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    wgmma_ss_n64(acc, sw128_desc(a + (kk / 4) * a_box + off, 16),
+                 sw128_desc(b + (kk / 4) * b_box + off, 16), kk > 0);
+  }
+}
+
+// acc (64 x HD) += X B for one warpgroup: X is the 64 x 64 fp32 tile x in the
+// accumulator layout, whose 16-column slices are already wgmma's register A
+// fragments; each enters as a bf16 head plus a bf16 remainder. B is the 64 x HD
+// tile at b (64 rows of 128 bytes a box, boxes b_box bytes apart), read MN-major,
+// so K, Q or dO serve untransposed. Issued, not waited for.
+template <int HD>
+__device__ __forceinline__ void wg_xb(float (&acc)[HD / 2], const float (&x)[32], uint32_t b,
+                                      int b_box) {
+  uint32_t hi[4][4], lo[4][4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split_bf16(x[8 * j + 2 * r], x[8 * j + 2 * r + 1], hi[j][r], lo[j][r]);
+  }
+  wg_fence();
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint64_t db = sw128_desc(b + j * 2048, b_box);
+    if constexpr (HD == 128) {
+      wgmma_rs_n128(acc, hi[j], db);
+      wgmma_rs_n128(acc, lo[j], db);
+    } else {
+      wgmma_rs_n64(acc, hi[j], db);
+      wgmma_rs_n64(acc, lo[j], db);
+    }
+  }
+}
+
+// Does any (query, key) pair of the tile fail the mask: a ragged end, the causal
+// diagonal or the window edge? Tiles where none does skip the per-element test.
+__device__ __forceinline__ bool tile_straddles(const Params& p, int q_start, int bq,
+                                               int k_start, int bk) {
+  if (q_start + bq > p.s || k_start + bk > p.t) return true;
+  const int q_first = p.q_offset + q_start;
+  if (p.causal && k_start + bk - 1 > q_first) return true;
+  return p.window > 0 && q_first + bq - 1 - k_start >= p.window;
+}
+
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// One element: s holds q.k and becomes p, dpv holds dO.v and becomes ds. Without
+// softcap p = 2^(q.k * scale * log2 e - lse * log2 e), one FFMA and one MUFU.EX2
+// (relative error ~1e-6, far inside the bf16 terms' 2^-17). kEdge: the mask
+// test, a select on p before it reaches ds, so a masked element (or a fully
+// masked row's huge exponent) gives p = ds = 0. kCap: recompute_ds as it stands.
+template <bool kEdge, bool kCap>
+__device__ __forceinline__ void p_ds(const Params& p, float sl2, int row_l, int col, float& s,
+                                     float& dpv, float lse, float delta) {
+  const bool ok = !kEdge || attend(p, row_l, col);
+  if constexpr (kCap) {
+    float pe, dse;
+    recompute_ds(p, ok, s, dpv, lse, delta, pe, dse);
+    s = pe;
+    dpv = dse;
+  } else {
+    float pe = ex2(fmaf(s, sl2, -lse * kLog2e));
+    if (kEdge && !ok) pe = 0.f;
+    s = pe;
+    dpv = pe * (dpv - delta);
+  }
+}
+
+// p and ds of a dq tile: rows row_a (+8) are queries, columns col_a + 8 nt (+1) keys.
+template <bool kEdge, bool kCap>
+__device__ __forceinline__ void dq_tile_ds(const Params& p, float (&sc)[32], float (&dp)[32],
+                                           const float (&lse)[2], const float (&dl)[2],
+                                           int row_a, int col_a) {
+  const float sl2 = p.scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    p_ds<kEdge, kCap>(p, sl2, row_a + 8 * r, col_a + 8 * (i >> 2) + (i & 1), sc[i], dp[i],
+                      lse[r], dl[r]);
+  }
+}
+
+// p and ds of a transposed dk/dv tile: rows key_a (+8) are keys, columns
+// q_start + 8 nt + 2 tig (+1) queries, whose lse/delta come from shared memory.
+template <bool kEdge, bool kCap>
+__device__ __forceinline__ void dkv_tile_ds(const Params& p, float (&st)[32], float (&dpt)[32],
+                                            const float* lse, const float* dl, int q_start,
+                                            int key_a, int tig) {
+  const float sl2 = p.scale * kLog2e;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    const int ql = nt * 8 + tig * 2;
+    const float2 l2 = *reinterpret_cast<const float2*>(lse + ql);
+    const float2 d2 = *reinterpret_cast<const float2*>(dl + ql);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p_ds<kEdge, kCap>(p, sl2, q_start + ql + (e & 1), key_a + (e >> 1) * 8, st[4 * nt + e],
+                        dpt[4 * nt + e], (e & 1) ? l2.y : l2.x, (e & 1) ? d2.y : d2.x);
+    }
+  }
+}
+
+// lse/delta rows into shared memory, 4 bytes each; src_valid false zero-fills.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src, bool src_valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(dst), "l"(src), "r"(src_valid ? 4 : 0) : "memory");
+}
+
+// The mbarrier counts one arrival when this thread's earlier cp.asyncs land.
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
+}
+
+// Barrier and stage addresses of one block.
+template <int HD>
+struct Sm90Smem {
+  using Sh = Sm90<HD>;
+  uint32_t base;
+  float* stats;                        // generic pointer to the lse/delta stages
+  __device__ explicit Sm90Smem(unsigned char* raw) {
+    const uint32_t raw_u32 = smem_u32(raw);
+    base = (raw_u32 + 1023) & ~1023u;
+    stats = reinterpret_cast<float*>(raw + (base - raw_u32) + Sh::kStatsOff);
+  }
+  __device__ uint32_t own(int i) const { return base + i * Sh::kOwnBytes; }
+  __device__ uint32_t stream(int s, int i) const {
+    return base + Sh::kRingOff + (2 * s + i) * Sh::kStreamBytes;
+  }
+  __device__ uint32_t full(int s) const { return base + Sh::kBarOff + 8 * s; }
+  __device__ uint32_t empty(int s) const { return base + Sh::kBarOff + 8 * (Sh::kStages + s); }
+  __device__ uint32_t own_ready() const { return base + Sh::kBarOff + 16 * Sh::kStages; }
+  // called by thread 0, then __syncthreads
+  __device__ void init(int full_count) const {
+    for (int s = 0; s < Sh::kStages; ++s) {
+      mbar_init(full(s), full_count);
+      mbar_init(empty(s), 2 * kWg);
+    }
+    mbar_init(own_ready(), 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+};
+
+// B2, Hopper: one block per (q-head, 128-query tile, batch); consumer warpgroup c
+// owns queries 64c .. 64c + 63 of the tile and accumulates their dq over the
+// relevant 64-key KV tiles, which the producer streams through the ring.
+template <int HD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_bwd_dq_sm90(const Params p, const __grid_constant__ CUtensorMap tm_q,
+                  const __grid_constant__ CUtensorMap tm_do,
+                  const __grid_constant__ CUtensorMap tm_k,
+                  const __grid_constant__ CUtensorMap tm_v) {
+  using Sh = Sm90<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const Sm90Smem<HD> sm(smem_raw);
+  const int h = blockIdx.x;
+  const int q_blk = (gridDim.y - 1 - blockIdx.y) * Sh::kOwnRows;   // heaviest causal tiles first
+  const int bi = blockIdx.z;
+  const int kvh = h / (p.hq / p.hkv);
+  int k_lo, k_hi;
+  relevant_range(p, true, q_blk, Sh::kOwnRows, 64, (p.t + 63) / 64, k_lo, k_hi);
+  const int n_iter = k_hi - k_lo;
+  if (threadIdx.x == 0) sm.init(1);
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {                              // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_iter > 0) {
+      mbar_expect_tx(sm.own_ready(), 2 * Sh::kOwnBytes);
+      for (int bx = 0; bx < Sh::kBoxes; ++bx) {
+        tma_load(sm.own(0) + bx * Sh::kOwnBox, &tm_q, sm.own_ready(), bx * 64, q_blk, h, bi);
+        tma_load(sm.own(1) + bx * Sh::kOwnBox, &tm_do, sm.own_ready(), bx * 64, q_blk, h, bi);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % Sh::kStages;
+        const int k_start = (k_lo + it) * 64;
+        mbar_wait(sm.empty(s), ((it / Sh::kStages) & 1) ^ 1);
+        mbar_expect_tx(sm.full(s), 2 * Sh::kStreamBytes);
+        for (int bx = 0; bx < Sh::kBoxes; ++bx) {
+          tma_load(sm.stream(s, 0) + bx * Sh::kStreamBox, &tm_k, sm.full(s), bx * 64, k_start,
+                   kvh, bi);
+          tma_load(sm.stream(s, 1) + bx * Sh::kStreamBox, &tm_v, sm.full(s), bx * 64, k_start,
+                   kvh, bi);
+        }
+      }
+    }
+  } else {                                              // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int c = threadIdx.x / kWg - 1;
+    const int warp = (threadIdx.x % kWg) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int tig = lane % 4;
+    const int q0 = q_blk + 64 * c;
+    const int row_a = q0 + warp * 16 + g;                // rows of elements 0,1 / 2,3: +8
+    float lse[2], dl[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + r * 8;
+      const long long off = ((long long)bi * p.hq + h) * p.s + row;
+      lse[r] = row < p.s ? p.lse[off] : 0.f;
+      dl[r] = row < p.s ? p.delta[off] : 0.f;
+    }
+    float acc[HD / 2], sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    const uint32_t a_q = sm.own(0) + c * 64 * 128;      // this warpgroup's rows of each box
+    const uint32_t a_do = sm.own(1) + c * 64 * 128;
+    if (n_iter > 0) mbar_wait(sm.own_ready(), 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % Sh::kStages;
+      const int k_start = (k_lo + it) * 64;
+      mbar_wait(sm.full(s), (it / Sh::kStages) & 1);
+      if (q0 < p.s && tile_relevant(p, q0, 64, k_start, 64)) {
+        wg_fence();
+        wg_abt<HD>(sc, a_q, Sh::kOwnBox, sm.stream(s, 0), Sh::kStreamBox);     // S = Q K^T
+        wg_abt<HD>(dp, a_do, Sh::kOwnBox, sm.stream(s, 1), Sh::kStreamBox);    // dP = dO V^T
+        wg_commit();
+        wg_wait_all();
+        fence_regs(sc);
+        fence_regs(dp);
+        const int col_a = k_start + tig * 2;
+        if (p.softcap != 0.f)
+          dq_tile_ds<true, true>(p, sc, dp, lse, dl, row_a, col_a);
+        else if (tile_straddles(p, q0, 64, k_start, 64))
+          dq_tile_ds<true, false>(p, sc, dp, lse, dl, row_a, col_a);
+        else
+          dq_tile_ds<false, false>(p, sc, dp, lse, dl, row_a, col_a);
+        wg_xb<HD>(acc, dp, sm.stream(s, 0), Sh::kStreamBox);                    // dq += dS K
+        wg_commit();
+        wg_wait_all();
+        fence_regs(acc);
+      }
+      mbar_arrive(sm.empty(s));
+    }
+
+    __nv_bfloat16* dQ = static_cast<__nv_bfloat16*>(p.dq) + bi * p.dq_sb + h * p.dq_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + r * 8;
+      if (row >= p.s) continue;
+      __nv_bfloat16* out = dQ + (long long)row * p.dq_ss + tig * 2;
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) {
+        *reinterpret_cast<__nv_bfloat162*>(out + nt * 8) = __floats2bfloat162_rn(
+            acc[4 * nt + 2 * r] * p.scale, acc[4 * nt + 2 * r + 1] * p.scale);
+      }
+    }
+  }
+}
+
+// B3, Hopper: one block per (kv-head, 128-key tile, batch); consumer warpgroup c
+// owns keys 64c .. 64c + 63 of the tile. The producer streams the 64-query Q and
+// dO tiles of every q-head of the GQA group over the relevant query range, with
+// their lse/delta rows, through the ring; the consumers work on the transposed
+// tiles S^T = K Q^T and dP^T = V dO^T and write dk/dv on the KV heads once.
+template <int HD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_bwd_dkv_sm90(const Params p, const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v) {
+  using Sh = Sm90<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const Sm90Smem<HD> sm(smem_raw);
+  const int kvh = blockIdx.x;
+  const int k_start = blockIdx.y * Sh::kOwnRows;       // early KV tiles (most queries) first
+  const int bi = blockIdx.z;
+  const int group = p.hq / p.hkv;
+  int q_lo, q_hi;
+  relevant_range(p, false, k_start, 64, Sh::kOwnRows, (p.s + 63) / 64, q_lo, q_hi);
+  const int nq = q_hi - q_lo;
+  const int n_iter = group * nq;
+  // full: the producer warp's 32 cp.async arrivals (lse/delta rows) + its
+  // leader's expect_tx
+  if (threadIdx.x == 0) sm.init(33);
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {                              // producer: warp 0
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x < 32 && n_iter > 0) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_expect_tx(sm.own_ready(), 2 * Sh::kOwnBytes);
+        for (int bx = 0; bx < Sh::kBoxes; ++bx) {
+          tma_load(sm.own(0) + bx * Sh::kOwnBox, &tm_k, sm.own_ready(), bx * 64, k_start, kvh, bi);
+          tma_load(sm.own(1) + bx * Sh::kOwnBox, &tm_v, sm.own_ready(), bx * 64, k_start, kvh, bi);
+        }
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % Sh::kStages;
+        const int h = kvh * group + it / nq;
+        const int q_start = (q_lo + it % nq) * 64;
+        mbar_wait(sm.empty(s), ((it / Sh::kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_expect_tx(sm.full(s), 2 * Sh::kStreamBytes);
+          for (int bx = 0; bx < Sh::kBoxes; ++bx) {
+            tma_load(sm.stream(s, 0) + bx * Sh::kStreamBox, &tm_q, sm.full(s), bx * 64, q_start,
+                     h, bi);
+            tma_load(sm.stream(s, 1) + bx * Sh::kStreamBox, &tm_do, sm.full(s), bx * 64, q_start,
+                     h, bi);
+          }
+        }
+        const long long off = ((long long)bi * p.hq + h) * p.s;
+        const uint32_t stats = smem_u32(sm.stats + s * 128);
+        for (int r = lane; r < 64; r += 32) {
+          const bool in = q_start + r < p.s;
+          const long long at = in ? off + q_start + r : 0;
+          cp_async4(stats + 4 * r, p.lse + at, in);
+          cp_async4(stats + 4 * (64 + r), p.delta + at, in);
+        }
+        cp_async_arrive(sm.full(s));
+      }
+    }
+  } else {                                              // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int c = threadIdx.x / kWg - 1;
+    const int warp = (threadIdx.x % kWg) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int tig = lane % 4;
+    const int key0 = k_start + 64 * c;
+    const int key_a = key0 + warp * 16 + g;              // keys of elements 0,1 / 2,3: +8
+    float dk[HD / 2], dv[HD / 2], st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) dk[i] = dv[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    const uint32_t a_k = sm.own(0) + c * 64 * 128;      // this warpgroup's rows of each box
+    const uint32_t a_v = sm.own(1) + c * 64 * 128;
+    if (n_iter > 0) mbar_wait(sm.own_ready(), 0);
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % Sh::kStages;
+      const int q_start = (q_lo + it % nq) * 64;
+      mbar_wait(sm.full(s), (it / Sh::kStages) & 1);
+      if (key0 < p.t && tile_relevant(p, q_start, 64, key0, 64)) {
+        wg_fence();
+        wg_abt<HD>(st, a_k, Sh::kOwnBox, sm.stream(s, 0), Sh::kStreamBox);     // S^T = K Q^T
+        wg_abt<HD>(dpt, a_v, Sh::kOwnBox, sm.stream(s, 1), Sh::kStreamBox);    // dP^T = V dO^T
+        wg_commit();
+        wg_wait_all();
+        fence_regs(st);
+        fence_regs(dpt);
+        const float* lse = sm.stats + s * 128;
+        const float* dl = lse + 64;
+        if (p.softcap != 0.f)
+          dkv_tile_ds<true, true>(p, st, dpt, lse, dl, q_start, key_a, tig);
+        else if (tile_straddles(p, q_start, 64, key0, 64))
+          dkv_tile_ds<true, false>(p, st, dpt, lse, dl, q_start, key_a, tig);
+        else
+          dkv_tile_ds<false, false>(p, st, dpt, lse, dl, q_start, key_a, tig);
+        wg_xb<HD>(dv, st, sm.stream(s, 1), Sh::kStreamBox);                     // dv += P^T dO
+        wg_xb<HD>(dk, dpt, sm.stream(s, 0), Sh::kStreamBox);                    // dk += dS^T Q
+        wg_commit();
+        wg_wait_all();
+        fence_regs(dk);
+        fence_regs(dv);
+      }
+      mbar_arrive(sm.empty(s));
+    }
+
+    __nv_bfloat16* dK = static_cast<__nv_bfloat16*>(p.dk) + bi * p.dk_sb + kvh * p.dk_sh;
+    __nv_bfloat16* dV = static_cast<__nv_bfloat16*>(p.dv) + bi * p.dv_sb + kvh * p.dv_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int key = key_a + r * 8;
+      if (key >= p.t) continue;
+      __nv_bfloat16* ok_ = dK + (long long)key * p.dk_ss + tig * 2;
+      __nv_bfloat16* ov = dV + (long long)key * p.dv_ss + tig * 2;
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) {
+        *reinterpret_cast<__nv_bfloat162*>(ok_ + nt * 8) = __floats2bfloat162_rn(
+            dk[4 * nt + 2 * r] * p.scale, dk[4 * nt + 2 * r + 1] * p.scale);
+        *reinterpret_cast<__nv_bfloat162*>(ov + nt * 8) =
+            __floats2bfloat162_rn(dv[4 * nt + 2 * r], dv[4 * nt + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, found through the runtime (no -lcuda).
+EncodeTiled tensor_map_encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &ptr, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &ptr,
+                                                    cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// The 4-D map (head dim, sequence, head, batch) of a bf16 (B, H, N, hd) tensor from
+// its strides in elements, read in boxes of 64 head-dim columns x box_rows rows in
+// the 128-byte swizzle. Rows at or past N arrive as zeros (the ragged edge).
+int encode_rows(CUtensorMap* map, const void* ptr, int hd, int n, int heads, int batch,
+                long long ss, long long sh, long long sb, int box_rows) {
+  const EncodeTiled fn = tensor_map_encoder();
+  if (fn == nullptr) return kErrNoEncoder;
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)n, (cuuint64_t)heads, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)ss * 2, (cuuint64_t)sh * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, (cuuint32_t)box_rows, 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+                        strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kErrTensorMap + (int)r;
+}
+
+// B2 (which 0) or B3 (which 1) in the Hopper body: the tensor maps, then the launch.
+template <int HD>
+int launch_sm90(const Params& p, int which, cudaStream_t st) {
+  using Sh = Sm90<HD>;
+  const int q_rows = which == 0 ? Sh::kOwnRows : Sh::kStreamRows;
+  const int kv_rows = which == 0 ? Sh::kStreamRows : Sh::kOwnRows;
+  CUtensorMap tq, tdo, tk, tv;
+  int err = encode_rows(&tq, p.q, HD, p.s, p.hq, p.b, p.q_ss, p.q_sh, p.q_sb, q_rows);
+  if (!err) err = encode_rows(&tdo, p.dout, HD, p.s, p.hq, p.b, p.do_ss, p.do_sh, p.do_sb, q_rows);
+  if (!err) err = encode_rows(&tk, p.k, HD, p.t, p.hkv, p.b, p.k_ss, p.k_sh, p.k_sb, kv_rows);
+  if (!err) err = encode_rows(&tv, p.v, HD, p.t, p.hkv, p.b, p.v_ss, p.v_sh, p.v_sb, kv_rows);
+  if (err) return err;
+  auto kernel = which == 0 ? flash_bwd_dq_sm90<HD> : flash_bwd_dkv_sm90<HD>;
+  const int rows = which == 0 ? p.s : p.t;
+  const dim3 grid(which == 0 ? p.hq : p.hkv, (rows + Sh::kOwnRows - 1) / Sh::kOwnRows, p.b);
+  cudaError_t cerr = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                          Sh::kSmemBytes);
+  if (cerr != cudaSuccess) return (int)cerr;
+  kernel<<<grid, kSm90Threads, Sh::kSmemBytes, st>>>(p, tq, tdo, tk, tv);
+  return (int)cudaGetLastError();
+}
+
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, size_t smem,
                    cudaStream_t stream) {
@@ -680,17 +1347,21 @@ cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, size_t smem,
 }
 
 template <int HD>
-cudaError_t launch_hd(const Params& p, int which, int dtype, cudaStream_t st) {
-  constexpr size_t kPitchBytes = (HD + 8) * sizeof(__nv_bfloat16);
-  if (dtype == 1 && which == 0) {
-    const dim3 grid((p.s + kBq - 1) / kBq, p.hq, p.b);
-    return launch(flash_bwd_dq_bf16<HD>, p, grid, (2 * kBq + 2 * kBk) * kPitchBytes, st);
-  }
-  if (dtype == 1) {
-    using Sh = DkvShape<HD>;
-    const dim3 grid((p.t + Sh::kBkv - 1) / Sh::kBkv, p.hkv, p.b);
-    const size_t smem = (2 * Sh::kBkv + 2 * kBq) * kPitchBytes + 2 * kBq * sizeof(float);
-    return launch(flash_bwd_dkv_bf16<HD>, p, grid, smem, st);
+int launch_hd(const Params& p, int which, int dtype, cudaStream_t st) {
+  if constexpr (HD == 64 || HD == 128) {
+    if (dtype == 1) return launch_sm90<HD>(p, which, st);
+  } else {
+    constexpr size_t kPitchBytes = (HD + 8) * sizeof(__nv_bfloat16);
+    if (dtype == 1 && which == 0) {
+      const dim3 grid((p.s + kBq - 1) / kBq, p.hq, p.b);
+      return launch(flash_bwd_dq_bf16<HD>, p, grid, (2 * kBq + 2 * kBk) * kPitchBytes, st);
+    }
+    if (dtype == 1) {
+      using Sh = DkvShape<HD>;
+      const dim3 grid((p.t + Sh::kBkv - 1) / Sh::kBkv, p.hkv, p.b);
+      const size_t smem = (2 * Sh::kBkv + 2 * kBq) * kPitchBytes + 2 * kBq * sizeof(float);
+      return launch(flash_bwd_dkv_bf16<HD>, p, grid, smem, st);
+    }
   }
   const size_t smem = (size_t)(2 * kBF * HD + 2 * kBF * (HD + 1)) * sizeof(float) +
                       (which == 0 ? 0 : 2 * kBF * sizeof(float));
@@ -706,7 +1377,9 @@ cudaError_t launch_hd(const Params& p, int which, int dtype, cudaStream_t st) {
 
 // One launch: which = 0 runs the dq kernel (writes dq), which = 1 the dk/dv
 // kernel (writes dk and dv). dtype: 0 = fp32, 1 = bf16. Returns the
-// cudaError_t of the launch (0 on success).
+// cudaError_t of the launch (0 on success); for the Hopper body also 20000 when
+// the driver offers no tensor-map encoder and 20001 + the CUresult of a failed
+// encode.
 extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void* dout,
                          const void* lse, const void* delta, void* dq, void* dk, void* dv,
                          long long q_sb, long long q_sh, long long q_ss,

@@ -219,6 +219,19 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal: bool = True,
     return dq, dk, dv
 
 
+# csrc/flash_bwd.cu's kErrNoEncoder and kErrTensorMap (+ the CUresult)
+_ERR_NO_ENCODER, _ERR_TENSOR_MAP = 20000, 20001
+
+
+def _bwd_error(err: int) -> str:
+    """What a non-zero return code of flash_bwd says."""
+    if err == _ERR_NO_ENCODER:
+        return "the driver offers no tensor-map encoder (cuTensorMapEncodeTiled)"
+    if err > _ERR_NO_ENCODER:
+        return f"tensor-map encode failed: CUresult {err - _ERR_TENSOR_MAP}"
+    return f"cudaError {err}"
+
+
 def _bwd_launch(which, q, k, v, do, lse, delta, dq, dk, dv, *, causal, window,
                 softcap, scale, q_offset):
     """Launch one backward kernel on checked inputs and allocated outputs:
@@ -235,7 +248,7 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dq, dk, dv, *, causal, window,
         which, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_bwd {('dq', 'dk/dv')[which]} launch failed: "
-                           f"cudaError {err}")
+                           f"{_bwd_error(err)}")
     if which == 0:
         flash_attention_bwd.dq_launches += 1
     else:

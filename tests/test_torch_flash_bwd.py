@@ -7,6 +7,9 @@ JAX only inside the tests that hold the port to the reference, so the card's
 tests also run on the GPU machine, which has none:
 ``PYTHONPATH=src python -m pytest tests/test_torch_flash_bwd.py -m cuda``."""
 
+import importlib.util
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -29,6 +32,22 @@ GRAD_CASES = [
 ]
 MASKED_CASE = (1, 2, 1, 64, 16, 32, True, 8, 0.0, 64)   # rows 24.. see no key
 CASES = GRAD_CASES + [MASKED_CASE]
+
+
+def _smoke_bwd_cases():
+    """chip_smoke.py's BWD_CASES, the one list of the Hopper body's edges."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke.BWD_CASES
+
+
+# Card only: the paths' head dims 64 and 128, where bf16 runs the Hopper body
+# (128-row blocks, 64-row streamed tiles): ragged S and T, T shorter than one
+# tile, causal diagonal and interior tiles, window edges with and without
+# softcap, q_offset with fully masked rows, GQA groups 1, 2 and 5.
+CARD_CASES = _smoke_bwd_cases()
 
 # dq/dk/dv, each judged against the largest |value| of the plain version's
 # tensor (gradients have no fixed scale): fp32 within 1e-5 of it (the kernels and
@@ -196,6 +215,14 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
             tf.flash_attention_bwd.dkv_launches) == before
 
 
+@pytest.mark.parametrize("err,says", [(999, "cudaError 999"),
+                                      (20000, "no tensor-map encoder"),
+                                      (20001 + 1, "CUresult 1")])
+def test_launch_error_names_what_failed(err, says):
+    """A failed tensor-map encode is told apart from a launch's cudaError."""
+    assert says in tf._bwd_error(err)
+
+
 @pytest.mark.parametrize("bad", ["do_shape", "do_dtype", "lse_shape", "window"])
 def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
     q = do = torch.zeros(1, 4, 8, 32)
@@ -214,18 +241,24 @@ def test_wrapper_rejects_what_the_kernels_do_not_take(bad):
         tf.flash_attention_bwd(q, k, v, do, lse, delta, **kw)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("case", CASES)
-def test_kernels_match_plain_version_on_card(case, dtype):
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
-    arrs = _inputs(case, seed=3)
+def _card_inputs(case, dtype, seed):
+    """_inputs on the card: q, k, v, do as head-major views of batch-major
+    storage (the layout the model passes), lse and delta fp32."""
+    arrs = _inputs(case, seed=seed)
     dt = getattr(torch, dtype)
-    # batch-major storage, head-major views: the layout the model passes
     q, k, v, do = (torch.from_numpy(a).to(dt).transpose(1, 2).contiguous().cuda()
                    .transpose(1, 2) for a in arrs[:4])
     lse, delta = (torch.from_numpy(a).cuda() for a in arrs[4:])
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", CASES + CARD_CASES)
+def test_kernels_match_plain_version_on_card(case, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    q, k, v, do, lse, delta = _card_inputs(case, dtype, seed=3)
     before = (tf.flash_attention_bwd.dq_launches, tf.flash_attention_bwd.dkv_launches)
     ours = tf.flash_attention_bwd(q, k, v, do, lse, delta, **_kw(case))
     torch.cuda.synchronize()
@@ -252,3 +285,17 @@ def test_autograd_function_on_card_matches_plain_autograd(case):
     ref = torch.autograd.grad((tf.flash_attention_lse_plain(q, k, v, **_kw(case))[0]
                                * w).sum(), (q, k, v))
     _assert_grads_match(grads, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [CARD_CASES[0], CARD_CASES[2]])
+def test_kernels_are_deterministic_on_card(case):
+    """bf16, hd 128 and 64: two launches give bit-identical dq, dk and dv (each
+    output is written once by one block, with no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    args = _card_inputs(case, "bfloat16", seed=8)
+    first = tf.flash_attention_bwd(*args, **_kw(case))
+    second = tf.flash_attention_bwd(*args, **_kw(case))
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
