@@ -10,17 +10,25 @@ prints its seconds):
 2. build    — compile every CUDA source of the paths (one nvcc each, in parallel);
 3. kernels  — hold each kernel against its plain PyTorch version on the card:
    the flash forward (o: fp32 to 3e-5, bf16 to 2 bf16 ulps; lse to 1e-5
-   relative) and the backward's dq and dk/dv kernels (fp32 to 1e-5 of each
-   tensor's largest value, bf16 to 2 bf16 ulps), fully masked rows included,
-   at the paths' own shapes and at the edges of the Hopper body (hd 64 and
-   128: ragged and short S/T, window, softcap, q_offset, GQA 40/8), with merged
-   softmax statistics, and through the autograd Function; two launches at each
-   training path's shape (qwen1.5-4b's, hd 128; zamba2's, hd 64)
-   bit-identical; the grouped expert GEMM (fp32 to 5e-5 of the
-   tensor's largest value, bf16 to 2 bf16 ulps, padding rows and experts with
-   no load exactly 0) in its three uses — forward and dx (through a w^T view) in rows
-   mode, dw (through an x^T view) in contract mode — at the MoE paths' shapes
-   and a ragged one;
+   relative) on every FLASH_CASES row (the Hopper body's edges at hd 64 and
+   128: ragged and short S/T, GQA groups 1/2/5, q_offset with fully masked
+   rows, windows on the tile edge with and without softcap, interior tiles,
+   zamba2's serving shape cut in S), and at both training paths' shapes and
+   zamba2's serving shape (4 x 32 heads x 8000, hd 64; the plain version in
+   blocks of query rows), where two launches must be bit-identical; the
+   backward's dq and dk/dv kernels
+   (fp32 to 1e-5 of each tensor's largest value, bf16 to 2 bf16 ulps), fully
+   masked rows included, at the paths' own shapes and at the edges of the
+   Hopper body, with merged softmax statistics, and through the autograd
+   Function; two launches at each training path's shape (qwen1.5-4b's, hd
+   128; zamba2's, hd 64) bit-identical; the grouped expert GEMM (fp32 to 5e-5
+   of the tensor's largest value, bf16 to 2 bf16 ulps, padding rows and
+   experts with no load exactly 0) in its three uses — forward and dx (through
+   a w^T view) in rows mode, dw (through an x^T view) in contract mode — on
+   every GEMM_CASES row (the MoE paths' shapes; NaN in padding rows, M off the
+   128-row tile, all-padding tiles, K shorter than a tile, one row per
+   expert, through the Hopper body), two launches at the prefill shape
+   bit-identical. Every check counts the body its launch ran;
 4. serving  — qwen2.5-14b at full width (48 layers, random bf16 weights from a
    seed): prefill of 4 x 1000 tokens, then 32 greedy decode steps, with the
    flash kernel's launches counted; the kernel held to its plain version, to
@@ -59,18 +67,28 @@ prints its seconds):
    CPU; serving at full width and depth (random bf16 weights and conv taps from
    a seed): a forward over 4 x 8000 tokens (B5 48 or 38 launches, B1 6 for the
    hybrid's shared block), a 16-token prompt through decode_step and 32 greedy
-   steps, B5 held to its plain version on every layer's own inputs; training at
+   steps, B5 (and, for the hybrid, B1 on its 6 attention applications) held to
+   its plain version on every layer's own inputs; training at
    full width and depth (fp32 masters, remat "full", 2 microbatches of 4 or 2 x
    4096): the smoke config card vs CPU and under the three remat modes, B5/B6
    (and, for the hybrid, B2/B3 on its 6 attention applications) held to their
    plain versions on every call of one microbatch, one warm-up
    and three timed steps with the launches counted (B5 192/152, B6 96/76, and
-   B1/B2/B3 12 each for the hybrid), profiles;
+   B1/B2/B3 12 each for the hybrid; B1 also held to its plain version on the
+   hybrid's 6 attention applications of one microbatch), profiles;
 10. times   — each kernel's time at its path's shapes beside its bound, its plain
-   version's time and the library call's (none for B5/B6); for B2/B3 also the
-   whole FlashAttention.backward (delta pass, dq, dk/dv) beside SDPA's backward,
-   at the training shape and at zamba2's (2 x 32 heads x 4096, hd 64); printed
-   as one JSON line.
+   version's time and the library call's (none for B5/B6); B1 at the serving
+   and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
+   and training (2 x 32 x 4096) shapes, through the Hopper body and the first
+   version's; B4 on the MoE paths' own inputs through both bf16 bodies, and at
+   the training dx and dw shapes with every row real (full load); for
+   B2/B3 also the whole FlashAttention.backward (delta pass, dq, dk/dv) beside
+   SDPA's backward, at the training shape and at zamba2's; printed as one JSON
+   line.
+
+On every path, every B1 and every B4 launch (prefill, decode and training)
+must run the Hopper body (``check_bodies``, from the wrappers' per-body
+counters); the kernels line reports those counters by body.
 
 Any failure raises: the script exits non-zero and prints no final line. The
 last line is ``{"ok": true, "device": {...}}``.
@@ -103,7 +121,10 @@ PEAK_BYTES = 3.35e12          # H100 SXM HBM3
 ARCH = "qwen2.5-14b"
 BATCH, PROMPT, MAX_SEQ, DECODE_STEPS = 4, 1000, 1056, 32
 
-# (b, hq, hkv, s, t, hd, causal, window, softcap, q_offset)
+# (b, hq, hkv, s, t, hd, causal, window, softcap, q_offset). B1 in bf16 at hd 64
+# and 128 runs the Hopper body (128-query blocks, 64-key streamed tiles), other
+# head dims the first version. tests/test_torch_flash.py runs the same list on
+# the card, so a new edge is one line here. The serving path's shape stays last.
 FLASH_CASES = [
     (2, 4, 2, 128, 128, 64, True, 0, 0.0, 0),
     (1, 4, 4, 256, 256, 64, True, 32, 0.0, 0),
@@ -113,6 +134,25 @@ FLASH_CASES = [
     (1, 4, 1, 128, 128, 256, True, 4096, 50.0, 0),   # gemma2-like head dim
     (1, 4, 2, 50, 177, 64, True, 0, 0.0, 127),       # q_offset (chunked prefill)
     (1, 2, 1, 64, 16, 64, True, 8, 0.0, 64),         # fully masked rows
+    # the Hopper body's edges, at hd 64 and 128
+    (1, 4, 4, 1000, 1000, 128, True, 0, 0.0, 0),     # ragged S and T, GQA group 1
+    (2, 4, 2, 1000, 1000, 64, True, 0, 0.0, 0),      # ragged, group 2
+    (1, 40, 8, 256, 256, 128, True, 0, 0.0, 0),      # group 5
+    (1, 10, 2, 256, 256, 64, True, 0, 0.0, 0),
+    (1, 4, 2, 300, 40, 64, False, 0, 0.0, 0),        # T shorter than one tile
+    (1, 4, 2, 300, 40, 128, False, 0, 0.0, 0),
+    (1, 2, 1, 192, 64, 64, True, 16, 0.0, 48),       # q_offset: rows 31.. see no key
+    (1, 2, 1, 192, 64, 128, True, 16, 0.0, 48),
+    # windows of 64 m + 63 without softcap: interior tiles, and tiles whose last
+    # pair lies exactly on the window edge, where only the window clause of the
+    # interior test says "straddles"
+    (1, 4, 4, 1000, 1000, 128, True, 191, 0.0, 0),
+    (2, 4, 2, 1000, 1000, 64, True, 255, 0.0, 0),
+    (1, 4, 4, 512, 512, 128, True, 100, 30.0, 0),    # window and softcap
+    (1, 4, 4, 512, 512, 64, True, 100, 30.0, 0),
+    (2, 8, 8, 512, 512, 64, False, 0, 0.0, 0),       # interior tiles only
+    (2, 8, 8, 512, 512, 128, False, 0, 0.0, 0),
+    (4, 32, 32, 2000, 2000, 64, True, 0, 0.0, 0),    # zamba2's serving shape, S cut
     (BATCH, 40, 8, PROMPT, PROMPT, 128, True, 0, 0.0, 0),   # the serving path
 ]
 # o in fp32 to 3e-5; o in bf16 to 2 bf16 ulps of the plain version's value
@@ -122,6 +162,9 @@ FLASH_CASES = [
 O_ABS_F32, O_ULPS_BF16, LSE_REL = 3e-5, 2.0, 1e-5
 TOLERANCE = "o: fp32 3e-5 abs, bf16 2 ulps of |plain| (floor 2^-10); lse: 1e-5 rel"
 PROMPT_SEEDS = (0, 1, 2)      # prompts of the real-input layer check
+# the plain forward runs in blocks of query rows of at most this many fp32
+# scores (2 GB): zamba2's serving shape would need 33 GB in one call
+PLAIN_SCORES = 2 ** 29
 
 # the backward kernels: dq, dk, dv judged against the largest |value| of the
 # plain version's tensor (gradients have no fixed scale). fp32 within 1e-5 of
@@ -154,20 +197,38 @@ BWD_CASES = [
     (1, 4, 4, 1000, 1000, 128, True, 191, 0.0, 0),
     (2, 4, 2, 1000, 1000, 64, True, 255, 0.0, 0),
 ]
-# zamba2's shared attention in one training microbatch, where B2/B3 are also timed
+# zamba2's shared attention in one training microbatch, where B1/B2/B3 are also
+# timed, and in its 4 x 8000 serving forward, where B1 is timed
 HYBRID_ATTN_CASE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64, True, 0, 0.0, 0)
+HYBRID_SERVE_ATTN_CASE = (4, 32, 32, 8000, 8000, 64, True, 0, 0.0, 0)
 
 MOE_ARCH = "deepseek-moe-16b"
 # training keeps 4 of the 28 layers: fp32 masters, grads and two moments take 16
 # bytes a parameter, 270 GB for all 28 layers, 44 GB for these 4
 MOE_TRAIN_LAYERS = 4
-# B4 at the MoE paths' shapes (E, C, d, f), C = int(n * 6 / 64 * 1.25) for the n
-# tokens of a call: the prefill (n 4 x 1000), a decode step (n 4), a training
-# microbatch (n 4096); each GEMM also runs with d and f swapped (the down
-# projection), and a ragged case
-GEMM_CASES = [(64, 468, 2048, 1408), (64, 468, 1408, 2048), (64, 1, 2048, 1408),
-              (64, 1, 1408, 2048), (64, 480, 2048, 1408), (64, 480, 1408, 2048),
-              (5, 100, 136, 72)]
+# B4 at (E, C, d, f, group sizes, NaN padding). First the MoE paths' shapes, C =
+# int(n * 6 / 64 * 1.25) for the n tokens of a call: the prefill (n 4 x 1000), a
+# decode step (n 4), a training microbatch (n 4096), each GEMM also with d and f
+# swapped (the down projection), group sizes drawn at random ("random": with 0, C
+# and loads that straddle a 64- and a 128-row tile). Then the edges of both
+# bodies, each with its group sizes (None: every row) and whether the padding rows
+# of x and g hold NaN. tests/test_torch_grouped_gemm.py runs the same list on the
+# card, so a new edge is one line here.
+GEMM_CASES = [
+    (64, 468, 2048, 1408, "random", False), (64, 468, 1408, 2048, "random", False),
+    (64, 1, 2048, 1408, "random", False), (64, 1, 1408, 2048, "random", False),
+    (64, 480, 2048, 1408, "random", False), (64, 480, 1408, 2048, "random", False),
+    (5, 100, 136, 72, "random", False),
+    (3, 33, 20, 17, (33, 7, 0), False),           # strides off the 16-byte rule
+    (4, 100, 136, 72, (100, 0, 64, 65), False),   # a zero-load expert, loads on tile edges
+    (8, 1, 256, 200, (1, 0, 1, 0, 0, 1, 1, 0), False),   # one row: the Hopper body's M = 1
+    (2, 70, 1024, 96, (70, 3), False),            # a contraction longer than the ring
+    (2, 64, 64, 64, None, False),
+    # M off 128; a contract-mode tile straddling gs (129) over NaN padding in both
+    # operands; an expert whose row tiles past the first are all padding (64)
+    (4, 300, 256, 192, (300, 0, 129, 64), True),
+    (3, 200, 40, 136, (200, 17, 0), False),       # K shorter than one tile
+]
 # fp32 within 5e-5 of the tensor's largest |value|; bf16 within 2 bf16 ulps of
 # each value (both sides round one fp32 sum; |value| floored at 2^-10 of the
 # largest); padding rows (rows mode) and experts with no load exactly 0. A
@@ -250,6 +311,27 @@ def match_errors(o, lse, po, plse):
     return err.max().item(), ulps.max().item(), lse_rel.max().item()
 
 
+def flash_plain(q, k, v, *, q_offset=0, **kw):
+    """B1's plain version in blocks of query rows, each at its own q_offset,
+    so that no block's fp32 scores pass PLAIN_SCORES: the same (o, lse) as one
+    call, row by row."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse_plain
+    b, hq, s, _ = q.shape
+    rows = max(1, PLAIN_SCORES // (b * hq * k.shape[2]))
+    parts = [flash_attention_lse_plain(q[:, :, r:r + rows], k, v, q_offset=q_offset + r, **kw)
+             for r in range(0, s, rows)]
+    if len(parts) == 1:
+        return parts[0]
+    return torch.cat([o for o, _ in parts], 2), torch.cat([lse for _, lse in parts], 2)
+
+
+def dead_rows_ok(o, lse, plse):
+    """Fully masked rows (plain lse ~ -1e30): o exactly 0 and lse ~ -1e30.
+    Returns (how many, whether they hold)."""
+    dead = plse < -1e29
+    return int(dead.sum()), bool((o.float()[dead] == 0).all() and (lse[dead] < -1e29).all())
+
+
 def within_tolerance(dtype, o_abs, o_ulps, lse_rel):
     o_ok = o_ulps <= O_ULPS_BF16 if dtype == torch.bfloat16 else o_abs <= O_ABS_F32
     return o_ok and lse_rel <= LSE_REL
@@ -322,13 +404,53 @@ def all_counts():
     return (flash_attention_lse.launches, *bwd_counts(), *gemm_counts())
 
 
+def body_counts():
+    """B1's and B4's launches by body, under the bodies' kernel names."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse as f
+    from repro_torch.kernels.grouped_gemm import grouped_gemm as g
+    return {"flash_fwd_sm90": f.sm90_launches, "flash_fwd_bf16": f.mma_launches,
+            "flash_fwd_f32": f.f32_launches, "gg_sm90": g.sm90_launches,
+            "gg_bf16": g.mma_launches, "gg_f32": g.f32_launches}
+
+
+# window -> body_counts() as check_bodies read them there (a train step's: the
+# last one's); the kernels line sums them over the windows of launches_by_path
+BODY_COUNTS = {}
+
+
 def reset_counts():
     from repro_torch.kernels.flash_attention import (flash_attention_bwd,
                                                      flash_attention_lse)
     from repro_torch.kernels.grouped_gemm import grouped_gemm
     flash_attention_lse.launches = 0
+    flash_attention_lse.sm90_launches = flash_attention_lse.mma_launches = 0
+    flash_attention_lse.f32_launches = 0
     flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
     grouped_gemm.rows_launches = grouped_gemm.contract_launches = 0
+    grouped_gemm.sm90_launches = grouped_gemm.mma_launches = grouped_gemm.f32_launches = 0
+
+
+def check_bodies(what, counts, window=None):
+    """Every B1 and B4 launch counted in ``counts`` (all_counts() since the
+    last reset_counts()) ran the Hopper body; the counts by body are kept under
+    ``window`` for the kernels line."""
+    got = body_counts()
+    b4 = counts[3] + counts[4]
+    log(f"bodies, {what}: " + ", ".join(f"{k} {v}" for k, v in got.items())
+        + f" (B1 {counts[0]}, B4 {b4} launches)")
+    want = dict.fromkeys(got, 0)
+    want.update(flash_fwd_sm90=counts[0], gg_sm90=b4)
+    if got != want:
+        raise AssertionError(f"{what}: launches by body {got}, expected {want}")
+    if window:
+        BODY_COUNTS[window] = got
+
+
+def launches_by_body(prefix, windows):
+    """The per-body counts that check_bodies read, summed over ``windows``,
+    for the bodies whose names start with ``prefix``."""
+    return {name: sum(BODY_COUNTS[w][name] for w in windows)
+            for name in body_counts() if name.startswith(prefix)}
 
 
 def gemm_check(out, a, b, gs, mask):
@@ -412,32 +534,56 @@ def phase_build():
                 log(f"  {name}: {line.strip()}")
 
 
+def flash_case_check(case, dtype, gen):
+    """B1 against its plain version on one case: the body the rule names ran
+    (counted), o and lse within the limit, finite, fully masked rows o = 0 and
+    lse ~ -1e30. Returns (errors, q, k, v, o, lse)."""
+    from repro_torch.kernels import flash_attention as tf
+    b, hq, hkv, s, t, hd = case[:6]
+    q = batch_major(gen, b, hq, s, hd, dtype)
+    k = batch_major(gen, b, hkv, t, hd, dtype)
+    v = batch_major(gen, b, hkv, t, hd, dtype)
+    body = tf.fwd_body(q)
+    before = getattr(tf.flash_attention_lse, f"{body}_launches")
+    o, lse = tf.flash_attention_lse(q, k, v, **case_kw(case))
+    torch.cuda.synchronize()
+    if getattr(tf.flash_attention_lse, f"{body}_launches") != before + 1:
+        raise AssertionError(f"flash_attention_lse did not launch its {body} body")
+    po, plse = flash_plain(q, k, v, **case_kw(case))
+    errs = match_errors(o, lse, po, plse)
+    del po
+    finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
+    dead, dead_ok = dead_rows_ok(o, lse, plse)
+    log(f"check {case} {str(dtype)[6:]} ({body}): o err {errs[0]:.3e} = {errs[1]:.2f} "
+        f"bf16 ulps, lse rel err {errs[2]:.3e}, masked rows {dead}")
+    if not (within_tolerance(dtype, *errs) and finite and dead_ok):
+        raise AssertionError(f"flash_fwd disagrees with its plain version on {case} {dtype}")
+    return errs, q, k, v, o, lse
+
+
 def phase_kernels():
-    from repro_torch.kernels.flash_attention import (flash_attention_lse,
-                                                     flash_attention_lse_plain)
+    """B1 against its plain version on every FLASH_CASES row in both dtypes and,
+    in bf16, at the training path's shape (qwen1.5-4b's) and zamba2's training
+    and serving shapes, where two launches must also be bit-identical. Returns
+    the bf16 errors at the serving, training and zamba2 shapes."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
     gen = torch.Generator(device="cuda").manual_seed(0)
-    path_errs = None
+    path_errs = {}
     for case in FLASH_CASES:
-        b, hq, hkv, s, t, hd, causal, window, cap, q_offset = case
         for dtype in (torch.float32, torch.bfloat16):
-            q = batch_major(gen, b, hq, s, hd, dtype)
-            k = batch_major(gen, b, hkv, t, hd, dtype)
-            v = batch_major(gen, b, hkv, t, hd, dtype)
-            kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
-            o, lse = flash_attention_lse(q, k, v, **kw)
-            torch.cuda.synchronize()
-            po, plse = flash_attention_lse_plain(q, k, v, **kw)
-            errs = match_errors(o, lse, po, plse)
-            finite = bool(torch.isfinite(o).all() and torch.isfinite(lse).all())
-            dead = plse < -1e29                  # fully masked rows
-            dead_ok = bool((o.float()[dead] == 0).all() and (lse[dead] < -1e29).all())
-            log(f"check {case} {str(dtype)[6:]}: o err {errs[0]:.3e} = {errs[1]:.2f} "
-                f"bf16 ulps, lse rel err {errs[2]:.3e}, masked rows {int(dead.sum())}")
-            if not (within_tolerance(dtype, *errs) and finite and dead_ok):
-                raise AssertionError(f"flash_fwd disagrees with its plain version "
-                                     f"on {case} {dtype}")
+            errs = flash_case_check(case, dtype, gen)[0]
             if case == FLASH_CASES[-1] and dtype == torch.bfloat16:
-                path_errs = errs
+                path_errs["serving"] = errs
+    for name, case in (("train", TRAIN_CASE), ("hybrid_train", HYBRID_ATTN_CASE),
+                       ("hybrid_serve", HYBRID_SERVE_ATTN_CASE)):
+        errs, q, k, v, o, lse = flash_case_check(case, torch.bfloat16, gen)
+        again = flash_attention_lse(q, k, v, **case_kw(case))
+        same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
+        log(f"check {case} bfloat16: a second launch bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"two launches of flash_fwd at {case} differ")
+        path_errs[name] = errs
+        del q, k, v, o, lse, again
     return path_errs
 
 
@@ -544,7 +690,7 @@ def phase_serving():
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    flash_attention_lse.launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, batch, max_seq=MAX_SEQ)
     torch.cuda.synchronize()
@@ -553,6 +699,7 @@ def phase_serving():
     if prefill_launches != cfg.n_layers:
         raise AssertionError(f"prefill launched flash_fwd {prefill_launches} times, "
                              f"expected {cfg.n_layers}")
+    check_bodies(f"{ARCH} prefill", all_counts(), "prefill")
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not finite")
     tok = logits[:, -1].argmax(-1)
@@ -800,6 +947,53 @@ class FlashBwdCapture:
         return max(worst[1:]), worst[0]
 
 
+class FlashFwdCapture:
+    """Within the block, every call of B1's wrapper (as FlashAttention.forward
+    makes it) is held to the plain version (flash_plain) on its own (q, k, v),
+    fully masked rows exactly, and must run the Hopper body.
+    ``functools.wraps`` copies the launch counters onto the wrapper, so these
+    launches leave the real counts alone."""
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as tf
+        self.real, self.errs = tf.flash_attention_lse, []
+        real = self.real
+
+        @functools.wraps(real)
+        def checked_fwd(q, k, v, **kw):
+            o, lse = real(q, k, v, **kw)
+            po, plse = flash_plain(q, k, v, **kw)
+            self.errs.append((*match_errors(o, lse, po, plse), dead_rows_ok(o, lse, plse)[1]))
+            return o, lse
+        self.wrapper = checked_fwd
+        tf.flash_attention_lse = checked_fwd
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import flash_attention as tf
+        tf.flash_attention_lse = self.real
+
+    def summary(self, what, calls):
+        """Check that ``calls`` calls were held, each through the Hopper body,
+        and log them; returns the worst o error in bf16 ulps (None when no call
+        was expected)."""
+        hopper = self.wrapper.sm90_launches - self.real.sm90_launches
+        if len(self.errs) != calls or hopper != calls:
+            raise AssertionError(f"checked {len(self.errs)} attention forwards on the {what} "
+                                 f"({hopper} through the Hopper body), expected {calls}")
+        if not calls:
+            return None
+        o_abs, o_ulps, lse_rel = (max(e[i] for e in self.errs) for i in range(3))
+        dead_ok = all(e[3] for e in self.errs)
+        log(f"real inputs, {what}: B1 held to its plain version on {calls} calls, max o err "
+            f"{o_abs:.3e} = {o_ulps:.2f} bf16 ulps, lse rel err {lse_rel:.3e}, fully "
+            f"masked rows exact {dead_ok}")
+        if not (within_tolerance(torch.bfloat16, o_abs, o_ulps, lse_rel) and dead_ok):
+            raise AssertionError(f"flash_fwd disagrees with its plain version on the "
+                                 f"{what}'s own inputs")
+        return o_ulps
+
+
 def backward_on_real_inputs(model, params, cfg, batch):
     """One microbatch's forward + backward at full width, no optimizer state:
     on every layer, B2 and B3 held to their plain version on that layer's own
@@ -894,6 +1088,7 @@ def phase_training():
         if launches != want:
             raise AssertionError(f"a train step launched B1/B2/B3 {launches} times, "
                                  f"expected {want}")
+        check_bodies(f"{TRAIN_ARCH} train step {i}", all_counts(), "train_step")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError("the full-width train step's loss or grad norm is not finite")
     peak = torch.cuda.max_memory_allocated()
@@ -942,25 +1137,15 @@ def bwd_times_at(case, gen):
 
 
 def backward_times():
-    """B2 and B3 at the training shape and at zamba2's (bwd_times_at), the plain
-    backward at the training shape, and B1 there beside SDPA."""
-    import torch.nn.functional as F
+    """B2 and B3 at the training shape and at zamba2's (bwd_times_at) and the
+    plain backward at the training shape."""
     from repro_torch.kernels import flash_attention as tf
     gen = torch.Generator(device="cuda").manual_seed(4)
     res = bwd_times_at(TRAIN_CASE, gen)
     q, k, v, do, lse, delta, kw = res.pop("inputs")
     res["plain_ms"] = cuda_ms(lambda: tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw),
                               3, warmup=1)
-    b, hq, _, s, t, hd, causal, window, _, q_offset = TRAIN_CASE
-    res["fwd_ms"] = cuda_ms(lambda: tf.flash_attention_lse(q, k, v, **case_kw(TRAIN_CASE)), 20)
-    res["fwd_lib_ms"] = cuda_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-                                20)
-    pairs = attended_pairs(s, t, causal, window, q_offset) * b * hq
-    res["fwd_bound_ms"] = max(4 * hd * pairs / PEAK_BF16_FLOPS,
-                              (2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * lse.numel())
-                              / PEAK_BYTES) * 1e3
-    log(f"training shape: plain backward {res['plain_ms']:.4f} ms; flash_fwd "
-        f"{res['fwd_ms']:.4f} ms (bound {res['fwd_bound_ms']:.4f}, sdpa {res['fwd_lib_ms']:.4f})")
+    log(f"training shape: plain backward {res['plain_ms']:.4f} ms")
     del q, k, v, do, lse, delta
     hybrid = bwd_times_at(HYBRID_ATTN_CASE, gen)
     hybrid.pop("inputs")
@@ -968,40 +1153,111 @@ def backward_times():
     return res
 
 
+def fwd_times_at(case, gen):
+    """B1 (CUDA events) at one causal bf16 shape, through the Hopper body and
+    through the first-version mma.sync body, beside its bound, the plain version
+    (flash_plain: in blocks of query rows where one call's fp32 scores would
+    pass PLAIN_SCORES) and SDPA. The bound counts
+    the attended pairs (two products, 4 hd FLOP a pair) and q, k, v read and o,
+    lse written once."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as tf
+    b, hq, hkv, s, t, hd, causal, window, cap, q_offset = case
+    q = batch_major(gen, b, hq, s, hd, torch.bfloat16)
+    k = batch_major(gen, b, hkv, t, hd, torch.bfloat16)
+    v = batch_major(gen, b, hkv, t, hd, torch.bfloat16)
+    kw = dict(case_kw(case), scale=hd ** -0.5)
+    o = torch.empty_like(q)
+    lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
+    ms = {body: cuda_ms(lambda: tf._fwd_launch(body, q, k, v, o, lse, **kw), 20)
+          for body in ("sm90", "mma")}
+    plain_ms = cuda_ms(lambda: flash_plain(q, k, v, **case_kw(case)), 3, warmup=1)
+    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=causal, enable_gqa=hq != hkv), 20)
+    flops = 4 * hd * attended_pairs(s, t, causal, window, q_offset) * b * hq
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
+    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
+    res = {"shape": list(case[:6]), "ms": ms["sm90"], "mma_ms": ms["mma"],
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "bound_ms": max(t_ops, t_bytes) * 1e3,
+           "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+    log(f"flash_fwd at {case}: Hopper body {ms['sm90']:.4f} ms, mma.sync body "
+        f"{ms['mma']:.4f} ms, bound {res['bound_ms']:.4f} ms ({flops:.3e} FLOP, "
+        f"{nbytes / 1e6:.1f} MB, {res['bound_by']}), plain "
+        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+    return res
+
+
+def forward_times():
+    """B1 at the serving and training paths' shapes and at zamba2's serving and
+    training shapes (fwd_times_at)."""
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    out = {}
+    for name, case in (("serving", FLASH_CASES[-1]), ("train", TRAIN_CASE),
+                       (f"{HYBRID_ARCH}_serving", HYBRID_SERVE_ATTN_CASE),
+                       (f"{HYBRID_ARCH}_train", HYBRID_ATTN_CASE)):
+        out[name] = fwd_times_at(case, gen)
+        free()
+    return out
+
+
+def gemm_case_inputs(case, dtype, gen):
+    """x (E, C, d), w (E, d, f), g (E, C, f) of ``dtype`` and the group sizes of a
+    GEMM_CASES row on the card ("random": drawn with 0, C and loads that
+    straddle a 64- and a 128-row tile); with NaN padding, the rows of x and g at
+    or past each expert's load hold NaN."""
+    e, c, d, f, gs_spec, nan_pad = case
+    if gs_spec == "random":
+        gs = torch.randint(0, c + 1, (e,), generator=gen, device="cuda", dtype=torch.int32)
+        gs[0], gs[1] = 0, c
+        gs[2], gs[3] = min(c, 67), min(c, 131)
+    else:
+        gs = None if gs_spec is None else torch.tensor(gs_spec, dtype=torch.int32,
+                                                        device="cuda")
+    x, w, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
+               for shape in ((e, c, d), (e, d, f), (e, c, f)))
+    if nan_pad:
+        pad = torch.arange(c, device="cuda")[None, :, None] >= gs[:, None, None]
+        x, g = (t.masked_fill(pad, float("nan")) for t in (x, g))
+    return x, w, g, gs
+
+
 def phase_kernels_gemm():
-    """B4 against its plain version in its three uses at every GEMM_CASES
-    shape, fp32 and bf16, with group sizes that include 0, C and a value that
-    straddles a 64-row tile. Returns the errors at the prefill shape's forward
-    (bf16)."""
-    from repro_torch.kernels.grouped_gemm import grouped_gemm
+    """B4 against its plain version in its three uses at every GEMM_CASES row,
+    fp32 and bf16, through the body the rule names (counted); two launches at
+    the prefill shape bit-identical. Returns the errors at the prefill shape's
+    forward (bf16)."""
+    from repro_torch.kernels import grouped_gemm as tg
     gen = torch.Generator(device="cuda").manual_seed(6)
     path_errs = None
     for case in GEMM_CASES:
-        e, c, d, f = case
-        gs = torch.randint(0, c + 1, (e,), generator=gen, device="cuda", dtype=torch.int32)
-        gs[0], gs[1] = 0, c
-        gs[2] = min(c, 67)                       # straddles the second row tile
         for dtype in (torch.float32, torch.bfloat16):
-            x, w, g = (torch.randn(shape, generator=gen, device="cuda").to(dtype)
-                       for shape in ((e, c, d), (e, d, f), (e, c, f)))
+            x, w, g, gs = gemm_case_inputs(case, dtype, gen)
             for use, a, b, mask in (("forward", x, w, "rows"),
                                     ("dx", g, w.transpose(1, 2), "rows"),
                                     ("dw", x.transpose(1, 2), g, "contract")):
-                before = gemm_counts()
-                out = grouped_gemm(a, b, gs, mask=mask)
+                body = tg.gemm_body(a, b)
+                before = (*gemm_counts(), getattr(tg.grouped_gemm, f"{body}_launches"))
+                out = tg.grouped_gemm(a, b, gs, mask=mask)
                 torch.cuda.synchronize()
-                if gemm_counts() != (before[0] + (mask == "rows"),
-                                     before[1] + (mask == "contract")):
-                    raise AssertionError("grouped_gemm did not count one launch")
+                if (*gemm_counts(), getattr(tg.grouped_gemm, f"{body}_launches")) != (
+                        before[0] + (mask == "rows"), before[1] + (mask == "contract"),
+                        before[2] + 1):
+                    raise AssertionError(f"grouped_gemm did not count one {body} launch")
                 abs_err, err, zeros, ok = gemm_check(out, a, b, gs, mask)
                 unit = "bf16 ulps" if dtype == torch.bfloat16 else "of the max"
-                log(f"check grouped_gemm {case} {str(dtype)[6:]} {use} ({mask}): err "
-                    f"{abs_err:.3e} = {err:.3g} {unit}, zeros exact {zeros}")
+                log(f"check grouped_gemm {case[:4]} {str(dtype)[6:]} {use} ({mask}, {body}): "
+                    f"err {abs_err:.3e} = {err:.3g} {unit}, zeros exact {zeros}")
                 if not ok:
                     raise AssertionError(f"grouped_gemm disagrees with its plain version on "
                                          f"{case} {dtype} {use}")
                 if case == GEMM_CASES[0] and dtype == torch.bfloat16 and use == "forward":
                     path_errs = (abs_err, err)
+                    same = torch.equal(out, tg.grouped_gemm(a, b, gs, mask=mask))
+                    log(f"check grouped_gemm {case[:4]} bfloat16 forward: a second launch "
+                        f"bit-identical: {same}")
+                    if not same:
+                        raise AssertionError(f"two launches of grouped_gemm at {case} differ")
             del x, w, g
     return path_errs
 
@@ -1120,6 +1376,7 @@ def phase_moe_serving():
     if prefill_launches != want:
         raise AssertionError(f"the MoE prefill launched B1, B2, B3, B4 rows/contract "
                              f"{prefill_launches} times, expected {want}")
+    check_bodies(f"{MOE_ARCH} prefill", prefill_launches, "moe_prefill")
     if not torch.isfinite(logits).all():
         raise AssertionError("MoE prefill logits are not finite")
     last = logits[:, -1].clone()
@@ -1140,6 +1397,7 @@ def phase_moe_serving():
     if decode_launches != want:
         raise AssertionError(f"{DECODE_STEPS} MoE decode steps launched B1, B2, B3, B4 "
                              f"{decode_launches} times, expected {want}")
+    check_bodies(f"{MOE_ARCH} {DECODE_STEPS} decode steps", decode_launches, "moe_decode")
     if not finite:
         raise AssertionError("MoE decode logits are not finite")
     peak = torch.cuda.max_memory_allocated()
@@ -1161,6 +1419,7 @@ def phase_moe_serving():
     if all_counts() != prefill_launches:
         raise AssertionError(f"the scatter prefill launched {all_counts()}, expected "
                              f"{prefill_launches}")
+    check_bodies(f"{MOE_ARCH} prefill (scatter)", prefill_launches)
     sdrift = ((slogits[:, -1] - last).abs().max() / last.abs().max()).item()
     del slogits
     log(f"serving {MOE_ARCH}: prefill (scatter dispatch) in {t_scatter * 1e3:.1f} ms = "
@@ -1192,7 +1451,8 @@ def phase_moe_serving():
     log(f"reading: {MOE_ARCH} prefill last-position logits, B4 vs the plain expert GEMM: "
         f"max diff / max |logit| = {drift:.3e}")
     del logits, ref
-    return {"prefill_b4": prefill_launches[3], "decode_b4": decode_launches[3],
+    return {"prefill_b1": prefill_launches[0], "prefill_b4": prefill_launches[3],
+            "decode_b4": decode_launches[3],
             "real_ulps": real_ulps, "times": gemm_times(kept)}
 
 
@@ -1233,7 +1493,10 @@ def phase_moe_training():
         loss, _ = make_loss_fn(model, Hyper())(params, mb)
         loss.backward()
     real_ulps = cap.summary(f"{MOE_ARCH} training microbatch ({MOE_TRAIN_LAYERS} layers)")
-    b4_times = gemm_times({"train_dx": cap.kept["dx"], "train_dw": cap.kept["dw"]})
+    kept = {"train_dx": cap.kept["dx"], "train_dw": cap.kept["dw"]}
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    kept.update({f"{name}_full_load": full_load(*kept[name], gen) for name in list(kept)})
+    b4_times = gemm_times(kept)
     del cap
     log(f"full-width microbatch: loss {loss.item():.6f}, grad norm "
         f"{global_norm(map_tree(lambda p: p.grad, params)).item():.6f}")
@@ -1264,6 +1527,7 @@ def phase_moe_training():
             f"B4 contract {launches}")
         if launches != want:
             raise AssertionError(f"a MoE train step launched {launches}, expected {want}")
+        check_bodies(f"{MOE_ARCH} train step {i}", launches, "moe_train_step")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError("the MoE train step's loss or grad norm is not finite")
     peak = torch.cuda.max_memory_allocated()
@@ -1277,22 +1541,40 @@ def phase_moe_training():
         f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
         f"{peak / 1e9:.2f} GB")
     profile_window("MoE train step", lambda: step(state, batches[-1]))
-    return {"train_b4_rows": launches[3], "train_b4_contract": launches[4],
+    return {"train_b1": launches[0], "train_b4_rows": launches[3],
+            "train_b4_contract": launches[4],
             "train_b2": launches[1], "train_b3": launches[2],
             "real_ulps": real_ulps, "times": b4_times}
 
 
+def full_load(a, b, gs, mask, gen):
+    """Random bf16 operands in the layouts (strides) of a kept B4 call, with
+    every row real: group sizes at the rows (rows mode) or the contraction
+    length (contract mode)."""
+    def like(t):
+        return torch.empty_strided(t.shape, t.stride(), dtype=t.dtype,
+                                   device=t.device).normal_(generator=gen)
+    full = a.shape[1] if mask == "rows" else a.shape[2]
+    return like(a), like(b), torch.full_like(gs, full), mask
+
+
 def gemm_times(kept):
-    """B4 (CUDA events) on each kept path input beside its bound, its plain
-    version and one ``torch.bmm`` on the masked inputs. The bound counts what
-    this input needs: the real rows of the activations, the weights of experts
-    with a load, the whole output written, 2 FLOP a multiply-add of real rows."""
+    """B4 (CUDA events) on each kept path input through both bf16 bodies (the
+    Hopper body and the first-version mma.sync body; "ms" is the one the rule
+    routes the input to) beside its bound, its plain version and one
+    ``torch.bmm`` on the masked inputs. The bound counts what this input needs:
+    the real rows of the activations, the weights of experts with a load, the
+    whole output written, 2 FLOP a multiply-add of real rows."""
     from repro_torch.kernels import grouped_gemm as tg
     res = {}
     for name, (a, b, gs, mask) in kept.items():
         e, m, k = a.shape
         n = b.shape[2]
-        ms = cuda_ms(lambda: tg.grouped_gemm(a, b, gs, mask=mask), 20)
+        out = torch.empty((e, m, n), dtype=a.dtype, device="cuda")
+        body_ms = {body: cuda_ms(lambda: tg._launch(body, a, b, out, gs, mask), 20)
+                   for body in ("sm90", "mma")}
+        body = tg.gemm_body(a, b)
+        ms = body_ms[body]
         plain_ms = cuda_ms(lambda: tg.grouped_gemm_plain(a, b, gs, mask=mask), 5, warmup=1)
         g = gs[:, None, None]
         if mask == "rows":
@@ -1312,14 +1594,16 @@ def gemm_times(kept):
             flops = 2 * real * m * n
             nbytes = 2 * (real * m + real * n + e * m * n)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-        res[name] = {"shape": [e, m, k, n], "mask": mask, "real_rows": real,
-                     "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        res[name] = {"shape": [e, m, k, n], "mask": mask, "real_rows": real, "body": body,
+                     "ms": ms, "sm90_ms": body_ms["sm90"], "mma_ms": body_ms["mma"],
+                     "plain_ms": plain_ms, "library_ms": library_ms,
                      "bound_ms": max(t_ops, t_bytes) * 1e3,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-        log(f"grouped_gemm {name} {(e, m, k, n)} {mask}, {real} real rows: {ms:.4f} ms, "
+        log(f"grouped_gemm {name} {(e, m, k, n)} {mask}, {real} real rows: {ms:.4f} ms "
+            f"({body}; Hopper body {body_ms['sm90']:.4f}, mma.sync body {body_ms['mma']:.4f}), "
             f"bound {res[name]['bound_ms']:.4f} ms ({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB, "
             f"{res[name]['bound_by']}), plain {plain_ms:.4f} ms, bmm {library_ms:.4f} ms")
-        del am, bm
+        del am, bm, out
     return res
 
 
@@ -1644,6 +1928,7 @@ def phase_ssm_serving(arch):
         if fwd_launches != want:
             raise AssertionError(f"the {arch} forward launched B1, B2, B3, B4 rows/contract, "
                                  f"B5, B6 {fwd_launches} times, expected {want}")
+        check_bodies(f"{arch} forward", fwd_launches, f"{arch}_forward")
         if not torch.isfinite(logits).all():
             raise AssertionError(f"{arch} forward logits are not finite")
         del logits
@@ -1686,11 +1971,14 @@ def phase_ssm_serving(arch):
             params, cache, tok, SSM_DECODE_PROMPT + DECODE_STEPS))
         del cache
         profile_window(f"{arch} forward", lambda: model.forward(params, batch))
-        with SSDCapture() as cap:
+        with SSDCapture() as cap, FlashFwdCapture() as fwd:
             model.forward(params, batch)
         real = cap.summary(f"{arch} forward ({cfg.n_layers} layers)")
+        real_fwd = fwd.summary(f"{arch} forward ({apps} attention applications)", apps)
+        del fwd
         times = ssd_times(f"{arch} serving", cap.kept)
-    return {"b5": fwd_launches[5], "b1": fwd_launches[0], "real": real, "times": times}
+    return {"b5": fwd_launches[5], "b1": fwd_launches[0], "real": real, "real_fwd": real_fwd,
+            "times": times}
 
 
 def phase_ssm_training(arch, batch_size):
@@ -1728,13 +2016,14 @@ def phase_ssm_training(arch, batch_size):
 
     mb = {k: v[:batch_size // TRAIN_MICRO] for k, v in batches[0].items()}
     apps = n_apps(cfg)
-    with SSDCapture() as cap, FlashBwdCapture() as attn:
+    with SSDCapture() as cap, FlashBwdCapture() as attn, FlashFwdCapture() as fwd:
         loss, _ = make_loss_fn(model, Hyper())(params, mb)
         loss.backward()
     real = cap.summary(f"{arch} training microbatch ({cfg.n_layers} layers)")
     real_attn = attn.summary(f"{arch} training microbatch ({apps} attention applications)",
                              apps)
-    del attn
+    real_fwd = fwd.summary(f"{arch} training microbatch ({apps} attention applications)", apps)
+    del attn, fwd
     times = ssd_times(f"{arch} training", cap.kept)
     del cap
     log(f"full-width microbatch: loss {loss.item():.6f}, grad norm "
@@ -1765,6 +2054,7 @@ def phase_ssm_training(arch, batch_size):
             f"{gnorm:.6f}, launches B1/B2/B3/B4 rows/B4 contract/B5/B6 {launches}")
         if launches != want:
             raise AssertionError(f"a {arch} train step launched {launches}, expected {want}")
+        check_bodies(f"{arch} train step {i}", launches, f"{arch}_train_step")
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"the {arch} train step's loss or grad norm is not finite")
     peak = torch.cuda.max_memory_allocated()
@@ -1778,7 +2068,8 @@ def phase_ssm_training(arch, batch_size):
         f"{peak / 1e9:.2f} GB")
     timed(f"{arch} train step profile", profile_window, f"{arch} train step",
           lambda: step(state, batches[-1]))
-    return {"launches": launches, "real": real, "real_attn": real_attn, "times": times}
+    return {"launches": launches, "real": real, "real_attn": real_attn, "real_fwd": real_fwd,
+            "times": times}
 
 
 def ssd_entries(ssd_errs, ssm):
@@ -1823,50 +2114,48 @@ def ssd_entries(ssd_errs, ssm):
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
                 moe_train, ssd_errs, ssm):
-    from repro_torch.kernels.flash_attention import (flash_attention_lse,
-                                                     flash_attention_lse_plain)
-    import torch.nn.functional as F
-    b, hq, hkv, s, t, hd, causal, window, cap, q_offset = FLASH_CASES[-1]
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    q = batch_major(gen, b, hq, s, hd, torch.bfloat16)
-    k = batch_major(gen, b, hkv, t, hd, torch.bfloat16)
-    v = batch_major(gen, b, hkv, t, hd, torch.bfloat16)
-    kw = dict(causal=causal, window=window, softcap=cap, q_offset=q_offset)
-    ms = cuda_ms(lambda: flash_attention_lse(q, k, v, **kw), 20)
-    plain_ms = cuda_ms(lambda: flash_attention_lse_plain(q, k, v, **kw), 5, warmup=1)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=True, enable_gqa=True), 20)
-    pairs = attended_pairs(s, t, causal, window, q_offset)
-    flops = 4 * hd * pairs * b * hq
-    nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + 4 * b * hq * s
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    bound_ms = max(t_ops, t_bytes) * 1e3
-    log(f"flash_fwd at the path's shape: {ms:.4f} ms, bound {bound_ms:.4f} ms "
-        f"({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, "
-        f"sdpa {library_ms:.4f} ms")
-    del q, k, v
+    ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
+    hy_serve, hy_train = ssm[HYBRID_ARCH]
+    b1_paths = {"prefill": launches, "train_step": b1_train,
+                "moe_prefill": moe_serve["prefill_b1"], "moe_train_step": moe_train["train_b1"],
+                f"{HYBRID_ARCH}_forward": hy_serve["b1"],
+                f"{HYBRID_ARCH}_train_step": hy_train["launches"][0]}
+    b1_bodies = launches_by_body("flash_fwd", b1_paths)
+    if sum(b1_bodies.values()) != sum(b1_paths.values()):
+        raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
+                             f"launches by path {b1_paths}")
+    # the kernel checks' bf16 errors beside the times of the same shapes
+    shapes = {name: dict(r) for name, r in ft.items()}
+    for name, key in (("serving", "serving"), ("train", "train"),
+                      (f"{HYBRID_ARCH}_serving", "hybrid_serve"),
+                      (f"{HYBRID_ARCH}_train", "hybrid_train")):
+        shapes[name].update(max_abs_err=path_errs[key][0], max_err_bf16_ulps=path_errs[key][1])
+    head = ft["serving"]
     entries = [{
         "name": "flash_fwd",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "src/repro/kernels/flash_attention.py:97",
-        "launches": launches + b1_train,
-        "launches_by_path": {"prefill": launches, "train_step": b1_train},
-        "max_abs_err": path_errs[0],
-        "max_err_bf16_ulps": path_errs[1],
-        "lse_max_rel_err": path_errs[2],
+        "launches": sum(b1_paths.values()),
+        "launches_by_path": b1_paths,
+        "launches_by_body": b1_bodies,
+        "max_abs_err": path_errs["serving"][0],
+        "max_err_bf16_ulps": path_errs["serving"][1],
+        "lse_max_rel_err": path_errs["serving"][2],
         "real_inputs_max_err_bf16_ulps": real_ulps,
+        f"{HYBRID_ARCH}_real_inputs_max_err_bf16_ulps": max(hy_serve["real_fwd"],
+                                                            hy_train["real_fwd"]),
         "tolerance": TOLERANCE,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-        "train_shape_ms": bt["fwd_ms"],
-        "train_shape_bound_ms": bt["fwd_bound_ms"],
-        "train_shape_library_ms": bt["fwd_lib_ms"],
+        "ms": head["ms"],
+        "mma_body_ms": head["mma_ms"],
+        "plain_ms": head["plain_ms"],
+        "bound_ms": head["bound_ms"],
+        "bound_by": head["bound_by"],
+        "library_ms": head["library_ms"],
+        "library_covers": "SDPA's forward (o only) on the same q, k, v",
+        "shapes": shapes,
         "check": "pass",
     }]
     hybrid_train = ssm[HYBRID_ARCH][1]["launches"]
@@ -1912,18 +2201,23 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
     gt = {**moe_serve["times"], **moe_train["times"]}
     head = gt["prefill"]
     decode_steps = moe_serve["decode_b4"]
+    train_b4 = moe_train["train_b4_rows"] + moe_train["train_b4_contract"]
+    b4_bodies = launches_by_body("gg_", ("moe_prefill", "moe_decode", "moe_train_step"))
+    if sum(b4_bodies.values()) != moe_serve["prefill_b4"] + decode_steps + train_b4:
+        raise AssertionError(f"B4's launches by body {b4_bodies} do not add up to its "
+                             f"launches by path")
     entries.append({
         "name": "grouped_gemm",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
         "replaces": "src/repro/kernels/grouped_gemm.py:50",
-        "launches": moe_serve["prefill_b4"] + decode_steps + moe_train["train_b4_rows"]
-        + moe_train["train_b4_contract"],
+        "launches": moe_serve["prefill_b4"] + decode_steps + train_b4,
         "launches_by_path": {"prefill": moe_serve["prefill_b4"],
                              "decode_step": decode_steps // DECODE_STEPS,
                              f"decode_{DECODE_STEPS}_steps": decode_steps,
                              "train_step_rows": moe_train["train_b4_rows"],
                              "train_step_contract": moe_train["train_b4_contract"]},
+        "launches_by_body": b4_bodies,
         "max_abs_err": gemm_errs[0],
         "max_err_bf16_ulps": gemm_errs[1],
         "real_inputs_max_err_bf16_ulps": max(moe_serve["real_ulps"], moe_train["real_ulps"]),
@@ -1934,9 +2228,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
         "library_covers": "one torch.bmm on the row-masked inputs at the same shape",
-        "shapes": {k: {kk: v[kk] for kk in ("shape", "mask", "real_rows", "ms", "plain_ms",
-                                             "bound_ms", "bound_by", "library_ms")}
-                   for k, v in gt.items()},
+        "shapes": gt,
         "check": "pass",
     })
     entries += ssd_entries(ssd_errs, ssm)

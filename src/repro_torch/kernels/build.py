@@ -2,9 +2,11 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``build/`` at the repository root (git-ignored),
-at first use. The library's file name carries a hash of its source, so an
-edited source is rebuilt and a stale library is never loaded. No PyTorch
-header is included, so a build takes seconds.
+at first use, with ``-I csrc`` for the shared headers (``csrc/sm90.cuh``). The
+library's file name carries a hash of its source and of every header it
+includes from ``csrc/``, so an edited source or header is rebuilt and a stale
+library is never loaded. No PyTorch header is included, so a build takes
+seconds.
 """
 
 from __future__ import annotations
@@ -12,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -36,9 +39,41 @@ def _nvcc() -> str:
     return found
 
 
+_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+# What a kernel's C entry point returns besides a cudaError_t: the codes of
+# csrc/sm90.cuh's kErrNoEncoder and kErrTensorMap (+ the CUresult).
+ERR_NO_ENCODER, ERR_TENSOR_MAP = 20000, 20001
+
+
+def launch_error(err: int) -> str:
+    """What a non-zero return code of a kernel's C entry point says."""
+    if err == ERR_NO_ENCODER:
+        return "the driver offers no tensor-map encoder (cuTensorMapEncodeTiled)"
+    if err > ERR_NO_ENCODER:
+        return f"tensor-map encode failed: CUresult {err - ERR_TENSOR_MAP}"
+    return f"cudaError {err}"
+
+
+def sources(name: str):
+    """``csrc/<name>.cu`` and every header it includes from ``csrc/`` ("..."
+    includes, followed into the headers), each once, in the order met."""
+    found = []
+
+    def visit(path: Path):
+        if path not in found:
+            found.append(path)
+            for inc in _INCLUDE.findall(path.read_bytes()):
+                visit(CSRC / inc.decode())
+    visit(CSRC / f"{name}.cu")
+    return found
+
+
 def library_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256()
+    for path in sources(name):
+        h.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, str]:
@@ -53,7 +88,7 @@ def build(names: Iterable[str]) -> Dict[str, str]:
             continue
         fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
         os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(CSRC / f"{name}.cu")]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, str(CSRC / f"{name}.cu")]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

@@ -16,33 +16,70 @@
 // q, k, v and o are addressed through batch/head/sequence strides (head dim
 // contiguous), so batch-major callers pass transposed views without copies.
 //
-// Two bodies:
-//  - flash_fwd_bf16<HD>: bf16 inputs. 4 warps x 16 query rows = 64-row q tile, 64-key
-//    KV tiles. Q.K^T and P.V run on the tensor cores with mma.sync m16n8k16 (bf16 in,
-//    fp32 accumulate). The reference keeps P in fp32; here P enters the second
-//    product as two bf16 terms (head + remainder, ~16 bits), which doubles that
-//    product's mma count but keeps the kernel's rounding at the reference's
-//    (one rounding of O to bf16). Tiles sit in
-//    padded shared memory (conflict-free fragment loads; V fragments via
+// Bodies (the wrapper, flash_attention.py, chooses by dtype and head dim):
+//  - flash_fwd_sm90<HD>: bf16 at hd 64 and 128 (every path's head dim: qwen and
+//    deepseek 128, zamba2's shared attention 64), the Hopper body, the forward
+//    counterpart of flash_bwd.cu's. 384 threads: a producer warpgroup
+//    (setmaxnreg down to 24; one thread loads the block's 128-query Q tile once
+//    by TMA, then streams the 64-key K and V tiles through a ring of 5 (hd 128)
+//    or 6 (hd 64) stages with full/empty mbarriers) and two consumer warpgroups
+//    (240 registers) that each own 64 of the tile's queries. S = Q K^T is a
+//    wgmma with both operands in shared memory (K-major); O += P V takes P
+//    straight from the S accumulator as wgmma's register A fragments and reads
+//    V MN-major through the transposed descriptor, so P never touches shared
+//    memory and V is never transposed. Within a warpgroup S_j = Q K_j^T and
+//    O += P_{j-1} V_{j-1} are issued together and the softmax of S_j runs while
+//    the second is on the tensor cores; O takes S_j's rescale when it retires
+//    (so a warpgroup holds two stages, hence the deeper ring), and the two
+//    warpgroups fill each other's gaps. TMA's 4-D maps (head dim, sequence,
+//    head, batch) zero-fill rows past S and T; a zero key scores 0, not -inf,
+//    so tiles with such keys take the mask path. The online softmax keeps the
+//    rows' max in natural units and the sums per thread (quad reductions over
+//    the accumulator layout); O and l are rescaled only when a row's max
+//    rises. Tiles that no mask edge touches (tile_straddles: the causal
+//    diagonal, the window edge, a ragged S or T) skip the per-element test, and
+//    there p = 2^(q.k * scale log2 e - m log2 e) is one FFMA and one MUFU.EX2;
+//    softcap keeps the per-element path (tanh, mask, expf). The grid puts the
+//    tile index on y, heaviest causal tiles first across all heads.
+//  - flash_fwd_bf16<HD>: bf16 at hd 32 and 256 (on no path), the first version.
+//    4 warps x 16 query rows = 64-row q tile, 64-key KV tiles. Q.K^T and P.V run
+//    on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate). Tiles
+//    sit in padded shared memory (conflict-free fragment loads; V fragments via
 //    ldmatrix.trans), filled by cp.async in a two-step pipeline (V of a tile loads
 //    while its scores are computed, K of the next tile while P.V runs). Tiles wholly
-//    inside the mask skip the per-element mask test. No TMA and no wgmma yet, so the
-//    kernel is bound by mma.sync issue rate and the softmax's instruction count,
-//    well below the card's bf16 rate (989 TFLOP/s dense). At the serving shape
-//    (B 4, Hq 40, Hkv 8, S = T = 1000, hd 128, causal) the work is 4.1e10 FLOP,
-//    a 41.5 us bound by operations; the bytes (~98 MB, 29 us at 3.35 TB/s) weigh less.
+//    inside the mask skip the per-element mask test.
 //  - flash_fwd_f32<HD>: fp32 inputs, plain fp32 FMA on the CUDA cores (the reference
 //    computes in fp32, and TF32 would miss its 3e-5 tolerance). 4 warps x 8 rows,
 //    32-key tiles; lane j owns key j for the scores and head-dim columns j, j+32, ...
-//    for the output. Bound by the 67 TFLOP/s fp32 rate at best; not on the serving path.
+//    for the output. Bound by the 67 TFLOP/s fp32 rate at best; not on the paths.
+//
+// Rounding. The reference keeps P in fp32; both bf16 bodies pass P to P.V as two
+// bf16 terms (head + remainder, ~16 bits), which doubles that product's tensor-core
+// work but keeps the kernel's rounding at the reference's (one rounding of O to
+// bf16). Measured on every bf16 row of chip_smoke.py's FLASH_CASES and the
+// training shape (H100 80GB HBM3, 700 W): two terms within 1.00 bf16 ulp
+// everywhere; a variant of this body with P rounded to bf16 once (one term) was
+// 61-401 ulps off (401 at the serving shape, 210 at the training shape), far
+// outside the 2-ulp limit, for 12-17% less time (serving 0.1723 against 0.1973
+// ms, training 0.2230 against 0.2698 ms). So two terms stay.
+//
+// Bound. At the training shape (B 1, Hq = Hkv = 20, S = T = 4096, hd 128, causal)
+// the two products are 4 hd FLOP per attended pair, 8.6e10 FLOP = 87 us at 989
+// TFLOP/s; at the serving shape (B 4, Hq 40, Hkv 8, S = T = 1000) 4.1e10 FLOP =
+// 41.5 us; the bytes (~98 MB at serving, 29 us at 3.35 TB/s) weigh less. With
+// two bf16 terms the kernel issues 1.5x that tensor-core work, which SDPA (one
+// bf16 P) does not. Measured (chip_smoke.py, H100 80GB HBM3, 700 W): training
+// 0.2688 ms (SDPA 0.1707; the mma.sync body 0.9783), serving 0.1976 (SDPA
+// 0.1006; 0.5170), zamba2's serving shape (4 x 32 x 8000, hd 64) 4.845 (SDPA
+// 2.259; 11.89). The first Hopper version, which waited out each product before
+// the softmax, took 0.302 / 0.213 ms. -Xptxas -v (CUDA 12.8): 168 registers at
+// launch, no spills.
 //
 // Built by repro_torch/kernels/build.py with
-//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
+//   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC -I csrc
 // and bound with ctypes through the C entry point flash_fwd at the end of this file.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
+#include "sm90.cuh"          // the masks, mbarrier/TMA/wgmma helpers, the tensor maps
 
 namespace {
 
@@ -62,24 +99,6 @@ struct Params {
   int causal, window, q_offset;
   float softcap, scale;
 };
-
-// _tile_relevant: can any (query, key) pair of this tile pair attend?
-__device__ __forceinline__ bool tile_relevant(const Params& p, int q_start, int bq,
-                                              int k_start, int bk) {
-  bool rel = true;
-  if (p.causal) rel = k_start <= p.q_offset + q_start + bq - 1;
-  if (p.window > 0) rel = rel && (k_start + bk - 1 > p.q_offset + q_start - p.window);
-  return rel;
-}
-
-// _tile_mask for one element: row_l is the local query index, col the key index.
-__device__ __forceinline__ bool attend(const Params& p, int row_l, int col) {
-  if (row_l >= p.s || col >= p.t) return false;
-  const int row_g = p.q_offset + row_l;
-  if (p.causal && col > row_g) return false;
-  if (p.window > 0 && row_g - col >= p.window) return false;
-  return true;
-}
 
 __device__ __forceinline__ float score_mod(const Params& p, float dot) {
   float s = dot * p.scale;
@@ -134,15 +153,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t& r0, uint32_t& r1,
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
       : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
       : "r"(addr));
-}
-
-// (x0, x1) -> bf16x2 head (rounded) and bf16x2 remainder, x ~ head + remainder.
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi, uint32_t& lo) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  __nv_bfloat162 l = __floats2bfloat162_rn(x0 - hf.x, x1 - hf.y);
-  hi = *reinterpret_cast<uint32_t*>(&h);
-  lo = *reinterpret_cast<uint32_t*>(&l);
 }
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
@@ -344,6 +354,231 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
 }
 
 // ---------------------------------------------------------------------------
+// Hopper body: bf16 at hd 64 and 128.
+
+// Online softmax over one 64 x 64 tile of a consumer warpgroup, in the
+// accumulator layout (element i: query row_a + 8 ((i >> 1) & 1), key
+// col_a + 8 (i >> 2) + (i & 1)). sc holds q.k and becomes p; m (natural units)
+// and l are the thread's two rows' running max and its share of their sums. A
+// row whose max rises gets rose[r] and corr[r] = exp(m_old - m_new), which l
+// takes here and the rows' O takes once the wgmmas writing it are done
+// (rescale). kEdge: the per-element mask (a masked element is left out of the
+// max and gets p = 0, so a row with no key yet keeps m = -1e30 and l = 0).
+// kCap: softcap, per element.
+template <bool kEdge, bool kCap>
+__device__ __forceinline__ void softmax_tile(const Params& p, float (&sc)[32], float (&m)[2],
+                                             float (&l)[2], float (&corr)[2], bool (&rose)[2],
+                                             int row_a, int col_a) {
+  uint32_t ok = 0xffffffffu;
+  float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    if constexpr (kCap) sc[i] = score_mod(p, sc[i]);
+    if (kEdge && !attend(p, row_a + 8 * r, col_a + 8 * (i >> 2) + (i & 1))) {
+      ok &= ~(1u << i);
+    } else {
+      mx[r] = fmaxf(mx[r], sc[i]);
+    }
+  }
+  float mb[2];                             // the rows' max in log2 units
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float t = quad_max(mx[r]);       // raw q.k without softcap (scale > 0)
+    const float m_new = t == kNegInf ? m[r] : fmaxf(m[r], kCap ? t : t * p.scale);
+    rose[r] = m_new > m[r];
+    corr[r] = rose[r] ? ex2((m[r] - m_new) * kLog2e) : 1.f;
+    l[r] *= corr[r];
+    m[r] = m_new;
+    mb[r] = m_new * kLog2e;
+  }
+  const float sl2 = p.scale * kLog2e;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    float pe = kCap ? expf(sc[i] - m[r]) : ex2(fmaf(sc[i], sl2, -mb[r]));
+    if (kEdge && !((ok >> i) & 1u)) pe = 0.f;
+    sc[i] = pe;
+    l[r] += pe;
+  }
+}
+
+// The rows of O (acc) whose max rose take their correction.
+template <int N>
+__device__ __forceinline__ void rescale(float (&acc)[N], const float (&corr)[2],
+                                        const bool (&rose)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (!rose[r]) continue;
+#pragma unroll
+    for (int nt = 0; nt < N / 4; ++nt) {
+      acc[4 * nt + 2 * r] *= corr[r];
+      acc[4 * nt + 2 * r + 1] *= corr[r];
+    }
+  }
+}
+
+// Keeps the registers of wgmma's A fragments live (and unchanged) until here:
+// called after the wait that retires the wgmmas reading them.
+__device__ __forceinline__ void fence_frags(uint32_t (&x)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) asm volatile("" : "+r"(x[j][r]) :: "memory");
+}
+
+// B1's Hopper layout: the 128-query Q tile (one own tensor) and a ring of K/V
+// stages, deeper than B2's since the consumers hold two stages at a time.
+template <int HD>
+using FwdSh = Sm90<HD, 1, HD == 128 ? 5 : 6>;
+
+// B1, Hopper: one block per (q-head, 128-query tile, batch); consumer warpgroup c
+// owns queries 64c .. 64c + 63 of the tile and carries their (m, l, O) over the
+// KV tiles relevant to them, which lie inside the block's relevant range that
+// the producer streams through the ring. Within a warpgroup the products of two
+// tiles overlap the softmax: S_j = Q K_j^T and O += P_{j-1} V_{j-1} are issued
+// together, the softmax of S_j runs while P_{j-1} V_{j-1} is on the tensor
+// cores, and O takes S_j's rescale once that product retires.
+template <int HD>
+__global__ void __launch_bounds__(kSm90Threads, 1)
+flash_fwd_sm90(const Params p, const __grid_constant__ CUtensorMap tm_q,
+               const __grid_constant__ CUtensorMap tm_k,
+               const __grid_constant__ CUtensorMap tm_v) {
+  using Sh = FwdSh<HD>;
+  extern __shared__ unsigned char smem_raw[];
+  const Sm90Smem<HD, Sh> sm(smem_raw);
+  const int h = blockIdx.x;
+  const int q_blk = (gridDim.y - 1 - blockIdx.y) * Sh::kOwnRows;   // heaviest causal tiles first
+  const int bi = blockIdx.z;
+  const int kvh = h / (p.hq / p.hkv);
+  const int nk = (p.t + 63) / 64;
+  int k_lo, k_hi;
+  relevant_range(p, true, q_blk, Sh::kOwnRows, 64, nk, k_lo, k_hi);
+  const int n_iter = k_hi - k_lo;
+  if (threadIdx.x == 0) sm.init(1);
+  __syncthreads();
+
+  if (threadIdx.x < kWg) {                              // producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" :: "n"(kProducerRegs));
+    if (threadIdx.x == 0 && n_iter > 0) {
+      mbar_expect_tx(sm.own_ready(), Sh::kOwnBytes);
+      for (int bx = 0; bx < Sh::kBoxes; ++bx)
+        tma_load(sm.own(0) + bx * Sh::kOwnBox, &tm_q, sm.own_ready(), bx * 64, q_blk, h, bi);
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % Sh::kStages;
+        const int k_start = (k_lo + it) * 64;
+        mbar_wait(sm.empty(s), ((it / Sh::kStages) & 1) ^ 1);
+        mbar_expect_tx(sm.full(s), 2 * Sh::kStreamBytes);
+        for (int bx = 0; bx < Sh::kBoxes; ++bx) {
+          tma_load(sm.stream(s, 0) + bx * Sh::kStreamBox, &tm_k, sm.full(s), bx * 64, k_start,
+                   kvh, bi);
+          tma_load(sm.stream(s, 1) + bx * Sh::kStreamBox, &tm_v, sm.full(s), bx * 64, k_start,
+                   kvh, bi);
+        }
+      }
+    }
+  } else {                                              // consumers
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" :: "n"(kConsumerRegs));
+    const int c = threadIdx.x / kWg - 1;
+    const int warp = (threadIdx.x % kWg) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane / 4;
+    const int tig = lane % 4;
+    const int q0 = q_blk + 64 * c;
+    const int row_a = q0 + warp * 16 + g;                // rows of elements 0,1 / 2,3: +8
+    // this warpgroup's tiles: a sub-range [lo, hi) of the block's [k_lo, k_hi)
+    int lo = k_hi, hi = k_hi;
+    if (q0 < p.s) relevant_range(p, true, q0, 64, 64, nk, lo, hi);
+    float acc[HD / 2], sc[32];
+    uint32_t p_hi[4][4], p_lo[4][4];                     // P of the tile in flight
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};
+    float corr[2];
+    bool rose[2];
+#pragma unroll
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    const uint32_t a_q = sm.own(0) + c * 64 * 128;      // this warpgroup's rows of each box
+    auto wait_full = [&](int it) {
+      mbar_wait(sm.full((it - k_lo) % Sh::kStages), ((it - k_lo) / Sh::kStages) & 1);
+    };
+    auto release = [&](int it) { mbar_arrive(sm.empty((it - k_lo) % Sh::kStages)); };
+    auto stage = [&](int it, int i) { return sm.stream((it - k_lo) % Sh::kStages, i); };
+    auto softmax = [&](int it) {
+      const int k_start = it * 64;
+      const int col_a = k_start + tig * 2;
+      if (p.softcap != 0.f)
+        softmax_tile<true, true>(p, sc, m, l, corr, rose, row_a, col_a);
+      else if (tile_straddles(p, q0, 64, k_start, 64))
+        softmax_tile<true, false>(p, sc, m, l, corr, rose, row_a, col_a);
+      else
+        softmax_tile<false, false>(p, sc, m, l, corr, rose, row_a, col_a);
+    };
+    if (n_iter > 0) mbar_wait(sm.own_ready(), 0);
+    for (int it = k_lo; it < lo; ++it) {                // the block's tiles before ours
+      wait_full(it);
+      release(it);
+    }
+    if (lo < hi) {
+      wait_full(lo);
+      wg_fence();
+      wg_abt<HD>(sc, a_q, Sh::kOwnBox, stage(lo, 0), Sh::kStreamBox);        // S = Q K^T
+      wg_commit();
+      wg_wait_all();
+      fence_regs(sc);
+      softmax(lo);
+      wg_split(sc, p_hi, p_lo);
+      for (int it = lo + 1; it < hi; ++it) {
+        wait_full(it);
+        wg_fence();
+        wg_abt<HD>(sc, a_q, Sh::kOwnBox, stage(it, 0), Sh::kStreamBox);      // S_j
+        wg_commit();
+        wg_xb_frags<HD>(acc, p_hi, p_lo, stage(it - 1, 1), Sh::kStreamBox);  // O += P_{j-1} V
+        wg_commit();
+        wg_wait<1>();                                   // S_j is done
+        fence_regs(sc);
+        softmax(it);
+        wg_wait<0>();                                   // P_{j-1} V_{j-1} is done
+        fence_regs(acc);
+        fence_frags(p_hi);
+        fence_frags(p_lo);
+        release(it - 1);
+        rescale(acc, corr, rose);
+        wg_split(sc, p_hi, p_lo);
+      }
+      wg_fence();
+      wg_xb_frags<HD>(acc, p_hi, p_lo, stage(hi - 1, 1), Sh::kStreamBox);
+      wg_commit();
+      wg_wait_all();
+      fence_regs(acc);
+      fence_frags(p_hi);
+      fence_frags(p_lo);
+      release(hi - 1);
+    }
+    for (int it = hi; it < k_hi; ++it) {                // the block's tiles after ours
+      wait_full(it);
+      release(it);
+    }
+
+    __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + bi * p.o_sb + h * p.o_sh;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row_a + r * 8;
+      const float lc = fmaxf(quad_sum(l[r]), 1e-30f);
+      if (row >= p.s) continue;
+      __nv_bfloat16* out = O + (long long)row * p.o_ss + tig * 2;
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) {
+        *reinterpret_cast<__nv_bfloat162*>(out + nt * 8) = __floats2bfloat162_rn(
+            acc[4 * nt + 2 * r] / lc, acc[4 * nt + 2 * r + 1] / lc);
+      }
+      if (tig == 0) p.lse[((long long)bi * p.hq + h) * p.s + row] = m[r] + logf(lc);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
 // fp32 body: plain FMA.
 
 constexpr int kRowsPerWarp = 8;
@@ -471,15 +706,38 @@ cudaError_t launch_f32(const Params& p, cudaStream_t stream) {
   return launch(flash_fwd_f32<HD>, p, kBqF, smem, stream);
 }
 
+// The Hopper body: the tensor maps (Q in 128-row boxes, K and V in 64-row boxes),
+// then the launch.
+template <int HD>
+int launch_sm90(const Params& p, cudaStream_t st) {
+  using Sh = FwdSh<HD>;
+  CUtensorMap tq, tk, tv;
+  int err = encode_rows(&tq, p.q, HD, p.s, p.hq, p.b, p.q_ss, p.q_sh, p.q_sb, Sh::kOwnRows);
+  if (!err) err = encode_rows(&tk, p.k, HD, p.t, p.hkv, p.b, p.k_ss, p.k_sh, p.k_sb,
+                              Sh::kStreamRows);
+  if (!err) err = encode_rows(&tv, p.v, HD, p.t, p.hkv, p.b, p.v_ss, p.v_sh, p.v_sb,
+                              Sh::kStreamRows);
+  if (err) return err;
+  const cudaError_t cerr = cudaFuncSetAttribute(
+      flash_fwd_sm90<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize, Sh::kSmemBytes);
+  if (cerr != cudaSuccess) return (int)cerr;
+  const dim3 grid(p.hq, (p.s + Sh::kOwnRows - 1) / Sh::kOwnRows, p.b);
+  flash_fwd_sm90<HD><<<grid, kSm90Threads, Sh::kSmemBytes, st>>>(p, tq, tk, tv);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
-// Returns the cudaError_t of the launch (0 on success). dtype: 0 = fp32, 1 = bf16.
+// One launch of the body the caller names: 0 = fp32 (flash_fwd_f32), 1 = bf16
+// mma.sync (flash_fwd_bf16), 2 = bf16 Hopper (flash_fwd_sm90, hd 64 and 128 only).
+// Returns the cudaError_t of the launch (0 on success), 20000 when the driver
+// offers no tensor-map encoder and 20001 + the CUresult of a failed encode.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                          long long q_sb, long long q_sh, long long q_ss,
                          long long k_sb, long long k_sh, long long k_ss,
                          long long v_sb, long long v_sh, long long v_ss,
                          long long o_sb, long long o_sh, long long o_ss,
-                         int b, int hq, int hkv, int s, int t, int hd, int dtype,
+                         int b, int hq, int hkv, int s, int t, int hd, int body,
                          int causal, int window, int q_offset, float softcap, float scale,
                          void* stream) {
   Params p;
@@ -493,14 +751,19 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   p.softcap = softcap; p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaGetLastError();   // start from a clean error state
-  if (dtype == 1) {
+  if (body == 2) {
+    switch (hd) {
+      case 64: return launch_sm90<64>(p, st);
+      case 128: return launch_sm90<128>(p, st);
+    }
+  } else if (body == 1) {
     switch (hd) {
       case 32: return launch_bf16<32>(p, st);
       case 64: return launch_bf16<64>(p, st);
       case 128: return launch_bf16<128>(p, st);
       case 256: return launch_bf16<256>(p, st);
     }
-  } else if (dtype == 0) {
+  } else if (body == 0) {
     switch (hd) {
       case 32: return launch_f32<32>(p, st);
       case 64: return launch_f32<64>(p, st);

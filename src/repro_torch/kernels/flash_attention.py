@@ -16,7 +16,10 @@ taken without a copy, and each output comes back in its input's memory layout.
 a CUDA tensor launches the kernel (or the call raises), a CPU tensor takes
 :func:`flash_attention_lse_plain` / :func:`flash_attention_bwd_plain`, the plain
 PyTorch versions of the same functions. There is no fall-back from one to the
-other. :func:`flash_attention` is differentiable through :class:`FlashAttention`,
+other. On the card, the forward's body is a static rule (:func:`fwd_body`):
+bf16 at the head dims in ``SM90_HEAD_DIMS`` (every path's) runs the Hopper body,
+other bf16 head dims the first-version ``mma.sync`` body, fp32 the FMA body.
+:func:`flash_attention` is differentiable through :class:`FlashAttention`,
 whose forward runs :func:`flash_attention_lse` and whose backward runs
 :func:`flash_attention_bwd`. Tiles are the kernels' own choice, so the
 reference's ``block_q``/``block_k``/``interpret`` arguments have no counterpart.
@@ -34,7 +37,9 @@ from repro_torch.models.layers import NEG_INF, attention_chunk_grads, attn_mask
 from . import build
 
 HEAD_DIMS = (32, 64, 128, 256)
+SM90_HEAD_DIMS = (64, 128)        # bf16 head dims of the forward's Hopper body
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_FWD_BODIES = {"f32": 0, "mma": 1, "sm90": 2}     # csrc/flash_fwd.cu's body codes
 
 
 def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
@@ -67,12 +72,20 @@ def flash_attention_lse_plain(q, k, v, *, causal: bool = True, window: int = 0,
 
 @functools.cache
 def _fwd_kernel():
-    lib = build.load("flash_fwd")
-    fn = lib.flash_fwd
+    fn = build.load("flash_fwd").flash_fwd
     ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([ptr] * 5 + [i64] * 12 + [i32] * 10 + [f32, f32, ptr])
     fn.restype = ctypes.c_int
     return fn
+
+
+def fwd_body(q) -> str:
+    """The forward's body for q's dtype and head dim on the card: "sm90" (the
+    Hopper body) for bf16 at ``SM90_HEAD_DIMS``, "mma" (the first version) for
+    bf16 at the other head dims, "f32" for fp32."""
+    if q.dtype == torch.float32:
+        return "f32"
+    return "sm90" if q.shape[-1] in SM90_HEAD_DIMS else "mma"
 
 
 def _check(q, k, v):
@@ -120,8 +133,10 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
     """Forward that also returns the per-row logsumexp (the lse-merging entry
     of chunked softmax). Returns (o (B, Hq, S, hd), lse (B, Hq, S) fp32).
 
-    CUDA tensors launch the kernel; ``flash_attention_lse.launches`` counts the
-    launches. CPU tensors take :func:`flash_attention_lse_plain`.
+    CUDA tensors launch the kernel's body that :func:`fwd_body` names;
+    ``flash_attention_lse.launches`` counts the launches and ``.sm90_launches``,
+    ``.mma_launches`` and ``.f32_launches`` each body's. CPU tensors take
+    :func:`flash_attention_lse_plain`.
     """
     _check(q, k, v)
     window, q_offset = int(window), int(q_offset)
@@ -135,24 +150,42 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
                                          q_offset=q_offset)
     _cuda_args(q, k, v)
     b, hq, s, _ = q.shape
-    hkv, t = k.shape[1], k.shape[2]
     o = torch.empty_like(q)           # q's memory layout (see module docstring)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device=q.device)
     if o.numel() == 0:
         return o, lse
-    err = _fwd_kernel()(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
-        b, hq, hkv, s, t, hd, _DTYPE_CODE[q.dtype],
-        int(bool(causal)), window, q_offset, float(softcap), scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
-    if err:
-        raise RuntimeError(f"flash_fwd launch failed: cudaError {err}")
-    flash_attention_lse.launches += 1
+    _fwd_launch(fwd_body(q), q, k, v, o, lse, causal=causal, window=window,
+                softcap=softcap, scale=scale, q_offset=q_offset)
     return o, lse
 
 
+def _fwd_launch(body, q, k, v, o, lse, *, causal, window, softcap, scale, q_offset):
+    """Launch the forward's ``body`` on checked inputs and allocated outputs.
+    Counts the launch, in all and per body."""
+    b, hq, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    err = _fwd_kernel()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *o.stride()[:3],
+        b, hq, hkv, s, t, hd, _FWD_BODIES[body],
+        int(bool(causal)), window, q_offset, float(softcap), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(f"flash_fwd ({body} body) launch failed: "
+                           f"{build.launch_error(err)}")
+    flash_attention_lse.launches += 1
+    if body == "sm90":
+        flash_attention_lse.sm90_launches += 1
+    elif body == "mma":
+        flash_attention_lse.mma_launches += 1
+    else:
+        flash_attention_lse.f32_launches += 1
+
+
 flash_attention_lse.launches = 0
+flash_attention_lse.sm90_launches = 0      # the Hopper body
+flash_attention_lse.mma_launches = 0       # the first-version bf16 body
+flash_attention_lse.f32_launches = 0
 
 
 def flash_attention_bwd_plain(q, k, v, do, lse, delta, *, causal: bool = True,
@@ -169,8 +202,7 @@ def flash_attention_bwd_plain(q, k, v, do, lse, delta, *, causal: bool = True,
 
 @functools.cache
 def _bwd_kernel():
-    lib = build.load("flash_bwd")
-    fn = lib.flash_bwd
+    fn = build.load("flash_bwd").flash_bwd
     ptr, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     fn.argtypes = ([ptr] * 9 + [i64] * 21 + [i32] * 10 + [f32, f32, i32, ptr])
     fn.restype = ctypes.c_int
@@ -219,19 +251,6 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal: bool = True,
     return dq, dk, dv
 
 
-# csrc/flash_bwd.cu's kErrNoEncoder and kErrTensorMap (+ the CUresult)
-_ERR_NO_ENCODER, _ERR_TENSOR_MAP = 20000, 20001
-
-
-def _bwd_error(err: int) -> str:
-    """What a non-zero return code of flash_bwd says."""
-    if err == _ERR_NO_ENCODER:
-        return "the driver offers no tensor-map encoder (cuTensorMapEncodeTiled)"
-    if err > _ERR_NO_ENCODER:
-        return f"tensor-map encode failed: CUresult {err - _ERR_TENSOR_MAP}"
-    return f"cudaError {err}"
-
-
 def _bwd_launch(which, q, k, v, do, lse, delta, dq, dk, dv, *, causal, window,
                 softcap, scale, q_offset):
     """Launch one backward kernel on checked inputs and allocated outputs:
@@ -248,7 +267,7 @@ def _bwd_launch(which, q, k, v, do, lse, delta, dq, dk, dv, *, causal, window,
         which, torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(f"flash_bwd {('dq', 'dk/dv')[which]} launch failed: "
-                           f"{_bwd_error(err)}")
+                           f"{build.launch_error(err)}")
     if which == 0:
         flash_attention_bwd.dq_launches += 1
     else:

@@ -21,6 +21,12 @@ as views (the reference materialises them), and it reads the group sizes from
 device memory: nothing on the path waits for them on the host. Tiles are the
 kernel's own choice, so the reference's ``block_c``/``block_f``/``block_d``/
 ``interpret`` arguments have no counterpart.
+
+On the card the body is a static rule (:func:`gemm_body`): bf16 with N a
+multiple of 8 and both operands within TMA's 16-byte rule (every MoE path's
+shape: prefill, decode and training) runs the Hopper body; other bf16 calls
+(strides off the 16-byte rule) the first-version ``mma.sync`` body; fp32 the
+FMA body. A failed launch raises; no call moves to another body.
 """
 
 from __future__ import annotations
@@ -35,7 +41,8 @@ from . import build
 from .ref import expert_gemm_ref
 
 MASK_MODES = ("rows", "contract")
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPES = (torch.float32, torch.bfloat16)
+_BODIES = {"f32": 0, "mma": 1, "sm90": 2}        # csrc/grouped_gemm.cu's body codes
 
 
 def grouped_gemm_plain(x, w, gs=None, *, mask: str = "rows"):
@@ -53,8 +60,7 @@ def grouped_gemm_plain(x, w, gs=None, *, mask: str = "rows"):
 
 @functools.cache
 def _kernel():
-    lib = build.load("grouped_gemm")
-    fn = lib.grouped_gemm
+    fn = build.load("grouped_gemm").grouped_gemm
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fn.argtypes = [ptr] * 4 + [i64] * 6 + [i32] * 10 + [ptr]
     fn.restype = ctypes.c_int
@@ -79,9 +85,11 @@ def _check(x, w, gs, mask):
 
 def _layout(t, k_dim: int, row_dim: int):
     """(kmaj, vec) for one operand: whether its k direction is the one the
-    kernel walks contiguously (else its row direction is), and whether 16-byte
-    copies along that direction are allowed (bf16, unit stride there, the other
-    strides multiples of 8 elements, a 16-byte aligned base)."""
+    kernel walks contiguously (else its row direction is), and whether it meets
+    the 16-byte rule (bf16, unit stride there, the other strides multiples of 8
+    elements, a 16-byte aligned base): the mma.sync body then copies 16 bytes at
+    a time, and the Hopper body's TMA maps take it (K-major where kmaj, else
+    MN-major)."""
     st = t.stride()
     kmaj = not (st[row_dim] == 1 and st[k_dim] != 1)
     unit, other = (k_dim, row_dim) if kmaj else (row_dim, k_dim)
@@ -90,20 +98,45 @@ def _layout(t, k_dim: int, row_dim: int):
     return int(kmaj), int(vec)
 
 
+def _strides(t):
+    """t's strides, those of size-1 dims (never stepped) replaced by the
+    tensor's extent in elements rounded up to a multiple of 8, which TMA's
+    encoder accepts."""
+    extent = 1 + sum(s * (n - 1) for s, n in zip(t.stride(), t.shape))
+    span = 8 * -(-extent // 8)
+    return [s if n > 1 else span for s, n in zip(t.stride(), t.shape)]
+
+
+def gemm_body(x, w) -> str:
+    """The body for x (E, M, K) x w (E, K, N) on the card: "sm90" (the Hopper
+    body) for bf16 with both operands within the 16-byte rule (:func:`_layout`)
+    and N a multiple of 8 (the output's rows, which TMA stores, 16-byte aligned),
+    at any row count (it measured faster than the first version from one row
+    per expert up, csrc/grouped_gemm.cu's note); "mma" (the first version) for
+    other bf16 calls; "f32" for fp32."""
+    if x.dtype == torch.float32:
+        return "f32"
+    if w.shape[2] % 8 == 0 and _layout(x, 2, 1)[1] and _layout(w, 1, 2)[1]:
+        return "sm90"
+    return "mma"
+
+
 def grouped_gemm(x, w, gs=None, *, mask: str = "rows"):
     """x (E, M, K) x w (E, K, N) -> (E, M, N) in x's dtype, masked by ``gs``
     (None: every row / every contraction index) in ``mask`` mode.
 
-    CUDA tensors launch the kernel (bf16 or fp32; any other dtype raises);
-    ``grouped_gemm.rows_launches`` / ``.contract_launches`` count the launches.
-    CPU tensors take :func:`grouped_gemm_plain`.
+    CUDA tensors launch the kernel's body that :func:`gemm_body` names (bf16 or
+    fp32; any other dtype raises); ``grouped_gemm.rows_launches`` /
+    ``.contract_launches`` count the launches by mask mode, ``.sm90_launches``,
+    ``.mma_launches`` and ``.f32_launches`` by body. CPU tensors take
+    :func:`grouped_gemm_plain`.
     """
     _check(x, w, gs, mask)
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, gs, mask=mask)
     if x.device.type != "cuda":
         raise ValueError(f"the grouped GEMM runs on cuda or cpu, not {x.device}")
-    if x.dtype not in _DTYPE_CODE:
+    if x.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {x.dtype}")
     e, m, k = x.shape
     n = w.shape[2]
@@ -114,24 +147,42 @@ def grouped_gemm(x, w, gs=None, *, mask: str = "rows"):
         return out
     if gs is not None:
         gs = gs.contiguous()
+    _launch(gemm_body(x, w), x, w, out, gs, mask)
+    return out
+
+
+def _launch(body, x, w, out, gs, mask):
+    """Launch ``body`` on checked inputs and an allocated output; counts the
+    launch by mask mode and by body."""
+    e, m, k = x.shape
+    n = w.shape[2]
     a_kmaj, a_vec = _layout(x, 2, 1)
     b_kmaj, b_vec = _layout(w, 1, 2)
     err = _kernel()(
         x.data_ptr(), w.data_ptr(), out.data_ptr(), 0 if gs is None else gs.data_ptr(),
-        *x.stride(), *w.stride(), e, m, n, k, int(mask == "contract"),
-        a_kmaj, a_vec, b_kmaj, b_vec, _DTYPE_CODE[x.dtype],
+        *_strides(x), *_strides(w), e, m, n, k, int(mask == "contract"),
+        a_kmaj, a_vec, b_kmaj, b_vec, _BODIES[body],
         torch.cuda.current_stream(x.device).cuda_stream)
     if err:
-        raise RuntimeError(f"grouped_gemm ({mask}) launch failed: cudaError {err}")
+        raise RuntimeError(f"grouped_gemm ({mask}, {body} body) launch failed: "
+                           f"{build.launch_error(err)}")
     if mask == "rows":
         grouped_gemm.rows_launches += 1
     else:
         grouped_gemm.contract_launches += 1
-    return out
+    if body == "sm90":
+        grouped_gemm.sm90_launches += 1
+    elif body == "mma":
+        grouped_gemm.mma_launches += 1
+    else:
+        grouped_gemm.f32_launches += 1
 
 
 grouped_gemm.rows_launches = 0
 grouped_gemm.contract_launches = 0
+grouped_gemm.sm90_launches = 0             # the Hopper body
+grouped_gemm.mma_launches = 0              # the first-version bf16 body
+grouped_gemm.f32_launches = 0
 
 
 class ExpertGemm(torch.autograd.Function):

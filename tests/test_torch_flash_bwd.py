@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels import build
 from repro_torch.kernels import flash_attention as tf
 from repro_torch.models import layers as tlayers
 
@@ -219,8 +220,9 @@ def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
                                       (20000, "no tensor-map encoder"),
                                       (20001 + 1, "CUresult 1")])
 def test_launch_error_names_what_failed(err, says):
-    """A failed tensor-map encode is told apart from a launch's cudaError."""
-    assert says in tf._bwd_error(err)
+    """A failed tensor-map encode is told apart from a launch's cudaError (one
+    helper reads the return codes of every kernel's C entry point)."""
+    assert says in build.launch_error(err)
 
 
 @pytest.mark.parametrize("bad", ["do_shape", "do_dtype", "lse_shape", "window"])

@@ -2,12 +2,15 @@
 dispatch against the reference Pallas kernel (interpret mode, with the small
 blocks tests/test_kernels_grad.py uses) and ``expert_gemm_ref``, the autograd
 Function's dx and dw against ``jax.grad``, the wrapper's checks and layouts, what
-the stated tolerance catches, and — on a CUDA card only — the kernel against its
-plain version in all three uses (forward and dx in rows mode, dw in contract
-mode through a transposed view). The module imports JAX only inside the tests
-that hold the port to the reference, so the card's tests also run on the GPU
-machine, which has none:
+the stated tolerance catches, the body rule, and — on a CUDA card only — the
+kernel against its plain version in all three uses (forward and dx in rows mode,
+dw in contract mode through a transposed view) on chip_smoke.py's GEMM_CASES.
+The module imports JAX only inside the tests that hold the port to the
+reference, so the card's tests also run on the GPU machine, which has none:
 ``PYTHONPATH=src python -m pytest tests/test_torch_grouped_gemm.py -m cuda``."""
+
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -19,20 +22,24 @@ from repro_torch.kernels.ref import expert_gemm_ref
 
 torch.set_num_threads(1)
 
-# tests/test_kernels.py::GEMM_CASES: (e, c, d, f), the second ragged everywhere
+# tests/test_kernels.py::GEMM_CASES: (e, c, d, f), the second ragged everywhere;
+# then rows off a 128-row tile with a contraction shorter than one 64-deep tile
 GEMM_CASES = [
     (4, 64, 128, 256),
     (2, 100, 130, 70),
     (8, 128, 256, 512),
     (1, 32, 512, 64),
+    (3, 150, 40, 72),
 ]
 # tests/test_kernels_grad.py::GEMM_GRAD_CASES: (e, c, d, f, group_sizes) with
-# empty experts, full experts and loads that straddle a row tile
+# empty experts, full experts and loads that straddle a row tile; then an expert
+# whose row tiles past the first (of 16) are all padding
 GRAD_CASES = [
     (2, 32, 16, 24, None),
     (3, 33, 20, 17, (33, 7, 0)),
     (2, 64, 32, 32, (40, 64)),
     (4, 16, 48, 16, (5, 0, 16, 11)),
+    (4, 40, 24, 16, (40, 0, 21, 5)),
 ]
 # The reference's measure, |ours - ref| / max(|ref|, 1): fp32 within 5e-5, as
 # there. For bf16 both sides round one fp32 sum to bf16, so they differ by at
@@ -172,15 +179,78 @@ def test_tolerance_catches_a_dropped_tile(change):
     assert err > 4 * limit, err
 
 
+def _counts():
+    f = tg.grouped_gemm
+    return (f.rows_launches, f.contract_launches, f.sm90_launches, f.mma_launches,
+            f.f32_launches)
+
+
 def test_cpu_wrapper_takes_plain_version_and_counts_no_launch():
     xa, wa = _np_inputs((2, 9, 8), (2, 8, 5), seed=2)
     x, w = torch.from_numpy(xa), torch.from_numpy(wa)
     gs = torch.tensor([3, 9], dtype=torch.int32)
-    before = (tg.grouped_gemm.rows_launches, tg.grouped_gemm.contract_launches)
+    before = _counts()
     for mask in tg.MASK_MODES:
         assert torch.equal(tg.grouped_gemm(x, w, gs, mask=mask),
                            tg.grouped_gemm_plain(x, w, gs, mask=mask))
-    assert (tg.grouped_gemm.rows_launches, tg.grouped_gemm.contract_launches) == before
+    assert _counts() == before
+
+
+def test_plain_version_ignores_nan_padding():
+    """Padding rows (at or past each expert's load) may hold anything, NaN from
+    torch.empty included: the plain version gives the same result as with
+    zeros there, in both modes (rows mode: x's padding; contract mode: both
+    operands'), and that result is the Pallas kernel's on the zero-padded
+    inputs. (The reference's contract mode zeroes only the weight tile, so NaN
+    in x's padding would reach its dw; the port zeroes both.)"""
+    import jax.numpy as jnp
+    from repro.kernels.grouped_gemm import _grouped_gemm
+    rng = np.random.default_rng(9)
+    gsa = np.asarray([70, 0, 33, 5], np.int32)
+    xa, ga = (rng.standard_normal((4, 70, n)).astype(np.float32) for n in (40, 24))
+    wa = rng.standard_normal((4, 40, 24)).astype(np.float32)
+    pad = np.arange(70)[None, :, None] >= gsa[:, None, None]
+    xa, ga = (np.where(pad, 0.0, a).astype(np.float32) for a in (xa, ga))
+    gs = torch.from_numpy(gsa)
+    x, w, g = (torch.from_numpy(a) for a in (xa, wa, ga))
+    xn, gn = (t.masked_fill(torch.from_numpy(pad), float("nan")) for t in (x, g))
+    for a, b, an, bn, mask in ((x, w, xn, w, "rows"),
+                               (x.transpose(1, 2), g, xn.transpose(1, 2), gn, "contract")):
+        ours = tg.grouped_gemm(an, bn, gs, mask=mask)            # CPU: plain version
+        assert torch.isfinite(ours).all()
+        assert torch.equal(ours, tg.grouped_gemm_plain(a, b, gs, mask=mask))
+        ref = _grouped_gemm(jnp.asarray(a.contiguous().numpy()), jnp.asarray(b.numpy()),
+                            jnp.asarray(gsa), mask=mask, block_r=32, block_co=32,
+                            block_k=32, interpret=True)
+        np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype,shape_x,shape_w,transpose,body", [
+    ("bfloat16", (64, 468, 2048), (64, 2048, 1408), False, "sm90"),   # prefill
+    ("bfloat16", (64, 1, 2048), (64, 2048, 1408), False, "sm90"),     # decode
+    ("bfloat16", (64, 480, 1408), (64, 2048, 1408), True, "sm90"),    # dx: w^T view
+    ("bfloat16", (3, 33, 20), (3, 20, 17), False, "mma"),             # off the 16-byte rule
+    ("float32", (64, 468, 2048), (64, 2048, 1408), False, "f32"),
+])
+def test_body_rule(dtype, shape_x, shape_w, transpose, body):
+    """The static rule: bf16 with both operands within the 16-byte rule runs
+    the Hopper body at any row count; other bf16 calls the mma.sync body; fp32
+    the FMA body. Shapes only: meta tensors hold no data."""
+    dt = getattr(torch, dtype)
+    x = torch.empty(shape_x, dtype=dt, device="meta")
+    w = torch.empty(shape_w, dtype=dt, device="meta")
+    if transpose:
+        w = w.transpose(1, 2)
+    assert tg.gemm_body(x, w) == body
+
+
+def test_strides_of_unit_dims_suit_tma():
+    """A size-1 dim's stride is never stepped; the kernel is handed the
+    tensor's extent rounded up to a multiple of 8 elements there, and the real
+    strides elsewhere."""
+    x = torch.zeros(1, 5, 63, dtype=torch.bfloat16).transpose(1, 2)      # (1, 63, 5)
+    assert tg._strides(x) == [320, 1, 63]
+    assert tg._strides(torch.zeros(4, 5, 64)) == [320, 64, 1]
 
 
 @pytest.mark.parametrize("bad", ["shape", "dtype", "gs_dtype", "gs_shape", "mask"])
@@ -222,15 +292,55 @@ def _card():
         pytest.skip("needs a CUDA card: the kernel has no CPU mode")
 
 
-# (e, c, d, f, group sizes): ragged everywhere, empty experts, straddling loads,
-# the decode shape (c = 1) and a contraction longer than the pipeline
-CARD_CASES = [
-    (3, 33, 20, 17, (33, 7, 0)),
-    (4, 100, 136, 72, (100, 0, 64, 65)),
-    (8, 1, 256, 200, (1, 0, 1, 0, 0, 1, 1, 0)),
-    (2, 70, 1024, 96, (70, 3)),
-    (2, 64, 64, 64, None),
-]
+def _smoke():
+    """chip_smoke.py, whose GEMM_CASES is the one list of B4's card cases."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+# chip_smoke.py's GEMM_CASES, (e, c, d, f, group sizes, NaN padding): the MoE
+# paths' shapes (group sizes "random"), then the edges of both bodies — ragged
+# everywhere, strides off the 16-byte rule (the mma.sync body), empty experts,
+# straddling loads, one row per expert (decode's rows, the Hopper body), a
+# contraction longer than the ring, M off 128 with a
+# straddling contract-mode tile over NaN padding and all-padding row tiles, K
+# shorter than one tile
+CARD_CASES = _smoke().GEMM_CASES
+EDGE_CASES = [c for c in CARD_CASES if c[4] != "random"]
+
+
+def test_card_cases_hold_each_edge_class():
+    assert all(c[4] == "random" or c[4] is None or len(c[4]) == c[0] for c in CARD_CASES)
+    for shape in ((64, 468, 2048, 1408), (64, 1, 2048, 1408), (64, 480, 2048, 1408)):
+        assert any(c[:4] == shape for c in CARD_CASES), shape
+    assert any(c[1] % 128 and c[1] > 128 for c in EDGE_CASES), "M not a multiple of 128"
+    assert any(c[2] < 64 for c in EDGE_CASES), "K shorter than one tile"
+    assert any(c[1] == 1 for c in EDGE_CASES), "one row per expert (decode)"
+    assert any(c[2] % 8 or c[3] % 8 for c in EDGE_CASES), \
+        "strides off the 16-byte rule (the mma.sync body)"
+    assert any(0 in c[4] for c in EDGE_CASES if c[4]), "a zero-load expert"
+    nan = [c for c in EDGE_CASES if c[5]]
+    assert any(any(g % 64 and g < c[1] for g in c[4]) for c in nan), \
+        "a contract-mode tile straddling gs over NaN padding"
+    assert any(any(0 < g <= c[1] - 128 for g in c[4]) for c in EDGE_CASES if c[4]), \
+        "a row tile that is all padding"
+
+
+def _card_gs(case, rng):
+    """A GEMM_CASES row's group sizes on the card ("random": drawn with 0, C and
+    loads that straddle a 64- and a 128-row tile)."""
+    e, c, gs_spec = case[0], case[1], case[4]
+    if gs_spec is None:
+        return None
+    if gs_spec == "random":
+        gs = rng.integers(0, c + 1, e).astype(np.int32)
+        gs[:4] = (0, c, min(c, 67), min(c, 131))
+    else:
+        gs = np.asarray(gs_spec, np.int32)
+    return torch.from_numpy(gs).cuda()
 
 
 @pytest.mark.cuda
@@ -238,35 +348,42 @@ CARD_CASES = [
 @pytest.mark.parametrize("case", CARD_CASES)
 def test_kernel_matches_plain_version_on_card(case, dtype):
     _card()
-    e, c, d, f, gs_t = case
+    e, c, d, f, _, nan_pad = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng(sum(case[:4]))
     x, w, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(dt).cuda()
                for s in ((e, c, d), (e, d, f), (e, c, f)))
-    gs = None if gs_t is None else torch.tensor(gs_t, dtype=torch.int32, device="cuda")
-    before = (tg.grouped_gemm.rows_launches, tg.grouped_gemm.contract_launches)
+    gs = _card_gs(case, rng)
+    if nan_pad:
+        pad = torch.arange(c, device="cuda")[None, :, None] >= gs[:, None, None]
+        x, g = (t.masked_fill(pad, float("nan")) for t in (x, g))
     uses = [(x, w, "rows"),                          # forward
             (g, w.transpose(1, 2), "rows"),          # dx = g . w^T, a strided view
             (x.transpose(1, 2), g, "contract")]      # dw = x^T . g, a strided view
     for a, b, mask in uses:
+        before = _counts()
         out = tg.grouped_gemm(a, b, gs, mask=mask)
         torch.cuda.synchronize()
+        body = tg.gemm_body(a, b)
+        grew = [x1 - x0 for x0, x1 in zip(before, _counts())]
+        assert grew == [mask == "rows", mask == "contract", body == "sm90", body == "mma",
+                        body == "f32"], (mask, body, grew)
         ref = tg.grouped_gemm_plain(a, b, gs, mask=mask)
         err, limit = _card_error(out, ref)
-        assert err <= limit, (mask, err)
+        assert err <= limit, (mask, body, err)
         assert torch.isfinite(out).all()
-        if gs is not None and mask == "rows":
-            rows = torch.arange(a.shape[1], device="cuda")[None, :, None]
-            assert (out.float()[(rows >= gs[:, None, None]).expand_as(out)] == 0).all()
-    assert (tg.grouped_gemm.rows_launches, tg.grouped_gemm.contract_launches) == \
-        (before[0] + 2, before[1] + 1)
+        if gs is not None:
+            assert (out.float()[gs == 0] == 0).all()
+            if mask == "rows":
+                rows = torch.arange(a.shape[1], device="cuda")[None, :, None]
+                assert (out.float()[(rows >= gs[:, None, None]).expand_as(out)] == 0).all()
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", CARD_CASES[:2])
+@pytest.mark.parametrize("case", EDGE_CASES[:2])
 def test_autograd_function_matches_plain_autograd_on_card(case):
     _card()
-    e, c, d, f, gs_t = case
+    e, c, d, f, gs_t, _ = case
     rng = np.random.default_rng(7)
     x, w, cot = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).cuda()
                  for s in ((e, c, d), (e, d, f), (e, c, f)))
@@ -279,6 +396,21 @@ def test_autograd_function_matches_plain_autograd_on_card(case):
     for ours, ref in zip(*grads):
         err, limit = _card_error(ours, ref)
         assert err <= limit, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", tg.MASK_MODES)
+def test_kernel_is_deterministic_on_card(mask):
+    """bf16 through the Hopper body at the prefill's widths: two launches give
+    bit-identical results (no split-K, no atomics)."""
+    _card()
+    rng = np.random.default_rng(8)
+    x, w, g = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).bfloat16().cuda()
+               for s in ((16, 468, 2048), (16, 2048, 1408), (16, 468, 1408)))
+    gs = torch.from_numpy(rng.integers(0, 469, 16).astype(np.int32)).cuda()
+    a, b = (x, w) if mask == "rows" else (x.transpose(1, 2), g)      # forward; dw
+    assert tg.gemm_body(a, b) == "sm90"
+    assert torch.equal(tg.grouped_gemm(a, b, gs, mask=mask), tg.grouped_gemm(a, b, gs, mask=mask))
 
 
 @pytest.mark.cuda

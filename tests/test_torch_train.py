@@ -157,7 +157,8 @@ def test_synthetic_dataset_is_bit_identical():
 GRAD_REL = 1e-5
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen2.5-14b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", ["qwen1.5-4b", "qwen2.5-14b", "gemma2-9b", "pixtral-12b",
+                                  "codeqwen1.5-7b"])
 def test_loss_grads_match_reference(arch):
     jcfg, tcfg, model, params, tmodel, tparams, _, jb, tb = _setup(arch)
     loss_fn = make_loss_fn(model, Hyper())
