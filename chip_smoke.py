@@ -60,9 +60,14 @@ prints its seconds):
 8. SSD kernels — the Mamba2 chunk scan's forward (B5: y, entering and final
    states, to 2e-4 of max(1, max |plain|)) and backward (B6: ddt and dA to 1e-4
    of that measure, the bf16 dx, dB, dC to 2 bf16 ulps) against their plain
-   versions at both families' serving and training shapes (a ragged 8000),
-   chunks 16, 24 and 1, G = 2 and 4, a non-zero final-state cotangent, fp32 and
-   bf16, and through the autograd Function;
+   versions on every SSD_CASES row: both families' serving and training shapes
+   (a ragged 8000), chunks 16, 24 and 1, G = 2 and 4, and the Hopper body's
+   edges (a single chunk, a ragged 64-row last chunk, N 64, G 2 and 4 at N 128),
+   plus a strong-decay draw (exp(cs) underflows across a chunk); a non-zero
+   final-state cotangent, fp32 and bf16, the body the rule names counted on
+   each launch; on the Hopper body (bf16, chunk 128) each pass alone against
+   its plain version, and two launches at each path shape bit-identical; and
+   through the autograd Function (fp32 and bf16);
 9. mamba2-370m and zamba2-1.2b, each: the smoke config on the card against the
    CPU; serving at full width and depth (random bf16 weights and conv taps from
    a seed): a forward over 4 x 8000 tokens (B5 48 or 38 launches, B1 6 for the
@@ -83,10 +88,11 @@ prints its seconds):
    version's; B4 on the MoE paths' own inputs through both bf16 bodies, and at
    the training dx and dw shapes with every row real (full load); for
    B2/B3 also the whole FlashAttention.backward (delta pass, dq, dk/dv) beside
-   SDPA's backward, at the training shape and at zamba2's; printed as one JSON
-   line.
+   SDPA's backward, at the training shape and at zamba2's; B5/B6 at the four
+   SSM path shapes through the Hopper body, through the first version's body
+   and pass by pass; printed as one JSON line.
 
-On every path, every B1 and every B4 launch (prefill, decode and training)
+On every path, every B1, B4, B5 and B6 launch (prefill, decode and training)
 must run the Hopper body (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
@@ -245,8 +251,13 @@ SSM_BATCH, SSM_PROMPT, SSM_DECODE_PROMPT = 4, 8000, 16
 # training: TRAIN_MICRO microbatches of 4 sequences (mamba2; B5's grid 4 x 32 = 128
 # blocks) or 2 (zamba2: 2 x 64) of TRAIN_SEQ tokens
 SSM_TRAIN_BATCH = {SSM_ARCH: 8, HYBRID_ARCH: 4}
-# B5/B6 at (b, l, h, p, g, n, chunk): the four path shapes, the decode check's
-# 16-token prompt (chunk 16), chunk 24 with G 4, G 2 on a ragged length, chunk 1
+# B5/B6 at (b, l, h, p, g, n, chunk): the four path shapes; the first version's
+# (fp32, and bf16 at chunks 16, 24 and 1): the decode check's 16-token prompt and a
+# 16-token prompt at a few heads (chunk 16), chunk 24 with G 4, G 2 on a ragged
+# length, chunk 1; the Hopper body's edges (bf16, chunk 128, P 64): a ragged 64-row
+# last chunk, N 64, a single chunk (ragged, and whole at N 64), L = 8000's 62 chunks
+# and a ragged 64 at a few heads, G 2 and G 4 at N 128. tests/test_torch_ssd.py
+# runs the same list on the card, so a new edge is one line here.
 SSD_PATH_CASES = {
     "mamba2_serving": (SSM_BATCH, SSM_PROMPT, 32, 64, 1, 128, 128),
     "mamba2_training": (4, TRAIN_SEQ, 32, 64, 1, 128, 128),
@@ -255,10 +266,21 @@ SSD_PATH_CASES = {
 }
 SSD_CASES = list(SSD_PATH_CASES.values()) + [
     (SSM_BATCH, SSM_DECODE_PROMPT, 32, 64, 1, 128, 16),
+    (1, 16, 4, 64, 1, 128, 16),
     (1, 96, 4, 8, 4, 8, 24),
     (2, 100, 4, 32, 2, 16, 16),
     (1, 7, 2, 4, 1, 4, 1),
+    (2, 320, 4, 64, 1, 128, 128),
+    (2, 256, 4, 64, 1, 64, 128),
+    (2, 100, 4, 64, 1, 128, 128),
+    (1, 128, 2, 64, 1, 64, 128),
+    (2, 8000, 4, 64, 1, 128, 128),
+    (2, 512, 8, 64, 2, 128, 128),
+    (1, 384, 8, 64, 4, 128, 128),
 ]
+# a strong-decay draw for the Hopper body: dt 10x the usual ([0.1, 2)), so exp(cs)
+# underflows to 0 across a chunk (cs reaches ~ -170 by its end)
+SSD_DECAY_CASE, SSD_DECAY_SCALE = (2, 384, 4, 64, 1, 128, 128), 10.0
 # The reference's limits (y and states 2e-4, tests/test_kernels.py; gradients 1e-4,
 # tests/test_kernels_grad.py) read against max(1, the tensor's largest |value|); a
 # bf16 result (dx, dB, dC of bf16 inputs) within 2 bf16 ulps of each value (both
@@ -405,12 +427,15 @@ def all_counts():
 
 
 def body_counts():
-    """B1's and B4's launches by body, under the bodies' kernel names."""
+    """B1's, B4's, B5's and B6's launches by body, under the bodies' kernel names."""
     from repro_torch.kernels.flash_attention import flash_attention_lse as f
     from repro_torch.kernels.grouped_gemm import grouped_gemm as g
+    from repro_torch.kernels.ssd_scan import ssd_chunk_scan_bwd as sb, ssd_chunk_scan_fwd as sf
     return {"flash_fwd_sm90": f.sm90_launches, "flash_fwd_bf16": f.mma_launches,
             "flash_fwd_f32": f.f32_launches, "gg_sm90": g.sm90_launches,
-            "gg_bf16": g.mma_launches, "gg_f32": g.f32_launches}
+            "gg_bf16": g.mma_launches, "gg_f32": g.f32_launches,
+            "ssd_fwd_sm90": sf.sm90_launches, "ssd_fwd_simt": sf.simt_launches,
+            "ssd_bwd_sm90": sb.sm90_launches, "ssd_bwd_simt": sb.simt_launches}
 
 
 # window -> body_counts() as check_bodies read them there (a train step's: the
@@ -428,18 +453,21 @@ def reset_counts():
     flash_attention_bwd.dq_launches = flash_attention_bwd.dkv_launches = 0
     grouped_gemm.rows_launches = grouped_gemm.contract_launches = 0
     grouped_gemm.sm90_launches = grouped_gemm.mma_launches = grouped_gemm.f32_launches = 0
+    reset_ssd_counts()
 
 
 def check_bodies(what, counts, window=None):
     """Every B1 and B4 launch counted in ``counts`` (all_counts() since the
-    last reset_counts()) ran the Hopper body; the counts by body are kept under
+    last reset_counts(), then ssd_counts() on the SSM paths) ran the Hopper
+    body, and so did every B5 and B6 launch; the counts by body are kept under
     ``window`` for the kernels line."""
     got = body_counts()
     b4 = counts[3] + counts[4]
+    b5, b6 = counts[5:7] if len(counts) > 5 else (0, 0)
     log(f"bodies, {what}: " + ", ".join(f"{k} {v}" for k, v in got.items())
-        + f" (B1 {counts[0]}, B4 {b4} launches)")
+        + f" (B1 {counts[0]}, B4 {b4}, B5 {b5}, B6 {b6} launches)")
     want = dict.fromkeys(got, 0)
-    want.update(flash_fwd_sm90=counts[0], gg_sm90=b4)
+    want.update(flash_fwd_sm90=counts[0], gg_sm90=b4, ssd_fwd_sm90=b5, ssd_bwd_sm90=b6)
     if got != want:
         raise AssertionError(f"{what}: launches by body {got}, expected {want}")
     if window:
@@ -1618,7 +1646,8 @@ def ssd_counts():
 
 def reset_ssd_counts():
     from repro_torch.kernels import ssd_scan as ts
-    ts.ssd_chunk_scan_fwd.launches = ts.ssd_chunk_scan_bwd.launches = 0
+    for fn in (ts.ssd_chunk_scan_fwd, ts.ssd_chunk_scan_bwd):
+        fn.launches = fn.sm90_launches = fn.simt_launches = 0
 
 
 def ssd_error(x, ref):
@@ -1640,13 +1669,14 @@ def fmt_ssd(names, errs):
     return ", ".join(f"{n} {a:.3e} ({u:.2e})" for n, (a, u) in zip(names, errs))
 
 
-def ssd_inputs(gen, case, dtype):
+def ssd_inputs(gen, case, dtype, dt_scale=1.0):
     """Head-major views of model-layout x, dt, B, C (as the dispatcher hands them
-    to the kernels), x/B/C in ``dtype``; dt in [0.01, 0.2) and A in (-2, -0.5],
-    the reference's test draws."""
+    to the kernels), x/B/C in ``dtype``; dt in [0.01, 0.2) (times ``dt_scale``)
+    and A in (-2, -0.5], the reference's test draws."""
     b, l, h, p, g, n, _ = case
     x = torch.randn(b, l, h, p, generator=gen, device="cuda").to(dtype).transpose(1, 2)
-    dt = (0.01 + 0.19 * torch.rand(b, l, h, generator=gen, device="cuda")).transpose(1, 2)
+    dt = (dt_scale * (0.01 + 0.19 * torch.rand(b, l, h, generator=gen, device="cuda"))
+          ).transpose(1, 2)
     A = -(0.5 + 1.5 * torch.rand(h, generator=gen, device="cuda"))
     B, C = (torch.randn(b, l, g, n, generator=gen, device="cuda").to(dtype).transpose(1, 2)
             for _ in range(2))
@@ -1669,47 +1699,110 @@ def ssd_check_bwd(ins, dy, dfinal, chunk, grads):
                      for g, e, r in zip(grads, errs, ref))
 
 
+def ssd_pass_errors(ins, dy, dfinal):
+    """The Hopper body's passes, each launched alone on its plain version's
+    inputs and held to that pass's plain version (fp32 outputs, in the
+    max(1, max |plain|) measure): the forward's states pass (the plain
+    increments then the plain state pass) and output; the backward's reverse
+    states pass and gradient pass (its two kernels, rows and columns, together).
+    Returns {pass: error}."""
+    from repro_torch.kernels import ssd_scan as ts
+    x, dt, A, Bm, Cm = ins
+    chunk = ts.SM90_CHUNK
+    dt, A = dt.float(), A.float().contiguous()
+    err = lambda o, r: ssd_error(o, r)[1]  # noqa: E731
+    errs = {}
+    y, states, final = ts._fwd_buffers(x, Bm, chunk, states=True)
+    enters, fin = ts.ssd_state_pass_plain(*ts.ssd_fwd_increments_plain(x, dt, A, Bm, chunk=chunk))
+    ts._fwd_sm90(x, dt, A, Bm, Cm, y, states, final, passes=1)
+    errs["fwd_states"] = max(err(states, enters), err(final, fin))
+    states.copy_(enters)
+    ts._fwd_sm90(x, dt, A, Bm, Cm, y, states, final, passes=2)
+    errs["fwd_output"] = err(y, ts.ssd_fwd_output_plain(x, dt, A, Bm, Cm, enters, chunk=chunk))
+    del y, states, final
+    outs, scratch = ts._bwd_outputs(x, Bm), ts._bwd_scratch(x, Bm)
+    dfinal = dfinal.float().contiguous()
+    dstate = ts.ssd_dstate_pass_plain(*ts.ssd_bwd_increments_plain(dy, dt, A, Cm, chunk=chunk),
+                                      dfinal)
+    ts._bwd_sm90(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, scratch, passes=1)
+    errs["bwd_states"] = err(scratch[0], dstate)
+    scratch[0].copy_(dstate)
+    ts._bwd_sm90(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, scratch, passes=6)
+    ref = ts.ssd_bwd_grads_plain(x, dt, A, Bm, Cm, enters, dstate, dy, chunk=chunk)
+    errs["bwd_grads"] = max(err(o, r) for o, r in zip(outs, ref))
+    return errs
+
+
 def phase_kernels_ssd():
     """B5 (y, entering states, final state) and B6 (dx, ddt, dA, dB, dC, with a
     non-zero final-state cotangent) against their plain versions at every
-    SSD_CASES shape in fp32 and bf16, and the autograd Function through the
-    dispatcher. Returns the errors at each path shape (bf16)."""
+    SSD_CASES shape in fp32 and bf16 and at the strong-decay draw, the body the
+    rule names counted on each launch; on the Hopper body also each pass alone
+    against its plain version, and two launches at each path shape
+    bit-identical; then the autograd Function through the dispatcher, fp32
+    (the first version) and bf16 (the Hopper body). Returns (the errors at each
+    path shape (bf16), the worst error of each Hopper pass)."""
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import ssd_scan as ts
     gen = torch.Generator(device="cuda").manual_seed(8)
-    path_errs = {}
-    for case in SSD_CASES:
+    path_errs, pass_worst = {}, {}
+    draws = [(case, dtype, 1.0) for case in SSD_CASES
+             for dtype in (torch.float32, torch.bfloat16)]
+    draws.append((SSD_DECAY_CASE, torch.bfloat16, SSD_DECAY_SCALE))
+    for case, dtype, dt_scale in draws:
         b, l, h, p, g, n, chunk = case
-        for dtype in (torch.float32, torch.bfloat16):
-            ins = ssd_inputs(gen, case, dtype)
-            before = ssd_counts()
-            out = ts.ssd_chunk_scan_fwd(*ins, chunk=chunk, save_enters=True)
-            torch.cuda.synchronize()
-            ferrs, fok = ssd_check_fwd(ins, chunk, out)
-            dy = torch.randn(b, l, h, p, generator=gen, device="cuda").transpose(1, 2)
-            dfinal = torch.randn(b, h, p, n, generator=gen, device="cuda")
-            grads = ts.ssd_chunk_scan_bwd(*ins, out[1], dy, dfinal, chunk=chunk)
-            torch.cuda.synchronize()
-            if ssd_counts() != (before[0] + 1, before[1] + 1):
-                raise AssertionError("ssd_chunk_scan_fwd/bwd did not count one launch each")
-            berrs, bok = ssd_check_bwd(ins, dy, dfinal, chunk, grads)
-            log(f"check ssd {case} {str(dtype)[6:]}: "
-                f"{fmt_ssd(('y', 'enters', 'state'), ferrs)}; "
-                f"{fmt_ssd(BWD_NAMES, berrs)}")
-            if not (fok and bok):
-                raise AssertionError(f"the SSD kernels disagree with their plain versions "
-                                     f"on {case} {dtype}")
-            for path, pcase in SSD_PATH_CASES.items():
-                if case == pcase and dtype == torch.bfloat16:
-                    path_errs[path] = (ferrs, berrs)
-            del ins, out, dy, dfinal, grads
+        ins = ssd_inputs(gen, case, dtype, dt_scale)
+        body = ts.ssd_body(ins[0], ins[3], ins[4], chunk)
+        if body != ("sm90" if dtype == torch.bfloat16 and chunk == 128 else "simt"):
+            raise AssertionError(f"the body rule names {body} for {case} {dtype}")
+        before, bodies = ssd_counts(), body_counts()
+        out = ts.ssd_chunk_scan_fwd(*ins, chunk=chunk, save_enters=True)
+        torch.cuda.synchronize()
+        ferrs, fok = ssd_check_fwd(ins, chunk, out)
+        dy = torch.randn(b, l, h, p, generator=gen, device="cuda").transpose(1, 2)
+        dfinal = torch.randn(b, h, p, n, generator=gen, device="cuda")
+        grads = ts.ssd_chunk_scan_bwd(*ins, out[1], dy, dfinal, chunk=chunk)
+        torch.cuda.synchronize()
+        after = body_counts()
+        if (ssd_counts() != (before[0] + 1, before[1] + 1)
+                or after[f"ssd_fwd_{body}"] != bodies[f"ssd_fwd_{body}"] + 1
+                or after[f"ssd_bwd_{body}"] != bodies[f"ssd_bwd_{body}"] + 1):
+            raise AssertionError(f"ssd_chunk_scan_fwd/bwd did not count one {body} launch each")
+        berrs, bok = ssd_check_bwd(ins, dy, dfinal, chunk, grads)
+        extra, pok = "", True
+        if body == "sm90":
+            perrs = ssd_pass_errors(ins, dy, dfinal)
+            for k, v in perrs.items():
+                pass_worst[k] = max(pass_worst.get(k, 0.0), v)
+            pok = all(v <= (SSD_Y_TOL if k.startswith("fwd") else SSD_GRAD_TOL)
+                      for k, v in perrs.items())
+            extra = "; passes " + ", ".join(f"{k} {v:.2e}" for k, v in perrs.items())
+        if case in SSD_PATH_CASES.values() and dtype == torch.bfloat16:
+            out2 = ts.ssd_chunk_scan_fwd(*ins, chunk=chunk, save_enters=True)
+            grads2 = ts.ssd_chunk_scan_bwd(*ins, out2[1], dy, dfinal, chunk=chunk)
+            if not all(torch.equal(u, v) for u, v in zip((*out, *grads), (*out2, *grads2))):
+                raise AssertionError(f"two launches of the SSD kernels differ on {case}")
+            extra += "; two launches bit-identical"
+            del out2, grads2
+        log(f"check ssd {case} {str(dtype)[6:]}{f' dt x{dt_scale:g}' if dt_scale != 1 else ''} "
+            f"({body}): {fmt_ssd(('y', 'enters', 'state'), ferrs)}; "
+            f"{fmt_ssd(BWD_NAMES, berrs)}{extra}")
+        if not (fok and bok and pok):
+            raise AssertionError(f"the SSD kernels disagree with their plain versions "
+                                 f"on {case} {dtype}")
+        for path, pcase in SSD_PATH_CASES.items():
+            if case == pcase and dtype == torch.bfloat16:
+                path_errs[path] = (ferrs, berrs)
+        del ins, out, dy, dfinal, grads
 
     # the autograd Function through the dispatcher, model layout, G = 2, ragged,
     # a loss on the final state too, against autograd through the plain dispatch
-    for case in ((2, 200, 4, 64, 2, 128, 128), (1, 96, 4, 8, 4, 8, 24)):
+    for case, dtype in (((2, 200, 4, 64, 2, 128, 128), torch.float32),
+                        ((1, 96, 4, 8, 4, 8, 24), torch.float32),
+                        ((2, 200, 4, 64, 2, 128, 128), torch.bfloat16)):
         b, l, h, p, g, n, chunk = case
         base = [t.transpose(1, 2).contiguous() if t.dim() > 1 else t
-                for t in ssd_inputs(gen, case, torch.float32)]
+                for t in ssd_inputs(gen, case, dtype)]
         w = torch.randn(b, l, h, p, generator=gen, device="cuda")
         grads = {}
         for impl in ("cuda", "plain"):
@@ -1722,11 +1815,13 @@ def phase_kernels_ssd():
                 raise AssertionError(f"the {impl} dispatch launched {ssd_counts()}, "
                                      f"expected {want}")
         errs = [ssd_error(a, r) for a, r in zip(grads["cuda"], grads["plain"])]
-        log(f"check ssd autograd Function {case} float32: "
+        log(f"check ssd autograd Function {case} {str(dtype)[6:]}: "
             f"{fmt_ssd(BWD_NAMES, errs)}")
-        if not all(e[1] <= SSD_GRAD_TOL for e in errs):
+        if not all(ssd_ok(a, e, SSD_GRAD_TOL) for a, e in zip(grads["cuda"], errs)):
             raise AssertionError(f"the SSD autograd Function's grads disagree on {case}")
-    return path_errs
+    log("ssd Hopper passes, worst error: " +
+        ", ".join(f"{k} {v:.2e}" for k, v in pass_worst.items()))
+    return path_errs, pass_worst
 
 
 class SSDCapture:
@@ -1810,11 +1905,15 @@ def ssd_flops(b, l, h, p, n, chunk, backward=False):
 
 def ssd_times(name, kept):
     """B5 and B6 (CUDA events) on a path's kept inputs beside their bounds and
-    plain versions. B5's bytes: x, dt, B, C read once, y and the final state
-    (and, under the VJP, the entering states) written; B6's: x, dt, B, C, the
-    entering states, dy and dS_final read, its per-head fp32 dx, ddt, dda, dB, dC
-    written. Operations at the bf16 tensor-core rate (989 TFLOP/s): the inputs
-    arrive in bf16. There is no PyTorch call that computes an SSD scan."""
+    plain versions: the whole call through the body the rule names (the Hopper
+    body at every path shape: B5 the wrapper, B6 its launch with the output
+    allocation, as the first version was timed), the first version's body on
+    the same inputs, and each Hopper pass alone. B5's bytes: x, dt, B, C read once,
+    y and the final state (and, under the VJP, the entering states) written;
+    B6's: x, dt, B, C, the entering states, dy and dS_final read, its per-head
+    fp32 dx, ddt, dda, dB, dC written. Operations at the bf16 tensor-core rate
+    (989 TFLOP/s): the inputs arrive in bf16. There is no PyTorch call that
+    computes an SSD scan."""
     from repro_torch.kernels import ssd_scan as ts
     res = {}
     (x, dt, A, Bm, Cm), chunk, save = kept["fwd"]
@@ -1823,36 +1922,59 @@ def ssd_times(name, kept):
     nc = -(-l // chunk)
     esz = x.element_size()
     io = esz * (x.numel() + Bm.numel() + Cm.numel()) + 4 * dt.numel()
+    dtf, Af = dt.float(), A.float().contiguous()
+    y, states, final = ts._fwd_buffers(x, Bm, chunk, states=True)
+
+    def fwd_simt():
+        y, enters, final = ts._fwd_buffers(x, Bm, chunk, states=save)
+        ts._fwd_simt(x, dtf, Af, Bm, Cm, y, enters, final, chunk)
     units = [("fwd", lambda: ts.ssd_chunk_scan_fwd(x, dt, A, Bm, Cm, chunk=chunk,
                                                    save_enters=save),
+              fwd_simt,
+              {name: functools.partial(ts._fwd_sm90, x, dtf, Af, Bm, Cm, y, states, final,
+                                       passes=bit)
+               for name, bit in (("states", 1), ("output", 2))},
               lambda: ts.ssd_chunk_scan_fwd_plain(x, dt, A, Bm, Cm, chunk=chunk),
               ssd_flops(b, l, h, p, n, chunk),
               io + 4 * (x.numel() + b * h * p * n + (b * h * nc * p * n if save else 0)))]
     if "bwd" in kept:
         (xb, dtb, Ab, Bb, Cb, enters, dy, dfinal), chunk_b = kept["bwd"]
         args = (xb, dtb.float(), Ab.float().contiguous(), Bb, Cb, enters.contiguous(),
-                dy.float().contiguous(), dfinal.contiguous(), chunk_b)
+                dy.float(), dfinal.contiguous(), chunk_b)
         bb, hb, lb, pb = xb.shape
         nb = Bb.shape[3]
         io_b = xb.element_size() * (xb.numel() + Bb.numel() + Cb.numel()) + 4 * dtb.numel()
-        units.append(("bwd", lambda: ts._bwd_launch(*args),
+        outs, scratch = ts._bwd_outputs(xb, Bb), ts._bwd_scratch(xb, Bb)
+        dyk = args[6] if ts._rows_aligned(args[6]) else args[6].contiguous()
+        units.append(("bwd", lambda: ts._bwd_launch("sm90", *args),
+                      lambda: ts._bwd_launch("simt", *args),
+                      {name: functools.partial(ts._bwd_sm90, *args[:6], dyk, args[7], outs,
+                                               scratch, passes=bit)
+                       for name, bit in (("states", 1), ("rows", 2), ("columns", 4))},
                       lambda: ts.ssd_chunk_scan_bwd_plain(xb, dtb, Ab, Bb, Cb, dy, dfinal,
                                                           chunk=chunk_b),
                       ssd_flops(bb, lb, hb, pb, nb, chunk_b, backward=True),
                       io_b + 4 * (enters.numel() + dy.numel() + dfinal.numel()
                                   + xb.numel() + 2 * bb * hb * lb + 2 * bb * hb * lb * nb)))
-    for kind, kernel, plain, flops, nbytes in units:
+    for kind, kernel, simt, passes, plain, flops, nbytes in units:
         ms = cuda_ms(kernel, 10)
+        simt_ms = cuda_ms(simt, 3, warmup=1)
+        pass_ms = {k: cuda_ms(fn, 10) for k, fn in passes.items()}
         plain_ms = cuda_ms(plain, 2, warmup=1)
         t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
         shape = list((xb if kind == "bwd" else x).shape)
-        res[kind] = {"shape_bhlp": shape, "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+        res[kind] = {"shape_bhlp": shape, "ms": ms, "first_body_ms": simt_ms, "pass_ms": pass_ms,
+                     "plain_ms": plain_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
                      "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                      "flops": flops, "bytes": nbytes}
-        log(f"ssd_{kind} at {name} {tuple(shape)}: {ms:.4f} ms, bound "
-            f"{res[kind]['bound_ms']:.4f} ms ({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB, "
-            f"{res[kind]['bound_by']}), plain {plain_ms:.4f} ms")
+        log(f"ssd_{kind} at {name} {tuple(shape)}: {ms:.4f} ms (Hopper body; passes "
+            + ", ".join(f"{k} {v:.4f}" for k, v in pass_ms.items())
+            + f"), first version's body {simt_ms:.4f} ms, bound {res[kind]['bound_ms']:.4f} ms "
+            f"({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB, {res[kind]['bound_by']}), "
+            f"plain {plain_ms:.4f} ms")
+        if ms >= simt_ms:
+            raise AssertionError(f"ssd_{kind}'s Hopper body is not faster than the first "
+                                 f"version's at {name}: {ms:.4f} vs {simt_ms:.4f} ms")
     return res
 
 
@@ -2073,18 +2195,26 @@ def phase_ssm_training(arch, batch_size):
 
 
 def ssd_entries(ssd_errs, ssm):
-    """The kernels-line entries of B5 and B6. ``ssd_errs``: the bf16 kernel
-    checks at each path shape; ``ssm``: {arch: (serving, training)} results."""
+    """The kernels-line entries of B5 and B6. ``ssd_errs``: (the bf16 kernel
+    checks at each path shape, the worst error of each Hopper pass); ``ssm``:
+    {arch: (serving, training)} results."""
+    path_errs, pass_worst = ssd_errs
     by_path = {"ssd_fwd": {}, "ssd_bwd": {}}
+    windows = []
     for arch, (serve, train) in ssm.items():
         by_path["ssd_fwd"][f"{arch}_forward"] = serve["b5"]
         by_path["ssd_fwd"][f"{arch}_train_step"] = train["launches"][5]
         by_path["ssd_bwd"][f"{arch}_train_step"] = train["launches"][6]
+        windows += [f"{arch}_forward", f"{arch}_train_step"]
     out = []
     for name, kind, line, i, names, tol in (
             ("ssd_fwd", "fwd", 79, 0, ("y", "enters", "state"), SSD_FWD_TOLERANCE),
             ("ssd_bwd", "bwd", 179, 1, BWD_NAMES, SSD_BWD_TOLERANCE)):
         head = ssm[SSM_ARCH][0 if kind == "fwd" else 1]["times"][kind]
+        bodies = launches_by_body(name, windows)
+        if bodies[f"{name}_sm90"] != sum(by_path[name].values()) or bodies[f"{name}_simt"]:
+            raise AssertionError(f"{name}'s launches by body {bodies} do not add up to its "
+                                 f"launches by path {by_path[name]} on the Hopper body")
         out.append({
             "name": name,
             "route": "cuda",
@@ -2092,13 +2222,17 @@ def ssd_entries(ssd_errs, ssm):
             "replaces": f"src/repro/kernels/ssd_scan.py:{line}",
             "launches": sum(by_path[name].values()),
             "launches_by_path": by_path[name],
-            "max_abs_err": max(a for errs in ssd_errs.values() for a, _ in errs[i]),
+            "launches_by_body": bodies,
+            "max_abs_err": max(a for errs in path_errs.values() for a, _ in errs[i]),
             "errors_at_path_shapes": {path: {n: e for n, (_, e) in zip(names, errs[i])}
-                                      for path, errs in ssd_errs.items()},
+                                      for path, errs in path_errs.items()},
+            "pass_errors_worst": {k: v for k, v in pass_worst.items() if k.startswith(kind)},
             "real_inputs_worst": {f"{arch}_{which}": r["real"] for arch, pair in ssm.items()
                                   for which, r in zip(("serving", "training"), pair)},
             "tolerance": tol,
             "ms": head["ms"],
+            "first_body_ms": head["first_body_ms"],
+            "pass_ms": head["pass_ms"],
             "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"],
             "bound_by": head["bound_by"],

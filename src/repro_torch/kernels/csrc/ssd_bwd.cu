@@ -18,45 +18,63 @@
 //   dS  <- exp(cs[-1]) dS + (dy o exp(cs))^T C
 // and writes dx (through strides), ddt, dda (B, H, L) and the per-head dB, dC
 // (B, H, L, N), all fp32. As in the reference, the per-head dB/dC are summed onto
-// the groups and dA = sum(dda dt) is taken outside the kernel (torch ops).
-// Every product is an fp32 FMA on fp32 values; TF32 is never used.
+// the groups and dA = sum(dda dt) is taken outside the kernel (torch ops). Positions
+// past L read dt = 0 and x = B = C = dy = 0 (the reference's dt = 0 padding, whose
+// cotangent is zero), and nothing is written for them. Two bodies, chosen by the
+// wrapper's rule (ssd_scan.ssd_body).
 //
-// Design. One block owns one (batch, head) and sweeps its chunks in reverse, dS held
-// in shared memory: grid (H, B), 256 threads. The reference's chunk step holds
-// x, dy, B, C, S_in, dS and four (q, q) matrices; at q 128, P 64, N 128 in fp32 that
-// is 512 KB, more than the 227 KB a block may have. So the (q, q) work is cut into
-// strips of 32 and done twice, in two passes over the chunk:
-//  - the row pass holds B, x dt and S_in whole and takes C and dy a strip of rows i
-//    at a time: it builds the strip's rows of scores and dscores, and finishes what
-//    is summed along a row: dC[i], rowsum(G)[i] and rowsum(dy o y_off)[i];
-//  - the column pass holds C and dy whole and takes B and x a strip of columns j at a
-//    time: it builds the strip's columns of scores and dscores, and finishes what is
-//    summed down a column: dxd[j] (hence dx[j] and rowsum(dxd o x)[j]), dB[j], t[j]
-//    and colsum(G)[j];
-// a warp owns 4 rows (or columns) of a strip and its lanes the other index, so every
-// row sum is a warp shuffle reduction in a fixed order (no atomics: the result does not
-// change from run to run). Splitting B6 into two kernels (a sweep that writes dS for
-// every chunk, then a chunk-parallel kernel) would need the same residency per chunk
-// and another (B, H, nc, P, N) fp32 buffer, so the strips stay in one kernel. The
-// (q, q) products are built twice: ~1.6 M extra multiply-adds a chunk of ~11 M. The
-// dda fold (the reverse cumsum with its `last` term) is done by one warp with a warp
-// scan, after both passes. Rows are padded to a multiple of 4 plus 4, so every
-// product that contracts along a row with one row per lane reads float4s (a
-// quarter-warp covers all 32 banks); the column pass keeps its (dscores o L)^T
-// strip in S_in's buffer. Shared memory peaks at 216,740 bytes at q 128, P 64,
-// N 128 (of 232,448). Only entries j <= i are exponentiated.
+// The Hopper body, ssd_bwd_sm90 (bf16 x, B, C; chunk 128, P 64, N 64 or 128; rows
+// 16-byte aligned): three launches, the two heavy ones parallel over (chunk, head,
+// batch) — 4,096 blocks at mamba2's training microbatch against 128:
+//  1. ssd_states<N, false> (ssd_sm90.cuh), one block per (batch, head) walking its
+//     chunks in reverse: reads dy, dt, A, C and dS_final; writes dS_out of each
+//     chunk into `dstate` ((B, H, nc, P, N) fp32 scratch: 134 MB at mamba2's
+//     training microbatch). Per chunk the increment (dy o exp(cs))^T C is one
+//     tensor-core product (dy o exp(cs) split in two, C exact), and the cotangent
+//     in registers advances dS <- exp(cs[-1]) dS + increment, seeded by dS_final.
+//  2. ssd_bwd_rows<N>, two warpgroups per chunk (one per 64-row half i): reads x,
+//     dt, A, B, C, dy and S_in; writes dC and rowv = rowsum(G) + rowsum(dy o y_off)
+//     to a (B, H, L) scratch. rowsum(dy o y_off) is read off dy S_in as
+//     sum_n C[i, n] (exp(cs_i) dy S_in)[i, n], the same product that starts dC.
+//  3. ssd_bwd_cols<N>, two warpgroups per chunk (one per 64-row half j): reads x,
+//     dt, A, B, C, dy, S_in, dS_out and rowv; writes dx, dB, and after a barrier
+//     the chunk's dda fold and ddt (one warp; `last` is chunk-local).
+// The rows kernel builds scores and dscores in the row orientation (i), the
+// columns kernel in the column orientation (j, as B C^T and x dy^T), so every row
+// and column sum is a sum along an accumulator row (quad shuffles, a fixed order)
+// and each kernel finishes what is summed its way. The (q, q) products are thus
+// built once per orientation on the tensor cores (~3 M extra multiply-adds a chunk
+// of ~22 M): staging them in shared memory for the other orientation would need
+// 96 KB beyond the 151 KB the columns kernel already holds. Every product is wgmma:
+// C B^T and B C^T exact; dy (fp32) against x, S_in or dS split in two or three
+// terms (both fp32: hi hi + hi lo + lo hi); the scores and dscores o L (fp32) split
+// in two against exact B or C, in three against split dy. dt and the decays stay
+// on the fp32 side; TF32 is never used; no atomics (two launches give the same
+// bits). x, B and C arrive by cp.async into 128-byte-swizzled tiles; dy, S_in and
+// dS_out are split by threads into tiles of the same layout. Shared memory:
+// 149,504 bytes (rows) and 151,072 (columns) at N 128, 137,728 for the states
+// pass. `passes` (bits 1, 2, 4) selects any of the three launches, for checking
+// and timing each on its own.
 //
-// Ragged lengths: positions past L read dt = 0 and x = B = C = dy = 0 (the
-// reference's dt = 0 padding, whose cotangent is zero), and nothing is written for
-// them. Chunks from 1 to 128, P up to 64 and N up to 128; any other shape is
-// refused (cudaErrorInvalidValue) and the wrapper raises.
+// The first version, ssd_bwd (everything else: fp32, other chunks, P or N): one
+// block owns one (batch, head) and sweeps its chunks in reverse, dS held in shared
+// memory: grid (H, B), 256 threads. The (q, q) work is cut into strips of 32 and
+// done twice: a row pass (B, x dt and S_in whole, C and dy a strip of rows at a
+// time: dC, rowsum(G), rowsum(dy o y_off)) and a column pass (C and dy whole, B
+// and x a strip of columns at a time: dxd, dB, t, colsum(G)); a warp owns 4 rows
+// (or columns) of a strip and its lanes the other index, every row sum a warp
+// shuffle reduction in a fixed order; the dda fold by one warp after both passes.
+// Every product is an fp32 FMA on the CUDA cores; shared memory peaks at 216,740
+// bytes at q 128, P 64, N 128. Chunks from 1 to 128, P up to 64 and N up to 128;
+// any other shape is refused (cudaErrorInvalidValue) and the wrapper raises.
 //
 // Bound. At mamba2-370m's training microbatch (B 4, H 32, L 4096, P 64, N 128,
-// q 128) the reference's chunk step is ~6.8 M multiply-adds: ~56 GFLOP over 4,096
-// units (0.06 ms at 989 TFLOP/s); the traffic is ~1 GB (x, dy, B, C, the entering
-// states in; dx, ddt, dda and the per-head fp32 dB/dC out), ~0.30 ms at 3.35 TB/s, so
-// bytes bound it. This kernel runs ~11 M FMAs a unit on the CUDA cores at one block
-// of 8 warps per SM; tensor cores and more parallelism per head are later work.
+// q 128) the reference's chunk step is ~6.8 M multiply-adds: ~78 GFLOP over 4,096
+// units (0.08 ms at 989 TFLOP/s); the traffic is ~1 GB (x, dy, B, C, the entering
+// states in; dx, ddt, dda and the per-head fp32 dB/dC out), ~0.31 ms at 3.35 TB/s,
+// so bytes bound it. The Hopper body adds the dS_out scratch's round trip and is
+// bound in practice by latency: one 8-warp block per SM runs its loads, products
+// and stores in turn (PERF.md).
 //
 // Built by repro_torch/kernels/build.py with
 //   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC
@@ -65,6 +83,8 @@
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "ssd_sm90.cuh"
 
 namespace {
 
@@ -692,4 +712,475 @@ extern "C" int ssd_bwd(const void* x, const void* dt, const void* a, const void*
   if (dtype == 0) return launch<float>(P, batch, st);
   if (dtype == 1) return launch<__nv_bfloat16>(P, batch, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// ===========================================================================
+// The Hopper body (bf16 x, B, C at chunk 128, P 64, N 64 or 128): four kernels,
+// parallel over chunks (see the note at the top of this file).
+
+namespace {
+
+struct GradParams {
+  const __nv_bfloat16* x; long long sxb, sxh, sxl;
+  const float* dt; long long sdb, sdh, sdl;
+  const float* a;
+  const __nv_bfloat16* b; long long sbb, sbg, sbl;
+  const __nv_bfloat16* c; long long scb, scg, scl;
+  const float* enters;                      // (B, H, nc, P, N): S_in of each chunk
+  const float* dstate;                      // (B, H, nc, P, N): dS_out of each chunk
+  const float* dy; long long syb, syh, syl; // P contiguous, rows 16-byte aligned
+  float* dx; long long sob, soh, sol;
+  float* ddt; float* dda;                   // (B, H, L)
+  float* db; float* dc;                     // (B, H, L, N), per head
+  float* rowv;                              // (B, H, L): rowsum(G) + rowsum(dy o y_off)
+  int heads, groups, len;
+};
+
+template <int N>
+constexpr int rows_smem_bytes() {
+  return 1024 + 2 * kQ * N * 2 + 3 * kQ * kP * 2 + 2 * kP * N * 2 + 2 * kQ * 4;
+}
+
+template <int N>
+constexpr int cols_smem_bytes() {
+  return 1024 + 2 * kQ * N * 2 + 3 * kQ * kP * 2 + 2 * kP * N * 2 + (5 * kQ + 8) * 4;
+}
+
+// Pass 3a, by rows i of the chunk (two warpgroups, one per 64-row half):
+//   Z     = exp(cs_i) (dy_i S_in)                        (both fp32: three products)
+//   R_i   = sum_n C[i, n] Z[i, n]   (= rowsum(dy o y_off), y_off = exp(cs) o C S_in^T)
+//   scores = C_i B^T o L, dscores = (dy_i x^T) o dt_j   (C B^T exact; dy split: two)
+//   dC_i  = Z + (dscores o L) B                         (dscores o L split: two)
+// and writes dC (per head) and rowsum(dscores o scores) + R to rowv.
+template <int N>
+__global__ void __launch_bounds__(2 * kWg, 1) ssd_bwd_rows(const GradParams P) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t c_tile = (raw + 1023) & ~1023u;          // kQ x N
+  const uint32_t b_tile = c_tile + kQ * N * 2;            // kQ x N
+  const uint32_t x_tile = b_tile + kQ * N * 2;            // kQ x P
+  const uint32_t dy_hi = x_tile + kQ * kP * 2;            // kQ x P
+  const uint32_t dy_lo = dy_hi + kQ * kP * 2;
+  const uint32_t s_hi = dy_lo + kQ * kP * 2;              // P x N: S_in
+  const uint32_t s_lo = s_hi + kP * N * 2;
+  float* dt_s = reinterpret_cast<float*>(smem_raw + (s_lo + kP * N * 2 - raw));
+  float* cs_s = dt_s + kQ;
+  const int c = blockIdx.x, h = blockIdx.y, bi = blockIdx.z, nc = gridDim.x;
+  const int g = h / (P.heads / P.groups);
+  const int tid = threadIdx.x;
+  const int t0 = c * kQ, len = min(kQ, P.len - t0);
+  const long long bh = (long long)bi * P.heads + h;
+
+  load_rows<N>(c_tile, kQ, P.c + bi * P.scb + g * P.scg + t0 * P.scl, P.scl,
+                kQ, len, tid, 2 * kWg);
+  load_rows<N>(b_tile, kQ, P.b + bi * P.sbb + g * P.sbg + t0 * P.sbl, P.sbl,
+                kQ, len, tid, 2 * kWg);
+  load_rows<kP>(x_tile, kQ, P.x + bi * P.sxb + h * P.sxh + t0 * P.sxl, P.sxl,
+                kQ, len, tid, 2 * kWg);
+  split_rows<kP>(dy_hi, dy_lo, P.dy + bi * P.syb + h * P.syh + t0 * P.syl, P.syl, kQ, len, tid,
+                 2 * kWg);
+  split_rows<N>(s_hi, s_lo, P.enters + (bh * nc + c) * (long long)(kP * N), N, kP, kP, tid,
+                2 * kWg);
+  chunk_cs(P.dt + bi * P.sdb + h * P.sdh + t0 * P.sdl, P.sdl, P.a[h], len, dt_s, cs_s, tid);
+  tiles_ready();
+
+  const int wg = tid / kWg, warp = (tid % kWg) / 32, lane = tid % 32;
+  const int r0 = 64 * wg + 16 * warp + lane / 4;          // rows r0 and r0 + 8
+  const uint32_t c_rows = c_tile + wg * kHalf;
+  const uint32_t yh_rows = dy_hi + wg * kHalf, yl_rows = dy_lo + wg * kHalf;
+
+  float dc[N / 2];
+  zero(dc);
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint64_t ah = desc_k(yh_rows, 16 * s, kTile), al = desc_k(yl_rows, 16 * s, kTile);
+    const uint64_t sh = desc_mn(s_hi, 16 * s, kStateBox), sl = desc_mn(s_lo, 16 * s, kStateBox);
+    mma_ss<N, 0, 1>(dc, ah, sh);
+    mma_ss<N, 0, 1>(dc, ah, sl);
+    mma_ss<N, 0, 1>(dc, al, sh);
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(dc);
+  const float e[2] = {expf(cs_s[r0]), expf(cs_s[r0 + 8])};
+  float rsum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int k = (i >> 1) & 1, row = r0 + 8 * k;
+    dc[i] *= e[k];
+    dc[i + 1] *= e[k];
+    const float2 cv = ld_bf16x2(c_tile + sw_off(row, acc_col(i, lane), kQ));
+    rsum[k] += dc[i] * cv.x + dc[i + 1] * cv.y;
+  }
+
+  float rowg[2] = {0.f, 0.f};
+  for (int jb = 0; jb <= wg; ++jb) {
+    float cb[32], ds[32];
+    zero(cb);
+    zero(ds);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < N; k += 16)
+      mma_ss64<0, 0>(cb, desc_k(c_rows, k, kTile), desc_k(b_tile + jb * kHalf, k, kTile));
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t bx = desc_k(x_tile + jb * kHalf, 16 * s, kTile);
+      mma_ss64<0, 0>(ds, desc_k(yh_rows, 16 * s, kTile), bx);
+      mma_ss64<0, 0>(ds, desc_k(yl_rows, 16 * s, kTile), bx);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(cb);
+    fence_regs(ds);
+    fence_regs(dc);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = r0 + acc_row8(i), col = 64 * jb + acc_col(i, lane);
+      float dcb = 0.f;
+      if (col <= row && row < len) {
+        const float l = expf(cs_s[row] - cs_s[col]);
+        const float dsc = ds[i] * dt_s[col];
+        rowg[(i >> 1) & 1] += dsc * (cb[i] * l);
+        dcb = dsc * l;
+      }
+      cb[i] = dcb;
+    }
+    uint32_t ph[4][4], pl[4][4];
+    wg_split(cb, ph, pl);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t dbm = desc_mn(b_tile + jb * kHalf, 16 * s, kTile);
+      mma_rs<N, 1>(dc, ph[s], dbm);
+      mma_rs<N, 1>(dc, pl[s], dbm);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dc);
+    fence_frags(ph);
+    fence_frags(pl);
+  }
+  float* dcp = P.dc + (bh * P.len + t0) * N;
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int row = r0 + acc_row8(i);
+    if (row < len)
+      *reinterpret_cast<float2*>(dcp + row * N + acc_col(i, lane)) =
+          make_float2(dc[i], dc[i + 1]);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float v = quad_sum(rowg[k]) + quad_sum(rsum[k]);
+    const int row = r0 + 8 * k;
+    if ((lane & 3) == 0 && row < len) P.rowv[bh * P.len + t0 + row] = v;
+  }
+}
+
+// Pass 3b, by columns j of the chunk (two warpgroups, one per 64-row half of j),
+// with w = exp(cs[-1] - cs):
+//   xdS    = x_j dS_out o dt_j                          (dS split: two products)
+//   t_j    = w_j sum_n xdS[j, n] B[j, n]
+//   dxd_j  = w_j (B_j dS_out^T) + sum_{ib >= half} scores^T dy_ib
+//   dB_j   = w_j xdS + sum_{ib >= half} (dscores o L)^T C_ib
+// where scores^T = B_j C_ib^T o L^T (exact) and dscores^T = (x_j dy_ib^T) o dt_j
+// (dy split: two) are built in this orientation, scores^T dy from three products
+// (both fp32), (dscores o L)^T C from two. Then dx = dxd dt, rowsum(dxd o x),
+// colsum(G), and the chunk's dda fold (one warp):
+//   dcs = (rowv - colsum(G)) - t,  last = sum(t) + exp(cs[-1]) <dS_out, S_in>,
+//   dda = (sum(dcs) + last) - cumsum(dcs) + dcs,  ddt = dda A + rowsum(dxd o x).
+template <int N>
+__global__ void __launch_bounds__(2 * kWg, 1) ssd_bwd_cols(const GradParams P) {
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t b_tile = (raw + 1023) & ~1023u;          // kQ x N
+  const uint32_t c_tile = b_tile + kQ * N * 2;            // kQ x N
+  const uint32_t x_tile = c_tile + kQ * N * 2;            // kQ x P
+  const uint32_t dy_hi = x_tile + kQ * kP * 2;            // kQ x P
+  const uint32_t dy_lo = dy_hi + kQ * kP * 2;
+  const uint32_t d_hi = dy_lo + kQ * kP * 2;              // P x N: dS_out
+  const uint32_t d_lo = d_hi + kP * N * 2;
+  float* dt_s = reinterpret_cast<float*>(smem_raw + (d_lo + kP * N * 2 - raw));
+  float* cs_s = dt_s + kQ;
+  float* colg_s = cs_s + kQ;
+  float* t_s = colg_s + kQ;
+  float* dxx_s = t_s + kQ;
+  float* red_s = dxx_s + kQ;                              // 8: <dS_out, S_in> per warp
+  const int c = blockIdx.x, h = blockIdx.y, bi = blockIdx.z, nc = gridDim.x;
+  const int g = h / (P.heads / P.groups);
+  const int tid = threadIdx.x;
+  const int t0 = c * kQ, len = min(kQ, P.len - t0);
+  const long long bh = (long long)bi * P.heads + h;
+
+  load_rows<N>(b_tile, kQ, P.b + bi * P.sbb + g * P.sbg + t0 * P.sbl, P.sbl,
+                kQ, len, tid, 2 * kWg);
+  load_rows<N>(c_tile, kQ, P.c + bi * P.scb + g * P.scg + t0 * P.scl, P.scl,
+                kQ, len, tid, 2 * kWg);
+  load_rows<kP>(x_tile, kQ, P.x + bi * P.sxb + h * P.sxh + t0 * P.sxl, P.sxl,
+                kQ, len, tid, 2 * kWg);
+  split_rows<kP>(dy_hi, dy_lo, P.dy + bi * P.syb + h * P.syh + t0 * P.syl, P.syl, kQ, len, tid,
+                 2 * kWg);
+  {
+    const long long off = (bh * nc + c) * (long long)(kP * N);
+    float dot = 0.f;                                      // <dS_out, S_in>, this thread's part
+    split_rows<N>(d_hi, d_lo, P.dstate + off, N, kP, kP, tid, 2 * kWg, P.enters + off, &dot);
+    dot = warp_total(dot);
+    if ((tid & 31) == 0) red_s[tid >> 5] = dot;
+  }
+  chunk_cs(P.dt + bi * P.sdb + h * P.sdh + t0 * P.sdl, P.sdl, P.a[h], len, dt_s, cs_s, tid);
+  tiles_ready();
+
+  const int wg = tid / kWg, warp = (tid % kWg) / 32, lane = tid % 32;
+  const int r0 = 64 * wg + 16 * warp + lane / 4;          // rows (j) r0 and r0 + 8
+  const uint32_t b_rows = b_tile + wg * kHalf, x_rows = x_tile + wg * kHalf;
+  const float cs_last = cs_s[kQ - 1];
+  float dbk[N / 2], dxd[32];
+  zero(dbk);
+  zero(dxd);
+  wg_fence();
+#pragma unroll
+  for (int s = 0; s < 4; ++s) {
+    const uint64_t ax = desc_k(x_rows, 16 * s, kTile);
+    mma_ss<N, 0, 1>(dbk, ax, desc_mn(d_hi, 16 * s, kStateBox));
+    mma_ss<N, 0, 1>(dbk, ax, desc_mn(d_lo, 16 * s, kStateBox));
+  }
+#pragma unroll
+  for (int k = 0; k < N; k += 16) {
+    const uint64_t ab = desc_k(b_rows, k, kTile);
+    mma_ss64<0, 0>(dxd, ab, desc_k(d_hi, k, kStateBox));
+    mma_ss64<0, 0>(dxd, ab, desc_k(d_lo, k, kStateBox));
+  }
+  wg_commit();
+  wg_wait_all();
+  fence_regs(dbk);
+  fence_regs(dxd);
+  float w[2], wd[2], t[2];
+  {
+    float tp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < N / 2; i += 2) {
+      const int row = r0 + acc_row8(i);
+      const float2 bv = ld_bf16x2(b_tile + sw_off(row, acc_col(i, lane), kQ));
+      tp[(i >> 1) & 1] += dbk[i] * bv.x + dbk[i + 1] * bv.y;
+    }
+#pragma unroll
+    for (int k = 0; k < 2; ++k) {
+      const int row = r0 + 8 * k;
+      w[k] = expf(cs_last - cs_s[row]);
+      wd[k] = w[k] * dt_s[row];
+      t[k] = wd[k] * quad_sum(tp[k]);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < N / 2; ++i) dbk[i] *= wd[(i >> 1) & 1];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dxd[i] *= w[(i >> 1) & 1];
+
+  float colg[2] = {0.f, 0.f};
+  for (int ib = wg; ib < 2; ++ib) {
+    float st[32], dst[32];
+    zero(st);
+    zero(dst);
+    wg_fence();
+#pragma unroll
+    for (int k = 0; k < N; k += 16)
+      mma_ss64<0, 0>(st, desc_k(b_rows, k, kTile), desc_k(c_tile + ib * kHalf, k, kTile));
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t ax = desc_k(x_rows, 16 * s, kTile);
+      mma_ss64<0, 0>(dst, ax, desc_k(dy_hi + ib * kHalf, 16 * s, kTile));
+      mma_ss64<0, 0>(dst, ax, desc_k(dy_lo + ib * kHalf, 16 * s, kTile));
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(st);
+    fence_regs(dst);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int row = r0 + acc_row8(i), col = 64 * ib + acc_col(i, lane);   // j, i
+      float sc = 0.f, dcb = 0.f;
+      if (col >= row && col < len) {
+        const float l = expf(cs_s[col] - cs_s[row]);
+        const float dsc = dst[i] * dt_s[row];
+        sc = st[i] * l;
+        colg[(i >> 1) & 1] += dsc * sc;
+        dcb = dsc * l;
+      }
+      st[i] = sc;
+      dst[i] = dcb;
+    }
+    uint32_t sh[4][4], sl[4][4], ph[4][4], pl[4][4];
+    wg_split(st, sh, sl);
+    wg_split(dst, ph, pl);
+    wg_fence();
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const uint64_t yh = desc_mn(dy_hi + ib * kHalf, 16 * s, kTile);
+      const uint64_t yl = desc_mn(dy_lo + ib * kHalf, 16 * s, kTile);
+      mma_rs64<1>(dxd, sh[s], yh);
+      mma_rs64<1>(dxd, sh[s], yl);
+      mma_rs64<1>(dxd, sl[s], yh);
+      const uint64_t cm = desc_mn(c_tile + ib * kHalf, 16 * s, kTile);
+      mma_rs<N, 1>(dbk, ph[s], cm);
+      mma_rs<N, 1>(dbk, pl[s], cm);
+    }
+    wg_commit();
+    wg_wait_all();
+    fence_regs(dxd);
+    fence_regs(dbk);
+    fence_frags(sh);
+    fence_frags(sl);
+    fence_frags(ph);
+    fence_frags(pl);
+  }
+
+  float dxx[2] = {0.f, 0.f};
+  float* dxp = P.dx + bi * P.sob + h * P.soh + t0 * P.sol;
+#pragma unroll
+  for (int i = 0; i < 32; i += 2) {
+    const int row = r0 + acc_row8(i), col = acc_col(i, lane);
+    const float2 xv = ld_bf16x2(x_tile + sw_off(row, col, kQ));
+    dxx[(i >> 1) & 1] += dxd[i] * xv.x + dxd[i + 1] * xv.y;
+    if (row < len) {
+      const float d = dt_s[row];
+      *reinterpret_cast<float2*>(dxp + row * P.sol + col) = make_float2(dxd[i] * d, dxd[i + 1] * d);
+    }
+  }
+  float* dbp = P.db + (bh * P.len + t0) * N;
+#pragma unroll
+  for (int i = 0; i < N / 2; i += 2) {
+    const int row = r0 + acc_row8(i);
+    if (row < len)
+      *reinterpret_cast<float2*>(dbp + row * N + acc_col(i, lane)) =
+          make_float2(dbk[i], dbk[i + 1]);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const float cg = quad_sum(colg[k]), xx = quad_sum(dxx[k]);
+    if ((lane & 3) == 0) {
+      const int row = r0 + 8 * k;
+      colg_s[row] = cg;
+      t_s[row] = t[k];
+      dxx_s[row] = xx;
+    }
+  }
+  __syncthreads();
+
+  if (tid < 32) {                                         // the dda fold, one warp
+    const float* rv = P.rowv + bh * P.len + t0;
+    float dcs[4], tsum = 0.f, dsum = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = tid * 4 + k;
+      dcs[k] = 0.f;
+      if (j < len) {
+        dcs[k] = (rv[j] - colg_s[j]) - t_s[j];
+        tsum += t_s[j];
+        dsum += dcs[k];
+      }
+    }
+    tsum = warp_total(tsum);
+    dsum = warp_total(dsum);
+    float dot = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) dot += red_s[k];
+    const float total = dsum + (tsum + expf(cs_last) * dot);
+    float run = 0.f, loc[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      run += dcs[k];
+      loc[k] = run;
+    }
+    float incl = run;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const float o = __shfl_up_sync(0xffffffffu, incl, off);
+      if (tid >= off) incl += o;
+    }
+    float excl = __shfl_up_sync(0xffffffffu, incl, 1);
+    if (tid == 0) excl = 0.f;
+    const float a = P.a[h];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int j = tid * 4 + k;
+      if (j < len) {
+        const float dda = (total - (excl + loc[k])) + dcs[k];
+        P.dda[bh * P.len + t0 + j] = dda;
+        P.ddt[bh * P.len + t0 + j] = dda * a + dxx_s[j];
+      }
+    }
+  }
+}
+
+template <int N>
+int launch_sm90(const StateParams& sp, const GradParams& gp, int batch, int nc, int passes,
+                cudaStream_t st) {
+  if (passes & 1)
+    if (int err = launch_states<N, false>(sp, batch, st)) return err;
+  const dim3 grid(nc, gp.heads, batch);
+  if (passes & 2) {
+    constexpr int bytes = rows_smem_bytes<N>();
+    if (int err = set_smem(ssd_bwd_rows<N>, bytes)) return err;
+    ssd_bwd_rows<N><<<grid, 2 * kWg, bytes, st>>>(gp);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  if (passes & 4) {
+    constexpr int bytes = cols_smem_bytes<N>();
+    if (int err = set_smem(ssd_bwd_cols<N>, bytes)) return err;
+    ssd_bwd_cols<N><<<grid, 2 * kWg, bytes, st>>>(gp);
+    if (int err = (int)cudaGetLastError()) return err;
+  }
+  return 0;
+}
+
+}  // namespace
+
+// The Hopper body. x, B, C bf16 (last dim contiguous, rows 16-byte aligned), P 64,
+// N 64 or 128, chunk 128; dy fp32 with rows 16-byte aligned; everything else fp32.
+// dstate (B, H, nc, P, N) and rowv (B, H, L) are scratch: dstate receives dS_out of
+// each chunk. `passes` (bits 1, 2, 4: the reverse states pass, rows, columns) runs
+// a subset, for checking and timing each pass. ddt, dda (B, H, L) and db, dc
+// (B, H, L, N) are contiguous; dx is written through its strides. Returns a
+// cudaError_t code.
+extern "C" int ssd_bwd_sm90(const void* x, const void* dt, const void* a, const void* b,
+                            const void* c, const void* enters, const void* dy,
+                            const void* dfinal, void* dx, void* ddt, void* dda, void* db,
+                            void* dc, void* dstate, void* rowv,
+                            long long sxb, long long sxh, long long sxl,
+                            long long sdb, long long sdh, long long sdl,
+                            long long sbb, long long sbg, long long sbl,
+                            long long scb, long long scg, long long scl,
+                            long long syb, long long syh, long long syl,
+                            long long sob, long long soh, long long sol,
+                            int batch, int heads, int groups, int len, int n, int passes,
+                            void* stream) {
+  if ((n != 64 && n != 128) || groups < 1 || heads % groups || len < 1 || batch < 1)
+    return (int)cudaErrorInvalidValue;
+  const int nc = (len + kQ - 1) / kQ;
+  StateParams sp;
+  sp.u = dy; sp.sub = syb; sp.suh = syh; sp.sul = syl;
+  sp.dt = static_cast<const float*>(dt); sp.sdb = sdb; sp.sdh = sdh; sp.sdl = sdl;
+  sp.a = static_cast<const float*>(a);
+  sp.v = static_cast<const __nv_bfloat16*>(c); sp.svb = scb; sp.svg = scg; sp.svl = scl;
+  sp.seed = static_cast<const float*>(dfinal);
+  sp.out = static_cast<float*>(dstate); sp.final_state = nullptr;
+  sp.heads = heads; sp.groups = groups; sp.len = len;
+  GradParams gp;
+  gp.x = static_cast<const __nv_bfloat16*>(x); gp.sxb = sxb; gp.sxh = sxh; gp.sxl = sxl;
+  gp.dt = sp.dt; gp.sdb = sdb; gp.sdh = sdh; gp.sdl = sdl;
+  gp.a = sp.a;
+  gp.b = static_cast<const __nv_bfloat16*>(b); gp.sbb = sbb; gp.sbg = sbg; gp.sbl = sbl;
+  gp.c = sp.v; gp.scb = scb; gp.scg = scg; gp.scl = scl;
+  gp.enters = static_cast<const float*>(enters);
+  gp.dstate = sp.out;
+  gp.dy = static_cast<const float*>(dy); gp.syb = syb; gp.syh = syh; gp.syl = syl;
+  gp.dx = static_cast<float*>(dx); gp.sob = sob; gp.soh = soh; gp.sol = sol;
+  gp.ddt = static_cast<float*>(ddt); gp.dda = static_cast<float*>(dda);
+  gp.db = static_cast<float*>(db); gp.dc = static_cast<float*>(dc);
+  gp.rowv = static_cast<float*>(rowv);
+  gp.heads = heads; gp.groups = groups; gp.len = len;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaGetLastError();   // start from a clean error state
+  return n == 128 ? launch_sm90<128>(sp, gp, batch, nc, passes, st)
+                  : launch_sm90<64>(sp, gp, batch, nc, passes, st);
 }

@@ -10,7 +10,8 @@ import pytest
 from repro_torch.kernels import build
 
 KERNELS = ("flash_fwd", "flash_bwd", "grouped_gemm", "ssd_fwd", "ssd_bwd")
-HOPPER = ("flash_fwd", "flash_bwd", "grouped_gemm")        # the sources that include sm90.cuh
+SSD = ("ssd_fwd", "ssd_bwd")        # include ssd_sm90.cuh, which includes sm90.cuh
+HOPPER = KERNELS                    # every source reaches sm90.cuh
 
 
 @pytest.fixture
@@ -24,7 +25,7 @@ def csrc(tmp_path, monkeypatch):
 
 def test_sources_follow_the_includes():
     for name in KERNELS:
-        want = [f"{name}.cu"] + (["sm90.cuh"] if name in HOPPER else [])
+        want = [f"{name}.cu"] + (["ssd_sm90.cuh"] if name in SSD else []) + ["sm90.cuh"]
         assert [p.name for p in build.sources(name)] == want, name
 
 
@@ -33,12 +34,12 @@ def test_library_path_is_stable(csrc):
     assert len({build.library_path(n) for n in KERNELS}) == len(KERNELS)
 
 
-@pytest.mark.parametrize("edited", ["sm90.cuh", "flash_fwd.cu", "ssd_bwd.cu"])
+@pytest.mark.parametrize("edited", ["sm90.cuh", "ssd_sm90.cuh", "flash_fwd.cu", "ssd_bwd.cu"])
 def test_an_edit_changes_the_paths_of_the_libraries_that_use_it(csrc, edited):
     before = {n: build.library_path(n) for n in KERNELS}
     path = csrc / edited
     path.write_text(path.read_text() + "\n// an edit\n")
-    users = HOPPER if edited == "sm90.cuh" else (edited[:-3],)
+    users = {"sm90.cuh": HOPPER, "ssd_sm90.cuh": SSD}.get(edited, (edited[:-3],))
     for n in KERNELS:
         assert (build.library_path(n) != before[n]) == (n in users), n
 
