@@ -81,7 +81,25 @@ prints its seconds):
    and three timed steps with the launches counted (B5 192/152, B6 96/76, and
    B1/B2/B3 12 each for the hybrid; B1 also held to its plain version on the
    hybrid's 6 attention applications of one microbatch), profiles;
-10. times   — each kernel's time at its path's shapes beside its bound, its plain
+10. whisper-small serving — the smoke config (forward, fill_cross, decode) on the
+   card against the CPU; full width and depth (12 + 12 layers, 334 M parameters,
+   random bf16 weights from a seed): fill_cross over 4 x 1500 frames from
+   SyntheticDataset (B1 12 launches, non-causal over a ragged T = 1500), a
+   4-token prompt through decode_step, 32 greedy steps (B1 12 a step: the
+   cross-attention at S = 1), max_seq 448; B1 held to its plain version on every
+   encoder layer's own inputs and every cross-attention of one decode step;
+11. whisper-small training — the smoke config card vs CPU and under the three
+   remat modes; full width and depth (fp32 masters, bf16 compute, remat "full",
+   8 x 4096 tokens with 8 x 1500 frames in 2 microbatches): B1/B2/B3 held to
+   their plain versions on every call of one microbatch, one warm-up and three
+   timed steps with the launches counted (B1 144, B2 72, B3 72), a profile;
+12. whisper-small checkpoint — its full-width training state saved with
+   async_snapshot after 2 steps, steps 3-4 while the copy drains, restored into
+   a fresh state (bit for bit), steps 3-4 resumed (losses to 1e-6 relative),
+   a save with free card memory for half the state restored bit for
+   bit, the host-RAM tier restored after lose_group; stall, fence, copy to
+   host, persist and restore times;
+13. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -90,10 +108,11 @@ prints its seconds):
    B2/B3 also the whole FlashAttention.backward (delta pass, dq, dk/dv) beside
    SDPA's backward, at the training shape and at zamba2's; B5/B6 at the four
    SSM path shapes through the Hopper body, through the first version's body
-   and pass by pass; printed as one JSON line.
+   and pass by pass; B1-B3 at whisper's encoder, decode cross-attention (S = 1)
+   and training cross- and self-attention shapes; printed as one JSON line.
 
-On every path, every B1, B4, B5 and B6 launch (prefill, decode and training)
-must run the Hopper body (``check_bodies``, from the wrappers' per-body
+On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode and
+training) must run the Hopper body (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
 Any failure raises: the script exits non-zero and prints no final line. The
@@ -159,6 +178,12 @@ FLASH_CASES = [
     (2, 8, 8, 512, 512, 64, False, 0, 0.0, 0),       # interior tiles only
     (2, 8, 8, 512, 512, 128, False, 0, 0.0, 0),
     (4, 32, 32, 2000, 2000, 64, True, 0, 0.0, 0),    # zamba2's serving shape, S cut
+    # whisper-small: the encoder (non-causal, T = 1500 ragged on the 64-key tile),
+    # a decode step's cross-attention (S = 1: one real row of a 128-query block),
+    # the training cross-attention (S = 4096 against 1500 frames)
+    (4, 12, 12, 1500, 1500, 64, False, 0, 0.0, 0),
+    (4, 12, 12, 1, 1500, 64, False, 0, 0.0, 0),
+    (4, 12, 12, 4096, 1500, 64, False, 0, 0.0, 0),
     (BATCH, 40, 8, PROMPT, PROMPT, 128, True, 0, 0.0, 0),   # the serving path
 ]
 # o in fp32 to 3e-5; o in bf16 to 2 bf16 ulps of the plain version's value
@@ -202,6 +227,8 @@ BWD_CASES = [
     # interior test says "straddles"
     (1, 4, 4, 1000, 1000, 128, True, 191, 0.0, 0),
     (2, 4, 2, 1000, 1000, 64, True, 255, 0.0, 0),
+    (4, 12, 12, 1500, 1500, 64, False, 0, 0.0, 0),     # whisper's encoder
+    (4, 12, 12, 4096, 1500, 64, False, 0, 0.0, 0),     # whisper's training cross-attention
 ]
 # zamba2's shared attention in one training microbatch, where B1/B2/B3 are also
 # timed, and in its 4 x 8000 serving forward, where B1 is timed
@@ -243,6 +270,24 @@ GEMM_CASES = [
 GEMM_REL_F32, GEMM_ULPS_BF16 = 5e-5, 2.0
 GEMM_TOLERANCE = ("fp32 5e-5 of the tensor's max |value|, bf16 2 ulps of |plain| "
                   "(floor 2^-10 of the max); padding rows and zero-load experts exactly 0")
+
+WHISPER_ARCH = "whisper-small"
+# serving: frames (4, 1500, 768) through fill_cross, a 4-token prompt through
+# decode_step, then DECODE_STEPS greedy steps; the decoder's context is 448
+# tokens (arXiv:2212.04356)
+WHISPER_BATCH, WHISPER_PROMPT, WHISPER_MAX_SEQ = 4, 4, 448
+# training: train_4k's sequence with the registry's batch of 256 cut to 8 (one
+# card), TRAIN_MICRO microbatches of 4, each with its 4 x 1500 frames
+WHISPER_TRAIN_BATCH = 8
+# B1-B3 at whisper's shapes, timed and held to their plain versions: the
+# encoder, a decode step's cross-attention, and a training microbatch's
+# cross-attention and decoder self-attention
+WHISPER_CASES = {
+    "encoder": (4, 12, 12, 1500, 1500, 64, False, 0, 0.0, 0),
+    "decode_cross": (4, 12, 12, 1, 1500, 64, False, 0, 0.0, 0),
+    "train_cross": (4, 12, 12, TRAIN_SEQ, 1500, 64, False, 0, 0.0, 0),
+    "train_self": (4, 12, 12, TRAIN_SEQ, TRAIN_SEQ, 64, True, 0, 0.0, 0),
+}
 
 SSM_ARCH, HYBRID_ARCH = "mamba2-370m", "zamba2-1.2b"
 # serving: a forward over 4 x 8000 tokens (62 chunks of 128 and a ragged 64), then a
@@ -591,19 +636,24 @@ def flash_case_check(case, dtype, gen):
 
 def phase_kernels():
     """B1 against its plain version on every FLASH_CASES row in both dtypes and,
-    in bf16, at the training path's shape (qwen1.5-4b's) and zamba2's training
-    and serving shapes, where two launches must also be bit-identical. Returns
-    the bf16 errors at the serving, training and zamba2 shapes."""
+    in bf16, at the training path's shape (qwen1.5-4b's), zamba2's training and
+    serving shapes and whisper's decoder self-attention in training, where two
+    launches must also be bit-identical. Returns the bf16 errors at the
+    serving, training, zamba2 and whisper shapes."""
     from repro_torch.kernels.flash_attention import flash_attention_lse
     gen = torch.Generator(device="cuda").manual_seed(0)
     path_errs = {}
+    whisper = {case: f"whisper_{name}" for name, case in WHISPER_CASES.items()}
     for case in FLASH_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             errs = flash_case_check(case, dtype, gen)[0]
             if case == FLASH_CASES[-1] and dtype == torch.bfloat16:
                 path_errs["serving"] = errs
+            if case in whisper and dtype == torch.bfloat16:
+                path_errs[whisper[case]] = errs
     for name, case in (("train", TRAIN_CASE), ("hybrid_train", HYBRID_ATTN_CASE),
-                       ("hybrid_serve", HYBRID_SERVE_ATTN_CASE)):
+                       ("hybrid_serve", HYBRID_SERVE_ATTN_CASE),
+                       ("whisper_train_self", WHISPER_CASES["train_self"])):
         errs, q, k, v, o, lse = flash_case_check(case, torch.bfloat16, gen)
         again = flash_attention_lse(q, k, v, **case_kw(case))
         same = torch.equal(o, again[0]) and torch.equal(lse, again[1])
@@ -763,16 +813,19 @@ def phase_serving():
 
 def phase_kernels_bwd():
     """The dq and dk/dv kernels against their plain version: every FLASH_CASES
-    and BWD_CASES row and the two training paths' shapes (qwen1.5-4b's, hd 128,
-    and zamba2's, hd 64) in both dtypes, merged softmax statistics, and the
-    autograd Function; two launches at each path shape bit-identical. Returns
-    the bf16 errors at the path shapes: {"train": ..., "hybrid": ...}."""
+    and BWD_CASES row and the training paths' shapes (qwen1.5-4b's, hd 128;
+    zamba2's and whisper's encoder, cross- and self-attention, hd 64) in both
+    dtypes, merged softmax statistics, and the autograd Function; two launches
+    at each path shape bit-identical. Returns the bf16 errors at the path
+    shapes: {"train": ..., "hybrid": ..., "whisper_encoder": ..., ...}."""
     from repro_torch.kernels import flash_attention as tf
     from repro_torch.models.layers import attention_chunk_grads
     gen = torch.Generator(device="cuda").manual_seed(5)
     path_errs = {}
-    paths = {TRAIN_CASE: "train", HYBRID_ATTN_CASE: "hybrid"}
-    for case in FLASH_CASES + BWD_CASES + list(paths):
+    paths = {TRAIN_CASE: "train", HYBRID_ATTN_CASE: "hybrid",
+             **{WHISPER_CASES[n]: f"whisper_{n}" for n in ("encoder", "train_cross",
+                                                           "train_self")}}
+    for case in dict.fromkeys(FLASH_CASES + BWD_CASES + list(paths)):
         kw = case_kw(case)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, lse, delta = bwd_inputs(gen, case, dtype)
@@ -906,9 +959,11 @@ def train_flops(cfg, seq, tokens, params=None):
     real matrices (``params``; the analytic ``param_count`` omits the hybrid's
     shared MLP), the hybrid's shared block once per application, its attention
     on those applications only, and each layer's SSD forward and backward
-    (``ssd_flops``). Neither the recompute nor the MoE one-hot dispatch einsums
-    are counted."""
+    (``ssd_flops``); the encoder-decoder by ``encdec_train_flops``. Neither the
+    recompute nor the MoE one-hot dispatch einsums are counted."""
     from repro_torch.core import Family, leaves
+    if cfg.is_enc_dec:
+        return encdec_train_flops(cfg, seq, tokens)
     if cfg.family in (Family.SSM, Family.HYBRID):
         apps = n_apps(cfg)
         n_matmul = sum(t.numel() for lp in params["layers"] for t in leaves(lp) if t.dim() > 1)
@@ -932,11 +987,65 @@ def train_flops(cfg, seq, tokens, params=None):
     return (6 * n_matmul + attn) * tokens + scan
 
 
+def encdec_train_flops(cfg, seq, tokens):
+    """Reckoned FLOPs of one encoder-decoder train step (forward + backward, no
+    recompute): 6 per matmul parameter a frame or a token uses (the encoder's
+    layers and every decoder layer's cross keys and values on the frames; the
+    decoder's self-attention, cross queries and output, MLP and the LM head on
+    the tokens; the embedding gather does none), plus 12 hd FLOP per attended
+    (query, key) pair and head: the encoder's non-causal F^2, the decoder's
+    causal S(S+1)/2 and the cross-attention's S F, per sequence."""
+    d, f, hd = cfg.d_model, cfg.enc_frames, cfg.head_dim
+    kv = 2 * d * cfg.n_kv_heads * hd
+    attn = 2 * d * cfg.n_heads * hd + kv
+    mlp = 3 * d * cfg.d_ff
+    b = tokens // seq
+    per_frame = cfg.enc_layers * (attn + mlp) + cfg.n_layers * kv
+    per_token = cfg.n_layers * (2 * attn - kv + mlp) + d * cfg.vocab
+    pairs = cfg.enc_layers * f * f + cfg.n_layers * (seq * (seq + 1) // 2 + seq * f)
+    return 6 * (per_frame * b * f + per_token * tokens) + 12 * cfg.n_heads * hd * b * pairs
+
+
+def dq_fp64(q, k, v, do, lse, delta, *, causal, window=0, softcap=0.0, scale=None,
+            q_offset=0):
+    """B2's formula (dq against the given lse and delta) evaluated in fp64, in
+    blocks of 512 query rows: the yardstick for both the kernel and the fp32
+    plain version where dq's rows cancel."""
+    from repro_torch.models.layers import NEG_INF, attn_mask
+    b, hq, s, hd = q.shape
+    hkv, t = k.shape[1], k.shape[2]
+    scale = hd ** -0.5 if scale is None else scale
+    kf, vf = k.double(), v.double()
+    dq = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for r in range(0, s, 512):
+        n = min(512, s - r)
+        qs = q[:, :, r:r + n].double().reshape(b, hkv, hq // hkv, n, hd)
+        dos = do[:, :, r:r + n].double().reshape(b, hkv, hq // hkv, n, hd)
+        sc = torch.einsum("bkgsd,bktd->bkgst", qs, kf) * scale
+        dtanh = 1.0
+        if softcap:
+            th = torch.tanh(sc / softcap)
+            sc, dtanh = softcap * th, 1.0 - th * th
+        mask = attn_mask(q_offset + r + torch.arange(n, device=q.device),
+                         torch.arange(t, device=q.device), causal=causal, window=window)
+        l, dl = (x[:, :, r:r + n].double().reshape(b, hkv, hq // hkv, n, 1) for x in (lse, delta))
+        p = torch.exp(torch.where(mask, sc - l, NEG_INF))
+        ds = p * (torch.einsum("bkgsd,bktd->bkgst", dos, vf) - dl) * dtanh
+        dq[:, :, r:r + n] = (torch.einsum("bkgst,bktd->bkgsd", ds, kf) * scale
+                             ).reshape(b, hq, n, hd)
+    return dq
+
+
 class FlashBwdCapture:
     """Within the block, every call of the backward kernels' wrapper (B2 and
     B3, as FlashAttention.backward makes it) is held to the plain version on
-    its own (q, k, v, dO, lse, delta). ``functools.wraps`` copies the launch
-    counters onto the wrapper, so these launches leave the real counts alone."""
+    its own (q, k, v, dO, lse, delta); with ``fp64``, the kernel's dq and the
+    plain version's are also each held to an fp64 evaluation (``dq_fp64``).
+    ``functools.wraps`` copies the launch counters onto the wrapper, so these
+    launches leave the real counts alone."""
+
+    def __init__(self, fp64=False):
+        self.fp64, self.dq64 = fp64, []
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as tf
@@ -948,6 +1057,9 @@ class FlashBwdCapture:
             grads = real(q, k, v, do, lse, delta, **kw)
             ref = tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
             self.errs.append([grad_error(g, r) for g, r in zip(grads, ref)])
+            if self.fp64:
+                truth = dq_fp64(q, k, v, do, lse, delta, **kw)
+                self.dq64.append((grad_error(grads[0], truth)[1], grad_error(ref[0], truth)[1]))
             return grads
         tf.flash_attention_bwd = checked_bwd
         return self
@@ -969,10 +1081,15 @@ class FlashBwdCapture:
         log(f"real inputs, {what}: B2/B3 held to their plain version on {calls} calls, "
             f"max error dq/dk/dv {worst_abs[0]:.3e}/{worst_abs[1]:.3e}/{worst_abs[2]:.3e} = "
             f"{worst[0]:.2f}/{worst[1]:.2f}/{worst[2]:.2f} bf16 ulps")
+        if self.dq64:
+            kern, plain = (max(e[i] for e in self.dq64) for i in range(2))
+            log(f"real inputs, {what}: dq against an fp64 evaluation, worst of {calls} calls: "
+                f"the kernel {kern:.2f}, the fp32 plain version {plain:.2f} bf16 ulps")
+            worst.append(kern)
         if max(worst) > GRAD_ULPS_BF16:
-            raise AssertionError(f"flash_bwd disagrees with its plain version on the "
-                                 f"{what}'s own inputs")
-        return max(worst[1:]), worst[0]
+            raise AssertionError(f"flash_bwd disagrees with its plain version (or, for dq, "
+                                 f"with fp64) on the {what}'s own inputs")
+        return max(worst[1:3]), worst[0]
 
 
 class FlashFwdCapture:
@@ -1133,7 +1250,7 @@ def phase_training():
 
 
 def bwd_times_at(case, gen):
-    """B2 and B3 at one causal bf16 shape (CUDA events) beside their bounds; the
+    """B2 and B3 at one bf16 shape (CUDA events) beside their bounds; the
     whole FlashAttention.backward (the delta pass, B2 and B3) and SDPA's
     backward, both through autograd on the same q, k, v and dO."""
     import torch.nn.functional as F
@@ -1147,7 +1264,7 @@ def bwd_times_at(case, gen):
     ql, kl, vl = (x.detach().requires_grad_() for x in (q, k, v))
     o = tf.flash_attention(ql, kl, vl, **case_kw(case))
     whole_ms = cuda_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True), 20)
-    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=hq != hkv)
+    o = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal, enable_gqa=hq != hkv)
     library_ms = cuda_ms(lambda: torch.autograd.grad(o, (ql, kl, vl), do, retain_graph=True), 20)
     pairs = attended_pairs(s, t, causal, window, q_offset) * b * hq
     in_bytes = 2 * (q.numel() + k.numel() + v.numel() + do.numel()) + 4 * 2 * b * hq * s
@@ -1165,8 +1282,9 @@ def bwd_times_at(case, gen):
 
 
 def backward_times():
-    """B2 and B3 at the training shape and at zamba2's (bwd_times_at) and the
-    plain backward at the training shape."""
+    """B2 and B3 at the training shape, at zamba2's and at whisper's encoder,
+    training cross- and self-attention (bwd_times_at), and the plain backward
+    at the training shape and whisper's."""
     from repro_torch.kernels import flash_attention as tf
     gen = torch.Generator(device="cuda").manual_seed(4)
     res = bwd_times_at(TRAIN_CASE, gen)
@@ -1178,11 +1296,20 @@ def backward_times():
     hybrid = bwd_times_at(HYBRID_ATTN_CASE, gen)
     hybrid.pop("inputs")
     res["hybrid"] = hybrid
+    for name in ("encoder", "train_cross", "train_self"):
+        w = bwd_times_at(WHISPER_CASES[name], gen)
+        q, k, v, do, lse, delta, kw = w.pop("inputs")
+        w["plain_ms"] = cuda_ms(lambda: tf.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                                     **kw), 3, warmup=1)
+        log(f"whisper {name}: plain backward {w['plain_ms']:.4f} ms")
+        res[f"whisper_{name}"] = w
+        del q, k, v, do, lse, delta
+        free()
     return res
 
 
 def fwd_times_at(case, gen):
-    """B1 (CUDA events) at one causal bf16 shape, through the Hopper body and
+    """B1 (CUDA events) at one bf16 shape, through the Hopper body and
     through the first-version mma.sync body, beside its bound, the plain version
     (flash_plain: in blocks of query rows where one call's fp32 scores would
     pass PLAIN_SCORES) and SDPA. The bound counts
@@ -1217,13 +1344,14 @@ def fwd_times_at(case, gen):
 
 
 def forward_times():
-    """B1 at the serving and training paths' shapes and at zamba2's serving and
-    training shapes (fwd_times_at)."""
+    """B1 at the serving and training paths' shapes, at zamba2's serving and
+    training shapes and at whisper's four (fwd_times_at)."""
     gen = torch.Generator(device="cuda").manual_seed(3)
     out = {}
     for name, case in (("serving", FLASH_CASES[-1]), ("train", TRAIN_CASE),
                        (f"{HYBRID_ARCH}_serving", HYBRID_SERVE_ATTN_CASE),
-                       (f"{HYBRID_ARCH}_train", HYBRID_ATTN_CASE)):
+                       (f"{HYBRID_ARCH}_train", HYBRID_ATTN_CASE),
+                       *((f"{WHISPER_ARCH}_{n}", c) for n, c in WHISPER_CASES.items())):
         out[name] = fwd_times_at(case, gen)
         free()
     return out
@@ -2194,6 +2322,379 @@ def phase_ssm_training(arch, batch_size):
             "times": times}
 
 
+# ---------------------------------------------------------------------------
+# whisper-small: the encoder-decoder (B1 on non-causal and cross shapes; B2/B3
+# in training) and checkpointing of its training state
+
+
+def encdec_smoke_agreement():
+    """The whisper smoke config on the card (kernels) against the same weights
+    on the CPU (plain path), fp32: forward logits, then fill_cross and 9 decode
+    steps, to 1e-4."""
+    from repro_torch.core import ParallelPlan, get_smoke_config
+    from repro_torch.models import build_model
+    cfg = get_smoke_config(WHISPER_ARCH)
+    plan = ParallelPlan(compute_dtype="float32")
+    gpu, cpu = build_model(cfg, plan), build_model(cfg, plan, device="cpu")
+    cparams = cpu.init(torch.Generator().manual_seed(1))
+    params = to_cuda(cparams)
+    gen = torch.Generator().manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (2, 9), generator=gen)
+    frames = torch.randn(2, cfg.enc_frames, cfg.d_model, generator=gen)
+    with torch.no_grad():
+        before = all_counts()[0]
+        lg = gpu.forward(params, {"tokens": tokens.cuda(), "frames": frames.cuda()})[0]
+        if all_counts()[0] != before + cfg.enc_layers + 2 * cfg.n_layers:
+            raise AssertionError("the smoke forward did not run B1 on every attention call")
+        errs = [(lg.cpu() - cpu.forward(cparams, {"tokens": tokens, "frames": frames})[0])
+                .abs().max().item()]
+        cache = gpu.fill_cross(params, gpu.init_cache(2, 9), frames.cuda())
+        ccache = cpu.fill_cross(cparams, cpu.init_cache(2, 9), frames)
+        for pos in range(9):
+            lg, cache = gpu.decode_step(params, cache, tokens[:, pos].cuda(), pos)
+            clg, ccache = cpu.decode_step(cparams, ccache, tokens[:, pos], pos)
+            errs.append((lg.cpu() - clg).abs().max().item())
+    log(f"smoke {WHISPER_ARCH} fp32, card vs cpu: max logit diff {max(errs):.3e} "
+        f"(forward, then fill_cross and 9 decode steps)")
+    if max(errs) > 1e-4:
+        raise AssertionError("the card's smoke-config logits disagree with the CPU's")
+
+
+def phase_whisper_serving():
+    """whisper-small at full width and depth, random bf16 weights from a seed:
+    the smoke config against the CPU; fill_cross over WHISPER_BATCH x 1500
+    frames (B1 12 launches, one per encoder layer), a WHISPER_PROMPT-token
+    prompt through decode_step, then DECODE_STEPS greedy steps (B1 12 a step:
+    the cross-attention at S = 1); profiles; B1 held to its plain version on
+    every encoder layer's own inputs and every decoder layer's cross-attention
+    of one decode step."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+
+    encdec_smoke_agreement()
+    cfg = get_config(WHISPER_ARCH)
+    model = build_model(cfg, ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16"))
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    params = model.init(gen)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in leaves(params))
+    log(f"init {WHISPER_ARCH}: {n_params / 1e6:.2f} M params (bf16; param_count "
+        f"{cfg.param_count() / 1e6:.2f} M, which leaves out the two final norms) in "
+        f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    ds = SyntheticDataset(cfg, InputShape("whisper_serve", WHISPER_PROMPT, WHISPER_BATCH,
+                                          "decode"))
+    batch = {k: torch.from_numpy(v).cuda() for k, v in ds.batch(0).items()}
+    frames, prompt = batch["frames"], batch["tokens"]
+
+    def serve_prompt():
+        cache = model.fill_cross(params, model.init_cache(WHISPER_BATCH, WHISPER_MAX_SEQ),
+                                 frames)
+        for t in range(WHISPER_PROMPT):
+            lg, cache = model.decode_step(params, cache, prompt[:, t], t)
+        return lg, cache
+
+    with torch.no_grad():
+        serve_prompt()                                              # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        cache = model.init_cache(WHISPER_BATCH, WHISPER_MAX_SEQ)
+        reset_counts()
+        t0 = time.perf_counter()
+        model.fill_cross(params, cache, frames)
+        torch.cuda.synchronize()
+        t_fill = time.perf_counter() - t0
+        fill_launches = all_counts()
+        if fill_launches != (cfg.enc_layers, 0, 0, 0, 0):
+            raise AssertionError(f"fill_cross launched B1, B2, B3, B4 {fill_launches}, "
+                                 f"expected {cfg.enc_layers} B1")
+        check_bodies(f"{WHISPER_ARCH} fill_cross", fill_launches, "whisper_fill_cross")
+        if not (torch.isfinite(cache["cross_k"]).all() and torch.isfinite(cache["cross_v"]).all()):
+            raise AssertionError("the cross keys or values are not finite")
+        for t in range(WHISPER_PROMPT):
+            lg, cache = model.decode_step(params, cache, prompt[:, t], t)
+        tok = lg.argmax(-1)
+        reset_counts()
+        t0 = time.perf_counter()
+        out, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
+        for i in range(DECODE_STEPS):
+            lg, cache = model.decode_step(params, cache, tok, WHISPER_PROMPT + i)
+            finite &= torch.isfinite(lg).all()
+            tok = lg.argmax(-1)
+            out.append(tok)
+        torch.cuda.synchronize()
+        t_decode = (time.perf_counter() - t0) / DECODE_STEPS
+        decode_launches = all_counts()
+        if decode_launches != (cfg.n_layers * DECODE_STEPS, 0, 0, 0, 0):
+            raise AssertionError(f"{DECODE_STEPS} decode steps launched B1, B2, B3, B4 "
+                                 f"{decode_launches}, expected {cfg.n_layers} B1 a step")
+        check_bodies(f"{WHISPER_ARCH} {DECODE_STEPS} decode steps", decode_launches,
+                     "whisper_decode")
+        if not finite:
+            raise AssertionError(f"{WHISPER_ARCH} decode logits are not finite")
+        peak = torch.cuda.max_memory_allocated()
+        n_frames = WHISPER_BATCH * cfg.enc_frames
+        log(f"serving {WHISPER_ARCH}: fill_cross {WHISPER_BATCH} x {cfg.enc_frames} frames "
+            f"in {t_fill * 1e3:.2f} ms = {n_frames / t_fill:.0f} encoder frames/s; decode "
+            f"{t_decode * 1e3:.2f} ms/step (batch {WHISPER_BATCH}, max_seq {WHISPER_MAX_SEQ}); "
+            f"peak memory {peak / 1e9:.2f} GB; B1 launches {fill_launches[0]} per fill_cross, "
+            f"{decode_launches[0] // DECODE_STEPS} per decode step")
+        log(f"generated tokens, row 0: {torch.stack(out, 1)[0, :10].tolist()}")
+        pos = WHISPER_PROMPT + DECODE_STEPS
+        profile_window(f"{WHISPER_ARCH} decode step", lambda: model.decode_step(
+            params, cache, tok, pos))
+        profile_window(f"{WHISPER_ARCH} fill_cross", lambda: model.fill_cross(
+            params, cache, frames))
+        with FlashFwdCapture() as enc:
+            model.fill_cross(params, cache, frames)
+        real_enc = enc.summary(f"{WHISPER_ARCH} fill_cross ({cfg.enc_layers} encoder layers)",
+                               cfg.enc_layers)
+        with FlashFwdCapture() as cross:
+            model.decode_step(params, cache, tok, pos)
+        real_cross = cross.summary(f"{WHISPER_ARCH} decode step ({cfg.n_layers} "
+                                   f"cross-attentions at S = 1)", cfg.n_layers)
+    return {"fill_b1": fill_launches[0], "decode_b1": decode_launches[0],
+            "real_fwd": max(real_enc, real_cross)}
+
+
+def whisper_train_setup():
+    """whisper-small's full-width training model (fp32 masters, bf16 compute,
+    remat "full", TRAIN_MICRO microbatches), its params from seed 0 as
+    autograd leaves, and train_4k batches of WHISPER_TRAIN_BATCH sequences with
+    their frames."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    cfg = get_config(WHISPER_ARCH)
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
+                        microbatches=TRAIN_MICRO)
+    model = build_model(cfg, plan)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    for p in leaves(params):
+        p.requires_grad_(True)
+    ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, WHISPER_TRAIN_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(TRAIN_STEPS + 2)]
+    return cfg, plan, model, params, batches
+
+
+def phase_whisper_training():
+    """The smoke config against the CPU and under the remat modes, then
+    whisper-small at full width and depth: B1/B2/B3 held to their plain
+    versions on every call of one microbatch, one warm-up and TRAIN_STEPS timed
+    steps with the launches counted (B1 144, B2 72, B3 72 a step), a profile."""
+    from repro_torch.core import leaves
+    from repro_torch.optim import adamw_init, global_norm
+    from repro_torch.core.tree import map_tree
+    from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
+
+    timed(f"{WHISPER_ARCH} smoke training", train_smoke_agreement, WHISPER_ARCH)
+    t0 = time.perf_counter()
+    cfg, plan, model, params, batches = whisper_train_setup()
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in leaves(params))
+    log(f"init {WHISPER_ARCH}: {n_params / 1e6:.2f} M params (fp32; param_count "
+        f"{cfg.param_count() / 1e6:.2f} M) in {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+    attn_calls = cfg.enc_layers + 2 * cfg.n_layers         # per forward of a microbatch
+    mb = {k: v[:WHISPER_TRAIN_BATCH // TRAIN_MICRO] for k, v in batches[0].items()}
+    with FlashBwdCapture(fp64=True) as bwd, FlashFwdCapture() as fwd:
+        loss, _ = make_loss_fn(model, Hyper())(params, mb)
+        loss.backward()
+    real_bwd = bwd.summary(f"{WHISPER_ARCH} training microbatch", attn_calls)
+    real_fwd = fwd.summary(f"{WHISPER_ARCH} training microbatch (forward and recompute)",
+                           2 * attn_calls)
+    del bwd, fwd
+    log(f"full-width microbatch: loss {loss.item():.6f}, grad norm "
+        f"{global_norm(map_tree(lambda p: p.grad, params)).item():.6f}")
+    for p in leaves(params):
+        p.grad = None
+
+    state = TrainState(params, adamw_init(params))
+    del params
+    step = make_train_step(model, plan, Hyper())
+    state, m = step(state, batches[0])                 # warm-up
+    log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    want = (2 * TRAIN_MICRO * attn_calls, TRAIN_MICRO * attn_calls, TRAIN_MICRO * attn_calls,
+            0, 0)
+    times, launches = [], None
+    for i in range(TRAIN_STEPS):
+        reset_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, batches[1 + i])
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        launches = all_counts()
+        log(f"{WHISPER_ARCH} train step {i}: {times[-1] * 1e3:.1f} ms, loss {loss:.6f}, "
+            f"grad_norm {gnorm:.6f}, launches B1/B2/B3/B4 rows/B4 contract {launches}")
+        if launches != want:
+            raise AssertionError(f"a {WHISPER_ARCH} train step launched {launches}, "
+                                 f"expected {want}")
+        check_bodies(f"{WHISPER_ARCH} train step {i}", launches, "whisper_train_step")
+        if not (np.isfinite(loss) and np.isfinite(gnorm)):
+            raise AssertionError(f"the {WHISPER_ARCH} train step's loss or grad norm is "
+                                 f"not finite")
+    peak = torch.cuda.max_memory_allocated()
+    step_s = sum(times) / len(times)
+    tokens = WHISPER_TRAIN_BATCH * TRAIN_SEQ
+    flops = train_flops(cfg, TRAIN_SEQ, tokens)
+    log(f"training {WHISPER_ARCH} full width and depth ({WHISPER_TRAIN_BATCH} x {TRAIN_SEQ} "
+        f"tokens and {WHISPER_TRAIN_BATCH} x {cfg.enc_frames} frames, microbatches "
+        f"{TRAIN_MICRO}, remat full): step {step_s * 1e3:.1f} ms (mean of {TRAIN_STEPS}), "
+        f"{tokens / step_s:.0f} tokens/s, reckoned {flops:.4e} FLOP/step, mfu "
+        f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
+        f"{peak / 1e9:.2f} GB")
+    timed(f"{WHISPER_ARCH} train step profile", profile_window, f"{WHISPER_ARCH} train step",
+          lambda: step(state, batches[-1]))
+    return {"launches": launches, "real_bwd": real_bwd, "real_fwd": real_fwd}
+
+
+def host_named(tree):
+    """{name: host numpy array} of a state in the checkpoint's layout (layer
+    lists stacked, bf16 as its bits), through the store's blocking host copy."""
+    from repro_torch.checkpoint import store
+    return {n: store._host(x)[0] for n, x in store._flatten_with_names(tree)}
+
+
+def phase_whisper_checkpoint():
+    """A checkpoint round trip of whisper-small's full-width training state in
+    a temporary directory under build/ (removed after): 2 steps; the state as
+    saved copied to the host (host_named) and into the RAM tier; an async
+    save; steps 3 and 4 while the copy drains; a second save with steps 5 and
+    6 under it (the pinned and staging buffers reused); a third save, from a
+    new manager, with the card's free memory filled while it sizes its
+    staging so that only half the state takes it and the other half is
+    copied straight from the live tensors before the fence, with steps 7 and
+    8 under it; steps 6 and 2 restored into a freshly built
+    state, each of which must equal the state as saved bit for bit; steps 3
+    and 4 again from step 2, whose losses must equal the uninterrupted run's
+    to 1e-6 relative; the RAM tier restored after lose_group and compared
+    too."""
+    import shutil
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager, MemoryCheckpointTier, store
+    from repro_torch.optim import adamw_init
+    from repro_torch.train import Hyper, TrainState, init_train_state, make_train_step
+
+    cfg, plan, model, params, batches = whisper_train_setup()
+    state = TrainState(params, adamw_init(params))
+    del params
+    step = make_train_step(model, plan, Hyper())
+    for i in range(2):
+        state, m = step(state, batches[i])
+    saved = host_named(state)
+    nbytes = sum(a.nbytes for a in saved.values())
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build")
+    try:
+        mem = MemoryCheckpointTier(keep=1, groups=2)
+        mem.save(2, state)
+        mgr = CheckpointManager(tmp, keep=2, async_snapshot=True)
+
+        def save_then_steps(mgr, step_no, batch_ids, leave_free=None):
+            """save(step_no) with the copy draining under the steps of
+            ``batch_ids``: (stall, fence, copy to host after it, persist
+            seconds, bytes, the steps' ms and losses, bytes staged). With
+            ``leave_free``, all of the card's free memory but HEADROOM and
+            ``leave_free`` bytes is held while the save sizes its staging."""
+            nonlocal state
+            filler = None
+            if leave_free is not None:
+                torch.cuda.empty_cache()
+                filler = torch.empty(torch.cuda.mem_get_info()[0] - store.HEADROOM - leave_free,
+                                     dtype=torch.uint8, device="cuda")
+            mgr.save(step_no, state)
+            del filler
+            stall = mgr.snapshot_seconds
+            ms, losses = [], []
+            for i in batch_ids:
+                t0 = time.perf_counter()
+                state, m = step(state, batches[i % len(batches)])
+                losses.append(float(m["loss"]))
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+            mgr.wait()
+            return (stall, mgr.fence_seconds, mgr.d2h_seconds, mgr.persist_seconds,
+                    mgr.bytes_written, ms, losses, mgr.staged_bytes)
+
+        first = save_then_steps(mgr, 2, (2, 3))    # the buffers are allocated here
+        losses = first[6]
+        again = save_then_steps(mgr, 4, (4, 5))
+        saved6 = host_named(state)
+        bounded_mgr = CheckpointManager(Path(tmp) / "bounded", keep=1, async_snapshot=True)
+        bounded = save_then_steps(bounded_mgr, 6, (6, 7), leave_free=nbytes // 2)
+        if not 0 < bounded[7] < nbytes - 4:          # both routes ran (4: opt/step)
+            raise AssertionError(f"staging with ~{nbytes // 2} bytes free took {bounded[7]}")
+        for name, (stall, fence, d2h, persist, written, ms, _, staged) in (
+                ("first", first), ("second", again), ("bounded", bounded)):
+            log(f"checkpoint {WHISPER_ARCH} train state, {name} async save ({nbytes / 1e9:.3f} "
+                f"GB, {len(saved)} leaves, {staged / 1e9:.3f} GB staged on the card, "
+                f"{(nbytes - staged) / 1e9:.3f} GB copied straight to the host before the "
+                f"fence): main thread stalled {stall * 1e3:.2f} ms; fence {fence * 1e3:.2f} ms "
+                f"on the side stream (the main stream waits on it); the staged leaves' copy to "
+                f"pinned host memory after it {d2h * 1e3:.2f} ms = "
+                f"{staged / max(d2h, 1e-9) / 1e9:.2f} GB/s; persist {persist:.2f} s, "
+                f"{written / 1e9:.3f} GB written; the two steps while it drained "
+                f"{ms[0]:.1f} / {ms[1]:.1f} ms")
+        log(f"the RAM tier's blocking snapshot: {mem.snapshot_seconds:.2f} s")
+
+        fresh = init_train_state(model, torch.Generator(device="cuda").manual_seed(7))
+        _, fresh = bounded_mgr.restore(fresh, step=6)
+        got = host_named(fresh)
+        same = fresh.opt.step == 6 and all(np.array_equal(got[n], saved6[n]) for n in saved6)
+        log(f"restore of step 6, saved with bounded staging: every leaf equal to the state "
+            f"as saved bit for bit: {same}")
+        if not same:
+            raise AssertionError("the state saved with bounded staging came back different")
+        del saved6, got
+        t0 = time.perf_counter()
+        got_step, fresh = mgr.restore(fresh, step=2)
+        torch.cuda.synchronize()
+        t_restore = time.perf_counter() - t0
+        got = host_named(fresh)
+        same = (got_step == 2 and fresh.opt.step == 2 and list(got) == list(saved)
+                and all(np.array_equal(got[n], saved[n]) for n in saved))
+        log(f"restore of step 2 from disk (every digest verified): {t_restore:.2f} s; every "
+            f"leaf equal to the saved state bit for bit (opt.step {fresh.opt.step} "
+            f"included): {same}")
+        if not same:
+            raise AssertionError("the restored state differs from the saved one")
+
+        resumed = []
+        for i in (2, 3):
+            fresh, m = step(fresh, batches[i])
+            resumed.append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, losses))
+        log(f"steps 3-4 resumed from the checkpoint: losses {resumed} vs uninterrupted "
+            f"{losses}: max relative difference {rel:.3e}, bit-identical {resumed == losses}")
+        if rel > 1e-6:
+            raise AssertionError("the resumed steps' losses differ from the uninterrupted run's")
+
+        lost = mem.lose_group(0)
+        _, fresh = mem.restore(fresh)
+        got = host_named(fresh)
+        same = all(np.array_equal(got[n], saved[n]) for n in saved)
+        log(f"RAM tier after lose_group(0) ({lost} buffers lost): restore "
+            f"{mem.restore_seconds:.2f} s, {mem.last_rebuild} members rebuilt from the "
+            f"mirror (verified), equal to the saved state: {same}")
+        if not same or not mem.last_rebuild:
+            raise AssertionError("the RAM tier did not rebuild the saved state")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    saves = {name: {"stall_ms": r[0] * 1e3, "fence_ms": r[1] * 1e3, "d2h_ms": r[2] * 1e3,
+                    "persist_s": r[3], "bytes": r[4], "steps_ms_while_draining": r[5],
+                    "staged_bytes": r[7]}
+             for name, r in (("first_save", first), ("second_save", again),
+                             ("bounded_save", bounded))}
+    return {**saves, "restore_s": t_restore, "ram_tier_snapshot_s": mem.snapshot_seconds,
+            "ram_tier_restore_s": mem.restore_seconds, "resumed_rel": rel,
+            "bit_identical": resumed == losses}
+
+
 def ssd_entries(ssd_errs, ssm):
     """The kernels-line entries of B5 and B6. ``ssd_errs``: (the bf16 kernel
     checks at each path shape, the worst error of each Hopper pass); ``ssm``:
@@ -2247,7 +2748,7 @@ def ssd_entries(ssd_errs, ssm):
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm):
+                moe_train, ssd_errs, ssm, whisper):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -2255,7 +2756,10 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
     b1_paths = {"prefill": launches, "train_step": b1_train,
                 "moe_prefill": moe_serve["prefill_b1"], "moe_train_step": moe_train["train_b1"],
                 f"{HYBRID_ARCH}_forward": hy_serve["b1"],
-                f"{HYBRID_ARCH}_train_step": hy_train["launches"][0]}
+                f"{HYBRID_ARCH}_train_step": hy_train["launches"][0],
+                "whisper_fill_cross": whisper["serve"]["fill_b1"],
+                "whisper_decode": whisper["serve"]["decode_b1"],
+                "whisper_train_step": whisper["train"]["launches"][0]}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -2264,7 +2768,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
     shapes = {name: dict(r) for name, r in ft.items()}
     for name, key in (("serving", "serving"), ("train", "train"),
                       (f"{HYBRID_ARCH}_serving", "hybrid_serve"),
-                      (f"{HYBRID_ARCH}_train", "hybrid_train")):
+                      (f"{HYBRID_ARCH}_train", "hybrid_train"),
+                      *((f"{WHISPER_ARCH}_{n}", f"whisper_{n}") for n in WHISPER_CASES)):
         shapes[name].update(max_abs_err=path_errs[key][0], max_err_bf16_ulps=path_errs[key][1])
     head = ft["serving"]
     entries = [{
@@ -2281,6 +2786,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "real_inputs_max_err_bf16_ulps": real_ulps,
         f"{HYBRID_ARCH}_real_inputs_max_err_bf16_ulps": max(hy_serve["real_fwd"],
                                                             hy_train["real_fwd"]),
+        f"{WHISPER_ARCH}_real_inputs_max_err_bf16_ulps": max(whisper["serve"]["real_fwd"],
+                                                             whisper["train"]["real_fwd"]),
         "tolerance": TOLERANCE,
         "ms": head["ms"],
         "mma_body_ms": head["mma_ms"],
@@ -2300,8 +2807,19 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         errs, hy_errs = ((e[:1] if which == 0 else e[1:])
                          for e in (bwd_errs["train"], bwd_errs["hybrid"]))
         by_path = {"train_step": count, "moe_train_step": moe_train[f"train_b{which + 2}"],
-                   f"{HYBRID_ARCH}_train_step": hybrid_train[which + 1]}
+                   f"{HYBRID_ARCH}_train_step": hybrid_train[which + 1],
+                   f"{WHISPER_ARCH}_train_step": whisper["train"]["launches"][which + 1]}
         hy = bt["hybrid"]
+        wh = {}
+        for n in ("encoder", "train_cross", "train_self"):
+            t, errs_n = bt[f"whisper_{n}"], bwd_errs[f"whisper_{n}"]
+            errs_n = errs_n[:1] if which == 0 else errs_n[1:]
+            wh[n] = {"shape": list(WHISPER_CASES[n][:7]), "ms": t["ms"][which],
+                     "bound_ms": t["bounds"][which][0], "bound_by": t["bounds"][which][1],
+                     "plain_ms": t["plain_ms"], "whole_backward_ms": t["whole_ms"],
+                     "library_ms": t["library_ms"],
+                     "max_abs_err": max(e[0] for e in errs_n),
+                     "max_err_bf16_ulps": max(e[1] for e in errs_n)}
         entries.append({
             "name": name,
             "route": "cuda",
@@ -2330,6 +2848,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                                      "max_abs_err": max(e[0] for e in hy_errs),
                                      "max_err_bf16_ulps": max(e[1] for e in hy_errs),
                                      "real_inputs_max_err_bf16_ulps": hybrid_real[1 - which]},
+            f"{WHISPER_ARCH}_shapes": wh,
+            f"{WHISPER_ARCH}_real_inputs_max_err_bf16_ulps":
+                whisper["train"]["real_bwd"][1 - which],
             "check": "pass",
         })
     gt = {**moe_serve["times"], **moe_train["times"]}
@@ -2366,7 +2887,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "check": "pass",
     })
     entries += ssd_entries(ssd_errs, ssm)
-    print(json.dumps({"kernels": entries}), flush=True)
+    print(json.dumps({"kernels": entries, f"{WHISPER_ARCH}_checkpoint": whisper["ckpt"]}),
+          flush=True)
 
 
 def free():
@@ -2400,8 +2922,14 @@ def main():
         train_r = timed(f"{arch} training", phase_ssm_training, arch, SSM_TRAIN_BATCH[arch])
         free()
         ssm[arch] = (serve, train_r)
+    whisper = {"serve": timed(f"{WHISPER_ARCH} serving", phase_whisper_serving)}
+    free()
+    whisper["train"] = timed(f"{WHISPER_ARCH} training", phase_whisper_training)
+    free()
+    whisper["ckpt"] = timed(f"{WHISPER_ARCH} checkpoint", phase_whisper_checkpoint)
+    free()
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

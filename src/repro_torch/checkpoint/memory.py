@@ -1,0 +1,137 @@
+"""Hot in-memory checkpoint tier with peer redundancy (port of
+``repro/checkpoint/memory.py``).
+
+:class:`MemoryCheckpointTier` keeps a host-RAM ring of the last ``keep``
+snapshots with the disk tier's schema and digests (``checkpoint/store.py``:
+the same names, per-member sha256 prefix, CRC32 and dtype/shape digests, bf16
+as uint16 bits), so an entry holds the bytes a disk persist would have
+written. Its snapshot is the store's blocking device -> host copy.
+
+Peer redundancy: each member gets a home group ``g`` (round-robin over
+``groups``) and is mirrored onto its ring neighbour ``(g + 1) % groups`` as a
+separate host buffer. :meth:`lose_group` (a simulated host loss) drops a
+group's primaries and the mirrors it held; every member is then still served,
+from its home or from its neighbour's mirror. :meth:`restore` serves primaries
+unverified (digested at save, RAM is trusted between save and restore) and
+verifies every member served from a mirror. On a fleet the mirror exchange is
+a ring of sends across hosts; in one process it is a host-side copy, which
+keeps the semantics: the mirror is a distinct buffer that survives
+``lose_group``.
+"""
+
+from __future__ import annotations
+
+import time
+from collections import deque
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+
+from .store import (CorruptCheckpointError, _flatten_with_names, _host, _shape,
+                    _shard_meta, _verify, fill_tree)
+
+
+class MemoryCheckpointTier:
+    """Host-RAM ring of the last ``keep`` snapshots, each member mirrored onto
+    the next of ``groups`` logical host groups."""
+
+    def __init__(self, keep: int = 2, groups: int = 2):
+        self.keep = max(1, int(keep))
+        self.groups = max(1, int(groups))
+        self._ring: deque = deque(maxlen=self.keep)
+        self.snapshot_seconds = 0.0   # last save() wall time
+        self.restore_seconds = 0.0    # last restore() wall time
+        self.last_rebuild = 0         # members served from mirrors by the last restore
+
+    def save(self, step: int, tree: Any) -> None:
+        """Snapshot ``tree`` into the ring (a blocking host copy); the oldest
+        entry leaves when the ring is full."""
+        t0 = time.perf_counter()
+        named = _flatten_with_names(tree)
+        primary: Dict[int, Dict[str, np.ndarray]] = {g: {} for g in range(self.groups)}
+        shards: List[List[Dict[str, Any]]] = []
+        for i, (_, x) in enumerate(named):
+            a, dtype = _host(x)
+            home = i % self.groups
+            primary[home][f"a{i}"] = a
+            shards.append([dict(_shard_meta(f"a{i}", a, dtype), home=home)])
+        manifest = {
+            "step": int(step),
+            "names": [n for n, _ in named],
+            "shapes": [_shape(x) for _, x in named],
+            "dtypes": [m[0]["dtype"] for m in shards],
+            "shards": shards,
+            "plan": None,
+            "mesh_axes": None,
+            "time": time.time(),
+        }
+        mirror: Dict[int, Dict[str, np.ndarray]] = {g: {} for g in range(self.groups)}
+        if self.groups > 1:
+            for g in range(self.groups):
+                mirror[(g + 1) % self.groups].update(
+                    {k: np.array(a, copy=True) for k, a in primary[g].items()})
+        self._ring.append({"manifest": manifest, "primary": primary, "mirror": mirror})
+        self.snapshot_seconds = time.perf_counter() - t0
+
+    def steps(self, newest_first: bool = False) -> List[int]:
+        out = sorted(e["manifest"]["step"] for e in self._ring)
+        return out[::-1] if newest_first else out
+
+    def latest_step(self) -> Optional[int]:
+        s = self.steps()
+        return s[-1] if s else None
+
+    def clear(self) -> None:
+        """Drop every entry (after a layout change, or when the process ends)."""
+        self._ring.clear()
+
+    def _entry(self, step: Optional[int]) -> Dict[str, Any]:
+        if not self._ring:
+            raise CorruptCheckpointError("memory tier is empty")
+        if step is None:
+            return self._ring[-1]
+        for e in self._ring:
+            if e["manifest"]["step"] == step:
+                return e
+        raise CorruptCheckpointError(f"step {step} not in memory tier (have {self.steps()})")
+
+    def lose_group(self, g: int) -> int:
+        """Simulate losing host group ``g``: its primaries and the mirrors it
+        held, in every entry. Returns the number of buffers destroyed."""
+        lost = 0
+        for e in self._ring:
+            lost += len(e["primary"].get(g, {})) + len(e["mirror"].get(g, {}))
+            e["primary"][g] = {}
+            e["mirror"][g] = {}
+        return lost
+
+    def _fetch(self, e: Dict[str, Any], m: Dict[str, Any], verify: bool) -> np.ndarray:
+        """One member: from its home group, else from the neighbour's mirror,
+        which is always verified."""
+        home = m.get("home", 0)
+        a = e["primary"].get(home, {}).get(m["key"])
+        from_mirror = a is None
+        if from_mirror:
+            a = e["mirror"].get((home + 1) % self.groups, {}).get(m["key"])
+            if a is None:
+                raise CorruptCheckpointError(
+                    f"shard {m['key']} lost from memory tier (home group {home} and its "
+                    f"mirror both gone)")
+            self.last_rebuild += 1
+        if verify or from_mirror:
+            _verify(a, m, f"memory-tier shard {m['key']}")
+        return a
+
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                verify: bool = False) -> Tuple[int, Any]:
+        """Restore into ``tree_like`` as the disk tier does (tensors refilled in
+        place); returns (step, tree). Raises CorruptCheckpointError when the tier
+        cannot serve."""
+        t0 = time.perf_counter()
+        self.last_rebuild = 0
+        e = self._entry(step)
+        man = e["manifest"]
+        arrays = [self._fetch(e, metas[0], verify) for metas in man["shards"]]
+        tree = fill_tree(tree_like, man, arrays)
+        self.restore_seconds = time.perf_counter() - t0
+        return man["step"], tree

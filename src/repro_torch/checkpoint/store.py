@@ -1,0 +1,560 @@
+"""Checkpointing, single process (port of ``repro/checkpoint/store.py``).
+
+A checkpoint is the reference's: one ``.npz`` per step holding one member per
+leaf (``a{i}``), plus a JSON manifest with the step, the leaf names, their
+dtypes and shapes, and per member a sha256 prefix, a CRC32 and dtype/shape
+digests. Leaves are named and ordered as ``jax.tree_util`` flattens the
+reference's tree: dict keys sorted, NamedTuple fields in order (``params``,
+``opt/step``, ``opt/mu``, ``opt/nu`` for a ``TrainState``), and the per-layer
+dicts of a ``layers`` list stacked on a leading L dim, as the reference keeps
+them. The optimizer step is an int32 scalar. A checkpoint of the port's
+``TrainState`` is therefore one the reference's ``CheckpointManager.restore``
+reads, and the reverse, with no converter.
+
+bf16 leaves are stored as their uint16 bits under the manifest dtype
+``"bfloat16"`` (numpy has no bfloat16). The reader takes a 2-byte member whose
+manifest says ``bfloat16`` whether it is ``uint16`` (the port's) or ``|V2``
+(what the reference's ``np.savez`` writes for an ``ml_dtypes`` array); the
+digests are over bytes, so they match either way.
+
+Snapshot and persist are split as in the reference: the snapshot copies the
+state to the host (the only part that can stall training) and the persist
+writes it on a background thread. The persist is atomic (the npz, then the
+manifest, each through a temporary file and ``os.replace``, so a crash between
+the two leaves the step unlisted), retried with exponential backoff under a
+deadline, and ``wait()`` is the completion fence that re-raises a background
+failure. GC keeps the newest ``keep`` steps and never evicts the newest intact
+one while only wreckage would be kept.
+
+``async_snapshot=True`` is the double buffer, designed for the card. The port's
+AdamW updates params and moments in place (the reference instead clones the
+state under buffer donation), so ``save`` dispatches on a side CUDA stream a
+device-side copy of the state that is also its layout change (each ``layers``
+list stacked in one pass) into staging buffers on the card, then the copy of
+those into pinned host buffers, ``non_blocking``. Staging is bounded: leaves
+take it in order while they fit in the card's free memory less ``HEADROOM``,
+read when the buffers are made (after training has reached its peak, a save
+takes what the steps leave free), and a leaf that does not fit is copied from the live tensors straight into its pinned buffer
+before the fence. The main stream waits on the fence only: every read of the
+live state, so the next step's in-place update comes after it. The staged
+leaves' copy to the host overlaps the next steps, and the background thread
+waits on its event before digesting and persisting. Cost: the staging buffers
+(up to one copy of the state) stay on the card while the tree's layout stays
+the same, and each leaf that did not fit holds the main stream for its copy
+over PCIe. Without ``async_snapshot`` (or for a state not on the card)
+``save`` copies to the host inline.
+
+``restore`` verifies every digest and copies each leaf into the live tensors
+of ``tree_like`` (``copy_``, onto their device and dtype), so autograd leaves
+stay leaves. The reference's elastic ``restore_resharded`` re-slices ZeRO-1
+moment shards onto another layout and comes with the data-parallel slice
+(ROADMAP A13.1). The fault-injection seams are no-ops until the
+fault-tolerance slice (A12).
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import os
+import threading
+import time
+import zipfile
+import zlib
+from pathlib import Path
+from typing import Any, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+class CorruptCheckpointError(IOError):
+    """A checkpoint failed integrity verification (checksum/CRC32 mismatch,
+    a dtype or shape digest that disagrees, an unreadable manifest, a missing
+    or truncated member)."""
+
+
+def _inject():
+    """The fault-injection module: none until the fault-tolerance slice
+    (ROADMAP A12) wires its hooks in here."""
+    return None
+
+
+# ---------------------------------------------------------------------------
+# the tree <-> named leaves, in the reference's layout
+
+
+def _flatten_with_names(tree, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(name, leaf) in the reference's flattening order. A leaf is a tensor, a
+    Python or numpy scalar, or, for a list of per-layer dicts, the list of its
+    layers' tensors at one path (stacked on a leading L dim when saved)."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        items = [(f, getattr(tree, f)) for f in tree._fields]
+    elif isinstance(tree, dict):
+        items = sorted(tree.items())
+    elif isinstance(tree, list):
+        per_layer = [_flatten_with_names(lp) for lp in tree]
+        names = [n for n, _ in per_layer[0]]
+        if any([n for n, _ in pl] != names for pl in per_layer):
+            raise ValueError(f"the layers under {prefix!r} differ in structure")
+        return [(prefix + n, [pl[j][1] for pl in per_layer]) for j, n in enumerate(names)]
+    else:
+        return [(prefix[:-1], tree)]
+    return [nl for k, v in items for nl in _flatten_with_names(v, f"{prefix}{k}/")]
+
+
+def _refill(tree, get, prefix: str = ""):
+    """``tree`` with every tensor overwritten in place (``copy_``) by
+    ``get(name)`` and every scalar replaced by it; containers are rebuilt
+    around the same tensors, so autograd leaves stay leaves."""
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_refill(getattr(tree, f), get, f"{prefix}{f}/")
+                            for f in tree._fields))
+    if isinstance(tree, dict):
+        return {k: _refill(v, get, f"{prefix}{k}/") for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_refill(lp, lambda n, i=i: get(n)[i], prefix) for i, lp in enumerate(tree)]
+    value = get(prefix[:-1])
+    if isinstance(tree, torch.Tensor):
+        if tuple(value.shape) != tuple(tree.shape):
+            raise ValueError(f"{prefix[:-1]}: checkpoint shape {tuple(value.shape)} != "
+                             f"{tuple(tree.shape)}")
+        with torch.no_grad():
+            tree.copy_(value)
+        return tree
+    return type(tree)(value.item())
+
+
+def _stack(leaf) -> torch.Tensor:
+    return torch.stack([t.detach() for t in leaf]) if isinstance(leaf, list) else leaf.detach()
+
+
+def _shape(leaf) -> List[int]:
+    if isinstance(leaf, list):
+        return [len(leaf)] + [int(d) for d in leaf[0].shape]
+    return [int(d) for d in (leaf.shape if isinstance(leaf, torch.Tensor) else np.shape(leaf))]
+
+
+def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A host tensor as (numpy array, manifest dtype): bf16 as its uint16 bits."""
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
+    a = t.numpy()
+    return a, str(a.dtype)
+
+
+def _host(leaf) -> Tuple[np.ndarray, str]:
+    """A blocking, owned host copy of one leaf (the stacked copy of a layer
+    list): (numpy array, manifest dtype). Python scalars become int32 (the
+    optimizer step, as the reference's) or their numpy type."""
+    if not isinstance(leaf, (torch.Tensor, list)):
+        a = np.asarray(leaf, np.int32 if isinstance(leaf, int) else None)
+        return a, str(a.dtype)
+    t = _stack(leaf)
+    if t.is_cuda:
+        t = t.to("cpu")
+    elif not isinstance(leaf, list):
+        t = t.clone()                      # the live tensor changes in place
+    return _to_numpy(t)
+
+
+def _stored(a: np.ndarray, dtype: str) -> np.ndarray:
+    """A member as stored: a bf16 one (uint16 or |V2) read as uint16 bits."""
+    return a.view(np.uint16) if dtype == "bfloat16" and a.dtype.itemsize == 2 else a
+
+
+def _to_torch(a: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _checksum(arr: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()[:16]
+
+
+def _crc32(arr: np.ndarray) -> int:
+    return zlib.crc32(np.ascontiguousarray(arr).tobytes()) & 0xFFFFFFFF
+
+
+def _dtype_ok(a: np.ndarray, dtype: str) -> bool:
+    if dtype == "bfloat16":
+        return a.dtype.itemsize == 2 and a.dtype.kind in "uV"
+    return str(a.dtype) == dtype
+
+
+def _verify(a: np.ndarray, m: Dict[str, Any], what: str) -> None:
+    """One member against its manifest digests; raises CorruptCheckpointError."""
+    if _checksum(a) != m["checksum"] or ("crc32" in m and _crc32(a) != m["crc32"]):
+        raise CorruptCheckpointError(f"checksum mismatch for {what}")
+    if "dtype" in m and not _dtype_ok(a, m["dtype"]):
+        raise CorruptCheckpointError(f"dtype digest mismatch for {what}: "
+                                     f"{a.dtype} != {m['dtype']}")
+    if "shape" in m and list(a.shape) != list(m["shape"]):
+        raise CorruptCheckpointError(f"shape digest mismatch for {what}: "
+                                     f"{list(a.shape)} != {m['shape']}")
+
+
+def _shard_meta(key: str, a: np.ndarray, dtype: str) -> Dict[str, Any]:
+    return {"key": key, "index": [[0, int(d)] for d in a.shape],
+            "checksum": _checksum(a), "crc32": _crc32(a), "dtype": dtype,
+            "shape": [int(d) for d in a.shape]}
+
+
+# the card's memory the double buffer leaves free when it sizes its staging
+HEADROOM = 2 << 30
+
+
+def _staged(sizes: List[int], budget: int) -> List[bool]:
+    """Which leaves of ``sizes`` bytes take device staging: each in order while
+    it fits in what is left of ``budget``."""
+    out = []
+    for n in sizes:
+        out.append(0 < n <= budget)
+        budget -= n if out[-1] else 0
+    return out
+
+
+def _copy_leaf(dst: torch.Tensor, leaf) -> None:
+    """``dst`` (a staging or pinned buffer) <- one leaf, a layer list stacked."""
+    if not isinstance(leaf, list):
+        dst.copy_(leaf.detach(), non_blocking=True)
+    elif dst.is_cuda:
+        torch.stack([t.detach() for t in leaf], out=dst)
+    else:
+        for i, t in enumerate(leaf):
+            dst[i].copy_(t.detach(), non_blocking=True)
+
+
+class _DeviceSnapshot:
+    """The double buffer: on ``stream``, after the main stream's work so far,
+    each leaf with a staging buffer is copied into it and every other tensor
+    leaf straight into its pinned buffer; the main stream waits on that much
+    (the fence). Then the staged leaves go to their pinned buffers.
+    :meth:`host` (on the persist thread) waits for the host copy and returns
+    the buffers as numpy arrays."""
+
+    def __init__(self, leaves, pinned, stage, stream):
+        main = torch.cuda.current_stream()
+        stream.wait_stream(main)
+        self.events = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.cuda.stream(stream):
+            self.events[0].record()
+            for x, b, s in zip(leaves, pinned, stage):
+                if b is not None:
+                    _copy_leaf(s if s is not None else b, x)
+            self.events[1].record()
+            for b, s in zip(pinned, stage):
+                if s is not None:
+                    b.copy_(s, non_blocking=True)
+            self.events[2].record()
+        main.wait_event(self.events[1])
+        self.pinned = pinned
+        self.scalars = {i: _host(x) for i, (x, b) in enumerate(zip(leaves, pinned))
+                        if b is None}
+
+    def host(self) -> List[Tuple[np.ndarray, str]]:
+        self.events[2].synchronize()
+        self.fence_seconds = self.events[0].elapsed_time(self.events[1]) / 1e3
+        self.d2h_seconds = self.events[1].elapsed_time(self.events[2]) / 1e3
+        return [self.scalars[i] if b is None else _to_numpy(b)
+                for i, b in enumerate(self.pinned)]
+
+
+class CheckpointManager:
+    def __init__(self, directory, keep: int = 3, async_snapshot: bool = False,
+                 io_retries: int = 3, io_backoff: float = 0.05, io_timeout: float = 30.0):
+        self.dir = Path(directory)
+        self.dir.mkdir(parents=True, exist_ok=True)
+        self.keep = keep
+        self.async_snapshot = async_snapshot
+        # io_retries attempts with backoff io_backoff * 2^k, abandoned once the
+        # cumulative wait would pass io_timeout; the last failure surfaces
+        # through save()/wait()
+        self.io_retries = max(1, int(io_retries))
+        self.io_backoff = io_backoff
+        self.io_timeout = io_timeout
+        self._pending: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
+        self._stream = None                   # the side stream of the double buffer
+        self._buffers: Tuple[Any, list, list] = (None, [], [])
+        self.snapshot_seconds = 0.0           # main-thread stall of the last save
+        self.fence_seconds = 0.0              # device time the main stream waits on (async)
+        self.d2h_seconds = 0.0                # device -> host copy after the fence
+        self.staged_bytes = 0                 # the state's bytes that take staging (async)
+        self.persist_seconds = 0.0
+        self.bytes_written = 0                # the last checkpoint's npz
+
+    # -- save ---------------------------------------------------------------
+
+    def _snapshot_buffers(self, leaves):
+        """(pinned host buffers, device staging buffers) for the leaves: None
+        for a scalar, and no staging for a leaf that does not fit (module
+        docstring). Kept while the tree's layout stays the same."""
+        key = tuple((tuple(_shape(x)), _stack_dtype(x)) if isinstance(x, (torch.Tensor, list))
+                    else None for x in leaves)
+        if self._buffers[0] != key:
+            self._buffers = (None, [], [])                # free the old ones first
+            budget = torch.cuda.mem_get_info()[0] - HEADROOM
+            sizes = [0 if k is None else int(np.prod(k[0])) * k[1].itemsize for k in key]
+            device = next(t for x in leaves if isinstance(x, (torch.Tensor, list))
+                          for t in (x if isinstance(x, list) else [x])).device
+            pinned = [None if k is None else torch.empty(k[0], dtype=k[1], pin_memory=True)
+                      for k in key]
+            stage = [torch.empty(k[0], dtype=k[1], device=device) if s else None
+                     for k, s in zip(key, _staged(sizes, budget))]
+            self._buffers = (key, pinned, stage)
+            self.staged_bytes = sum(n for n, s in zip(sizes, stage) if s is not None)
+        return self._buffers[1], self._buffers[2]
+
+    def save(self, step: int, tree: Any, blocking: bool = False) -> Path:
+        """Snapshot, then persist on a background thread; returns the
+        checkpoint path (sans suffix). With ``async_snapshot`` and a state on
+        the card, the main thread only dispatches the double buffer (module
+        docstring); otherwise the host copy is the stall. ``blocking=True``
+        does everything inline. Raises any failure of the previous save's
+        background work."""
+        self.wait()
+        t0 = time.perf_counter()
+        named = _flatten_with_names(tree)
+        names = [n for n, _ in named]
+        leaves = [x for _, x in named]
+        device = None
+        if self.async_snapshot and not blocking and _on_card(leaves):
+            if self._stream is None:
+                self._stream = torch.cuda.Stream()
+            device = _DeviceSnapshot(leaves, *self._snapshot_buffers(leaves), self._stream)
+            host = None
+        else:
+            host = [_host(x) for x in leaves]
+            self.fence_seconds, self.d2h_seconds = 0.0, time.perf_counter() - t0
+        self.snapshot_seconds = time.perf_counter() - t0
+        path = self.dir / f"ckpt_{step:08d}"
+        shapes = [_shape(x) for x in leaves]
+
+        def snapshot_and_persist():
+            nonlocal host
+            if host is None:
+                host = device.host()
+                self.fence_seconds, self.d2h_seconds = device.fence_seconds, device.d2h_seconds
+            t1 = time.perf_counter()
+            arrays = {f"a{i}": a for i, (a, _) in enumerate(host)}
+            shards = [[_shard_meta(f"a{i}", a, dt)] for i, (a, dt) in enumerate(host)]
+            manifest = {
+                "step": step,
+                "names": names,
+                "checksums": [m[0]["checksum"] for m in shards],
+                "dtypes": [dt for _, dt in host],
+                "shapes": shapes,
+                "shards": shards,
+                "plan": None,
+                "mesh_axes": None,
+                "time": time.time(),
+            }
+            self._persist_with_retry(step, path, arrays, manifest)
+            self.persist_seconds = time.perf_counter() - t1
+            self._gc()
+
+        def background():
+            try:
+                snapshot_and_persist()
+            except BaseException as e:      # surfaced at the next save()/wait()
+                self._error = e
+
+        if not blocking:
+            self._pending = threading.Thread(target=background, daemon=True)
+            self._pending.start()
+        else:
+            snapshot_and_persist()
+        return path
+
+    def _persist_once(self, step: int, path: Path, arrays, manifest) -> None:
+        """One atomic attempt: the npz, then the manifest, each written to a
+        temporary path and ``os.replace``d into place. A crash between the two
+        leaves no manifest, so the step is never listed."""
+        inj = _inject()
+        if inj is not None:
+            inj.io_fault("ckpt.persist", step)
+        tmp_npz = str(path) + ".tmp.npz"          # savez appends .npz itself
+        np.savez(tmp_npz[:-4], **arrays)
+        self.bytes_written = os.path.getsize(tmp_npz)
+        os.replace(tmp_npz, str(path) + ".npz")
+        tmp_json = Path(str(path) + ".json.tmp")
+        tmp_json.write_text(json.dumps(manifest))
+        os.replace(tmp_json, path.with_suffix(".json"))
+
+    def _persist_with_retry(self, step: int, path: Path, arrays, manifest) -> None:
+        """Up to ``io_retries`` attempts, delays ``io_backoff * 2^k``, within
+        the ``io_timeout`` deadline; the last failure propagates."""
+        deadline = time.time() + self.io_timeout
+        delay = self.io_backoff
+        for attempt in range(1, self.io_retries + 1):
+            try:
+                return self._persist_once(step, path, arrays, manifest)
+            except Exception:
+                if attempt >= self.io_retries or time.time() + delay > deadline:
+                    raise
+                time.sleep(delay)
+                delay *= 2
+
+    def wait(self):
+        """Completion fence: join the in-flight snapshot/persist and raise any
+        failure it hit."""
+        if self._pending is not None:
+            self._pending.join()
+            self._pending = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise RuntimeError(f"background checkpoint persist failed: {err!r}") from err
+
+    def _is_intact(self, step: int) -> bool:
+        """The manifest parses, the npz opens and holds every recorded member
+        (dropped and truncated writes); bit flips are left to the verify at
+        restore. No fence: the persist thread calls it from ``_gc``."""
+        path = self.dir / f"ckpt_{step:08d}"
+        try:
+            man = self._read_manifest(step)
+            with zipfile.ZipFile(str(path) + ".npz") as zf:
+                members = set(zf.namelist())
+            shard_meta = man.get("shards") or [[{"key": f"a{i}"}]
+                                               for i in range(len(man["checksums"]))]
+            return all(m["key"] + ".npy" in members for ms in shard_meta for m in ms)
+        except (CorruptCheckpointError, OSError, zipfile.BadZipFile, KeyError, ValueError):
+            return False
+
+    def _gc(self):
+        """Evict beyond ``keep``, verify-before-evict: if none of the kept
+        checkpoints is intact, the newest intact evictee is spared."""
+        steps = self._disk_steps()
+        doomed = steps[:-self.keep] if self.keep > 0 else list(steps)
+        if not doomed:
+            return
+        spare = None
+        if not any(self._is_intact(s) for s in steps[len(doomed):]):
+            spare = next((s for s in reversed(doomed) if self._is_intact(s)), None)
+        for s in doomed:
+            if s != spare:
+                old = self.dir / f"ckpt_{s:08d}.json"
+                old.unlink(missing_ok=True)
+                old.with_suffix(".npz").unlink(missing_ok=True)
+
+    # -- restore ------------------------------------------------------------
+
+    def _disk_steps(self) -> List[int]:
+        out = []
+        for p in self.dir.glob("ckpt_*.json"):
+            try:
+                out.append(int(p.stem.split("_", 1)[1]))
+            except (IndexError, ValueError):
+                continue
+        return sorted(out)
+
+    def steps(self, newest_first: bool = False) -> List[int]:
+        """Every checkpoint's step, from the file names (a corrupt manifest
+        still lists)."""
+        self.wait()
+        out = self._disk_steps()
+        return out[::-1] if newest_first else out
+
+    def latest_step(self) -> Optional[int]:
+        steps = self.steps()
+        return steps[-1] if steps else None
+
+    def _read_manifest(self, step: int) -> Dict[str, Any]:
+        path = self.dir / f"ckpt_{step:08d}"
+        try:
+            return json.loads(path.with_suffix(".json").read_text())
+        except (OSError, json.JSONDecodeError, UnicodeDecodeError) as e:
+            raise CorruptCheckpointError(
+                f"unreadable manifest for step {step} in {self.dir}: {e!r}") from e
+
+    def manifest(self, step: Optional[int] = None) -> Dict[str, Any]:
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        return self._read_manifest(step)
+
+    def check_plan(self, plan, step: Optional[int] = None) -> str:
+        """How the checkpoint of ``step`` maps onto ``plan``: always
+        ``"replay"`` in one process, whose plan has no layout axes. Comparing
+        the recorded axes (and ``"reshard"``) comes with them, in the
+        data-parallel slice (ROADMAP A13.1)."""
+        self.manifest(step)
+        return "replay"
+
+    def _read_full(self, step: int, verify: bool) -> Tuple[Dict[str, Any], List[np.ndarray]]:
+        """Every leaf as a full host array (uint16 bits for bf16), each member
+        verified against its digests; members written as shards (by the
+        reference on a mesh) are reassembled by their index slices."""
+        path = self.dir / f"ckpt_{step:08d}"
+        manifest = self._read_manifest(step)
+        try:
+            data = np.load(str(path) + ".npz")
+        except (OSError, ValueError, zipfile.BadZipFile) as e:
+            raise CorruptCheckpointError(f"unreadable shard file {path}.npz: {e!r}") from e
+        shard_meta = manifest.get("shards") or [
+            [{"key": f"a{i}", "index": None, "checksum": c}]
+            for i, c in enumerate(manifest["checksums"])]
+        arrays = []
+        for metas, shape, dt, n in zip(shard_meta, manifest["shapes"], manifest["dtypes"],
+                                       manifest["names"]):
+            parts = []
+            for m in metas:
+                try:
+                    a = data[m["key"]]
+                except Exception as e:              # truncated or dropped member
+                    raise CorruptCheckpointError(
+                        f"unreadable shard {m['key']} for {n} in {path}: {e!r}") from e
+                if verify:
+                    _verify(a, m, f"{n} in {path}")
+                parts.append((m, _stored(a, dt)))
+            if len(parts) == 1:
+                arrays.append(parts[0][1])
+                continue
+            full = np.zeros(shape, dtype=parts[0][1].dtype)
+            for m, a in parts:
+                full[tuple(slice(lo, hi) for lo, hi in m["index"])] = a
+            arrays.append(full)
+        return manifest, arrays
+
+    def restore(self, tree_like: Any, step: Optional[int] = None,
+                verify: bool = True) -> Tuple[int, Any]:
+        """Restore into ``tree_like``: every tensor overwritten in place on its
+        device and in its dtype, the optimizer step replaced; returns (step,
+        tree). Raises CorruptCheckpointError on a failed digest."""
+        self.wait()
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        manifest, arrays = self._read_full(step, verify)
+        return step, fill_tree(tree_like, manifest, arrays)
+
+    def restore_resharded(self, *args, **kwargs):
+        raise NotImplementedError(
+            "restore_resharded re-slices ZeRO-1 moment shards onto another layout; it "
+            "comes with the data-parallel slice (ROADMAP A13.1). One process restores "
+            "with restore()")
+
+
+def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray]):
+    """``tree_like`` refilled from a manifest's leaves (``_refill``), after
+    checking that its names are the manifest's."""
+    names = [n for n, _ in _flatten_with_names(tree_like)]
+    if names != manifest["names"]:
+        raise ValueError("checkpoint tree structure mismatch: "
+                         f"{sorted(set(names) ^ set(manifest['names']))[:5]}")
+    by_name = dict(zip(names, zip(arrays, manifest["dtypes"])))
+    return _refill(tree_like, lambda n: _to_torch(*by_name[n]))
+
+
+def _stack_dtype(leaf) -> torch.dtype:
+    return (leaf[0] if isinstance(leaf, list) else leaf).dtype
+
+
+def _on_card(leaves) -> bool:
+    tensors = [t for x in leaves if isinstance(x, (torch.Tensor, list))
+               for t in (x if isinstance(x, list) else [x])]
+    return bool(tensors) and all(t.is_cuda for t in tensors)

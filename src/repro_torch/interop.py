@@ -1,7 +1,8 @@
 """Parameter exchange with the JAX reference package, through numpy.
 
 The reference's params are a pytree of nested dicts whose ``layers`` leaves
-carry a leading L dim (stacked for ``lax.scan``). The port keeps the same leaf
+(and, for the encoder-decoder, ``encoder.layers``) carry a leading L dim
+(stacked for ``lax.scan``). The port keeps the same leaf
 names and the same (in, out) orientation, with ``layers`` as a list of
 per-layer dicts, so a conversion is renames-free: unstack (or stack) the
 layers and move the arrays. No transposes.
@@ -55,29 +56,54 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *, device=None,
         return t.to(device=device,
                     dtype=torch.float32 if _keeps_fp32(path) else dtype)
 
-    stacked = tree["layers"]
-    n = {a.shape[0] for a in _flatten(stacked)}
-    if n != {cfg.n_layers}:
-        raise ValueError(f"stacked layer dims {sorted(n)} != n_layers {cfg.n_layers}")
-    out = {k: _map(v, leaf, (k,)) for k, v in tree.items() if k != "layers"}
-    out["layers"] = [_map(stacked, lambda p, a, i=i: leaf(p, a[i]), ("layers",))
-                     for i in range(cfg.n_layers)]
-    return out
+    return _unstack_layers(tree, {(): cfg.n_layers, ("encoder",): cfg.enc_layers}, leaf)
 
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:
     """The port's params -> the reference layout (layers stacked on a leading
     L dim). Arrays come back as fp32 numpy (numpy has no bfloat16)."""
-    if len(params["layers"]) != cfg.n_layers:
-        raise ValueError(f"{len(params['layers'])} layers != n_layers {cfg.n_layers}")
-
     def leaf(path, t):
         return t.detach().to("cpu", torch.float32).numpy()
 
-    out = {k: _map(v, leaf) for k, v in params.items() if k != "layers"}
-    per_layer = [_map(lp, leaf) for lp in params["layers"]]
-    out["layers"] = _map(per_layer[0], lambda path, _: np.stack(
-        [_get(lp, path) for lp in per_layer]))
+    return _stack_layers(params, {(): cfg.n_layers, ("encoder",): cfg.enc_layers}, leaf)
+
+
+def _unstack_layers(tree, counts, leaf, path=()):
+    """``tree`` with each stacked ``layers`` subtree (at the paths of
+    ``counts``, with the layer count each must have) turned into a list of
+    per-layer dicts, and ``leaf(path, array)`` applied to every array."""
+    out = {}
+    for k, v in tree.items():
+        if k == "layers" and path in counts:
+            n = {a.shape[0] for a in _flatten(v)}
+            if n != {counts[path]}:
+                raise ValueError(f"stacked layer dims {sorted(n)} at {path + (k,)} != "
+                                 f"{counts[path]} ({'n_layers' if not path else 'enc_layers'})")
+            out[k] = [_map(v, lambda p, a, i=i: leaf(p, a[i]), path + (k,))
+                      for i in range(counts[path])]
+        elif isinstance(v, dict):
+            out[k] = _unstack_layers(v, counts, leaf, path + (k,))
+        else:
+            out[k] = leaf(path + (k,), v)
+    return out
+
+
+def _stack_layers(params, counts, leaf, path=()):
+    """The inverse of :func:`_unstack_layers`: per-layer lists stacked on a
+    leading L dim after ``leaf(path, tensor)``."""
+    out = {}
+    for k, v in params.items():
+        if k == "layers" and path in counts:
+            if len(v) != counts[path]:
+                raise ValueError(f"{len(v)} layers at {path + (k,)} != {counts[path]} "
+                                 f"({'n_layers' if not path else 'enc_layers'})")
+            per_layer = [_map(lp, leaf) for lp in v]
+            out[k] = _map(per_layer[0], lambda p, _: np.stack(
+                [_get(lp, p) for lp in per_layer]))
+        elif isinstance(v, dict):
+            out[k] = _stack_layers(v, counts, leaf, path + (k,))
+        else:
+            out[k] = leaf(path + (k,), v)
     return out
 
 

@@ -84,9 +84,12 @@
 //     streamed tile is read from L2;
 //  6. the two bf16 terms of p and ds share one B descriptor per slice.
 // Measured at the training shape (chip_smoke.py, H100 80GB HBM3, 700 W): dq
-// 0.305 ms and dk/dv 0.444 ms, 2.3x and 2.6x their bounds (the mma.sync body:
-// 1.45 and 1.67 ms). -Xptxas -v (CUDA 12.8): all four Hopper kernels (hd 64
-// and 128) 168 registers at launch, 0 bytes of stack or spills, no wgmma
+// 0.325 ms (0.305 before its sums left wgmma's accumulate, see "dq's
+// precision" below) and dk/dv 0.446 ms, 2.5x and 2.6x their bounds (the
+// mma.sync body: 1.45 and 1.67 ms). -Xptxas -v (CUDA 12.8), read again after
+// dq's sums moved to fresh registers (wg_abt_halves, "dq's precision" below,
+// which adds part[HD/2] and dp2[32] to dq's consumer): all four Hopper kernels
+// (hd 64 and 128) 168 registers at launch, 0 bytes of stack or spills, no wgmma
 // serialisation; setmaxnreg then gives each consumer thread 240 and each
 // producer thread 24. At 232/40 ptxas serialised dk/dv's wgmmas at hd 128 for
 // want of registers (C7512).
@@ -733,6 +736,36 @@ __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
   asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar) : "memory");
 }
 
+// dq's precision. wgmma adds its products into the fp32 accumulator it is given
+// with less precision than an FADD keeps, and each dq row sums ds_j k_j over
+// keys whose ds cancel (sum_j ds_j ~ 0), so a running sum carried through
+// wgmma loses what the cancellation then exposes. On whisper-small's training
+// rows, carrying dq and dP through wgmma's accumulate put dq up to 4 bf16 ulps
+// from the fp32 plain version, which is itself within about 1 ulp of an fp64
+// evaluation of the same formula (chip_smoke.py's whisper training phase holds
+// the kernel and the plain version to that fp64 evaluation). So the dq kernel
+// sums each tile's dS K in fresh registers and adds it to dq by FADD, and takes
+// dP as two half-sums over the head dim, each in fresh registers, added by FADD.
+// dk/dv's sums over queries do not cancel, so B3 keeps its running sums.
+
+// acc = A B^T over the head dim as wg_abt, its first half of the head dim's
+// k-steps summed into acc and its second half into acc2, both fresh.
+template <int HD>
+__device__ __forceinline__ void wg_abt_halves(float (&acc)[32], float (&acc2)[32], uint32_t a,
+                                              int a_box, uint32_t b, int b_box) {
+  constexpr int kHalf = HD / 32;
+#pragma unroll
+  for (int kk = 0; kk < HD / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;
+    const uint64_t da = sw128_desc(a + (kk / 4) * a_box + off, 16);
+    const uint64_t db = sw128_desc(b + (kk / 4) * b_box + off, 16);
+    if (kk < kHalf)
+      wgmma_ss_n64(acc, da, db, kk > 0);
+    else
+      wgmma_ss_n64(acc2, da, db, kk > kHalf);
+  }
+}
+
 // B2, Hopper: one block per (q-head, 128-query tile, batch); consumer warpgroup c
 // owns queries 64c .. 64c + 63 of the tile and accumulates their dq over the
 // relevant 64-key KV tiles, which the producer streams through the ring.
@@ -793,7 +826,7 @@ flash_bwd_dq_sm90(const Params p, const __grid_constant__ CUtensorMap tm_q,
       lse[r] = row < p.s ? p.lse[off] : 0.f;
       dl[r] = row < p.s ? p.delta[off] : 0.f;
     }
-    float acc[HD / 2], sc[32], dp[32];
+    float acc[HD / 2], part[HD / 2], sc[32], dp[32], dp2[32];
 #pragma unroll
     for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
 #pragma unroll
@@ -808,11 +841,15 @@ flash_bwd_dq_sm90(const Params p, const __grid_constant__ CUtensorMap tm_q,
       if (q0 < p.s && tile_relevant(p, q0, 64, k_start, 64)) {
         wg_fence();
         wg_abt<HD>(sc, a_q, Sh::kOwnBox, sm.stream(s, 0), Sh::kStreamBox);     // S = Q K^T
-        wg_abt<HD>(dp, a_do, Sh::kOwnBox, sm.stream(s, 1), Sh::kStreamBox);    // dP = dO V^T
+        wg_abt_halves<HD>(dp, dp2, a_do, Sh::kOwnBox, sm.stream(s, 1),        // dP = dO V^T
+                          Sh::kStreamBox);
         wg_commit();
         wg_wait_all();
         fence_regs(sc);
         fence_regs(dp);
+        fence_regs(dp2);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] += dp2[i];
         const int col_a = k_start + tig * 2;
         if (p.softcap != 0.f)
           dq_tile_ds<true, true>(p, sc, dp, lse, dl, row_a, col_a);
@@ -820,10 +857,16 @@ flash_bwd_dq_sm90(const Params p, const __grid_constant__ CUtensorMap tm_q,
           dq_tile_ds<true, false>(p, sc, dp, lse, dl, row_a, col_a);
         else
           dq_tile_ds<false, false>(p, sc, dp, lse, dl, row_a, col_a);
-        wg_xb<HD>(acc, dp, sm.stream(s, 0), Sh::kStreamBox);                    // dq += dS K
+        // dS K of this tile in fresh registers, added to dq by FADD (the note
+        // above wg_abt_halves)
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) part[i] = 0.f;
+        wg_xb<HD>(part, dp, sm.stream(s, 0), Sh::kStreamBox);
         wg_commit();
         wg_wait_all();
-        fence_regs(acc);
+        fence_regs(part);
+#pragma unroll
+        for (int i = 0; i < HD / 2; ++i) acc[i] += part[i];
       }
       mbar_arrive(sm.empty(s));
     }

@@ -1,6 +1,6 @@
-"""Model families (so far: the dense, MoE and VLM decoders, the Mamba2 SSM and
-the zamba2 hybrid)."""
+"""Model families: the dense, MoE and VLM decoders, the Mamba2 SSM, the zamba2
+hybrid and the whisper encoder-decoder."""
 
-from .families import HybridModel, Model, SSMModel, build_model
+from .families import EncDecModel, HybridModel, Model, SSMModel, build_model
 
-__all__ = ["HybridModel", "Model", "SSMModel", "build_model"]
+__all__ = ["EncDecModel", "HybridModel", "Model", "SSMModel", "build_model"]

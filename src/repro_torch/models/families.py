@@ -1,5 +1,6 @@
 """Model assembly: the dense decoder and its MoE and VLM variants, the Mamba2
-SSM and the zamba2 hybrid (port of ``repro/models/families.py``).
+SSM, the zamba2 hybrid and the whisper encoder-decoder (port of
+``repro/models/families.py``).
 
 ``build_model`` returns a :class:`Model` with the reference's API:
 
@@ -8,7 +9,8 @@ SSM and the zamba2 hybrid (port of ``repro/models/families.py``).
 - ``init_cache(batch, max_seq) -> cache``                 (zeros)
 - ``prefill(params, batch, max_seq) -> (logits, cache)``  (prompt + KV cache;
   decoders only: the reference's SSM and hybrid models have none, and serve a
-  prompt through ``decode_step``)
+  prompt through ``decode_step``; the encoder-decoder serves through
+  ``fill_cross`` then ``decode_step``)
 - ``decode_step(params, cache, tokens, pos) -> (logits, cache)``
 
 Params are nested dicts of tensors with the reference's leaf names; ``layers``
@@ -22,11 +24,12 @@ in half the memory. Norm scales stay fp32, as ``rms_norm`` reads them. The KV
 cache is written in place. A MoE layer's router and experts (``models/moe.py``)
 are held like the other matrices. An SSM block holds ``dt_bias``, ``A_log``,
 ``D`` and its gated-norm ``scale`` in fp32 (``models/ssm.py``). The
-encoder-decoder family comes with its own slice.
+encoder-decoder (:class:`EncDecModel`) adds ``encode`` and ``fill_cross``.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, List, Optional
 
@@ -82,20 +85,23 @@ def _embed(params, tokens, cfg: ModelConfig, dtype):
     return x
 
 
+def _zero_norm(cfg: ModelConfig, gen: torch.Generator):
+    """A norm's params: its fp32 scale, zeros (the reference's init)."""
+    return {"scale": torch.zeros((cfg.d_model,), dtype=torch.float32, device=gen.device)}
+
+
 def _init_decoder_layer(cfg: ModelConfig, gen: torch.Generator, dtype):
     """One layer's params: matrices and biases in ``dtype``, norm scales fp32.
     Drawn in fp32 and cast one layer at a time, so fp32 copies of the whole
     model never coexist with the compute-dtype copy."""
-    zeros = lambda: torch.zeros((cfg.d_model,), dtype=torch.float32,  # noqa: E731
-                                device=gen.device)
     p = {
-        "norm1": {"scale": zeros()},
-        "norm2": {"scale": zeros()},
+        "norm1": _zero_norm(cfg, gen),
+        "norm2": _zero_norm(cfg, gen),
         "attn": {k: w.to(dtype) for k, w in init_attn(gen, cfg).items()},
     }
     if cfg.post_norm:
-        p["norm1_post"] = {"scale": zeros()}
-        p["norm2_post"] = {"scale": zeros()}
+        p["norm1_post"] = _zero_norm(cfg, gen)
+        p["norm2_post"] = _zero_norm(cfg, gen)
     if cfg.family == Family.MOE:
         p["moe"] = map_tree(lambda w: w.to(dtype), init_moe(gen, cfg))
     else:
@@ -131,8 +137,7 @@ class Model:
             "embed": {"tok": dense_init(gen, (vp, cfg.d_model), in_axis=-1).to(dtype)},
             "layers": [_init_decoder_layer(cfg, gen, dtype)
                        for _ in range(cfg.n_layers)],
-            "final_norm": {"scale": torch.zeros((cfg.d_model,), dtype=torch.float32,
-                                                device=gen.device)},
+            "final_norm": _zero_norm(cfg, gen),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": dense_init(gen, (cfg.d_model, vp)).to(dtype)}
@@ -243,12 +248,8 @@ class SSMModel:
         self.param_dtype = resolve_dtype(self.plan.param_dtype)
         self._layer = exlib.ssm_layer(cfg, self.plan, self.dtype)
 
-    def _norm(self, gen):
-        return {"scale": torch.zeros((self.cfg.d_model,), dtype=torch.float32,
-                                     device=gen.device)}
-
     def _init_layers(self, gen):
-        return [{"norm1": self._norm(gen),
+        return [{"norm1": _zero_norm(self.cfg, gen),
                  "ssm": ssm_lib.hold(ssm_lib.init_ssm(gen, self.cfg), self.param_dtype)}
                 for _ in range(self.cfg.n_layers)]
 
@@ -258,7 +259,7 @@ class SSMModel:
         params = {
             "embed": {"tok": dense_init(gen, (vp, cfg.d_model), in_axis=-1).to(dtype)},
             "layers": self._init_layers(gen),
-            "final_norm": self._norm(gen),
+            "final_norm": _zero_norm(self.cfg, gen),
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = {"w": dense_init(gen, (cfg.d_model, vp)).to(dtype)}
@@ -321,13 +322,13 @@ class HybridModel(SSMModel):
             "embed": {"tok": dense_init(gen, (vp, cfg.d_model), in_axis=-1).to(dtype)},
             "layers": self._init_layers(gen),
             "shared_attn": {
-                "norm1": self._norm(gen),
-                "norm2": self._norm(gen),
+                "norm1": _zero_norm(self.cfg, gen),
+                "norm2": _zero_norm(self.cfg, gen),
                 "attn": {k: w.to(dtype) for k, w in init_attn(gen, cfg).items()},
                 "mlp": {k: w.to(dtype) for k, w in
                         init_mlp(gen, cfg.d_model, cfg.d_ff).items()},
             },
-            "final_norm": self._norm(gen),
+            "final_norm": _zero_norm(self.cfg, gen),
             "lm_head": {"w": dense_init(gen, (cfg.d_model, vp)).to(dtype)},
         }
 
@@ -396,15 +397,138 @@ class HybridModel(SSMModel):
         return self._head(params, x), cache
 
 
+class EncDecModel:
+    """The whisper encoder-decoder (the reference's ``build_enc_dec``): the
+    frame-embedding frontend stub (frames arrive as (B, F, d) embeddings),
+    ``enc_layers`` encoder layers with non-causal self-attention
+    (``train/executor.encoder_layer``), the encoder's ``final_norm``, then
+    ``n_layers`` decoder layers with causal self-attention and cross-attention
+    to the encoder output (``train/executor.cross_decoder_layer``). Positions
+    are sinusoidal on both sides. ``plan.remat`` applies per encoder and per
+    decoder layer. There is no ``prefill``: serving is :meth:`fill_cross`
+    (the encoder, then every layer's cross keys and values into the cache)
+    followed by :meth:`decode_step`, whose cross-attention goes through the
+    dispatcher at S = 1 against the cached ``cross_k``/``cross_v``."""
+
+    def __init__(self, cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
+                 device=None):
+        from repro_torch.train import executor as exlib  # noqa: PLC0415 (import cycle)
+        self.cfg = cfg
+        self.plan = plan or ParallelPlan()
+        self.device = resolve_device(device)
+        self.dtype = resolve_dtype(self.plan.compute_dtype)
+        self.param_dtype = resolve_dtype(self.plan.param_dtype)
+        self._enc_layer = exlib.encoder_layer(cfg, self.plan, self.dtype)
+        self._dec_layer = exlib.cross_decoder_layer(cfg, self.plan, self.dtype)
+        self._cross_kv = functools.partial(exlib.cross_kv, cfg, dtype=self.dtype)
+
+    def _held(self, tree):
+        return {k: w.to(self.param_dtype) for k, w in tree.items()}
+
+    def init(self, gen: torch.Generator) -> Dict[str, Any]:
+        """Random params drawn from ``gen``, the reference's tree: matrices in
+        ``plan.param_dtype``, norm scales fp32 zeros."""
+        cfg = self.cfg
+        vp = _padded_vocab(cfg, self.plan)
+        embed = {"tok": dense_init(gen, (vp, cfg.d_model), in_axis=-1).to(self.param_dtype)}
+        norms = lambda *names: {n: _zero_norm(cfg, gen) for n in names}  # noqa: E731
+        enc = [{**norms("norm1", "norm2"),
+                "attn": self._held(init_attn(gen, cfg)),
+                "mlp": self._held(init_mlp(gen, cfg.d_model, cfg.d_ff))}
+               for _ in range(cfg.enc_layers)]
+        dec = [{**norms("norm1", "norm2", "norm3"),
+                "attn": self._held(init_attn(gen, cfg)),
+                "xattn": self._held(init_attn(gen, cfg)),
+                "mlp": self._held(init_mlp(gen, cfg.d_model, cfg.d_ff))}
+               for _ in range(cfg.n_layers)]
+        return {
+            "embed": embed,
+            "encoder": {"layers": enc, **norms("final_norm")},
+            "layers": dec,
+            **norms("final_norm"),
+            "lm_head": {"w": dense_init(gen, (cfg.d_model, vp)).to(self.param_dtype)},
+        }
+
+    def _positions(self, x, start: int = 0):
+        """x plus sinusoidal positions ``start .. start + S - 1`` (x: (B, S, d))."""
+        pos = torch.arange(start, start + x.shape[1], device=x.device)
+        return x + sinusoidal_pos_emb(pos, self.cfg.d_model).to(self.dtype)
+
+    def encode(self, params, frames):
+        """(B, F, d) frame embeddings -> the encoder output (B, F, d)."""
+        x = self._positions(frames.to(self.dtype))
+        for lp in params["encoder"]["layers"]:
+            x = self._enc_layer(x, lp)
+        return rms_norm(x, params["encoder"]["final_norm"]["scale"], self.cfg.rms_eps)
+
+    def _head(self, params, x):
+        x = rms_norm(x, params["final_norm"]["scale"], self.cfg.rms_eps)
+        return _logits(params, x, self.cfg, self.dtype)
+
+    def forward(self, params, batch):
+        """``batch``: tokens (B, S) and frames (B, F, d) -> (logits, 0)."""
+        enc_out = self.encode(params, batch["frames"])
+        x = self._positions(_embed(params, batch["tokens"], self.cfg, self.dtype))
+        for lp in params["layers"]:
+            x = self._dec_layer(x, lp, enc_out)
+        return self._head(params, x), torch.zeros((), dtype=torch.float32,
+                                                  device=x.device)
+
+    def init_cache(self, batch: int, max_seq: int):
+        """Self-attention K/V (L, B, max_seq, Hkv, hd) and cross K/V (L, B,
+        enc_frames, Hkv, hd), zeros in the compute dtype."""
+        cfg = self.cfg
+        tail = (cfg.n_kv_heads, cfg.head_dim)
+        zeros = lambda n: torch.zeros((cfg.n_layers, batch, n) + tail,  # noqa: E731
+                                      dtype=self.dtype, device=self.device)
+        return {"k": zeros(max_seq), "v": zeros(max_seq),
+                "cross_k": zeros(cfg.enc_frames), "cross_v": zeros(cfg.enc_frames)}
+
+    @torch.no_grad()
+    def fill_cross(self, params, cache, frames):
+        """Run the encoder on ``frames`` (B, enc_frames, d) and write every
+        decoder layer's cross keys and values into ``cache`` in place."""
+        if frames.shape[1] != cache["cross_k"].shape[2]:
+            raise ValueError(f"{frames.shape[1]} frames, the cache holds "
+                             f"{cache['cross_k'].shape[2]}")
+        enc_out = self.encode(params, frames)
+        for i, lp in enumerate(params["layers"]):
+            k, v = self._cross_kv(lp, enc_out)
+            cache["cross_k"][i] = k
+            cache["cross_v"][i] = v
+        return cache
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """One token per sequence at position ``pos``: self-attention through
+        the plain ``decode_attention`` (the cache written in place), then
+        cross-attention to the cached encoder K/V through the dispatcher."""
+        from repro_torch.kernels.dispatch import dispatch_attention  # noqa: PLC0415 (cycle)
+        cfg, dtype = self.cfg, self.dtype
+        b = tokens.shape[0]
+        x = self._positions(_embed(params, tokens, cfg, dtype)[:, None, :], pos)
+        for i, lp in enumerate(params["layers"]):
+            h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
+            q, k, v = qkv_proj(lp["attn"], h, cfg, dtype)
+            a, _, _ = decode_attention(q, cache["k"][i], cache["v"][i], k, v, pos)
+            x = x + a.reshape(b, 1, -1) @ lp["attn"]["wo"].to(dtype)
+            h = rms_norm(x, lp["norm2"]["scale"], cfg.rms_eps)
+            q = (h @ lp["xattn"]["wq"].to(dtype)).reshape(b, 1, cfg.n_heads, cfg.head_dim)
+            a = dispatch_attention(q, cache["cross_k"][i], cache["cross_v"][i],
+                                   impl=self.plan.attn_impl, causal=False)
+            x = x + a.reshape(b, 1, -1) @ lp["xattn"]["wo"].to(dtype)
+            h = rms_norm(x, lp["norm3"]["scale"], cfg.rms_eps)
+            x = x + mlp_block(lp["mlp"], h, dtype)
+        return self._head(params, x[:, 0, :]), cache
+
+
 def build_model(cfg: ModelConfig, plan: Optional[ParallelPlan] = None, *,
                 device=None):
-    """Dense, MoE, VLM, SSM and hybrid models; ``device`` defaults to the CUDA card."""
+    """Dense, MoE, VLM, SSM, hybrid and encoder-decoder models; ``device``
+    defaults to the CUDA card."""
     if plan is not None:
         plan.validate(cfg)
     if cfg.is_enc_dec:
-        raise NotImplementedError(
-            f"{cfg.arch_id}: encoder-decoder models come with the port's "
-            "encoder-decoder slice")
+        return EncDecModel(cfg, plan, device=device)
     if cfg.family == Family.SSM:
         return SSMModel(cfg, plan, device=device)
     if cfg.family == Family.HYBRID:

@@ -35,6 +35,8 @@ CASES = [
     (1, 2, 1, 96, 64, 128, True, 16, 0.0, 48),        # q_offset: rows 31.. see no key
     (1, 2, 2, 192, 192, 128, True, 127, 0.0, 0),      # window 64 m - 1, on a tile edge
     (1, 2, 2, 96, 96, 64, True, 40, 20.0, 0),         # window and softcap
+    (2, 2, 2, 40, 75, 64, False, 0, 0.0, 0),          # cross lengths, ragged T (whisper)
+    (2, 2, 2, 1, 75, 64, False, 0, 0.0, 0),           # S = 1 (whisper's decode step)
     (1, 2, 1, 64, 16, 32, True, 8, 0.0, 64),          # fully masked rows
 ]
 
@@ -195,6 +197,9 @@ def test_card_cases_hold_each_edge_class():
     assert {(128, 191), (64, 255)} <= windows, "windows on the tile edge, no softcap"
     assert any(c[:3] == (4, 32, 32) and c[5] == 64 and c[3] < 8000 for c in CARD_CASES), \
         "zamba2's serving shape, cut in S"
+    whisper = [c for c in CARD_CASES if c[:3] == (4, 12, 12) and c[5] == 64 and not c[6]]
+    assert {c[3] for c in whisper} >= {1, 1500, 4096} and all(c[4] == 1500 for c in whisper), \
+        "whisper's encoder, decode cross-attention (S = 1) and training cross-attention"
 
 
 @pytest.mark.parametrize("bad", ["kv_shape", "heads", "dtype", "window"])

@@ -30,6 +30,8 @@ GRAD_CASES = [
     (1, 2, 2, 64, 64, 32, False, 0, 0.0, 0),       # bidirectional
     (1, 2, 2, 32, 96, 32, True, 0, 0.0, 64),       # chunked-prefill q_offset
     (1, 4, 1, 40, 72, 32, True, 16, 30.0, 32),     # everything, unaligned
+    (2, 2, 2, 40, 75, 64, False, 0, 0.0, 0),       # cross lengths, ragged T (whisper)
+    (2, 2, 2, 1, 75, 64, False, 0, 0.0, 0),        # S = 1 (whisper's decode step)
 ]
 MASKED_CASE = (1, 2, 1, 64, 16, 32, True, 8, 0.0, 64)   # rows 24.. see no key
 CASES = GRAD_CASES + [MASKED_CASE]

@@ -14,7 +14,7 @@ from repro_torch.interop import params_from_numpy, params_to_numpy
 torch.set_num_threads(1)
 
 ARCHS = ["qwen1.5-4b", "qwen2.5-14b", "codeqwen1.5-7b", "gemma2-9b", "pixtral-12b",
-         "olmoe-1b-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-1.2b"]
+         "olmoe-1b-7b", "deepseek-moe-16b", "mamba2-370m", "zamba2-1.2b", "whisper-small"]
 
 
 def _reference_params(arch):
@@ -68,6 +68,35 @@ def test_bf16_conversion_keeps_the_ssm_fp32_leaves():
         assert lp["norm1"]["scale"].dtype == torch.float32
     assert params["shared_attn"]["norm2"]["scale"].dtype == torch.float32
     assert params["shared_attn"]["mlp"]["gate"].dtype == torch.bfloat16
+
+
+def test_encoder_layers_unstack_with_their_fp32_norms():
+    """whisper's encoder subtree unstacks over enc_layers like the decoder's
+    layers over n_layers; every norm scale (norm1-3, both final norms) stays
+    fp32 in a bf16 conversion, the matrices (xattn included) go to bf16."""
+    ref = _reference_params("whisper-small")
+    cfg = torch_smoke_config("whisper-small")
+    params = params_from_numpy(ref, cfg, device="cpu", dtype="bfloat16")
+    assert len(params["encoder"]["layers"]) == cfg.enc_layers
+    for i, lp in enumerate(params["encoder"]["layers"]):
+        assert lp["attn"]["wv"].dtype == torch.bfloat16
+        assert np.array_equal(lp["norm2"]["scale"].numpy(),
+                              ref["encoder"]["layers"]["norm2"]["scale"][i])
+    assert params["encoder"]["final_norm"]["scale"].dtype == torch.float32
+    for lp in params["layers"]:
+        assert lp["norm3"]["scale"].dtype == torch.float32
+        assert lp["xattn"]["wk"].dtype == torch.bfloat16
+
+
+def test_encoder_layer_count_mismatch_raises():
+    ref = _reference_params("whisper-small")
+    cfg = torch_smoke_config("whisper-small")
+    bad = cfg.__class__(**{**cfg.__dict__, "enc_layers": cfg.enc_layers + 1})
+    with pytest.raises(ValueError, match="enc_layers"):
+        params_from_numpy(ref, bad, device="cpu")
+    params = params_from_numpy(ref, cfg, device="cpu")
+    with pytest.raises(ValueError, match="enc_layers"):
+        params_to_numpy(params, bad)
 
 
 def test_layer_count_mismatch_raises():
