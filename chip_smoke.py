@@ -99,7 +99,28 @@ prints its seconds):
    a save with free card memory for half the state restored bit for
    bit, the host-RAM tier restored after lose_group; stall, fence, copy to
    host, persist and restore times;
-13. times   — each kernel's time at its path's shapes beside its bound, its plain
+13. whisper-small data parallel — ZeRO-1 on torch.distributed at full width
+   and depth (fp32 masters, bf16 compute, remat "full", ``Hyper()``): two rank
+   processes (spawn) on the one card over gloo, the host transport (NCCL
+   refuses two ranks on one device), the global batch of 8 x 4096 tokens with
+   8 x 1500 frames, each rank 2 microbatches of its 2 rows of each; on each
+   rank, one microbatch of its own 2 rows first, with B1 (72 calls, forward
+   and recompute) and B2/B3 (36) held to their plain versions on every call
+   and dq to fp64 at the DP path's shapes (batch 2); then 4 steps
+   against one device's step with 4 microbatches on the same batches and
+   weights (``DP_TOLERANCE``: the first step's loss and grad norm to 1e-6
+   relative and its grads to 1e-6 of each leaf's max, the ZeRO-1 update
+   against ``adamw_update`` on the same whole grads to 1e-6; the later steps
+   and the params after 4 steps readings, beside the same readings between
+   one device's runs at 2 and 4 microbatches; the first 2 steps watched, the
+   last 2 timed), B1/B2/B3 144/72/72 per rank per step on the
+   Hopper bodies, step, reduce-scatter and all-gather ms, peak memory and the
+   moment bytes each rank holds; a ZeRO-1 checkpoint saved at dp 2 (stall,
+   gather, persist), restored at dp 2 ("replay") and onto one process
+   (``restore_resharded``, "reshard", refused without ``elastic``), both bit
+   for bit, the resumed steps to 1e-6; then one NCCL rank at world size 1
+   through the same step code against one device's step with 2 microbatches;
+14. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -111,8 +132,9 @@ prints its seconds):
    and pass by pass; B1-B3 at whisper's encoder, decode cross-attention (S = 1)
    and training cross- and self-attention shapes; printed as one JSON line.
 
-On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode and
-training) must run the Hopper body (``check_bodies``, from the wrappers' per-body
+On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode,
+training and data-parallel training) must run the Hopper body
+(``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
 Any failure raises: the script exits non-zero and prints no final line. The
@@ -125,6 +147,7 @@ import os
 # allocator from failing on fragmentation near the card's 80 GB
 os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
+import contextlib
 import dataclasses
 import functools
 import gc
@@ -2557,7 +2580,8 @@ def host_named(tree):
     """{name: host numpy array} of a state in the checkpoint's layout (layer
     lists stacked, bf16 as its bits), through the store's blocking host copy."""
     from repro_torch.checkpoint import store
-    return {n: store._host(x)[0] for n, x in store._flatten_with_names(tree)}
+    from repro_torch.core.tree import named_leaves
+    return {n: store._host(x)[0] for n, x in named_leaves(tree)}
 
 
 def phase_whisper_checkpoint():
@@ -2695,6 +2719,510 @@ def phase_whisper_checkpoint():
             "bit_identical": resumed == losses}
 
 
+# ---------------------------------------------------------------------------
+# data parallelism with ZeRO-1 (phase 13)
+
+# Two ranks on the one card. NCCL refuses two ranks on one device, so they
+# join a gloo group: the host transport (launch/mesh.py), every collective
+# through host copies. Each rank takes DP_MICRO microbatches of its rows; one
+# device's step on the same global batch runs DP_RANKS x DP_MICRO, so every
+# microbatch holds the same rows in both runs and only the order of the fp32
+# sums differs. One more process runs the same code through a real NCCL
+# communicator at world size 1.
+DP_RANKS, DP_MICRO, DP_STEPS = 2, 2, 4
+DP_WATCHED = 2                    # the first steps, watched by ZeroWatch; the rest timed
+DP_REL = 1e-6                     # ROADMAP's rule for parallel against one device
+DP_TOLERANCE = ("the first step (the same params in both runs): loss and grad norm to "
+                "1e-6 relative, grads to 1e-6 of each leaf's max |value|; each watched "
+                "ZeRO-1 update to 1e-6 of each leaf's max against adamw_update on the "
+                "same whole grads. Later steps' loss and grad norm and the params after "
+                "DP_STEPS steps are readings, set beside the same readings between two "
+                "sum orders of one device (dp_failures)")
+
+
+def rel_err(a, b) -> float:
+    """max |a - b| in units of b's max |value| (numpy or torch)."""
+    a, b = (np.asarray(x, np.float32) if not isinstance(x, torch.Tensor)
+            else x.detach().float() for x in (a, b))
+    if isinstance(a, torch.Tensor):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+class ZeroWatch:
+    """Watches the train step's optimizer call (patched in ``train.step`` while
+    the watch is entered) on the first ``steps`` steps. ``grads`` holds the
+    first step's grads as the optimizer gets them (clipped), whole (gathered
+    over the ranks under a mesh), by name in stacked layout on the host. Under
+    a mesh with ``shadow``, a copy of the params is updated by
+    ``adamw_update`` on the same whole grads beside each watched ZeRO-1
+    update, and ``shadow_err[i]`` is their largest difference over the leaves,
+    in units of each leaf's max |value|: the ZeRO-1 update checked apart from
+    the sum order of the grads."""
+
+    def __init__(self, steps=1, shadow=False):
+        self.steps, self.shadow = steps, shadow
+        self.grads, self.shadow_err, self.calls = None, [], 0
+        self._params = self._opt = None
+
+    def __enter__(self):
+        from repro_torch.train import step as step_mod
+        self._mod = step_mod
+        self._real = (step_mod.adamw_update, step_mod.adamw_update_sharded)
+        step_mod.adamw_update, step_mod.adamw_update_sharded = self._single, self._sharded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.adamw_update, self._mod.adamw_update_sharded = self._real
+        self._params = self._opt = None
+
+    def _keep(self, named):
+        from repro_torch.checkpoint import store
+        if self.calls == 0:
+            self.grads = {n: store._host(x)[0] for n, x in named}
+
+    def _single(self, grads, opt, params, lr, **kw):
+        from repro_torch.core.tree import named_leaves
+        self._keep(named_leaves(grads))
+        self.calls += 1
+        return self._real[0](grads, opt, params, lr, **kw)
+
+    def _sharded(self, grads, opt, params, lr, *, mesh, specs, **kw):
+        from repro_torch.checkpoint import store
+        from repro_torch.core.tree import leaves, map_tree, named_leaves
+        from repro_torch.optim import adamw_init
+        if self.calls >= self.steps:
+            return self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs, **kw)
+        whole = {}
+        for name, g in named_leaves(grads):
+            d = specs[name].dim
+            whole[name] = g if d is None else mesh.all_gather(
+                g.movedim(d, 0).contiguous()).movedim(0, d)
+        self._keep(list(whole.items()))
+        if self.shadow:
+            if self._params is None:
+                self._params = map_tree(lambda p: p.detach().clone(), params)
+                self._opt = adamw_init(self._params)
+            g = store._refill(map_tree(torch.empty_like, self._params), whole.__getitem__)
+            self._params, self._opt = self._real[0](g, self._opt, self._params, lr, **kw)
+            del g
+        del whole
+        out = self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs, **kw)
+        if self.shadow:
+            self.shadow_err.append(max(rel_err(p, s) for p, s in
+                                       zip(leaves(params), leaves(self._params))))
+        self.calls += 1
+        return out
+
+
+def dp_agreement(dp, one):
+    """A data-parallel run against one device's, each a dict of per-step
+    ``loss`` and ``grad_norm``, the first step's ``grads`` and the final
+    ``params`` (by name, host arrays): the largest relative differences, on
+    the first step and over all steps."""
+    rel = lambda a, b: abs(a - b) / abs(b)                      # noqa: E731
+    return {
+        "loss_rel_step0": rel(dp["loss"][0], one["loss"][0]),
+        "grad_norm_rel_step0": rel(dp["grad_norm"][0], one["grad_norm"][0]),
+        "first_grads_rel": max(rel_err(dp["grads"][n], g) for n, g in one["grads"].items()),
+        "loss_rel": max(rel(a, b) for a, b in zip(dp["loss"], one["loss"])),
+        "grad_norm_rel": max(rel(a, b) for a, b in zip(dp["grad_norm"], one["grad_norm"])),
+        "params_rel": max(rel_err(dp["params"][n], p) for n, p in one["params"].items()),
+    }
+
+
+def dp_failures(agree, shadow_err):
+    """What breaks DP_TOLERANCE in ``dp_agreement``'s numbers (None: no
+    comparison with one device) and a ZeroWatch's ``shadow_err``. Only the
+    first step is held to 1e-6: from there the two runs' params differ where
+    AdamW divides a grad at the level of its sum-order error by its own
+    running size (such an element moves by up to lr either way), and in bf16
+    compute that reaches the next steps' loss. Two runs of one device at two
+    microbatch counts differ the same way, so ``loss_rel``, ``grad_norm_rel``
+    and ``params_rel`` are readings."""
+    keys = ("loss_rel_step0", "grad_norm_rel_step0", "first_grads_rel")
+    bad = [f"{k} {agree[k]:.3e}" for k in keys if agree is not None and not agree[k] <= DP_REL]
+    bad += [f"shadow step {i}: {e:.3e}" for i, e in enumerate(shadow_err) if not e <= DP_REL]
+    return bad
+
+
+def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
+              around=None, hyper=None):
+    """``len(batches)`` steps from fresh params of ``seed`` (``prepare(params)``
+    first, if given) on ``mesh`` or on one device, under ``watch`` (a
+    ZeroWatch), each step inside ``around(i)`` (a context manager), if given.
+    Returns the state, the step and a dict of per-step ``loss`` and
+    ``grad_norm``, the first step's ``grads`` (from the watch) and the final
+    ``params`` by name on the host."""
+    import contextlib
+    from repro_torch.checkpoint import store
+    from repro_torch.core.tree import named_leaves
+    from repro_torch.train import Hyper, init_train_state, make_train_step
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    state = init_train_state(model, gen, mesh, plan)
+    if prepare is not None:
+        prepare(state.params)
+    step = make_train_step(model, plan, hyper or Hyper(), mesh=mesh)
+    out = {"loss": [], "grad_norm": []}
+    with watch or contextlib.nullcontext():
+        for i, batch in enumerate(batches):
+            with around(i) if around is not None else contextlib.nullcontext():
+                state, m = step(state, batch)
+                out["loss"].append(float(m["loss"]))
+                out["grad_norm"].append(float(m["grad_norm"]))
+    out["grads"] = watch.grads if watch is not None else None
+    out["params"] = {n: store._host(x)[0] for n, x in named_leaves(state.params)}
+    return state, step, out
+
+
+def dp_setup(microbatches):
+    """whisper-small's full-width training model for the DP phase (fp32
+    masters, bf16 compute, remat "full", ZeRO-1, ``microbatches`` per rank) and
+    DP_STEPS + 1 train_4k batches of WHISPER_TRAIN_BATCH sequences with their
+    frames (the last for the checkpoint's resumed step)."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    cfg = get_config(WHISPER_ARCH)
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
+                        microbatches=microbatches, zero_stage=1)
+    ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, WHISPER_TRAIN_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(DP_STEPS + 1)]
+    return cfg, plan, build_model(cfg, plan), batches
+
+
+def dp_step_counter(cfg, mesh, what, rec):
+    """A context-manager factory for ``zero1_run``'s ``around``: each step's
+    wall time (synchronised), its collectives' seconds (from the mesh, which
+    waits for the device around each one from step DP_WATCHED on) and its
+    B1/B2/B3 launches, which must be the counts stated before the run and all
+    on the Hopper bodies."""
+    import contextlib
+    attn_calls = cfg.enc_layers + 2 * cfg.n_layers          # per forward of a microbatch
+    want = (2 * DP_MICRO * attn_calls, DP_MICRO * attn_calls, DP_MICRO * attn_calls, 0, 0)
+
+    @contextlib.contextmanager
+    def around(i):
+        reset_counts()
+        mesh.timed = i >= DP_WATCHED          # the watched steps are not timed
+        before = dict(mesh.seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("reduce_scatter", "all_gather", "all_reduce"):
+            rec[f"{k}_ms"].append((mesh.seconds[k] - before[k]) * 1e3)
+        launches = all_counts()
+        rec["launches"] = launches[:3]
+        if launches != want:
+            raise AssertionError(f"{what} step {i} launched {launches}, expected {want}")
+        check_bodies(f"{what} step {i}", launches, "whisper_dp_train_step")
+        rec["bodies"] = BODY_COUNTS["whisper_dp_train_step"]
+    return around
+
+
+def dp_checked_microbatch(model, mesh, cfg, batch, what, out):
+    """A ``prepare`` for ``zero1_run``: this rank's first microbatch of
+    ``batch`` (its own rows, the DP path's shapes) through the loss and its
+    backward with every B1 call held to the plain version and every B2/B3 call
+    to theirs, dq also to fp64 (FlashFwdCapture, FlashBwdCapture); the worst
+    errors in bf16 ulps go to ``out``, the grads are dropped."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import rank_microbatches
+    from repro_torch.train import Hyper, make_loss_fn
+    attn_calls = cfg.enc_layers + 2 * cfg.n_layers          # per forward of a microbatch
+    mb = rank_microbatches(batch, mesh, DP_MICRO)[0]
+    rows = WHISPER_TRAIN_BATCH // (DP_RANKS * DP_MICRO)
+    if mb["tokens"].shape[0] != rows:
+        raise AssertionError(f"{what}: a microbatch of {mb['tokens'].shape[0]} rows, "
+                             f"expected {rows}")
+
+    def prepare(params):
+        with FlashBwdCapture(fp64=True) as bwd, FlashFwdCapture() as fwd:
+            loss, _ = make_loss_fn(model, Hyper())(params, mb)
+            loss.backward()
+        out["real_bwd_ulps"] = bwd.summary(f"{what} microbatch ({rows} rows)", attn_calls)
+        out["real_fwd_ulps"] = fwd.summary(
+            f"{what} microbatch ({rows} rows, forward and recompute)", 2 * attn_calls)
+        for p in leaves(params):
+            p.grad = None
+    return prepare
+
+
+def dp_rank(rank, init_method, out_dir):
+    """One of the DP_RANKS processes of the DP phase, on cuda:0 over gloo:
+    whisper-small at full width and depth under ZeRO-1, one microbatch of the
+    rank's rows with B1-B3 held to their plain versions
+    (``dp_checked_microbatch``), DP_STEPS steps (the
+    first DP_WATCHED watched: the first one's whole grads kept, each ZeRO-1
+    update held to adamw_update on the same grads; the others timed), then
+    the checkpoint round trip: a save at dp 2, the step after it, a restore at
+    dp 2 (routed "replay") and its resumed step, and an elastic restore onto
+    one process (routed "reshard"; refused without ``elastic``). Rank 0 then runs one device's
+    step on the same batches with DP_RANKS x DP_MICRO microbatches, and once
+    more with DP_MICRO (the sum-order reading). Results go to
+    ``out_dir/dp_rank{rank}.json``."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import resolve_device
+    from repro_torch.core.sharding import bytes_per_device, local_index, opt_state_specs
+    from repro_torch.core.tree import leaves
+    from repro_torch.launch import DataMesh, init_data_mesh
+    from repro_torch.train import init_train_state, make_train_step
+    resolve_device()
+    mesh = init_data_mesh("cuda:0", backend="gloo", init_method=init_method, rank=rank,
+                          world_size=DP_RANKS)
+    log(f"dp rank {rank}: {mesh}")
+    cfg, plan, model, batches = dp_setup(DP_MICRO)
+    rec = {"ms": [], "reduce_scatter_ms": [], "all_gather_ms": [], "all_reduce_ms": []}
+    counter = dp_step_counter(cfg, mesh, f"{WHISPER_ARCH} dp rank {rank}", rec)
+    watch = ZeroWatch(steps=DP_WATCHED, shadow=True)
+    real = {}
+    check = dp_checked_microbatch(model, mesh, cfg, batches[0],
+                                  f"{WHISPER_ARCH} dp rank {rank}", real)
+    torch.cuda.reset_peak_memory_stats()
+    state, step, dp = zero1_run(model, plan, batches[:DP_STEPS], mesh, watch=watch,
+                                prepare=check, around=counter)
+    peak = torch.cuda.max_memory_allocated()
+    ospecs = opt_state_specs(state.params, mesh, plan)
+    held = sum(t.numel() * t.element_size() for which in (state.opt.mu, state.opt.nu)
+               for t in leaves(which))
+    out = {"rank": rank, "mesh": repr(mesh), **rec, **real, "peak_bytes": peak,
+           "moment_bytes": held, "moment_bytes_rule": 2 * bytes_per_device(ospecs, mesh),
+           "moment_bytes_whole": 2 * bytes_per_device(ospecs, None),
+           "loss": dp["loss"], "grad_norm": dp["grad_norm"], "shadow_err": watch.shadow_err}
+    log(f"dp rank {rank}: steps {[round(x, 1) for x in rec['ms']]} ms, losses {dp['loss']}, "
+        f"grad norms {dp['grad_norm']}, ZeRO-1 update against adamw_update on the same "
+        f"whole grads {watch.shadow_err}")
+
+    ckdir = Path(out_dir) / "ckpt"
+    saved = host_named(state)
+    mgr = CheckpointManager(ckdir, keep=2)
+    mgr.save(DP_STEPS, state, plan=plan, mesh=mesh)
+    out["save"] = {"stall_s": mgr.snapshot_seconds, "d2h_s": mgr.d2h_seconds,
+                   "gather_s": mgr.gather_seconds}
+    state, m = step(state, batches[DP_STEPS])            # the step after the save
+    loss_next = float(m["loss"])
+    mgr.wait()                                            # a barrier of the ranks
+    out["save"]["persist_s"] = mgr.persist_seconds if rank == 0 else None
+    out["save"]["bytes"] = mgr.bytes_written if rank == 0 else None
+    del state
+
+    out["route_dp2"] = mgr.check_plan(plan, mesh=mesh)
+    fresh = init_train_state(model, torch.Generator(device="cuda").manual_seed(7), mesh, plan)
+    t0 = time.perf_counter()
+    _, fresh = mgr.restore(fresh, mesh=mesh)
+    torch.cuda.synchronize()
+    out["restore_dp2_s"] = time.perf_counter() - t0
+    got = host_named(fresh)
+    out["restore_dp2_bit_exact"] = all(np.array_equal(got[n], a) for n, a in saved.items())
+    fresh, m = step(fresh, batches[DP_STEPS])
+    out["resumed_dp2_rel"] = abs(float(m["loss"]) - loss_next) / abs(loss_next)
+    del fresh, got
+
+    one = DataMesh(device=mesh.device)                    # dp 1: one process
+    try:
+        mgr.check_plan(plan, mesh=one)
+        out["route_dp1_refused"] = False
+    except ValueError:
+        out["route_dp1_refused"] = True
+    out["route_dp1"] = mgr.check_plan(plan, mesh=one, elastic=True)
+    single = init_train_state(model, torch.Generator(device="cuda").manual_seed(7))
+    t0 = time.perf_counter()
+    _, single = mgr.restore_resharded(single, plan=plan)
+    torch.cuda.synchronize()
+    out["restore_dp1_s"] = time.perf_counter() - t0
+    got = host_named(single)
+    exact = True
+    for name, a in saved.items():
+        if name.startswith("opt/") and name != "opt/step":
+            spec = ospecs[name.split("/", 2)[2]]
+            a_whole = got[name][tuple(slice(lo, hi) for lo, hi in
+                                      local_index(spec, rank, DP_RANKS))]
+            exact &= np.array_equal(a_whole, a)
+        else:
+            exact &= np.array_equal(got[name], a)
+    out["restore_dp1_bit_exact"] = bool(exact)
+    del got
+    plan1 = dataclasses.replace(plan, microbatches=DP_RANKS * DP_MICRO)
+    if rank == 0:
+        single, m = make_train_step(model, plan1)(single, batches[DP_STEPS])
+        out["resumed_dp1_rel"] = abs(float(m["loss"]) - loss_next) / abs(loss_next)
+    del single
+    mesh.close()
+    free()
+
+    if rank == 0:
+        _, _, ref = zero1_run(model, plan1, batches[:DP_STEPS], watch=ZeroWatch())
+        out["agree"] = dp_agreement(dp, ref)
+        free()
+        _, _, ref2 = zero1_run(model, dataclasses.replace(plan, microbatches=DP_MICRO),
+                               batches[:DP_STEPS], watch=ZeroWatch())
+        out["one_device_mb2_vs_mb4"] = dp_agreement(ref2, ref)
+        out["one_device_loss"] = ref["loss"]
+        out["one_device_grad_norm"] = ref["grad_norm"]
+    (Path(out_dir) / f"dp_rank{rank}.json").write_text(json.dumps(out))
+
+
+def nccl_rank(init_method, out_dir):
+    """The DP phase's NCCL process: world size 1 on cuda:0. The mesh's
+    collectives on device tensors, then whisper-small at full width, DP_STEPS
+    steps through the ZeRO-1 step code (every leaf whole at one rank, so each
+    grad is all-reduced through NCCL), against one device's step without a
+    mesh, DP_MICRO microbatches in both. Results to ``out_dir/nccl.json``."""
+    from repro_torch.core import resolve_device
+    from repro_torch.launch import init_data_mesh
+    resolve_device()
+    mesh = init_data_mesh("cuda:0", init_method=init_method, rank=0, world_size=1)
+    log(f"nccl: {mesh}")
+    x = torch.randn(8, 6, 4, device="cuda", generator=torch.Generator("cuda").manual_seed(0))
+    seam = (torch.equal(mesh.reduce_scatter_mean(x.movedim(1, 0).contiguous()).movedim(0, 1), x)
+            and torch.equal(mesh.all_gather(x), x)
+            and torch.equal(mesh.all_reduce_mean(x.clone()), x))
+    cfg, plan, model, batches = dp_setup(DP_MICRO)
+    rec = {"ms": [], "reduce_scatter_ms": [], "all_gather_ms": [], "all_reduce_ms": []}
+    counter = dp_step_counter(cfg, mesh, f"{WHISPER_ARCH} nccl", rec)
+    watch = ZeroWatch(steps=DP_WATCHED, shadow=True)
+    _, _, dp = zero1_run(model, plan, batches[:DP_STEPS], mesh, watch=watch, around=counter)
+    free()
+    _, _, ref = zero1_run(model, plan, batches[:DP_STEPS], watch=ZeroWatch())
+    out = {"mesh": repr(mesh), "seam_equal": bool(seam), **rec, "loss": dp["loss"],
+           "grad_norm": dp["grad_norm"], "one_device_loss": ref["loss"],
+           "one_device_grad_norm": ref["grad_norm"], "shadow_err": watch.shadow_err,
+           "agree": dp_agreement(dp, ref),
+           "params_bit_identical": all(np.array_equal(dp["params"][n], p)
+                                       for n, p in ref["params"].items())}
+    mesh.close()
+    (Path(out_dir) / "nccl.json").write_text(json.dumps(out))
+
+
+def phase_whisper_dp():
+    """The DP phase: DP_RANKS spawned ranks on the one card over gloo
+    (``dp_rank``), then one NCCL rank (``nccl_rank``), each a process of its
+    own (spawn, not fork: the parent holds a CUDA context); their results
+    checked here. Every process is joined or killed before this returns."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    ctx = multiprocessing.get_context("spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="dp_", dir=ROOT / "build")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_rank, args=(r, f"file://{tmp}/store", tmp))
+                 for r in range(DP_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=600)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * DP_RANKS:
+            raise AssertionError(f"the DP ranks exited with {codes}")
+        gloo_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"dp_rank{r}.json").read_text())
+                 for r in range(DP_RANKS)]
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=nccl_rank, args=(f"file://{tmp}/nccl_store", tmp))]
+        procs[0].start()
+        procs[0].join(timeout=300)
+        if procs[0].exitcode != 0:
+            raise AssertionError(f"the NCCL rank exited with {procs[0].exitcode}")
+        nccl_s = time.perf_counter() - t0
+        nccl = json.loads((Path(tmp) / "nccl.json").read_text())
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    dp_report(ranks, nccl)
+    log(f"phase DP: gloo ranks {gloo_s:.1f} s, nccl {nccl_s:.1f} s")
+    return {"ranks": ranks, "nccl": nccl, "gloo_s": gloo_s, "nccl_s": nccl_s}
+
+
+def dp_report(ranks, nccl):
+    """Log the DP phase's results and hold them to DP_TOLERANCE and the
+    checkpoint's bit-for-bit restores; keep the ranks' launches by body for
+    the kernels line."""
+    r0 = ranks[0]
+    for r in ranks:
+        timed_ms = {k: r[k][DP_WATCHED:] for k in ("ms", "reduce_scatter_ms", "all_gather_ms",
+                                                  "all_reduce_ms")}
+        log(f"dp rank {r['rank']} ({r['mesh']}): timed steps {timed_ms} (two ranks share one "
+            f"card and their collectives go through host memory: no measure of DP scaling); "
+            f"peak {r['peak_bytes'] / 1e9:.2f} GB; moments held {r['moment_bytes'] / 1e9:.3f} "
+            f"GB (the rule's {r['moment_bytes_rule'] / 1e9:.3f} of "
+            f"{r['moment_bytes_whole'] / 1e9:.3f}); launches B1/B2/B3 {r['launches']} a step; "
+            f"on its own rows B1 {r['real_fwd_ulps']:.2f}, B2 (dq) {r['real_bwd_ulps'][1]:.2f}, "
+            f"B3 (dk/dv) {r['real_bwd_ulps'][0]:.2f} bf16 ulps from their plain versions; "
+            f"save stall {r['save']['stall_s']:.2f} s (host copy {r['save']['d2h_s']:.2f}, "
+            f"gather {r['save']['gather_s']:.2f}); restore at dp 2 {r['restore_dp2_s']:.2f} s, "
+            f"at dp 1 {r['restore_dp1_s']:.2f} s")
+    agree = r0["agree"]
+    log(f"dp {DP_RANKS} x {DP_MICRO} microbatches against one device x "
+        f"{DP_RANKS * DP_MICRO}: losses {r0['loss']} / {r0['one_device_loss']}, grad norms "
+        f"{r0['grad_norm']} / {r0['one_device_grad_norm']}; {agree}; the same between two "
+        f"sum orders of one device ({DP_MICRO} microbatches against {DP_RANKS * DP_MICRO}): "
+        f"{r0['one_device_mb2_vs_mb4']}")
+    log(f"checkpoint at dp {DP_RANKS}: persist {r0['save']['persist_s']:.2f} s, "
+        f"{r0['save']['bytes'] / 1e9:.3f} GB; routes {r0['route_dp2']} / {r0['route_dp1']} "
+        f"(refused without elastic: {r0['route_dp1_refused']}); restores bit for bit "
+        f"{[(r['restore_dp2_bit_exact'], r['restore_dp1_bit_exact']) for r in ranks]}; "
+        f"resumed steps {[r['resumed_dp2_rel'] for r in ranks]}, one device "
+        f"{r0['resumed_dp1_rel']:.3e}")
+    log(f"nccl ({nccl['mesh']}): seam {nccl['seam_equal']}, step {nccl['ms'][DP_WATCHED:]} ms, "
+        f"all-reduce {nccl['all_reduce_ms'][DP_WATCHED:]} ms; losses {nccl['loss']} / "
+        f"{nccl['one_device_loss']}, grad norms {nccl['grad_norm']} / "
+        f"{nccl['one_device_grad_norm']}; {nccl['agree']}; params bit-identical "
+        f"{nccl['params_bit_identical']}; launches {nccl['launches']} a step")
+    bad = []
+    for what, res in [(f"dp rank {r['rank']}", r) for r in ranks] + [("nccl", nccl)]:
+        bad += [f"{what}: {b}" for b in dp_failures(res.get("agree"), res["shadow_err"])]
+    bad += [f"rank {r['rank']} reports {r['loss']} / {r['grad_norm']}" for r in ranks[1:]
+            if (r["loss"], r["grad_norm"]) != (r0["loss"], r0["grad_norm"])]
+    for r in ranks:
+        if not (r["route_dp2"] == "replay" and r["route_dp1"] == "reshard"
+                and r["route_dp1_refused"]):
+            bad.append(f"rank {r['rank']}: routes {r['route_dp2']}, {r['route_dp1']}, "
+                       f"refused {r['route_dp1_refused']}")
+        if not (r["restore_dp2_bit_exact"] and r["restore_dp1_bit_exact"]):
+            bad.append(f"rank {r['rank']}: a restore is not bit for bit")
+        if not r["resumed_dp2_rel"] <= DP_REL:
+            bad.append(f"rank {r['rank']}: resumed step {r['resumed_dp2_rel']:.3e}")
+        if r["moment_bytes"] != r["moment_bytes_rule"]:
+            bad.append(f"rank {r['rank']}: moments {r['moment_bytes']} != rule")
+    if not r0["resumed_dp1_rel"] <= DP_REL:
+        bad.append(f"one device's resumed step {r0['resumed_dp1_rel']:.3e}")
+    if not nccl["seam_equal"]:
+        bad.append("the NCCL seam changed a tensor at world size 1")
+    if bad:
+        raise AssertionError("DP phase: " + "; ".join(bad))
+    BODY_COUNTS["whisper_dp_train_step"] = {
+        k: sum(r["bodies"][k] for r in ranks) for k in r0["bodies"]}
+    BODY_COUNTS["whisper_dp_nccl_train_step"] = nccl["bodies"]
+
+
+def dp_summary(dp):
+    """The DP phase's numbers for the kernels line (``whisper-small_dp``)."""
+    keys = ("ms", "reduce_scatter_ms", "all_gather_ms", "all_reduce_ms", "launches",
+            "peak_bytes", "moment_bytes", "moment_bytes_whole", "save", "restore_dp2_s",
+            "restore_dp1_s", "resumed_dp2_rel", "shadow_err", "real_fwd_ulps", "real_bwd_ulps")
+    r0, nccl = dp["ranks"][0], dp["nccl"]
+    return {
+        "ranks": [{k: r[k] for k in keys} for r in dp["ranks"]],
+        "transport": "gloo, host copies (two ranks on one card); no measure of DP scaling",
+        "agreement_with_one_device": r0["agree"],
+        "one_device_mb2_vs_mb4": r0["one_device_mb2_vs_mb4"],
+        "resumed_dp1_rel": r0["resumed_dp1_rel"],
+        "tolerance": DP_TOLERANCE,
+        "nccl_world_1": {k: nccl[k] for k in ("ms", "all_reduce_ms", "launches", "agree",
+                                               "params_bit_identical", "shadow_err")},
+        "phase_s": {"gloo_ranks": dp["gloo_s"], "nccl": dp["nccl_s"]},
+    }
+
+
 def ssd_entries(ssd_errs, ssm):
     """The kernels-line entries of B5 and B6. ``ssd_errs``: (the bf16 kernel
     checks at each path shape, the worst error of each Hopper pass); ``ssm``:
@@ -2748,7 +3276,7 @@ def ssd_entries(ssd_errs, ssm):
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm, whisper):
+                moe_train, ssd_errs, ssm, whisper, dp):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -2759,7 +3287,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 f"{HYBRID_ARCH}_train_step": hy_train["launches"][0],
                 "whisper_fill_cross": whisper["serve"]["fill_b1"],
                 "whisper_decode": whisper["serve"]["decode_b1"],
-                "whisper_train_step": whisper["train"]["launches"][0]}
+                "whisper_train_step": whisper["train"]["launches"][0],
+                "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
+                "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0]}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -2786,8 +3316,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "real_inputs_max_err_bf16_ulps": real_ulps,
         f"{HYBRID_ARCH}_real_inputs_max_err_bf16_ulps": max(hy_serve["real_fwd"],
                                                             hy_train["real_fwd"]),
-        f"{WHISPER_ARCH}_real_inputs_max_err_bf16_ulps": max(whisper["serve"]["real_fwd"],
-                                                             whisper["train"]["real_fwd"]),
+        f"{WHISPER_ARCH}_real_inputs_max_err_bf16_ulps": max(
+            whisper["serve"]["real_fwd"], whisper["train"]["real_fwd"],
+            *(r["real_fwd_ulps"] for r in dp["ranks"])),
         "tolerance": TOLERANCE,
         "ms": head["ms"],
         "mma_body_ms": head["mma_ms"],
@@ -2808,7 +3339,10 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                          for e in (bwd_errs["train"], bwd_errs["hybrid"]))
         by_path = {"train_step": count, "moe_train_step": moe_train[f"train_b{which + 2}"],
                    f"{HYBRID_ARCH}_train_step": hybrid_train[which + 1],
-                   f"{WHISPER_ARCH}_train_step": whisper["train"]["launches"][which + 1]}
+                   f"{WHISPER_ARCH}_train_step": whisper["train"]["launches"][which + 1],
+                   f"{WHISPER_ARCH}_dp_train_step": sum(r["launches"][which + 1]
+                                                        for r in dp["ranks"]),
+                   f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1]}
         hy = bt["hybrid"]
         wh = {}
         for n in ("encoder", "train_cross", "train_self"):
@@ -2849,8 +3383,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                                      "max_err_bf16_ulps": max(e[1] for e in hy_errs),
                                      "real_inputs_max_err_bf16_ulps": hybrid_real[1 - which]},
             f"{WHISPER_ARCH}_shapes": wh,
-            f"{WHISPER_ARCH}_real_inputs_max_err_bf16_ulps":
+            f"{WHISPER_ARCH}_real_inputs_max_err_bf16_ulps": max(
                 whisper["train"]["real_bwd"][1 - which],
+                *(r["real_bwd_ulps"][1 - which] for r in dp["ranks"])),
             "check": "pass",
         })
     gt = {**moe_serve["times"], **moe_train["times"]}
@@ -2887,8 +3422,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "check": "pass",
     })
     entries += ssd_entries(ssd_errs, ssm)
-    print(json.dumps({"kernels": entries, f"{WHISPER_ARCH}_checkpoint": whisper["ckpt"]}),
-          flush=True)
+    print(json.dumps({"kernels": entries, f"{WHISPER_ARCH}_checkpoint": whisper["ckpt"],
+                      f"{WHISPER_ARCH}_dp": dp_summary(dp)}), flush=True)
 
 
 def free():
@@ -2928,8 +3463,9 @@ def main():
     free()
     whisper["ckpt"] = timed(f"{WHISPER_ARCH} checkpoint", phase_whisper_checkpoint)
     free()
+    dp = timed(f"{WHISPER_ARCH} data parallel", phase_whisper_dp)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -17,6 +17,12 @@ verifies every member served from a mirror. On a fleet the mirror exchange is
 a ring of sends across hosts; in one process it is a host-side copy, which
 keeps the semantics: the mirror is a distinct buffer that survives
 ``lose_group``.
+
+Under a data mesh each rank's tier holds that rank's own state (params whole,
+its ZeRO-1 moment slices, each member with its global index) and restores onto
+the layout it was saved on only: :meth:`restore` refuses a plan or mesh that
+``store.layout_diffs`` finds different (a remesh restores through the disk
+tier's ``restore_resharded``), as the reference's tier does.
 """
 
 from __future__ import annotations
@@ -27,8 +33,10 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from .store import (CorruptCheckpointError, _flatten_with_names, _host, _shape,
-                    _shard_meta, _verify, fill_tree)
+from repro_torch.core.sharding import local_index, train_state_specs
+from repro_torch.core.tree import named_leaves, stacked_shape
+from .store import (CorruptCheckpointError, _host, _plan_meta, _shard_meta, _verify,
+                    fill_tree, layout_diffs)
 
 
 class MemoryCheckpointTier:
@@ -43,26 +51,33 @@ class MemoryCheckpointTier:
         self.restore_seconds = 0.0    # last restore() wall time
         self.last_rebuild = 0         # members served from mirrors by the last restore
 
-    def save(self, step: int, tree: Any) -> None:
+    def save(self, step: int, tree: Any, *, plan=None, mesh=None) -> None:
         """Snapshot ``tree`` into the ring (a blocking host copy); the oldest
-        entry leaves when the ring is full."""
+        entry leaves when the ring is full. ``plan`` and ``mesh`` are recorded
+        as the disk tier records them; under a data mesh of more than one rank
+        ``tree`` is this rank's ZeRO-1 ``TrainState``."""
         t0 = time.perf_counter()
-        named = _flatten_with_names(tree)
+        named = named_leaves(tree)
+        specs = (train_state_specs(tree, mesh, plan) if mesh is not None and mesh.size > 1
+                 else None)
         primary: Dict[int, Dict[str, np.ndarray]] = {g: {} for g in range(self.groups)}
         shards: List[List[Dict[str, Any]]] = []
-        for i, (_, x) in enumerate(named):
+        for i, (name, x) in enumerate(named):
             a, dtype = _host(x)
             home = i % self.groups
             primary[home][f"a{i}"] = a
-            shards.append([dict(_shard_meta(f"a{i}", a, dtype), home=home)])
+            index = (local_index(specs[name], mesh.rank, mesh.size) if specs is not None
+                     else None)
+            shards.append([dict(_shard_meta(f"a{i}", a, dtype, index), home=home)])
         manifest = {
             "step": int(step),
             "names": [n for n, _ in named],
-            "shapes": [_shape(x) for _, x in named],
+            "shapes": [list(specs[n].shape if specs is not None else stacked_shape(x))
+                       for n, x in named],
             "dtypes": [m[0]["dtype"] for m in shards],
             "shards": shards,
-            "plan": None,
-            "mesh_axes": None,
+            "plan": _plan_meta(plan),
+            "mesh_axes": dict(mesh.shape) if mesh is not None else None,
             "time": time.time(),
         }
         mirror: Dict[int, Dict[str, np.ndarray]] = {g: {} for g in range(self.groups)}
@@ -122,16 +137,22 @@ class MemoryCheckpointTier:
             _verify(a, m, f"memory-tier shard {m['key']}")
         return a
 
-    def restore(self, tree_like: Any, step: Optional[int] = None,
+    def restore(self, tree_like: Any, step: Optional[int] = None, *, plan=None, mesh=None,
                 verify: bool = False) -> Tuple[int, Any]:
         """Restore into ``tree_like`` as the disk tier does (tensors refilled in
         place); returns (step, tree). Raises CorruptCheckpointError when the tier
-        cannot serve."""
+        cannot serve, and ValueError when ``plan``/``mesh`` differ from the
+        recorded layout (``layout_diffs``): a remesh goes through the disk
+        tier."""
         t0 = time.perf_counter()
         self.last_rebuild = 0
         e = self._entry(step)
         man = e["manifest"]
+        diffs = layout_diffs(man, plan, mesh)
+        if diffs:
+            raise ValueError(f"memory-tier layout mismatch (recorded != requested): {diffs}; "
+                             f"a remesh restores through the disk tier")
         arrays = [self._fetch(e, metas[0], verify) for metas in man["shards"]]
-        tree = fill_tree(tree_like, man, arrays)
+        tree = fill_tree(tree_like, man, arrays, mesh)
         self.restore_seconds = time.perf_counter() - t0
         return man["step"], tree

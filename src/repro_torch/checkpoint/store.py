@@ -1,4 +1,4 @@
-"""Checkpointing, single process (port of ``repro/checkpoint/store.py``).
+"""Checkpointing (port of ``repro/checkpoint/store.py``).
 
 A checkpoint is the reference's: one ``.npz`` per step holding one member per
 leaf (``a{i}``), plus a JSON manifest with the step, the leaf names, their
@@ -46,10 +46,23 @@ over PCIe. Without ``async_snapshot`` (or for a state not on the card)
 
 ``restore`` verifies every digest and copies each leaf into the live tensors
 of ``tree_like`` (``copy_``, onto their device and dtype), so autograd leaves
-stay leaves. The reference's elastic ``restore_resharded`` re-slices ZeRO-1
-moment shards onto another layout and comes with the data-parallel slice
-(ROADMAP A13.1). The fault-injection seams are no-ops until the
-fault-tolerance slice (A12).
+stay leaves.
+
+Under a data mesh with ZeRO-1 (``repro_torch.launch.mesh``,
+``core/sharding.py``) the format is the reference's for a state sharded over a
+data axis: rank 0 writes params once and each moment leaf as one member per
+rank, each with its global ``index`` in stacked coordinates, and the manifest
+records the plan's layout axes (``PLAN_LAYOUT_AXES``) and ``mesh_axes``
+(``{"data": n}``). Each rank's snapshot is the blocking host copy, and the
+other ranks send their moment slices to rank 0 inside ``save``, over the
+mesh's own gloo group: a synchronous gather, measured as ``gather_seconds``;
+the persist stays on rank 0's background thread. Every rank restores by
+reading whole leaves and taking its slices, so a restore onto another layout
+(``restore_resharded``: dp n to m, ZeRO stage 0 to 1 and back) is the same
+read. ``check_plan`` routes by the reference's rule: replay
+when the recorded layout is the requested one, else reshard when elastic,
+else an error. The fault-injection seams are no-ops until the fault-tolerance
+slice (A12).
 """
 
 from __future__ import annotations
@@ -66,6 +79,11 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+
+from repro_torch.core.sharding import (data_size, local_index, local_shape,
+                                       train_state_specs)
+from repro_torch.core.tree import named_leaves, stacked_shape
 
 
 class CorruptCheckpointError(IOError):
@@ -81,58 +99,93 @@ def _inject():
 
 
 # ---------------------------------------------------------------------------
-# the tree <-> named leaves, in the reference's layout
+# the layout axes a manifest records (the reference's store.py:95-145)
+
+# The reference's ParallelPlan layout axes, with each one's value on a plan
+# that lacks it: the port's plan has zero_stage of them and runs one device on
+# each of the others, so the manifest records those values and either
+# package compares them. The reference's PLAN_AXES also records impl and
+# schedule knobs for forensics; the port's plan has none of those.
+PLAN_LAYOUT_AXES = {"tp": 1, "cp": 1, "dp_shard": 1, "zero_stage": 1, "ep": 1, "pp": 1,
+                    "pp_layout": None}
 
 
-def _flatten_with_names(tree, prefix: str = "") -> List[Tuple[str, Any]]:
-    """(name, leaf) in the reference's flattening order. A leaf is a tensor, a
-    Python or numpy scalar, or, for a list of per-layer dicts, the list of its
-    layers' tensors at one path (stacked on a leading L dim when saved)."""
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        items = [(f, getattr(tree, f)) for f in tree._fields]
-    elif isinstance(tree, dict):
-        items = sorted(tree.items())
-    elif isinstance(tree, list):
-        per_layer = [_flatten_with_names(lp) for lp in tree]
-        names = [n for n, _ in per_layer[0]]
-        if any([n for n, _ in pl] != names for pl in per_layer):
-            raise ValueError(f"the layers under {prefix!r} differ in structure")
-        return [(prefix + n, [pl[j][1] for pl in per_layer]) for j, n in enumerate(names)]
-    else:
-        return [(prefix[:-1], tree)]
-    return [nl for k, v in items for nl in _flatten_with_names(v, f"{prefix}{k}/")]
+def _plan_meta(plan) -> Optional[Dict[str, Any]]:
+    if plan is None:
+        return None
+    meta = {k: getattr(plan, k, d) for k, d in PLAN_LAYOUT_AXES.items()}
+    # tuples (pp_layout) JSON-round-trip as lists; normalised here so the
+    # comparison in layout_diffs stays type-stable
+    return {k: list(v) if isinstance(v, tuple) else v for k, v in meta.items()}
 
 
-def _refill(tree, get, prefix: str = ""):
+def layout_diffs(manifest: Dict[str, Any], plan, mesh=None) -> Dict[str, Tuple[Any, Any]]:
+    """The layout axes on which a manifest and a requested plan/mesh differ:
+    {axis: (recorded, requested)}, empty when a replay is safe. Shared by
+    :meth:`CheckpointManager.check_plan` and ``MemoryCheckpointTier.restore``,
+    so both tiers route by the same rule (the reference's)."""
+    recorded = manifest.get("plan")
+    diffs: Dict[str, Tuple[Any, Any]] = {}
+    if recorded is not None and plan is not None:
+        want = _plan_meta(plan)
+        rec = dict(recorded)
+        # manifests written before ep became an integer degree recorded a bool:
+        # False is degree 1; True (GSPMD expert sharding) has no degree and never
+        # replays (Python would otherwise equate True == 1)
+        if isinstance(rec.get("ep"), bool):
+            rec["ep"] = 1 if rec["ep"] is False else "legacy-gspmd-ep"
+        diffs = {k: (rec[k], want[k]) for k in PLAN_LAYOUT_AXES
+                 if k in rec and k in want and rec[k] != want[k]}
+    rec_mesh = manifest.get("mesh_axes")
+    if mesh is not None and rec_mesh is not None:
+        want_mesh = {k: int(v) for k, v in dict(mesh.shape).items()}
+        if {k: int(v) for k, v in rec_mesh.items()} != want_mesh:
+            diffs["mesh_axes"] = (rec_mesh, want_mesh)
+    return diffs
+
+
+# ---------------------------------------------------------------------------
+# the tree <-> named leaves, in the reference's layout (core.tree.named_leaves)
+
+
+def _refill(tree, get, prefix: str = "", rank: Tuple[int, int] = (0, 1)):
     """``tree`` with every tensor overwritten in place (``copy_``) by
     ``get(name)`` and every scalar replaced by it; containers are rebuilt
-    around the same tensors, so autograd leaves stay leaves."""
+    around the same tensors, so autograd leaves stay leaves. A tensor that is
+    one data rank's slice of the leaf takes that slice (``_rank_slice``;
+    ``rank`` is (this rank, the data ranks))."""
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_refill(getattr(tree, f), get, f"{prefix}{f}/")
+        return type(tree)(*(_refill(getattr(tree, f), get, f"{prefix}{f}/", rank)
                             for f in tree._fields))
     if isinstance(tree, dict):
-        return {k: _refill(v, get, f"{prefix}{k}/") for k, v in tree.items()}
+        return {k: _refill(v, get, f"{prefix}{k}/", rank) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_refill(lp, lambda n, i=i: get(n)[i], prefix) for i, lp in enumerate(tree)]
+        return [_refill(lp, lambda n, i=i: get(n)[i], prefix, rank) for i, lp in enumerate(tree)]
     value = get(prefix[:-1])
     if isinstance(tree, torch.Tensor):
-        if tuple(value.shape) != tuple(tree.shape):
-            raise ValueError(f"{prefix[:-1]}: checkpoint shape {tuple(value.shape)} != "
-                             f"{tuple(tree.shape)}")
         with torch.no_grad():
-            tree.copy_(value)
+            tree.copy_(_rank_slice(value, tuple(tree.shape), *rank, prefix[:-1]))
         return tree
     return type(tree)(value.item())
 
 
+def _rank_slice(value: torch.Tensor, shape: Tuple[int, ...], rank: int, n: int,
+                name: str) -> torch.Tensor:
+    """``value`` (a whole leaf) cut to rank ``rank``'s slice of ``n`` when
+    ``shape`` is such a slice: equal to ``value``'s shape but on one dim, which
+    is 1/n of it (``core.sharding.local_index``)."""
+    have = tuple(value.shape)
+    if have == shape:
+        return value
+    diff = [d for d, (h, w) in enumerate(zip(have, shape)) if h != w]
+    if len(have) != len(shape) or len(diff) != 1 or have[diff[0]] != shape[diff[0]] * n:
+        raise ValueError(f"{name}: checkpoint shape {have} != {shape}")
+    k = shape[diff[0]]
+    return value.narrow(diff[0], rank * k, k)
+
+
 def _stack(leaf) -> torch.Tensor:
     return torch.stack([t.detach() for t in leaf]) if isinstance(leaf, list) else leaf.detach()
-
-
-def _shape(leaf) -> List[int]:
-    if isinstance(leaf, list):
-        return [len(leaf)] + [int(d) for d in leaf[0].shape]
-    return [int(d) for d in (leaf.shape if isinstance(leaf, torch.Tensor) else np.shape(leaf))]
 
 
 def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
@@ -195,8 +248,11 @@ def _verify(a: np.ndarray, m: Dict[str, Any], what: str) -> None:
                                      f"{list(a.shape)} != {m['shape']}")
 
 
-def _shard_meta(key: str, a: np.ndarray, dtype: str) -> Dict[str, Any]:
-    return {"key": key, "index": [[0, int(d)] for d in a.shape],
+def _shard_meta(key: str, a: np.ndarray, dtype: str,
+                index: Optional[List[List[int]]] = None) -> Dict[str, Any]:
+    """A member's manifest entry; ``index`` is its slice of the leaf (the whole
+    of ``a`` by default)."""
+    return {"key": key, "index": index or [[0, int(d)] for d in a.shape],
             "checksum": _checksum(a), "crc32": _crc32(a), "dtype": dtype,
             "shape": [int(d) for d in a.shape]}
 
@@ -276,12 +332,14 @@ class CheckpointManager:
         self.io_timeout = io_timeout
         self._pending: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._fence = None                    # the mesh of a save not yet fenced
         self._stream = None                   # the side stream of the double buffer
         self._buffers: Tuple[Any, list, list] = (None, [], [])
         self.snapshot_seconds = 0.0           # main-thread stall of the last save
         self.fence_seconds = 0.0              # device time the main stream waits on (async)
         self.d2h_seconds = 0.0                # device -> host copy after the fence
         self.staged_bytes = 0                 # the state's bytes that take staging (async)
+        self.gather_seconds = 0.0             # moment slices to rank 0 (a data mesh)
         self.persist_seconds = 0.0
         self.bytes_written = 0                # the last checkpoint's npz
 
@@ -291,7 +349,7 @@ class CheckpointManager:
         """(pinned host buffers, device staging buffers) for the leaves: None
         for a scalar, and no staging for a leaf that does not fit (module
         docstring). Kept while the tree's layout stays the same."""
-        key = tuple((tuple(_shape(x)), _stack_dtype(x)) if isinstance(x, (torch.Tensor, list))
+        key = tuple((stacked_shape(x), _stack_dtype(x)) if isinstance(x, (torch.Tensor, list))
                     else None for x in leaves)
         if self._buffers[0] != key:
             self._buffers = (None, [], [])                # free the old ones first
@@ -307,48 +365,69 @@ class CheckpointManager:
             self.staged_bytes = sum(n for n, s in zip(sizes, stage) if s is not None)
         return self._buffers[1], self._buffers[2]
 
-    def save(self, step: int, tree: Any, blocking: bool = False) -> Path:
+    def save(self, step: int, tree: Any, blocking: bool = False, *, plan=None,
+             mesh=None) -> Path:
         """Snapshot, then persist on a background thread; returns the
         checkpoint path (sans suffix). With ``async_snapshot`` and a state on
         the card, the main thread only dispatches the double buffer (module
         docstring); otherwise the host copy is the stall. ``blocking=True``
-        does everything inline. Raises any failure of the previous save's
-        background work."""
+        does everything inline. ``plan`` and ``mesh`` are recorded in the
+        manifest: the layout ``check_plan`` routes by. Raises any failure of
+        the previous save's background work.
+
+        Under a data ``mesh`` of more than one rank every rank calls ``save``
+        with its ZeRO-1 ``TrainState`` (params whole, moments this rank's
+        slices): each copies its state to the host, the moment slices go to
+        rank 0 over ``mesh.host_group`` (both inline: the stall), and rank 0
+        alone persists, params once and each moment as its slices with their
+        global index, as the reference writes a leaf sharded over a data
+        mesh. ``wait`` is then a barrier of the ranks."""
         self.wait()
         t0 = time.perf_counter()
-        named = _flatten_with_names(tree)
+        named = named_leaves(tree)
         names = [n for n, _ in named]
         leaves = [x for _, x in named]
-        device = None
-        if self.async_snapshot and not blocking and _on_card(leaves):
+        shapes = [list(stacked_shape(x)) for x in leaves]
+        layout = {"plan": _plan_meta(plan),
+                  "mesh_axes": dict(mesh.shape) if mesh is not None else None}
+        path = self.dir / f"ckpt_{step:08d}"
+        device = host = None
+        if mesh is not None and mesh.size > 1:
+            shapes, host = self._gather_slices(tree, named, plan, mesh)
+            self._fence = mesh
+            if mesh.rank != 0:
+                return path
+        elif self.async_snapshot and not blocking and _on_card(leaves):
             if self._stream is None:
                 self._stream = torch.cuda.Stream()
             device = _DeviceSnapshot(leaves, *self._snapshot_buffers(leaves), self._stream)
-            host = None
         else:
-            host = [_host(x) for x in leaves]
+            host = [[(*_host(x), None)] for x in leaves]
             self.fence_seconds, self.d2h_seconds = 0.0, time.perf_counter() - t0
         self.snapshot_seconds = time.perf_counter() - t0
-        path = self.dir / f"ckpt_{step:08d}"
-        shapes = [_shape(x) for x in leaves]
 
         def snapshot_and_persist():
             nonlocal host
             if host is None:
-                host = device.host()
+                host = [[(a, dt, None)] for a, dt in device.host()]
                 self.fence_seconds, self.d2h_seconds = device.fence_seconds, device.d2h_seconds
             t1 = time.perf_counter()
-            arrays = {f"a{i}": a for i, (a, _) in enumerate(host)}
-            shards = [[_shard_meta(f"a{i}", a, dt)] for i, (a, dt) in enumerate(host)]
+            arrays, shards = {}, []
+            for i, parts in enumerate(host):
+                metas = []
+                for j, (a, dt, index) in enumerate(parts):
+                    key = f"a{i}" if len(parts) == 1 else f"a{i}_s{j}"
+                    arrays[key] = a
+                    metas.append(_shard_meta(key, a, dt, index))
+                shards.append(metas)
             manifest = {
                 "step": step,
                 "names": names,
                 "checksums": [m[0]["checksum"] for m in shards],
-                "dtypes": [dt for _, dt in host],
+                "dtypes": [parts[0][1] for parts in host],
                 "shapes": shapes,
                 "shards": shards,
-                "plan": None,
-                "mesh_axes": None,
+                **layout,
                 "time": time.time(),
             }
             self._persist_with_retry(step, path, arrays, manifest)
@@ -367,6 +446,47 @@ class CheckpointManager:
         else:
             snapshot_and_persist()
         return path
+
+    def _gather_slices(self, state, named, plan, mesh):
+        """The ZeRO-1 save's snapshot (``save``): this rank's leaves copied to
+        the host, checked against ``plan``'s layout, and on rank 0 every
+        rank's moment slices beside its own. Returns (the leaves' full shapes,
+        per leaf a list of (array, manifest dtype, global index or None))."""
+        if not hasattr(state, "params"):
+            raise ValueError("a save under a data mesh takes a TrainState")
+        specs = train_state_specs(state, mesh, plan)
+        n = mesh.size
+        t0 = time.perf_counter()
+        host, split = [], []
+        for name, x in named:
+            spec = specs[name]
+            if stacked_shape(x) != local_shape(spec, n):
+                raise ValueError(f"{name}: {stacked_shape(x)} is not a rank's slice "
+                                 f"{local_shape(spec, n)} of {spec.shape} under {mesh}")
+            a, dt = _host(x)
+            index = None if spec.dim is None else local_index(spec, mesh.rank, n)
+            host.append([(a, dt, index)])
+            if spec.dim is not None:
+                split.append(len(host) - 1)
+        self.fence_seconds, self.d2h_seconds = 0.0, time.perf_counter() - t0
+        t1 = time.perf_counter()
+        if split:
+            flat = torch.from_numpy(np.concatenate(
+                [host[i][0][0].reshape(-1).view(np.uint8) for i in split]))
+            got = [torch.empty_like(flat) for _ in range(n)] if mesh.rank == 0 else None
+            dist.gather(flat, got, dst=0, group=mesh.host_group)
+            if mesh.rank == 0:
+                off = 0
+                for i in split:
+                    a, dt, _ = host[i][0]
+                    spec = specs[named[i][0]]
+                    for r in range(1, n):
+                        b = got[r][off:off + a.nbytes].numpy().view(a.dtype).reshape(a.shape)
+                        host[i].append((b, dt, local_index(spec, r, n)))
+                    off += a.nbytes
+        self.gather_seconds = time.perf_counter() - t1
+        self.snapshot_seconds = time.perf_counter() - t0
+        return [list(specs[name].shape) for name, _ in named], host
 
     def _persist_once(self, step: int, path: Path, arrays, manifest) -> None:
         """One atomic attempt: the npz, then the manifest, each written to a
@@ -399,12 +519,17 @@ class CheckpointManager:
 
     def wait(self):
         """Completion fence: join the in-flight snapshot/persist and raise any
-        failure it hit."""
+        failure it hit. After a save under a data mesh it is a barrier of the
+        ranks (each calls it) that raises on every rank if rank 0's persist
+        failed."""
         if self._pending is not None:
             self._pending.join()
             self._pending = None
-        if self._error is not None:
-            err, self._error = self._error, None
+        err, self._error = self._error, None
+        mesh, self._fence = self._fence, None
+        if mesh is not None and mesh.barrier_error(err is not None) and err is None:
+            raise RuntimeError("background checkpoint persist failed on data rank 0")
+        if err is not None:
             raise RuntimeError(f"background checkpoint persist failed: {err!r}") from err
 
     def _is_intact(self, step: int) -> bool:
@@ -476,13 +601,20 @@ class CheckpointManager:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         return self._read_manifest(step)
 
-    def check_plan(self, plan, step: Optional[int] = None) -> str:
-        """How the checkpoint of ``step`` maps onto ``plan``: always
-        ``"replay"`` in one process, whose plan has no layout axes. Comparing
-        the recorded axes (and ``"reshard"``) comes with them, in the
-        data-parallel slice (ROADMAP A13.1)."""
-        self.manifest(step)
-        return "replay"
+    def check_plan(self, plan, step: Optional[int] = None, *, mesh=None,
+                   elastic: bool = False) -> str:
+        """Route a restore of ``step`` onto ``plan`` (and ``mesh``, when
+        given): ``"replay"`` when the recorded layout axes and mesh sizes are
+        the requested ones (``layout_diffs``); when they differ,
+        ``"reshard"`` with ``elastic`` (take :meth:`restore_resharded`) and a
+        ``ValueError`` without, since replaying a checkpoint onto another
+        layout unasked is the failure this check exists to refuse."""
+        diffs = layout_diffs(self.manifest(step), plan, mesh)
+        if not diffs:
+            return "replay"
+        if elastic:
+            return "reshard"
+        raise ValueError(f"checkpoint layout mismatch (recorded != requested): {diffs}")
 
     def _read_full(self, step: int, verify: bool) -> Tuple[Dict[str, Any], List[np.ndarray]]:
         """Every leaf as a full host array (uint16 bits for bf16), each member
@@ -519,35 +651,50 @@ class CheckpointManager:
             arrays.append(full)
         return manifest, arrays
 
-    def restore(self, tree_like: Any, step: Optional[int] = None,
-                verify: bool = True) -> Tuple[int, Any]:
+    def restore(self, tree_like: Any, step: Optional[int] = None, verify: bool = True, *,
+                mesh=None) -> Tuple[int, Any]:
         """Restore into ``tree_like``: every tensor overwritten in place on its
         device and in its dtype, the optimizer step replaced; returns (step,
-        tree). Raises CorruptCheckpointError on a failed digest."""
+        tree). Every leaf is read whole (its shards reassembled); under a data
+        ``mesh`` a tensor that is this rank's ZeRO-1 slice takes its slice.
+        Raises CorruptCheckpointError on a failed digest."""
         self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         manifest, arrays = self._read_full(step, verify)
-        return step, fill_tree(tree_like, manifest, arrays)
+        return step, fill_tree(tree_like, manifest, arrays, mesh)
 
-    def restore_resharded(self, *args, **kwargs):
-        raise NotImplementedError(
-            "restore_resharded re-slices ZeRO-1 moment shards onto another layout; it "
-            "comes with the data-parallel slice (ROADMAP A13.1). One process restores "
-            "with restore()")
+    def restore_resharded(self, tree_like: Any, step: Optional[int] = None,
+                          verify: bool = True, *, mesh=None, plan=None) -> Tuple[int, Any]:
+        """Elastic restore (survey §8.3.2) of a ``TrainState`` onto the layout
+        of ``plan`` over ``mesh`` (no mesh: one process), whatever layout the
+        checkpoint was written on: dp n to m (1 included) and ZeRO stage 0 to
+        1 and back. ``tree_like`` must already be laid out so
+        (``init_train_state(model, gen, mesh, plan)``); every leaf is read
+        whole and each rank takes its slices, as :meth:`restore` does."""
+        specs = train_state_specs(tree_like, mesh, plan)
+        n = data_size(mesh)
+        for name, x in named_leaves(tree_like):
+            if isinstance(x, (torch.Tensor, list)) and \
+                    stacked_shape(x) != local_shape(specs[name], n):
+                raise ValueError(f"{name}: {stacked_shape(x)} is not the layout of the "
+                                 f"requested plan and mesh, {local_shape(specs[name], n)}")
+        return self.restore(tree_like, step, verify, mesh=mesh)
 
 
-def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray]):
-    """``tree_like`` refilled from a manifest's leaves (``_refill``), after
-    checking that its names are the manifest's."""
-    names = [n for n, _ in _flatten_with_names(tree_like)]
+def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None):
+    """``tree_like`` refilled from a manifest's leaves (``_refill``; under a
+    data ``mesh`` this rank's slices), after checking that its names are the
+    manifest's."""
+    names = [n for n, _ in named_leaves(tree_like)]
     if names != manifest["names"]:
         raise ValueError("checkpoint tree structure mismatch: "
                          f"{sorted(set(names) ^ set(manifest['names']))[:5]}")
     by_name = dict(zip(names, zip(arrays, manifest["dtypes"])))
-    return _refill(tree_like, lambda n: _to_torch(*by_name[n]))
+    rank = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    return _refill(tree_like, lambda n: _to_torch(*by_name[n]), rank=rank)
 
 
 def _stack_dtype(leaf) -> torch.dtype:

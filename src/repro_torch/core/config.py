@@ -21,6 +21,12 @@ resolved by ``repro_torch.kernels.dispatch.select_gemm_impl``, and
 always keeps fp32: ``Model.init`` holds matrices, biases and embeddings in it
 (an SSM block's ``dt_bias``, ``A_log``, ``D`` and norm scale stay fp32).
 
+``ParallelPlan.zero_stage`` (0 or 1) is the reference's: under a data mesh
+(``repro_torch.launch.mesh.DataMesh``) stage 1 shards the AdamW moments over
+the data ranks (ZeRO-1, ``repro_torch.core.sharding.opt_state_specs``), stage 0
+keeps them whole on every rank. Without a mesh it changes nothing. The
+reference's ZeRO-3 ``dp_shard`` is not here (ROADMAP A13.7).
+
 ``RecoveryPolicy`` waits for the fault-tolerance slice.
 """
 
@@ -34,6 +40,7 @@ from .device import resolve_dtype
 ATTN_IMPLS = ("auto", "plain", "cuda")    # also the choices of moe_gemm_impl, ssm_impl
 MOE_DISPATCH_MODES = ("einsum", "scatter")
 REMAT_MODES = ("none", "full", "selective")
+ZERO_STAGES = (0, 1)
 
 
 class Family:
@@ -187,9 +194,9 @@ class ModelConfig:
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's parallel axes (tp, cp, pp, ep, dp_shard) and
-    ZeRO knobs come with the slices that implement them, so a plan cannot ask
-    for a placement the port would quietly ignore."""
+    defaults). The reference's other parallel axes (tp, cp, pp, ep, dp_shard)
+    come with the slices that implement them, so a plan cannot ask for a
+    placement the port would quietly ignore."""
     microbatches: int = 1          # grad-accumulation microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
                                    # or Mamba2 layer (train/executor.py)
@@ -208,6 +215,8 @@ class ParallelPlan:
                                    # reference always keeps fp32 masters; a
                                    # serving run asks for the compute dtype
                                    # (the same bits, half the memory).
+    zero_stage: int = 1            # 0: moments whole on every data rank, 1: sharded
+                                   # over the data ranks (ZeRO-1; module docstring)
 
     def validate(self, cfg: ModelConfig) -> None:
         for knob in ("attn_impl", "moe_gemm_impl", "ssm_impl"):
@@ -223,6 +232,9 @@ class ParallelPlan:
         if not isinstance(self.microbatches, int) or self.microbatches < 1:
             raise ValueError(f"microbatches must be an int >= 1, "
                              f"got {self.microbatches!r}")
+        if self.zero_stage not in ZERO_STAGES:
+            raise ValueError(f"zero_stage must be one of {ZERO_STAGES}, "
+                             f"got {self.zero_stage!r}")
         resolve_dtype(self.compute_dtype)            # raises on an unknown name
         resolve_dtype(self.param_dtype)
         if self.pad_vocab_to_multiple < 0:

@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.tree import leaves
+from repro_torch.core.tree import leaves, named_leaves
 
 
 def global_norm(tree):
@@ -13,10 +13,27 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None):
     """Scale every grad by min(1, max_norm / max(norm, 1e-12)), **in place**
-    (the reference returns a new tree). Returns (grads, norm)."""
-    norm = global_norm(grads)
+    (the reference returns a new tree). Returns (grads, norm).
+
+    Under a data ``mesh`` (ZeRO-1) ``grads`` holds this rank's slices by name
+    and ``specs`` says which leaves are split (``core.sharding``): the squares
+    of the slices are summed over the ranks, and a leaf kept whole, which every
+    rank holds the same, is counted once."""
+    if mesh is None:
+        norm = global_norm(grads)
+    else:
+        named = named_leaves(grads)
+        sq = torch.zeros(1, dtype=torch.float32, device=mesh.device)
+        for n, x in named:
+            if specs[n].dim is not None:
+                sq += x.float().square().sum()
+        sq = mesh.all_reduce_sum(sq)[0]
+        for n, x in named:
+            if specs[n].dim is None:
+                sq = sq + x.float().square().sum()
+        norm = torch.sqrt(sq)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
     for g in leaves(grads):
         g.copy_(g.float() * scale)

@@ -1,7 +1,17 @@
 """The port's checkpointing against the JAX reference's: one on-disk format both
 packages read (a port-written train state restores in the reference's
 ``CheckpointManager`` and the reverse, bit-exact), bf16 leaves, the integrity
-digests, the atomic persist, keep-K GC, the retry budget and the host-RAM tier."""
+digests, the atomic persist, keep-K GC, the retry budget and the host-RAM tier;
+and under ZeRO-1: a checkpoint written by 2 gloo ranks (CPU subprocesses)
+whose manifest holds the layout rule's slices and which the reference restores,
+the elastic ``restore_resharded`` between dp 1, 2 and 4 bit for bit, and the
+``check_plan``/RAM-tier routes on real layout mismatches. Ranks of another
+layout are played in this process by a mesh stand-in with a rank
+(``_RankMesh``): a restore runs no collective."""
+
+import dataclasses
+import functools
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -22,7 +32,8 @@ from repro_torch.checkpoint import (CheckpointManager, CorruptCheckpointError,
 from repro_torch.checkpoint import store
 from repro_torch.core import ParallelPlan as TorchPlan
 from repro_torch.core import get_smoke_config as torch_smoke_config
-from repro_torch.core.tree import leaves
+from repro_torch.core.sharding import local_index, opt_state_specs
+from repro_torch.core.tree import leaves, named_leaves
 from repro_torch.models import build_model as torch_build_model
 
 torch.set_num_threads(1)
@@ -61,7 +72,7 @@ def _ref_state(steps=1):
 def _port_named(state):
     """The port's state as the reference lays it out: {name: numpy array}."""
     out = {}
-    for name, leaf in store._flatten_with_names(state):
+    for name, leaf in named_leaves(state):
         if isinstance(leaf, int):
             out[name] = np.asarray(leaf, np.int32)
         else:
@@ -290,11 +301,14 @@ def test_staging_takes_leaves_while_they_fit(sizes, budget, want):
 
 
 def test_structure_mismatch_and_resharded_restore_raise(tmp_path):
+    """A tree of other names raises; so does ``restore_resharded`` onto a tree
+    that is not laid out for the requested plan and mesh (a one-process state
+    asked for dp 2). A checkpoint saved with no plan replays onto any plan."""
     mgr, state, _ = _saved(tmp_path)
     with pytest.raises(ValueError, match="structure"):
         mgr.restore(state.params)
-    with pytest.raises(NotImplementedError, match="A13.1"):
-        mgr.restore_resharded(state)
+    with pytest.raises(ValueError, match="layout"):
+        mgr.restore_resharded(state, mesh=_RankMesh(2, 0), plan=TorchPlan())
     assert mgr.check_plan(TorchPlan()) == "replay"
 
 
@@ -339,3 +353,192 @@ def test_memory_tier_verifies_a_mirror():
     next(iter(entry["mirror"][1].values()))[...] = 0          # the surviving copy
     with pytest.raises(CorruptCheckpointError, match="checksum"):
         mem.restore(_port_state(seed=1, steps=0))
+
+
+# -- ZeRO-1: checkpoints across data-parallel layouts --------------------------
+
+# one microbatch: SHAPE's 2 rows shard over dp 2, one row a rank
+DP_PLAN = TorchPlan(compute_dtype="float32", remat="none", microbatches=1)
+
+
+class _RankMesh:
+    """One rank of a data mesh of ``n``, without a process group: enough for
+    the layout rules, ``init_train_state`` and a restore, which run no
+    collective."""
+
+    def __init__(self, n, rank):
+        self.shape, self.size, self.rank = {"data": n}, n, rank
+
+
+def _dp_model():
+    return torch_build_model(torch_smoke_config(ARCH), DP_PLAN, device="cpu")
+
+
+def _dp_like(mesh, seed=1):
+    """A fresh ZeRO-1 state of ``mesh``'s rank (no mesh: one process)."""
+    return ttrain.init_train_state(_dp_model(), torch.Generator().manual_seed(seed), mesh,
+                                   DP_PLAN)
+
+
+def _ckpt_rank_main(rank, n, store_path, out_dir):
+    """A rank of the writer group: 2 ZeRO-1 steps of the whisper smoke config
+    at dp ``n``, a save of step 2, the rank's own state dumped beside it."""
+    from repro_torch.launch import init_data_mesh
+    torch.set_num_threads(1)
+    mesh = init_data_mesh("cpu", init_method=f"file://{store_path}", rank=rank, world_size=n)
+    model = _dp_model()
+    state = ttrain.init_train_state(model, torch.Generator().manual_seed(0), mesh, DP_PLAN)
+    step = ttrain.make_train_step(model, DP_PLAN, ttrain.Hyper(peak_lr=1e-3, warmup_steps=2),
+                                  mesh=mesh)
+    ds = SyntheticDataset(get_smoke_config(ARCH), InputShape(*SHAPE))
+    for i in range(2):
+        state, _ = step(state, {k: torch.from_numpy(v) for k, v in ds.batch(i).items()})
+    mgr = CheckpointManager(Path(out_dir) / "ckpt")
+    mgr.save(2, state, plan=DP_PLAN, mesh=mesh)
+    mgr.wait()
+    torch.save(_port_named(state), Path(out_dir) / f"rank{rank}.pt")
+    mesh.close()
+
+
+@pytest.fixture(scope="module")
+def zero1_ckpt(tmp_path_factory):
+    """(directory, {name: the whole leaf}, [each rank's own state by name]) of a
+    checkpoint written by 2 gloo ranks."""
+    from test_torch_dp import run_ranks
+    out = tmp_path_factory.mktemp("zero1")
+    child = ("import sys; sys.path[:0] = sys.argv[1:3]; import test_torch_checkpoint as t; "
+             "t._ckpt_rank_main(int(sys.argv[3]), int(sys.argv[4]), sys.argv[5], sys.argv[6])")
+    run_ranks(2, out, child, [], timeout=300)
+    ranks = [torch.load(out / f"rank{r}.pt", weights_only=False) for r in range(2)]
+    return out / "ckpt", _whole(ranks, 2), ranks
+
+
+@functools.lru_cache(maxsize=None)
+def _moment_specs(n):
+    return opt_state_specs(_dp_like(None).params, _RankMesh(n, 0), DP_PLAN)
+
+
+def _moment_spec(name, n=2):
+    """The layout rule's LeafSpec at dp ``n`` of a moment leaf ``opt/mu/...``."""
+    return _moment_specs(n)[name.split("/", 2)[2]]
+
+
+def _slice(name, n, r):
+    return tuple(slice(lo, hi) for lo, hi in local_index(_moment_spec(name, n), r, n))
+
+
+def _whole(ranks, n):
+    """The whole state from each rank's own (params and step from rank 0, the
+    moments assembled from their slices)."""
+    whole = {}
+    for name, a in ranks[0].items():
+        if name.startswith(("opt/mu/", "opt/nu/")):
+            full = np.zeros(_moment_spec(name).shape, a.dtype)
+            for r in range(n):
+                full[_slice(name, n, r)] = ranks[r][name]
+            whole[name] = full
+        else:
+            whole[name] = a
+    return whole
+
+
+def _rank_view(whole, n, r):
+    """Rank r of n's share of a whole state."""
+    return {k: a[_slice(k, n, r)] if k.startswith(("opt/mu/", "opt/nu/")) else a
+            for k, a in whole.items()}
+
+
+def test_zero1_manifest_holds_the_layout_rules_slices(zero1_ckpt):
+    """Params and the step once, each moment as one member per rank at the
+    rule's global index; the plan's layout axes and the mesh recorded."""
+    ckdir, whole, _ = zero1_ckpt
+    man = CheckpointManager(ckdir).manifest()
+    assert man["mesh_axes"] == {"data": 2} and man["plan"]["zero_stage"] == 1
+    assert man["plan"]["tp"] == man["plan"]["ep"] == 1
+    for name, shape, metas in zip(man["names"], man["shapes"], man["shards"]):
+        assert list(whole[name].shape) == shape
+        if name.startswith(("opt/mu/", "opt/nu/")):
+            spec = _moment_spec(name)
+            assert [m["index"] for m in metas] == [local_index(spec, r, 2) for r in range(2)]
+            assert spec.dim is not None
+        else:
+            assert len(metas) == 1 and metas[0]["index"] == [[0, d] for d in shape]
+
+
+def test_zero1_checkpoint_restores_in_the_reference(zero1_ckpt):
+    """The reference's CheckpointManager reassembles the ranks' slices into its
+    single-device TrainState, bit for bit."""
+    ckdir, whole, _ = zero1_ckpt
+    step, restored = RefManager(ckdir).restore(_ref_state(steps=0))
+    assert step == 2
+    theirs = dict(ref_store._flatten_with_names(restored))
+    assert list(theirs) == list(whole)
+    for name, a in whole.items():
+        b = np.asarray(theirs[name])
+        assert a.dtype == b.dtype and np.array_equal(a, b), name
+
+
+@pytest.mark.parametrize("src,dst,stage", [(2, 1, 1), (2, 2, 1), (2, 4, 1), (1, 2, 1),
+                                           (2, 2, 0)])
+def test_restore_resharded_is_bit_exact(zero1_ckpt, tmp_path, src, dst, stage):
+    """A ZeRO-1 checkpoint of dp ``src`` onto dp ``dst`` at ZeRO stage
+    ``stage`` (0: every rank holds the whole moments): every rank's state
+    equals its share of the saved one bit for bit; ``check_plan`` says
+    "replay" on the recorded layout and "reshard" elsewhere."""
+    ckdir, whole, _ = zero1_ckpt
+    plan = dataclasses.replace(DP_PLAN, zero_stage=stage)
+    mgr = CheckpointManager(ckdir)
+    if src == 1:                          # a one-process checkpoint of the same state
+        from repro_torch.launch import DataMesh
+        mgr = CheckpointManager(tmp_path)
+        _, state = CheckpointManager(ckdir).restore_resharded(_dp_like(None), plan=DP_PLAN)
+        mgr.save(2, state, blocking=True, plan=DP_PLAN, mesh=DataMesh())
+    for r in range(dst):
+        mesh = _RankMesh(dst, r) if dst > 1 else None
+        route = mgr.check_plan(plan, mesh=mesh or _RankMesh(1, 0), elastic=True)
+        assert route == ("replay" if (src, 1) == (dst, stage) else "reshard")
+        like = ttrain.init_train_state(_dp_model(), torch.Generator().manual_seed(1), mesh, plan)
+        _, back = mgr.restore_resharded(like, mesh=mesh, plan=plan)
+        got = _port_named(back)
+        want = _rank_view(whole, dst, r) if dst > 1 and stage else whole
+        assert list(got) == list(want)
+        for name, a in want.items():
+            assert got[name].dtype == a.dtype and np.array_equal(got[name], a), (name, r)
+
+
+@pytest.mark.parametrize("plan,mesh,axis", [
+    (dataclasses.replace(DP_PLAN, zero_stage=0), _RankMesh(2, 0), "zero_stage"),
+    (DP_PLAN, _RankMesh(4, 0), "mesh_axes"),
+])
+def test_check_plan_routes_a_layout_mismatch(zero1_ckpt, plan, mesh, axis):
+    """The reference's rule on a real mismatch with the recorded layout (ZeRO-1
+    at dp 2): refused without ``elastic``, "reshard" with it."""
+    mgr = CheckpointManager(zero1_ckpt[0])
+    assert mgr.check_plan(DP_PLAN, mesh=_RankMesh(2, 1)) == "replay"
+    with pytest.raises(ValueError, match=axis):
+        mgr.check_plan(plan, mesh=mesh)
+    assert mgr.check_plan(plan, mesh=mesh, elastic=True) == "reshard"
+    assert store.layout_diffs({"plan": {"ep": True}}, DP_PLAN) == {
+        "ep": ("legacy-gspmd-ep", 1)}
+    assert store.layout_diffs({"plan": {"ep": False}}, DP_PLAN) == {}
+
+
+def test_memory_tier_routes_by_the_recorded_layout(zero1_ckpt):
+    """The RAM tier holds a rank's own ZeRO-1 state and gives it back on the
+    same layout; another plan or mesh is refused (a remesh restores through
+    the disk tier)."""
+    ckdir, whole, ranks = zero1_ckpt
+    mesh = _RankMesh(2, 1)
+    _, state = CheckpointManager(ckdir).restore(_dp_like(mesh), mesh=mesh)
+    mem = MemoryCheckpointTier(keep=1, groups=2)
+    mem.save(2, state, plan=DP_PLAN, mesh=mesh)
+    entry = mem._entry(2)["manifest"]
+    assert entry["shards"][entry["names"].index("opt/nu/embed/tok")][0]["index"] == \
+        local_index(_moment_spec("opt/nu/embed/tok"), 1, 2)
+    _, back = mem.restore(_dp_like(mesh, seed=5), plan=DP_PLAN, mesh=mesh)
+    got = _port_named(back)
+    assert all(np.array_equal(got[n], a) for n, a in ranks[1].items())
+    for plan, other in ((DP_PLAN, _RankMesh(4, 1)),
+                        (dataclasses.replace(DP_PLAN, zero_stage=0), mesh)):
+        with pytest.raises(ValueError, match="layout mismatch"):
+            mem.restore(_dp_like(mesh), plan=plan, mesh=other)

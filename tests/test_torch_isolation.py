@@ -139,8 +139,18 @@ def test_plan_validates_attn_impl():
         ParallelPlan(attn_impl="xla").validate(cfg)
 
 
-@pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "zero_stage"])
+@pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "zero_stage", "dp_shard"])
 def test_plan_has_no_knob_the_port_does_not_implement(knob):
+    """A plan cannot ask for a placement the port would ignore: the axes of
+    later slices are not fields, and ``zero_stage`` (the data-parallel slice)
+    takes only the stages the port implements, 0 and 1."""
+    if knob == "zero_stage":
+        cfg = get_smoke_config("qwen2.5-14b")
+        for stage in (0, 1):
+            ParallelPlan(zero_stage=stage).validate(cfg)
+        with pytest.raises(ValueError, match=knob):
+            ParallelPlan(zero_stage=2).validate(cfg)
+        return
     with pytest.raises(TypeError, match=knob):
         ParallelPlan(**{knob: 2})
 
