@@ -99,7 +99,19 @@ prints its seconds):
    a save with free card memory for half the state restored bit for
    bit, the host-RAM tier restored after lose_group; stall, fence, copy to
    host, persist and restore times;
-13. whisper-small data parallel — ZeRO-1 on torch.distributed at full width
+13. whisper-small fault tolerance — each dispatcher's fault seam (B1 at the
+   encoder's shape, B4 and B5 at smoke shapes): unarmed, the undecorated call's
+   bits; armed with nan, one NaN at the index the CPU computes. Then full width
+   and depth under ``run_with_recovery`` (the training plan, the batch cut to
+   4 x 4096 tokens with 4 x 1500 frames): a clean run of 11 steps; the chaos
+   schedule (a spike x8 at step 5, kernel.attention NaN'd at 6 and 9, the
+   step-8 shard write dropped, a 4 s hang at 10), whose actions, 3 restores
+   and 1 corrupt checkpoint skipped are asserted, ending equal to the clean run
+   bit for bit; a run resumed from its last checkpoint with a real SIGTERM at
+   step 9 (just-in-time snapshot, PREEMPTED marker, flight dump) and a resume
+   that ends equal to the clean run bit for bit; B1/B2/B3 counted on every step of these runs (Hopper bodies); the
+   audit's cost;
+14. whisper-small data parallel — ZeRO-1 on torch.distributed at full width
    and depth (fp32 masters, bf16 compute, remat "full", ``Hyper()``): two rank
    processes (spawn) on the one card over gloo, the host transport (NCCL
    refuses two ranks on one device), the global batch of 8 x 4096 tokens with
@@ -118,9 +130,13 @@ prints its seconds):
    moment bytes each rank holds; a ZeRO-1 checkpoint saved at dp 2 (stall,
    gather, persist), restored at dp 2 ("replay") and onto one process
    (``restore_resharded``, "reshard", refused without ``elastic``), both bit
-   for bit, the resumed steps to 1e-6; then one NCCL rank at world size 1
+   for bit, the resumed steps to 1e-6; the integrity audit on every step
+   (0.0 on each rank, equal checksums), and the steps again under
+   ``run_with_recovery`` with rank 1's checksum bit-flipped at step 2: an sdc
+   rollback on both ranks from their RAM tiers, ending equal to the clean steps
+   bit for bit; then one NCCL rank at world size 1
    through the same step code against one device's step with 2 microbatches;
-14. times   — each kernel's time at its path's shapes beside its bound, its plain
+15. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -2573,7 +2589,8 @@ def phase_whisper_training():
         f"{peak / 1e9:.2f} GB")
     timed(f"{WHISPER_ARCH} train step profile", profile_window, f"{WHISPER_ARCH} train step",
           lambda: step(state, batches[-1]))
-    return {"launches": launches, "real_bwd": real_bwd, "real_fwd": real_fwd}
+    return {"launches": launches, "real_bwd": real_bwd, "real_fwd": real_fwd,
+            "step_ms": [t * 1e3 for t in times]}
 
 
 def host_named(tree):
@@ -2720,7 +2737,330 @@ def phase_whisper_checkpoint():
 
 
 # ---------------------------------------------------------------------------
-# data parallelism with ZeRO-1 (phase 13)
+# fault tolerance (phase 13): the seams, the chaos schedule and a preemption
+
+# whisper-small at full width and depth under run_with_recovery: the training
+# phase's plan with the batch cut to FT_BATCH x TRAIN_SEQ tokens (FT_BATCH x 1500
+# frames, TRAIN_MICRO microbatches), FT_STEPS steps, a checkpoint every FT_EVERY.
+# Each checkpoint of the 4.0 GB train state writes 4.0 GB to the machine's disk,
+# whose writes a call may not take past 45 GiB (deleted files count): the chaos
+# run's 11 steps save 4 (0, 4, the dropped 8, 8 again), and the preemption run
+# resumes from its last one, so the phase writes 5 and the script 10.
+FT_STEPS, FT_BATCH, FT_EVERY = 11, 4, 4
+# the chaos schedule (tests/test_chaos.py's single-process schedule without its
+# sdc entry, scaled to FT_STEPS): a train.step spike x8 at 5, kernel.attention
+# NaN'd on every call at 6 and 9, the step-8 shard write dropped (so the restore
+# at 9 skips it for 4), a host hang at 10 that must pass both the Monitor's
+# floor and 5x the median step (~0.27 s at this batch)
+FT_SPIKE_AT, FT_NAN_AT, FT_DROP_AT, FT_HANG_AT = 5, (6, 9), 8, 10
+FT_HANG_S, FT_HANG_MIN_S = 4.0, 2.5
+FT_ACTIONS = [(FT_SPIKE_AT, "spike", "rollback"), (FT_NAN_AT[0], "nan", "rollback"),
+              (FT_NAN_AT[1], "nan", "rollback"), (FT_HANG_AT, "hang", "ignore")]
+# a real SIGTERM during step 9 of a run resumed from the chaos run's step-8
+# checkpoint: the driver stops before step 10; the policy's default grace
+FT_PREEMPT_AT, FT_GRACE = 9, 30.0
+
+
+def ft_seam_checks():
+    """Each tainted dispatcher on the card: unarmed, the undecorated call's
+    bits (B1 at whisper's encoder shape, B4 and B5 at smoke shapes of their
+    case lists); armed with nan (every call), exactly one NaN, at the index the
+    CPU computes from the spec; every launch on its Hopper body."""
+    from repro_torch.ft import inject
+    from repro_torch.kernels import dispatch
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    b, hq, hkv, s, t, hd = WHISPER_CASES["encoder"][:6]
+    q, k, v = (batch_major(gen, b, h, n, hd, torch.bfloat16).transpose(1, 2)
+               for h, n in ((hq, s), (hkv, t), (hkv, t)))
+    x, w, _, gs = gemm_case_inputs(GEMM_CASES[6], torch.bfloat16, gen)
+    ssd_case = SSD_CASES[9]
+    xs, dt, A, B, C = (a.transpose(1, 2) if a.dim() > 1 else a
+                       for a in ssd_inputs(gen, ssd_case, torch.bfloat16))
+    seams = {
+        "kernel.attention": (dispatch.dispatch_attention, (q, k, v),
+                             dict(impl="cuda", causal=False)),
+        "kernel.expert_gemm": (dispatch.dispatch_expert_gemm, (x, w, gs), dict(impl="cuda")),
+        "kernel.ssd": (dispatch.dispatch_ssd_scan, (xs, dt, A, B, C),
+                       dict(chunk=ssd_case[6], impl="cuda")),
+    }
+    first = lambda o: o[0] if isinstance(o, tuple) else o          # noqa: E731
+    out = {}
+    for i, (point, (fn, args, kw)) in enumerate(seams.items()):
+        reset_counts()
+        raw = first(fn.__wrapped__(*args, **kw))
+        unarmed = first(fn(*args, **kw))
+        spec = inject.FaultSpec(point, "nan", step=3 + i, tick=None)
+        bad = first(inject.trace_with_faults(lambda: fn(*args, **kw), specs=[spec])())
+        torch.cuda.synchronize()
+        where = torch.isnan(bad).reshape(-1).nonzero().flatten().tolist()
+        want = spec.key() % raw.numel()
+        counts = all_counts() + ssd_counts()
+        check_bodies(f"seam {point}", counts)
+        launched = {"kernel.attention": counts[0], "kernel.expert_gemm": counts[3],
+                    "kernel.ssd": counts[5]}[point]
+        out[point] = {"unarmed_equal": torch.equal(raw, unarmed),
+                      "nan_at": where, "cpu_index": want, "launches": launched}
+        log(f"seam {point}: unarmed equal to the undecorated call {out[point]['unarmed_equal']}; "
+            f"armed nan at {where} (the CPU's index {want}); {launched} launches for the "
+            f"3 calls")
+        if not (out[point]["unarmed_equal"] and where == [want] and launched == 3
+                and not torch.isnan(raw).any()):
+            raise AssertionError(f"the {point} seam: {out[point]}")
+        del raw, unarmed, bad
+    return out
+
+
+def ft_counted(fn, calls):
+    """``fn`` counting its calls in ``calls["n"]``."""
+    def run(state, batch):
+        calls["n"] += 1
+        return fn(state, batch)
+    return run
+
+
+def ft_timed_restores(mgr, out):
+    """``mgr.restore`` recording (step asked, seconds) of every call in ``out``,
+    the corrupt checkpoints a fallback skips included."""
+    real = mgr.restore
+
+    def restore(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return real(*a, **kw)
+        finally:
+            out.append((kw.get("step"), time.perf_counter() - t0))
+    mgr.restore = restore
+    return mgr
+
+
+def ft_restore_readings(flight):
+    """Each restore of a flight log: its step, tier and the seconds from the
+    policy decision to the restored state (the time to recover, the wait for a
+    pending persist and the corrupt checkpoints skipped included)."""
+    out, decided = [], None
+    for e in flight.events:
+        if e["kind"] == "policy":
+            decided = e["t"]
+        elif e["kind"] == "restore" and decided is not None:
+            out.append({"step": e["step"], "tier": e["tier"], "s": e["t"] - decided})
+            decided = None
+    return out
+
+
+def ft_same(a, b):
+    """Whether two train states hold the same bits in every tensor (and the
+    same optimizer step)."""
+    from repro_torch.core.tree import leaves
+    return a.opt.step == b.opt.step and all(torch.equal(x, y) for x, y in zip(leaves(a.params) + leaves(a.opt.mu)
+                                                 + leaves(a.opt.nu),
+                                                 leaves(b.params) + leaves(b.opt.mu)
+                                                 + leaves(b.opt.nu)))
+
+
+def phase_whisper_ft():
+    """whisper-small at full width and depth through ``run_with_recovery``: the
+    seams (``ft_seam_checks``), a clean run of FT_STEPS steps, the chaos
+    schedule (FT_ACTIONS, 3 restores, 1 corrupt checkpoint skipped), which must
+    end equal to the clean run bit for bit, losses included; a run resumed
+    from the chaos run's last checkpoint with a real SIGTERM at FT_PREEMPT_AT
+    (a just-in-time snapshot on the tier ``choose_tier`` picks, the PREEMPTED
+    marker, a flight dump), then a resume in a fresh manager that consumes the
+    marker and ends equal to the clean run bit for bit; every
+    step's B1/B2/B3 launches counted on the Hopper bodies; then the audit's
+    cost: 3 steps with ``integrity="audit"`` against 3 without."""
+    import shutil
+    import signal
+    import tempfile
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import InputShape, ParallelPlan, RecoveryPolicy, get_config
+    from repro_torch.core.tree import map_tree
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.ft import FlightRecorder, Monitor, PreemptionGuard, run_with_recovery
+    from repro_torch.ft.inject import FaultSpec, armed, make_injector, trace_with_faults
+    from repro_torch.ft.integrity import audit
+    from repro_torch.ft.preempt import read_marker
+    from repro_torch.models import build_model
+    from repro_torch.train import Hyper, init_train_state, make_train_step
+
+    seams = ft_seam_checks()
+    cfg = get_config(WHISPER_ARCH)
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
+                        microbatches=TRAIN_MICRO)
+    log(f"fault tolerance: {WHISPER_ARCH} at full width and depth; cut: the batch "
+        f"{WHISPER_TRAIN_BATCH} -> {FT_BATCH} x {TRAIN_SEQ} tokens ({FT_BATCH} x "
+        f"{cfg.enc_frames} frames), {FT_STEPS} steps")
+    model = build_model(cfg, plan)
+    ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, FT_BATCH, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(FT_STEPS)]
+    fresh = lambda: init_train_state(model, torch.Generator(device="cuda").manual_seed(0))  # noqa: E731
+    calls = {"n": 0}
+    step = ft_counted(make_train_step(model, plan, Hyper()), calls)
+    attn_calls = cfg.enc_layers + 2 * cfg.n_layers
+    per_step = (2 * TRAIN_MICRO * attn_calls, TRAIN_MICRO * attn_calls,
+                TRAIN_MICRO * attn_calls, 0, 0)
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="ft_", dir=ROOT / "build"))
+    try:
+        reset_counts()
+        clean, losses, ms = fresh(), [], []
+        for i in range(FT_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clean, m = step(clean, batches[i])
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"clean run: {FT_STEPS} steps, {[round(x, 1) for x in ms]} ms, losses {losses}")
+
+        flight = FlightRecorder(maxlen=1024, path=str(tmp / "chaos_flight.json"))
+        disk_restores = []
+        ckpt = ft_timed_restores(CheckpointManager(tmp / "chaos", keep=3, async_snapshot=True),
+                                 disk_restores)
+        nan_twin = trace_with_faults(step, specs=[
+            FaultSpec("kernel.attention", "nan", step=FT_NAN_AT[0], tick=None)])
+        used = set()
+
+        def fault_step_fn(s):
+            if s in FT_NAN_AT and s not in used:
+                used.add(s)
+                return nan_twin
+            return None
+
+        injector = make_injector([
+            FaultSpec("train.step", "spike", step=FT_SPIKE_AT, scale=8.0),
+            FaultSpec("train.step", "hang", step=FT_HANG_AT, sleep_s=FT_HANG_S)])
+        t0 = time.perf_counter()
+        with armed([FaultSpec("ckpt.shard_write", "drop_write", step=FT_DROP_AT)]):
+            chaos, report = run_with_recovery(
+                fresh(), step, lambda s: batches[s], FT_STEPS, ckpt,
+                Monitor(min_history=4, hang_min_seconds=FT_HANG_MIN_S),
+                ckpt_every=FT_EVERY, plan=plan, fault_injector=injector,
+                fault_step_fn=fault_step_fn, policy=RecoveryPolicy(max_restores=8),
+                flight=flight)
+        chaos_s = time.perf_counter() - t0
+        chaos_calls = calls["n"] - FT_STEPS
+        restores = ft_restore_readings(flight)
+        chaos_ok = {
+            "actions": report.actions == FT_ACTIONS,
+            "restores": report.restores == 3,
+            "ckpt_fallbacks": report.ckpt_fallbacks == 1,
+            "ckpt_corrupt_noted": any(a.kind == "ckpt_corrupt" for a in report.anomalies),
+            "losses_bit_equal": report.losses == losses,
+            "state_bit_equal": ft_same(chaos, clean),
+        }
+        log(f"chaos run: actions {report.actions}, restores {report.restores}, fallbacks "
+            f"{report.ckpt_fallbacks}, anomalies {[(a.kind, a.step) for a in report.anomalies]}, "
+            f"{chaos_calls} steps run in {chaos_s:.1f} s; restores {restores}; disk reads "
+            f"{[(s, round(t, 2)) for s, t in disk_restores]}; checks {chaos_ok}")
+        del chaos
+
+        pflight = FlightRecorder(maxlen=256, path=str(tmp / "preempt_flight.json"))
+        pdir = tmp / "chaos"
+        pckpt = CheckpointManager(pdir, keep=3, async_snapshot=True, flight=pflight)
+        resumed_from = pckpt.latest_step()
+        if not resumed_from < FT_PREEMPT_AT:
+            raise AssertionError(f"the chaos run left step {resumed_from} to resume from")
+
+        def deliver(s, st):
+            if s == FT_PREEMPT_AT:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return st
+
+        quiet = lambda: Monitor(min_history=1000, hang_min_seconds=600.0)  # noqa: E731
+        t0 = time.perf_counter()
+        with PreemptionGuard(grace=FT_GRACE) as guard:
+            mid, prep = run_with_recovery(
+                fresh(), step, lambda s: batches[s], FT_STEPS, pckpt, quiet(),
+                ckpt_every=FT_EVERY, plan=plan, fault_injector=deliver, preempt=guard,
+                flight=pflight, resume=True)
+        preempt_s = time.perf_counter() - t0
+        marker = read_marker(pdir)
+        exit_s = time.time() - guard.at_time if guard.at_time else None
+        jit_s = pckpt.snapshot_seconds + pckpt.persist_seconds
+        resume_reads = []
+        resumed_ckpt = ft_timed_restores(CheckpointManager(pdir, keep=3, async_snapshot=True),
+                                         resume_reads)
+        t0 = time.perf_counter()
+        resumed, rrep = run_with_recovery(
+            mid, step, lambda s: batches[s], FT_STEPS, resumed_ckpt, quiet(),
+            ckpt_every=FT_EVERY, plan=plan, resume=True)
+        resume_s = time.perf_counter() - t0
+        preempt_ok = {
+            "preempted": prep.preempted and prep.preempt_step == FT_PREEMPT_AT + 1,
+            "marker": marker is not None and marker["step"] == FT_PREEMPT_AT + 1
+            and marker["signum"] == signal.SIGTERM,
+            "flight_dumped": prep.flight_path is not None and Path(prep.flight_path).exists(),
+            "marker_consumed": read_marker(pdir) is None,
+            "resumed_to_end": rrep.steps_done == FT_STEPS and not rrep.preempted,
+            "losses_bit_equal": (prep.losses[resumed_from:] + rrep.losses[FT_PREEMPT_AT + 1:]
+                                 == losses[resumed_from:]),
+            "state_bit_equal": ft_same(resumed, clean),
+        }
+        tier = marker["tier"] if marker else None
+        log(f"preemption: resumed from step {resumed_from}, SIGTERM during step "
+            f"{FT_PREEMPT_AT}, stopped at "
+            f"{prep.preempt_step}; the just-in-time snapshot on {tier}: {jit_s:.2f} s (stall "
+            f"{pckpt.snapshot_seconds:.2f} + persist {pckpt.persist_seconds:.2f}); signal to "
+            f"exit {exit_s:.2f} s (a pending persist's fence included); run {preempt_s:.1f} "
+            f"s; resume (disk reads {[(s, round(t, 2)) for s, t in resume_reads]}) "
+            f"{resume_s:.1f} s; checks {preempt_ok}")
+        del mid, resumed
+        total = calls["n"]
+        launches = all_counts()
+        want = tuple(total * c for c in per_step)
+        log(f"fault-tolerance runs: {total} steps, launches B1/B2/B3/B4 rows/B4 contract "
+            f"{launches} (expected {want})")
+        if launches != want:
+            raise AssertionError(f"the fault-tolerance runs launched {launches}, expected {want}")
+        check_bodies("whisper fault-tolerance runs", launches, "whisper_ft")
+
+        audit_plan = dataclasses.replace(plan, integrity="audit")
+        timing = {}
+        for name, p in (("off", plan), ("audit", audit_plan)):
+            st, ms_p = make_train_step(model, p, Hyper()), []
+            for i in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                clean, m = st(clean, batches[i])
+                float(m["loss"])
+                torch.cuda.synchronize()
+                ms_p.append((time.perf_counter() - t0) * 1e3)
+            timing[name] = ms_p
+        audit_div = float(m["integrity_div"])
+        grads = map_tree(lambda p: p.grad, clean.params)
+        audit_ms = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            int(audit(clean.params, grads)[0])
+            audit_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"audit, one process: steps off {[round(x, 1) for x in timing['off']]} ms, audit "
+            f"{[round(x, 1) for x in timing['audit']]} ms; the audit alone "
+            f"{[round(x, 2) for x in audit_ms]} ms; integrity_div {audit_div}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = {k: v for k, v in {**chaos_ok, **{f"preempt_{k}": v for k, v in preempt_ok.items()},
+                             "audit_div": audit_div == 0.0}.items() if not v}
+    if bad:
+        raise AssertionError(f"fault-tolerance phase: failed {sorted(bad)}")
+    return {
+        "batch": [FT_BATCH, TRAIN_SEQ], "steps": FT_STEPS, "seams": seams,
+        "clean_step_ms": ms, "clean_losses": losses,
+        "chaos": {"actions": report.actions, "restores": report.restores,
+                  "ckpt_fallbacks": report.ckpt_fallbacks, "steps_run": chaos_calls,
+                  "seconds": chaos_s, "restores_by_tier": restores,
+                  "disk_reads": disk_restores, "checks": chaos_ok},
+        "preempt": {"tier": tier, "preempt_step": prep.preempt_step, "seconds": preempt_s,
+                    "jit_snapshot_s": jit_s, "signal_to_exit_s": exit_s, "resume_s": resume_s,
+                    "resume_reads": resume_reads, "checks": preempt_ok},
+        "launches": launches, "audit": {"steps_off_ms": timing["off"],
+                                        "steps_audit_ms": timing["audit"],
+                                        "audit_alone_ms": audit_ms, "div": audit_div},
+    }
+
+
+# ---------------------------------------------------------------------------
+# data parallelism with ZeRO-1 (phase 14)
 
 # Two ranks on the one card. NCCL refuses two ranks on one device, so they
 # join a gloo group: the host transport (launch/mesh.py), every collective
@@ -2852,8 +3192,9 @@ def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
     first, if given) on ``mesh`` or on one device, under ``watch`` (a
     ZeroWatch), each step inside ``around(i)`` (a context manager), if given.
     Returns the state, the step and a dict of per-step ``loss`` and
-    ``grad_norm``, the first step's ``grads`` (from the watch) and the final
-    ``params`` by name on the host."""
+    ``grad_norm`` (and, under ``plan.integrity == "audit"``, ``integrity_div``
+    and ``integrity_checksum``), the first step's ``grads`` (from the watch)
+    and the final ``params`` by name on the host."""
     import contextlib
     from repro_torch.checkpoint import store
     from repro_torch.core.tree import named_leaves
@@ -2870,6 +3211,10 @@ def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
                 state, m = step(state, batch)
                 out["loss"].append(float(m["loss"]))
                 out["grad_norm"].append(float(m["grad_norm"]))
+                if "integrity_div" in m:
+                    out.setdefault("integrity_div", []).append(float(m["integrity_div"]))
+                    out.setdefault("integrity_checksum", []).append(
+                        int(m["integrity_checksum"]))
     out["grads"] = watch.grads if watch is not None else None
     out["params"] = {n: store._host(x)[0] for n, x in named_leaves(state.params)}
     return state, step, out
@@ -2877,7 +3222,8 @@ def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
 
 def dp_setup(microbatches):
     """whisper-small's full-width training model for the DP phase (fp32
-    masters, bf16 compute, remat "full", ZeRO-1, ``microbatches`` per rank) and
+    masters, bf16 compute, remat "full", ZeRO-1, the integrity audit on,
+    ``microbatches`` per rank) and
     DP_STEPS + 1 train_4k batches of WHISPER_TRAIN_BATCH sequences with their
     frames (the last for the checkpoint's resumed step)."""
     from repro_torch.core import InputShape, ParallelPlan, get_config
@@ -2885,7 +3231,7 @@ def dp_setup(microbatches):
     from repro_torch.models import build_model
     cfg = get_config(WHISPER_ARCH)
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
-                        microbatches=microbatches, zero_stage=1)
+                        microbatches=microbatches, zero_stage=1, integrity="audit")
     ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, WHISPER_TRAIN_BATCH, "train"))
     batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
                for i in range(DP_STEPS + 1)]
@@ -2951,6 +3297,63 @@ def dp_checked_microbatch(model, mesh, cfg, batch, what, out):
     return prepare
 
 
+DP_SDC_AT = 2                     # the step whose checksum rank 1 bit-flips
+
+
+def dp_sdc_run(model, plan, batches, mesh, clean, clean_opt, out_dir):
+    """The DP phase's steps again from seed 0 under ``run_with_recovery``, with
+    the integrity checksum's input bit-flipped on rank 1 only at DP_SDC_AT (a
+    rank-divergent value, as silent corruption makes): an ``sdc`` rollback on
+    both ranks, served by each rank's RAM tier (a snapshot every 2 steps; rank
+    1 loses its host group 0 first, so its restore rebuilds from the mirror).
+    The losses, params and moments must equal the clean run's (``clean``,
+    ``clean_opt``: ``zero1_run``'s results and its final moments) bit for bit."""
+    from repro_torch.checkpoint import CheckpointManager, MemoryCheckpointTier
+    from repro_torch.ft import FlightRecorder, Monitor, run_with_recovery
+    from repro_torch.ft.inject import FaultSpec, trace_with_faults
+    from repro_torch.train import Hyper, init_train_state, make_train_step
+    step = make_train_step(model, plan, Hyper(), mesh=mesh)
+    twin = trace_with_faults(step, specs=[FaultSpec(
+        "integrity.checksum", "bitflip", step=DP_SDC_AT, tick=None, rank=1, axis="data")])
+    mem = MemoryCheckpointTier(keep=1, groups=2)
+    done = set()
+
+    def fault_step_fn(s):
+        if s == DP_SDC_AT and "twin" not in done:
+            done.add("twin")
+            return twin
+        return None
+
+    def injector(s, st):
+        if s == DP_SDC_AT and mesh.rank == 1 and "lost" not in done:
+            done.add("lost")
+            mem.lose_group(0)
+        return st
+
+    flight = FlightRecorder(maxlen=256)
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), mesh, plan)
+    t0 = time.perf_counter()
+    final, report = run_with_recovery(
+        state, step, lambda s: batches[s], len(batches),
+        CheckpointManager(out_dir, keep=1), Monitor(min_history=1000, hang_min_seconds=600.0),
+        ckpt_every=len(batches) + 1, plan=plan, mesh=mesh, fault_injector=injector,
+        fault_step_fn=fault_step_fn, mem_ckpt=mem, mem_every=2, flight=flight)
+    seconds = time.perf_counter() - t0
+    got = host_named(final.params)
+    got_opt = host_named(final.opt)
+    out = {"actions": report.actions, "restores": report.restores,
+           "mem_restores": report.mem_restores, "seconds": seconds,
+           "restores_by_tier": ft_restore_readings(flight),
+           "ram_restore_s": mem.restore_seconds, "ram_rebuilt_members": mem.last_rebuild,
+           "ram_snapshot_s": mem.snapshot_seconds,
+           "losses_bit_equal": report.losses == clean["loss"],
+           "state_bit_equal": (all(np.array_equal(got[n], a) for n, a in clean["params"].items())
+                               and all(np.array_equal(got_opt[n], a)
+                                       for n, a in clean_opt.items()))}
+    log(f"dp rank {mesh.rank} sdc run: {out}")
+    return out
+
+
 def dp_rank(rank, init_method, out_dir):
     """One of the DP_RANKS processes of the DP phase, on cuda:0 over gloo:
     whisper-small at full width and depth under ZeRO-1, one microbatch of the
@@ -2968,6 +3371,7 @@ def dp_rank(rank, init_method, out_dir):
     from repro_torch.core import resolve_device
     from repro_torch.core.sharding import bytes_per_device, local_index, opt_state_specs
     from repro_torch.core.tree import leaves
+    from repro_torch.ft.integrity import audit
     from repro_torch.launch import DataMesh, init_data_mesh
     from repro_torch.train import init_train_state, make_train_step
     resolve_device()
@@ -2986,12 +3390,21 @@ def dp_rank(rank, init_method, out_dir):
                                 prepare=check, around=counter)
     peak = torch.cuda.max_memory_allocated()
     ospecs = opt_state_specs(state.params, mesh, plan)
+    clean_opt = host_named(state.opt)
+    audit_ms = []
+    for _ in range(3):                     # the step's audit alone: the moments' slices
+        torch.cuda.synchronize()           # stand in for the grads' (the same layout)
+        t0 = time.perf_counter()
+        int(audit(state.params, state.opt.mu, mesh, ospecs)[0])
+        audit_ms.append((time.perf_counter() - t0) * 1e3)
     held = sum(t.numel() * t.element_size() for which in (state.opt.mu, state.opt.nu)
                for t in leaves(which))
     out = {"rank": rank, "mesh": repr(mesh), **rec, **real, "peak_bytes": peak,
            "moment_bytes": held, "moment_bytes_rule": 2 * bytes_per_device(ospecs, mesh),
            "moment_bytes_whole": 2 * bytes_per_device(ospecs, None),
-           "loss": dp["loss"], "grad_norm": dp["grad_norm"], "shadow_err": watch.shadow_err}
+           "loss": dp["loss"], "grad_norm": dp["grad_norm"], "shadow_err": watch.shadow_err,
+           "integrity_div": dp["integrity_div"], "integrity_checksum": dp["integrity_checksum"],
+           "audit_ms": audit_ms}
     log(f"dp rank {rank}: steps {[round(x, 1) for x in rec['ms']]} ms, losses {dp['loss']}, "
         f"grad norms {dp['grad_norm']}, ZeRO-1 update against adamw_update on the same "
         f"whole grads {watch.shadow_err}")
@@ -3020,6 +3433,9 @@ def dp_rank(rank, init_method, out_dir):
     fresh, m = step(fresh, batches[DP_STEPS])
     out["resumed_dp2_rel"] = abs(float(m["loss"]) - loss_next) / abs(loss_next)
     del fresh, got
+    out["sdc"] = dp_sdc_run(model, plan, batches[:DP_STEPS], mesh, dp, clean_opt,
+                            Path(out_dir) / "sdc")
+    del clean_opt
 
     one = DataMesh(device=mesh.device)                    # dp 1: one process
     try:
@@ -3088,6 +3504,7 @@ def nccl_rank(init_method, out_dir):
     free()
     _, _, ref = zero1_run(model, plan, batches[:DP_STEPS], watch=ZeroWatch())
     out = {"mesh": repr(mesh), "seam_equal": bool(seam), **rec, "loss": dp["loss"],
+           "integrity_div": dp["integrity_div"],
            "grad_norm": dp["grad_norm"], "one_device_loss": ref["loss"],
            "one_device_grad_norm": ref["grad_norm"], "shadow_err": watch.shadow_err,
            "agree": dp_agreement(dp, ref),
@@ -3172,6 +3589,12 @@ def dp_report(ranks, nccl):
         f"{[(r['restore_dp2_bit_exact'], r['restore_dp1_bit_exact']) for r in ranks]}; "
         f"resumed steps {[r['resumed_dp2_rel'] for r in ranks]}, one device "
         f"{r0['resumed_dp1_rel']:.3e}")
+    for r in ranks:
+        log(f"dp rank {r['rank']}: integrity audit {r['integrity_div']} (checksums "
+            f"{r['integrity_checksum']}), the audit alone {[round(x, 2) for x in r['audit_ms']]} "
+            f"ms; sdc run: actions {r['sdc']['actions']}, restores {r['sdc']['restores_by_tier']}, "
+            f"RAM restore {r['sdc']['ram_restore_s']:.2f} s ({r['sdc']['ram_rebuilt_members']} "
+            f"members rebuilt), bit-equal {r['sdc']['state_bit_equal']}, {r['sdc']['seconds']:.1f} s")
     log(f"nccl ({nccl['mesh']}): seam {nccl['seam_equal']}, step {nccl['ms'][DP_WATCHED:]} ms, "
         f"all-reduce {nccl['all_reduce_ms'][DP_WATCHED:]} ms; losses {nccl['loss']} / "
         f"{nccl['one_device_loss']}, grad norms {nccl['grad_norm']} / "
@@ -3193,6 +3616,18 @@ def dp_report(ranks, nccl):
             bad.append(f"rank {r['rank']}: resumed step {r['resumed_dp2_rel']:.3e}")
         if r["moment_bytes"] != r["moment_bytes_rule"]:
             bad.append(f"rank {r['rank']}: moments {r['moment_bytes']} != rule")
+    for r in ranks:
+        if any(d != 0.0 for d in r["integrity_div"]):
+            bad.append(f"rank {r['rank']}: the audit read {r['integrity_div']} on a healthy run")
+        sdc = r["sdc"]
+        if not (sdc["actions"] == [[DP_SDC_AT, "sdc", "rollback"]] and sdc["restores"] == 1
+                and sdc["mem_restores"] == 1 and sdc["losses_bit_equal"]
+                and sdc["state_bit_equal"]):
+            bad.append(f"rank {r['rank']}: the sdc run {sdc}")
+    if any(r["integrity_checksum"] != r0["integrity_checksum"] for r in ranks[1:]):
+        bad.append("the ranks' integrity checksums differ")
+    if any(d != 0.0 for d in nccl["integrity_div"]):
+        bad.append(f"nccl: the audit read {nccl['integrity_div']}")
     if not r0["resumed_dp1_rel"] <= DP_REL:
         bad.append(f"one device's resumed step {r0['resumed_dp1_rel']:.3e}")
     if not nccl["seam_equal"]:
@@ -3208,7 +3643,8 @@ def dp_summary(dp):
     """The DP phase's numbers for the kernels line (``whisper-small_dp``)."""
     keys = ("ms", "reduce_scatter_ms", "all_gather_ms", "all_reduce_ms", "launches",
             "peak_bytes", "moment_bytes", "moment_bytes_whole", "save", "restore_dp2_s",
-            "restore_dp1_s", "resumed_dp2_rel", "shadow_err", "real_fwd_ulps", "real_bwd_ulps")
+            "restore_dp1_s", "resumed_dp2_rel", "shadow_err", "real_fwd_ulps", "real_bwd_ulps",
+            "integrity_div", "integrity_checksum", "audit_ms", "sdc")
     r0, nccl = dp["ranks"][0], dp["nccl"]
     return {
         "ranks": [{k: r[k] for k in keys} for r in dp["ranks"]],
@@ -3220,6 +3656,20 @@ def dp_summary(dp):
         "nccl_world_1": {k: nccl[k] for k in ("ms", "all_reduce_ms", "launches", "agree",
                                                "params_bit_identical", "shadow_err")},
         "phase_s": {"gloo_ranks": dp["gloo_s"], "nccl": dp["nccl_s"]},
+    }
+
+
+def ft_summary(whisper, dp):
+    """The fault-tolerance readings for the kernels line (``whisper-small_ft``):
+    the phase's, the DP ranks' audit and sdc run, and the training phase's step
+    time with the seams unarmed."""
+    ft = whisper["ft"]
+    return {
+        **ft,
+        "train_step_ms_seams_unarmed": whisper["train"]["step_ms"],
+        "dp_ranks": [{k: r[k] for k in ("rank", "integrity_div", "integrity_checksum",
+                                         "audit_ms", "sdc")} for r in dp["ranks"]],
+        "dp_nccl_integrity_div": dp["nccl"]["integrity_div"],
     }
 
 
@@ -3288,6 +3738,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_fill_cross": whisper["serve"]["fill_b1"],
                 "whisper_decode": whisper["serve"]["decode_b1"],
                 "whisper_train_step": whisper["train"]["launches"][0],
+                "whisper_ft": whisper["ft"]["launches"][0],
                 "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
                 "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0]}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
@@ -3340,6 +3791,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         by_path = {"train_step": count, "moe_train_step": moe_train[f"train_b{which + 2}"],
                    f"{HYBRID_ARCH}_train_step": hybrid_train[which + 1],
                    f"{WHISPER_ARCH}_train_step": whisper["train"]["launches"][which + 1],
+                   f"{WHISPER_ARCH}_ft": whisper["ft"]["launches"][which + 1],
                    f"{WHISPER_ARCH}_dp_train_step": sum(r["launches"][which + 1]
                                                         for r in dp["ranks"]),
                    f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1]}
@@ -3423,7 +3875,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
     })
     entries += ssd_entries(ssd_errs, ssm)
     print(json.dumps({"kernels": entries, f"{WHISPER_ARCH}_checkpoint": whisper["ckpt"],
-                      f"{WHISPER_ARCH}_dp": dp_summary(dp)}), flush=True)
+                      f"{WHISPER_ARCH}_dp": dp_summary(dp),
+                      f"{WHISPER_ARCH}_ft": ft_summary(whisper, dp)}), flush=True)
 
 
 def free():
@@ -3462,6 +3915,8 @@ def main():
     whisper["train"] = timed(f"{WHISPER_ARCH} training", phase_whisper_training)
     free()
     whisper["ckpt"] = timed(f"{WHISPER_ARCH} checkpoint", phase_whisper_checkpoint)
+    free()
+    whisper["ft"] = timed(f"{WHISPER_ARCH} fault tolerance", phase_whisper_ft)
     free()
     dp = timed(f"{WHISPER_ARCH} data parallel", phase_whisper_dp)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,

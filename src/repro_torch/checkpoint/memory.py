@@ -23,6 +23,10 @@ its ZeRO-1 moment slices, each member with its global index) and restores onto
 the layout it was saved on only: :meth:`restore` refuses a plan or mesh that
 ``store.layout_diffs`` finds different (a remesh restores through the disk
 tier's ``restore_resharded``), as the reference's tier does.
+
+``flight=`` (a ``FlightRecorder``) logs ``ckpt.persist`` with
+``tier="memory"``, ``mem.lost_group`` and ``mem.restore``, as the reference's
+tier does.
 """
 
 from __future__ import annotations
@@ -43,9 +47,10 @@ class MemoryCheckpointTier:
     """Host-RAM ring of the last ``keep`` snapshots, each member mirrored onto
     the next of ``groups`` logical host groups."""
 
-    def __init__(self, keep: int = 2, groups: int = 2):
+    def __init__(self, keep: int = 2, groups: int = 2, flight=None):
         self.keep = max(1, int(keep))
         self.groups = max(1, int(groups))
+        self.flight = flight          # a FlightRecorder, or None
         self._ring: deque = deque(maxlen=self.keep)
         self.snapshot_seconds = 0.0   # last save() wall time
         self.restore_seconds = 0.0    # last restore() wall time
@@ -87,6 +92,10 @@ class MemoryCheckpointTier:
                     {k: np.array(a, copy=True) for k, a in primary[g].items()})
         self._ring.append({"manifest": manifest, "primary": primary, "mirror": mirror})
         self.snapshot_seconds = time.perf_counter() - t0
+        if self.flight is not None:
+            self.flight.record("ckpt.persist", step, tier="memory",
+                               seconds=self.snapshot_seconds, groups=self.groups,
+                               mirrored=self.groups > 1)
 
     def steps(self, newest_first: bool = False) -> List[int]:
         out = sorted(e["manifest"]["step"] for e in self._ring)
@@ -118,6 +127,9 @@ class MemoryCheckpointTier:
             lost += len(e["primary"].get(g, {})) + len(e["mirror"].get(g, {}))
             e["primary"][g] = {}
             e["mirror"][g] = {}
+        if self.flight is not None:
+            self.flight.record("mem.lost_group", self.latest_step() or -1, group=int(g),
+                               shards_lost=lost)
         return lost
 
     def _fetch(self, e: Dict[str, Any], m: Dict[str, Any], verify: bool) -> np.ndarray:
@@ -155,4 +167,7 @@ class MemoryCheckpointTier:
         arrays = [self._fetch(e, metas[0], verify) for metas in man["shards"]]
         tree = fill_tree(tree_like, man, arrays, mesh)
         self.restore_seconds = time.perf_counter() - t0
+        if self.flight is not None:
+            self.flight.record("mem.restore", man["step"], rebuilt_shards=self.last_rebuild,
+                               seconds=self.restore_seconds)
         return man["step"], tree

@@ -61,8 +61,14 @@ reading whole leaves and taking its slices, so a restore onto another layout
 (``restore_resharded``: dp n to m, ZeRO stage 0 to 1 and back) is the same
 read. ``check_plan`` routes by the reference's rule: replay
 when the recorded layout is the requested one, else reshard when elastic,
-else an error. The fault-injection seams are no-ops until the fault-tolerance
-slice (A12).
+else an error.
+
+Fault seams (``repro_torch.ft.inject``): ``ckpt.persist`` fires per persist
+attempt (``hang``, ``persist_exc``), and ``ckpt.shard_write`` after the
+manifest lands (``drop_write`` deletes the npz, ``truncate_write`` cuts it in
+half: silent corruption the writer never sees). ``flight=`` (a
+``FlightRecorder``) logs ``ckpt.persist``, ``ckpt.persist_fail`` and
+``ckpt.gc_spared`` under the reference's event names.
 """
 
 from __future__ import annotations
@@ -93,9 +99,11 @@ class CorruptCheckpointError(IOError):
 
 
 def _inject():
-    """The fault-injection module: none until the fault-tolerance slice
-    (ROADMAP A12) wires its hooks in here."""
-    return None
+    """The fault-injection module, imported lazily: ``repro_torch.ft``'s
+    ``__init__`` imports ``ft.recovery``, which imports this module, so a
+    top-level import here would cycle (as in the reference)."""
+    from repro_torch.ft import inject  # noqa: PLC0415
+    return inject
 
 
 # ---------------------------------------------------------------------------
@@ -319,11 +327,13 @@ class _DeviceSnapshot:
 
 class CheckpointManager:
     def __init__(self, directory, keep: int = 3, async_snapshot: bool = False,
-                 io_retries: int = 3, io_backoff: float = 0.05, io_timeout: float = 30.0):
+                 io_retries: int = 3, io_backoff: float = 0.05, io_timeout: float = 30.0,
+                 flight=None):
         self.dir = Path(directory)
         self.dir.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.async_snapshot = async_snapshot
+        self.flight = flight                  # a FlightRecorder, or None
         # io_retries attempts with backoff io_backoff * 2^k, abandoned once the
         # cumulative wait would pass io_timeout; the last failure surfaces
         # through save()/wait()
@@ -432,6 +442,9 @@ class CheckpointManager:
             }
             self._persist_with_retry(step, path, arrays, manifest)
             self.persist_seconds = time.perf_counter() - t1
+            if self.flight is not None:
+                self.flight.record("ckpt.persist", step, tier="disk",
+                                   seconds=self.persist_seconds)
             self._gc()
 
         def background():
@@ -493,8 +506,7 @@ class CheckpointManager:
         temporary path and ``os.replace``d into place. A crash between the two
         leaves no manifest, so the step is never listed."""
         inj = _inject()
-        if inj is not None:
-            inj.io_fault("ckpt.persist", step)
+        inj.io_fault("ckpt.persist", step)
         tmp_npz = str(path) + ".tmp.npz"          # savez appends .npz itself
         np.savez(tmp_npz[:-4], **arrays)
         self.bytes_written = os.path.getsize(tmp_npz)
@@ -502,6 +514,14 @@ class CheckpointManager:
         tmp_json = Path(str(path) + ".json.tmp")
         tmp_json.write_text(json.dumps(manifest))
         os.replace(tmp_json, path.with_suffix(".json"))
+        sp = inj.io_spec_for("ckpt.shard_write", step, ("drop_write", "truncate_write"))
+        if sp is not None:
+            npz = Path(str(path) + ".npz")
+            if sp.kind == "drop_write":
+                npz.unlink(missing_ok=True)
+            else:
+                data = npz.read_bytes()
+                npz.write_bytes(data[:max(len(data) // 2, 1)])
 
     def _persist_with_retry(self, step: int, path: Path, arrays, manifest) -> None:
         """Up to ``io_retries`` attempts, delays ``io_backoff * 2^k``, within
@@ -511,8 +531,11 @@ class CheckpointManager:
         for attempt in range(1, self.io_retries + 1):
             try:
                 return self._persist_once(step, path, arrays, manifest)
-            except Exception:
+            except Exception as e:
                 if attempt >= self.io_retries or time.time() + delay > deadline:
+                    if self.flight is not None:
+                        self.flight.record("ckpt.persist_fail", step, attempts=attempt,
+                                           error=repr(e))
                     raise
                 time.sleep(delay)
                 delay *= 2
@@ -531,6 +554,12 @@ class CheckpointManager:
             raise RuntimeError("background checkpoint persist failed on data rank 0")
         if err is not None:
             raise RuntimeError(f"background checkpoint persist failed: {err!r}") from err
+
+    def leave_mesh(self) -> None:
+        """Forget the data mesh of a save not yet fenced, after that mesh's
+        group lost ranks (a remesh): the next :meth:`wait` joins this
+        process's own persist and runs no barrier on the old group."""
+        self._fence = None
 
     def _is_intact(self, step: int) -> bool:
         """The manifest parses, the npz opens and holds every recorded member
@@ -558,10 +587,14 @@ class CheckpointManager:
         if not any(self._is_intact(s) for s in steps[len(doomed):]):
             spare = next((s for s in reversed(doomed) if self._is_intact(s)), None)
         for s in doomed:
-            if s != spare:
-                old = self.dir / f"ckpt_{s:08d}.json"
-                old.unlink(missing_ok=True)
-                old.with_suffix(".npz").unlink(missing_ok=True)
+            if s == spare:
+                if self.flight is not None:
+                    self.flight.record("ckpt.gc_spared", s,
+                                       reason="newest_intact_keep_floor")
+                continue
+            old = self.dir / f"ckpt_{s:08d}.json"
+            old.unlink(missing_ok=True)
+            old.with_suffix(".npz").unlink(missing_ok=True)
 
     # -- restore ------------------------------------------------------------
 

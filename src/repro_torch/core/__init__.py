@@ -15,7 +15,9 @@ from .config import (
     ModelConfig,
     MoEConfig,
     ParallelPlan,
+    RECOVERY_ACTIONS,
     REMAT_MODES,
+    RecoveryPolicy,
     SSMConfig,
 )
 from .device import resolve_device, resolve_dtype
@@ -31,7 +33,9 @@ __all__ = [
     "ModelConfig",
     "MoEConfig",
     "ParallelPlan",
+    "RECOVERY_ACTIONS",
     "REMAT_MODES",
+    "RecoveryPolicy",
     "SSMConfig",
     "ARCH_IDS",
     "all_configs",

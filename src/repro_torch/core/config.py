@@ -27,7 +27,13 @@ the data ranks (ZeRO-1, ``repro_torch.core.sharding.opt_state_specs``), stage 0
 keeps them whole on every rank. Without a mesh it changes nothing. The
 reference's ZeRO-3 ``dp_shard`` is not here (ROADMAP A13.7).
 
-``RecoveryPolicy`` waits for the fault-tolerance slice.
+``ParallelPlan.integrity`` (``"off"`` | ``"audit"``) is the reference's
+silent-data-corruption audit: under ``"audit"`` the train step's metrics gain
+``integrity_checksum`` and ``integrity_div`` (``repro_torch.ft.integrity``).
+
+``RecoveryPolicy`` is the reference's anomaly -> action table for
+``repro_torch.ft.recovery.run_with_recovery``, with the same fields, defaults
+and ``validate()``.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ ATTN_IMPLS = ("auto", "plain", "cuda")    # also the choices of moe_gemm_impl, s
 MOE_DISPATCH_MODES = ("einsum", "scatter")
 REMAT_MODES = ("none", "full", "selective")
 ZERO_STAGES = (0, 1)
+INTEGRITY_MODES = ("off", "audit")
 
 
 class Family:
@@ -217,8 +224,15 @@ class ParallelPlan:
                                    # (the same bits, half the memory).
     zero_stage: int = 1            # 0: moments whole on every data rank, 1: sharded
                                    # over the data ranks (ZeRO-1; module docstring)
+    integrity: str = "off"         # "off" | "audit": the step's exact uint32
+                                   # checksum of the new params and clipped grads,
+                                   # cross-checked over the data ranks
+                                   # (ft/integrity.py; module docstring)
 
     def validate(self, cfg: ModelConfig) -> None:
+        if self.integrity not in INTEGRITY_MODES:
+            raise ValueError(
+                f"integrity must be off|audit, got {self.integrity!r}")
         for knob in ("attn_impl", "moe_gemm_impl", "ssm_impl"):
             if getattr(self, knob) not in ATTN_IMPLS:
                 raise ValueError(f"{knob} must be one of {ATTN_IMPLS}, "
@@ -240,6 +254,83 @@ class ParallelPlan:
         if self.pad_vocab_to_multiple < 0:
             raise ValueError(f"pad_vocab_to_multiple must be >= 0, "
                              f"got {self.pad_vocab_to_multiple}")
+
+
+# ---------------------------------------------------------------------------
+# Recovery policy (survey §8): what ft/recovery.run_with_recovery does per
+# anomaly kind reported by ft/anomaly.Monitor (the reference's table; see its
+# ``RecoveryPolicy`` for each action's full description).
+
+RECOVERY_ACTIONS = ("rollback", "lr_rescue", "remesh", "rebalance", "ignore")
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryPolicy:
+    """Anomaly -> action table for the recovery driver (survey §8.3).
+    ``"rollback"`` restores the latest intact checkpoint and replays;
+    ``"lr_rescue"`` rolls back and runs the bad step with the driver's
+    ``rescue_step`` (or skips its batch); ``"remesh"`` rebuilds the world
+    through the driver's ``remesh`` hook and reshard-restores;
+    ``"rebalance"`` re-partitions a pipeline's layers (needs a pipeline,
+    which the port's plan does not have yet, so it degrades as in the
+    reference); ``"ignore"`` logs and goes on."""
+    nan: str = "rollback"            # non-finite loss or grad norm
+    spike: str = "rollback"          # first loss spike at a step
+    repeated_spike: str = "lr_rescue"  # the same step spikes again after a rollback
+    hang: str = "ignore"             # slow or hung step (watchdog advisory by default)
+    sdc: str = "rollback"            # integrity-checksum divergence over the ranks
+    straggler: str = "ignore"        # fail-slow attribution (ft/straggler.py)
+    ckpt_io: str = "ignore"          # a persist that failed after its retries
+    max_restores: int = 3            # give up after this many restores
+    rescue_lr_scale: float = 0.1     # LR multiplier of an lr_rescue step
+    elastic: bool = True             # check_plan may route "reshard"
+    ckpt_memory_keep: int = 2        # RAM tier: snapshots kept (0 disables)
+    peer_redundancy: bool = True     # RAM tier: mirror each group (False refused)
+    preempt_grace: float = 30.0      # seconds between a preemption notice and the kill
+    flight_len: int = 256            # flight recorder ring capacity (events)
+    straggler_factor: float = 2.0    # slow when above factor x the baseline
+    straggler_window: int = 16       # observations kept per (section, rank)
+    straggler_confirm: int = 3       # consecutive slow observations to confirm
+    straggler_min_seconds: float = 5e-3   # absolute slowdown floor (seconds)
+
+    def validate(self) -> None:
+        for knob in ("nan", "spike", "repeated_spike", "hang", "sdc",
+                     "ckpt_io", "straggler"):
+            if getattr(self, knob) not in RECOVERY_ACTIONS:
+                raise ValueError(
+                    f"{knob} action must be one of {RECOVERY_ACTIONS}, "
+                    f"got {getattr(self, knob)!r}")
+        if self.max_restores < 0:
+            raise ValueError(f"max_restores must be >= 0, got {self.max_restores}")
+        if not 0.0 < self.rescue_lr_scale <= 1.0:
+            raise ValueError(
+                f"rescue_lr_scale must be in (0, 1], got {self.rescue_lr_scale}")
+        if self.ckpt_memory_keep < 0:
+            raise ValueError(
+                f"ckpt_memory_keep must be >= 0, got {self.ckpt_memory_keep}")
+        if not self.peer_redundancy:
+            raise ValueError(
+                "peer_redundancy=False: the port's RAM tier always mirrors each "
+                "group on its neighbour (ROADMAP A12)")
+        if self.preempt_grace <= 0.0:
+            raise ValueError(
+                f"preempt_grace must be > 0, got {self.preempt_grace}")
+        if self.flight_len < 1:
+            raise ValueError(
+                f"flight_len must be >= 1, got {self.flight_len}")
+        if self.straggler_factor <= 1.0:
+            raise ValueError(
+                f"straggler_factor must be > 1, got {self.straggler_factor}")
+        if self.straggler_window < 4:
+            raise ValueError(
+                f"straggler_window must be >= 4, got {self.straggler_window}")
+        if self.straggler_confirm < 1:
+            raise ValueError(
+                f"straggler_confirm must be >= 1, got {self.straggler_confirm}")
+        if self.straggler_min_seconds < 0.0:
+            raise ValueError(
+                f"straggler_min_seconds must be >= 0, "
+                f"got {self.straggler_min_seconds}")
 
 
 @dataclasses.dataclass(frozen=True)

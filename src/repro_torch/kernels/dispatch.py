@@ -36,22 +36,48 @@ Layout contract: model code is batch-major (B, S, H, hd), the kernel
 head-major. The dispatcher owns the transposes (views: the kernel reads and
 writes through strides) and, for the plain twin, the KV padding to the block
 boundary — never a silent fall-back to the quadratic path on unaligned lengths.
-The fault-injection seam of the reference (``_tainted``) comes with the
-fault-tolerance slice.
+
+Fault seams: each dispatcher's output passes a named fault point
+(``kernel.attention``, ``kernel.expert_gemm``, ``kernel.ssd``; ``_tainted``,
+``repro_torch.ft.inject``). Unarmed it costs one attribute read, launches
+nothing and copies nothing; armed, it corrupts what the chosen body returned
+and never changes which body runs.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from repro_torch.core.config import ATTN_IMPLS
+from repro_torch.ft import inject as _inject
 from repro_torch.models import layers as _layers
 from repro_torch.models.ssm import ssd_scan
 from .flash_attention import HEAD_DIMS, flash_attention
 from .grouped_gemm import expert_gemm
 from .ssd_scan import ssd_chunk_scan
+
+
+def _tainted(point: str):
+    """Route a dispatcher's primary output through the fault point ``point``
+    (a tuple return taints its first element): the identity while nothing is
+    armed, as the reference's seam is outside an armed trace."""
+    if point not in _inject.FAULT_POINTS:
+        raise ValueError(f"unknown fault point {point!r}")
+
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            if not _inject.CONTROLLER._specs:
+                return out
+            if isinstance(out, tuple):
+                return (_inject.taint(point, out[0]),) + out[1:]
+            return _inject.taint(point, out)
+        return wrapper
+    return deco
 
 
 def _resolve(impl: str, knob: str, device) -> str:
@@ -77,6 +103,7 @@ def select_impl(impl: str, *, head_dim: int, device) -> str:
     return "cuda"
 
 
+@_tainted("kernel.attention")
 def dispatch_attention(q, k, v, *, impl: str = "auto", causal: bool = True,
                        window: int = 0, softcap: float = 0.0, q_offset: int = 0,
                        block_size: int = 1024, scale: Optional[float] = None):
@@ -117,6 +144,7 @@ def select_gemm_impl(impl: str, *, device) -> str:
     return _resolve(impl, "moe_gemm_impl", device)
 
 
+@_tainted("kernel.expert_gemm")
 def dispatch_expert_gemm(x, w, group_sizes=None, *, impl: str = "auto"):
     """x: (E, C, d) x w: (E, d, f) -> (E, C, f); ``group_sizes`` (E,) marks the
     real rows per expert (padding rows are masked out of outputs and grads).
@@ -149,6 +177,7 @@ def select_ssd_impl(impl: str, *, device, has_initial_state: bool = False) -> st
     return choice
 
 
+@_tainted("kernel.ssd")
 def dispatch_ssd_scan(x, dt, A, B, C, *, chunk: int, impl: str = "auto",
                       initial_state=None):
     """Model layout: x (B, L, H, P), dt (B, L, H), A (H,), B/C (B, L, G, N).

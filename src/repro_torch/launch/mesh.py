@@ -97,6 +97,17 @@ class DataMesh:
             self._run("all_reduce", lambda o, _: dist.all_reduce(o, group=self.group), t, t)
         return t
 
+    def all_reduce_int(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """``t`` (contiguous int64, a few scalars: the integrity audit's
+        checksums) replaced in place by its ``op`` ("sum", "max" or "min")
+        over the ranks."""
+        red = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX,
+               "min": dist.ReduceOp.MIN}[op]
+        if self.group is not None:
+            self._run("all_reduce",
+                      lambda o, _: dist.all_reduce(o, op=red, group=self.group), t, t)
+        return t
+
     def all_reduce_mean(self, t: torch.Tensor) -> torch.Tensor:
         """``t`` (contiguous) replaced in place by its mean over the ranks."""
         return self.all_reduce_sum(t).div_(self.size)

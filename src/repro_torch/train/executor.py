@@ -27,13 +27,21 @@ layer as three pieces around its two attention calls.
 from __future__ import annotations
 
 import torch
-from torch.utils.checkpoint import checkpoint
+import torch.utils.checkpoint
 
 from repro_torch.core.config import Family, ModelConfig, ParallelPlan
+from repro_torch.ft.inject import remat_context
 from repro_torch.kernels.dispatch import dispatch_attention, dispatch_ssd_scan
 from repro_torch.models.layers import mlp_block, qkv_proj, rms_norm, rope
 from repro_torch.models.moe import moe_block
 from repro_torch.models.ssm import ssm_block, ssm_in_part, ssm_out_part
+
+
+def checkpoint(fn, *args):
+    """``fn(*args)`` under torch's non-reentrant checkpoint, its recompute
+    replaying the forward's fault-seam decisions (module docstring)."""
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             context_fn=remat_context)
 
 
 def _apply(remat: str, body, selective, *args):
@@ -44,7 +52,7 @@ def _apply(remat: str, body, selective, *args):
     if not torch.is_grad_enabled() or remat == "none":
         return body(*args)
     if remat == "full":
-        return checkpoint(body, *args, use_reentrant=False)
+        return checkpoint(body, *args)
     if remat == "selective":
         return selective(*args)
     raise ValueError(f"unknown remat mode {remat!r}")
@@ -105,8 +113,8 @@ def decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype,
         return out, aux, (k, v)
 
     def selective(x, lp, window, positions):
-        q, k, v = checkpoint(pre, x, lp, positions, use_reentrant=False)
-        out, aux = checkpoint(post, x, attend(q, k, v, window), lp, use_reentrant=False)
+        q, k, v = checkpoint(pre, x, lp, positions)
+        out, aux = checkpoint(post, x, attend(q, k, v, window), lp)
         return out, aux, (k, v)
 
     def layer(x, lp, window, positions):
@@ -143,9 +151,9 @@ def ssm_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
         return x + ssm_block(lp["ssm"], h, cfg, dtype, plan=plan)
 
     def selective(x, lp):
-        xh, dt, A, Bv, Cv, z = checkpoint(pre, x, lp, use_reentrant=False)
+        xh, dt, A, Bv, Cv, z = checkpoint(pre, x, lp)
         y, _ = dispatch_ssd_scan(xh, dt, A, Bv, Cv, chunk=cfg.ssm.chunk, impl=plan.ssm_impl)
-        return checkpoint(post, x, y, xh, z, lp, use_reentrant=False)
+        return checkpoint(post, x, y, xh, z, lp)
 
     def layer(x, lp, window=0, positions=None):
         del window, positions
@@ -178,8 +186,8 @@ def encoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
         return post(x, lp, attend(*pre(x, lp)))
 
     def selective(x, lp):
-        q, k, v = checkpoint(pre, x, lp, use_reentrant=False)
-        return checkpoint(post, x, lp, attend(q, k, v), use_reentrant=False)
+        q, k, v = checkpoint(pre, x, lp)
+        return checkpoint(post, x, lp, attend(q, k, v))
 
     def layer(x, lp):
         return _apply(plan.remat, body, selective, x, lp)
@@ -225,10 +233,9 @@ def cross_decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
         return post(x, lp, cross_attend(q, k, v))
 
     def selective(x, lp, enc_out):
-        q, k, v = checkpoint(pre, x, lp, use_reentrant=False)
-        x, q, k, v = checkpoint(mid, x, lp, enc_out, self_attend(q, k, v),
-                                use_reentrant=False)
-        return checkpoint(post, x, lp, cross_attend(q, k, v), use_reentrant=False)
+        q, k, v = checkpoint(pre, x, lp)
+        x, q, k, v = checkpoint(mid, x, lp, enc_out, self_attend(q, k, v))
+        return checkpoint(post, x, lp, cross_attend(q, k, v))
 
     def layer(x, lp, enc_out):
         return _apply(plan.remat, body, selective, x, lp, enc_out)

@@ -39,6 +39,12 @@ That code would stack every layer list's grads into one buffer per leaf name
 moments by name, stacked, a layout that every single-device caller and the
 reference-holding tests read per layer (``interop``, ``leaves``).
 
+``plan.integrity == "audit"`` adds the reference's silent-data-corruption
+audit to the metrics: ``integrity_checksum``, the exact uint32 checksum of the
+new params and the clipped grads, and ``integrity_div``, its spread over the
+data ranks (0.0 when every rank holds the same bits; ``ft/integrity.py``, which
+also says how the ZeRO-1 grad slices are counted).
+
 The MoE family raises under more than one rank: its capacity queues and the
 load-balancing aux are global over the batch in the reference, which
 per-rank routing would change (ROADMAP A13.4).
@@ -53,6 +59,7 @@ import torch
 from repro_torch.core.config import Family, ParallelPlan
 from repro_torch.core.sharding import LeafSpec, dim_first, opt_state_specs
 from repro_torch.core.tree import from_names, leaves, map_tree, named_leaves
+from repro_torch.ft.integrity import audit
 from repro_torch.launch.mesh import rank_microbatches
 from repro_torch.models.families import Model
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update, adamw_update_sharded,
@@ -160,6 +167,7 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
             aux += parts["moe_aux"].detach() / n
         lr = cosine_schedule(opt.step, hyper.peak_lr, hyper.warmup_steps,
                              hyper.total_steps)
+        specs = None
         if mesh is None:
             grads = map_tree(lambda p: p.grad, params)
             grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip)
@@ -174,6 +182,9 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
                                                specs=specs, weight_decay=hyper.weight_decay)
             loss, aux = mesh.all_reduce_mean(torch.stack([loss, aux]))
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "moe_aux": aux}
+        if plan.integrity == "audit":
+            metrics["integrity_checksum"], metrics["integrity_div"] = audit(
+                params, grads, mesh, specs)
         return TrainState(params, opt), metrics
 
     return train_step
