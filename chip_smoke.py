@@ -136,7 +136,23 @@ prints its seconds):
    rollback on both ranks from their RAM tiers, ending equal to the clean steps
    bit for bit; then one NCCL rank at world size 1
    through the same step code against one device's step with 2 microbatches;
-15. times   — each kernel's time at its path's shapes beside its bound, its plain
+15. tensor parallelism — the overlap rings (A13.2) on a (1, 2) grid: two rank
+   processes (spawn) on the one card over gloo (each ring tick through host
+   memory; no TP scaling or overlap is measured), 1 x 4096 tokens, bf16
+   compute, remat "full": qwen1.5-4b at full width on 8 of its 40 layers, 3
+   steps (B1/B2/B3 16/8/8 a rank a step at (1, 10, 4096, 128)),
+   deepseek-moe-16b at full width on 2 of 28 layers, one step (B4 18 rows + 6
+   contract a rank at d_expert 704), mamba2-370m at full width and depth, one
+   step (B5/B6 96/48 a rank at (1, 16, 4096, 64, 128)); on each rank's first
+   microbatch every kernel call held to its plain version on the rank's own
+   inputs (dq also to fp64); each family's losses against one device's on the
+   same weights and batches (readings), then one fp32 step of qwen1.5-4b at 2
+   layers held to one device's and to an fp64 evaluation by TP_TOLERANCE,
+   and its control (a bf16 partial sum in every row GEMM's ring), which must
+   fail the grads rule; step, ring tick and
+   all-reduce ms, peak memory and the launches by body; the kernels timed at
+   the sharded shapes. No checkpoint;
+16. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -149,7 +165,8 @@ prints its seconds):
    and training cross- and self-attention shapes; printed as one JSON line.
 
 On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode,
-training and data-parallel training) must run the Hopper body
+training, data- and tensor-parallel training; the fp32 TP step's B1 excepted)
+must run the Hopper body
 (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
@@ -3659,6 +3676,539 @@ def dp_summary(dp):
     }
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism (A13.2): the overlap rings on a (1, 2) grid
+#
+# Two rank processes (spawn) share the one card over gloo, as the DP phase's
+# do: every ring tick goes D2H, through gloo, then H2D. The phase proves the
+# rings and the kernels on the sharded shapes; it cannot measure TP scaling
+# or overlap. Each family runs from the same two processes: qwen1.5-4b at
+# full width on TP_LAYERS["dense"] of its 40 layers for TP_STEPS steps, then
+# one fp32 step at TP_FP32_LAYERS layers; deepseek-moe-16b at full width on 2
+# of its 28 layers and mamba2-370m at full width and depth, one step each;
+# 1 x 4096 tokens, bf16 compute, remat "full". Nothing is checkpointed.
+TP_RANKS = 2
+TP_STEPS = 3
+TP_FAMILIES = {"dense": (TRAIN_ARCH, 8), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, None)}
+TP_FP32_LAYERS = 2
+TP_CASES = {"dense": (1, 10, 10, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0),
+            "moe": (1, 8, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)}
+TP_FP64_FACTOR = 2.0              # a leaf past DP_REL: TP's distance from fp64 against one device's
+TP_TOLERANCE = ("the fp32 step at TP_FP32_LAYERS layers against one device's on the same weights "
+                "and batch: loss and grad norm to 1e-6 relative and each watched ZeRO-1 update "
+                "against adamw_update (DP_TOLERANCE); each rank's clipped grads to 1e-6 of each "
+                "leaf's max against its TP shard of one device's, and a leaf past that no "
+                "further from an fp64 evaluation of the step than TP_FP64_FACTOR (2) times one "
+                "device's distance plus 1e-6 of the leaf's max (one device's own fp32 grads sit "
+                "a few 1e-6 from fp64 at full width, and the rings add the sums they split in "
+                "another order: ROADMAP queue C, scripts/tp_fp32_probe.py). A control, one "
+                "partial sum of every row GEMM's ring rounded to bf16, must fail the grads rule. "
+                "The bf16 steps' loss and grads against one device are readings")
+
+
+@contextlib.contextmanager
+def fp64_eval():
+    """Within the block the port computes in fp64 where it would in fp32: the
+    compute dtype "float32" resolves to fp64, ``Tensor.float()`` (the model
+    code's upcasts) to ``double()``, and ``torch.einsum`` promotes an fp32
+    operand (the routing's one-hot tensors) to fp64, so one device's plain
+    path gives an fp64 evaluation of the same step (rope's fp32 frequencies
+    stay, as in every run)."""
+    from repro_torch.core import device
+    real = device.DTYPES["float32"], torch.Tensor.float, torch.einsum
+
+    def einsum(eq, *ops):
+        if any(o.dtype == torch.float64 for o in ops):
+            ops = [o.double() if o.is_floating_point() else o for o in ops]
+        return real[2](eq, *ops)
+    device.DTYPES["float32"], torch.Tensor.float = torch.float64, torch.Tensor.double
+    torch.einsum = einsum
+    try:
+        yield
+    finally:
+        device.DTYPES["float32"], torch.Tensor.float, torch.einsum = real
+
+
+def fp64_first_grads(cfg, params, batch, microbatches, hyper):
+    """The clipped grads of one device's step on ``batch`` from ``params``,
+    evaluated in fp64 on the plain path, by name (stacked host float64)."""
+    from repro_torch.core import ParallelPlan
+    from repro_torch.core.tree import leaves, map_tree, named_leaves
+    from repro_torch.models import build_model
+    from repro_torch.train import make_loss_fn
+    from repro_torch.train.step import _split_microbatches
+    plan = ParallelPlan(compute_dtype="float32", remat="none", attn_impl="plain",
+                        moe_gemm_impl="plain", ssm_impl="plain")
+    device = leaves(params)[0].device
+    with fp64_eval():
+        model = build_model(cfg, plan, device=device)
+        p64 = map_tree(lambda t: t.detach().double().requires_grad_(True), params)
+        loss_fn = make_loss_fn(model, hyper)
+        for mb in _split_microbatches(batch, microbatches):
+            (loss_fn(p64, mb)[0] / microbatches).backward()
+    grads = {n: (torch.stack([t.grad for t in x]) if isinstance(x, list) else x.grad)
+             for n, x in named_leaves(p64)}
+    del p64
+    norm = torch.sqrt(sum(g.square().sum() for g in grads.values()))
+    scale = torch.clamp(hyper.grad_clip / torch.clamp(norm, min=1e-12), max=1.0)
+    return {n: (g * scale).cpu().numpy() for n, g in grads.items()}
+
+
+def tp_grad_failures(shards, one, truth):
+    """The first step's clipped grads of the TP run (``shards[r]``: model rank
+    r's, by name) against one device's (``one``, whole) by TP_TOLERANCE's
+    grads rule, with ``truth`` the fp64 evaluation of one device's step (None:
+    every leaf past 1e-6 of its max fails): (failures, {leaf@rank: (error,
+    the TP run's and one device's distances from fp64)} for the leaves past
+    1e-6 that the rule admits), each number in units of the leaf's max."""
+    from repro_torch.core.sharding import tp_shard_of
+    bad, explained = [], {}
+    for name, g in one.items():
+        for r, shard in enumerate(shards):
+            ref = tp_shard_of(name, g, r, len(shards))
+            err = rel_err(shard[name], ref)
+            if err <= DP_REL:
+                continue
+            if truth is None:
+                bad.append(f"{name} on model rank {r}: {err:.3e} (no fp64 evaluation)")
+                continue
+            t = tp_shard_of(name, truth[name], r, len(shards))
+            mx = max(float(np.abs(t).max()), 1e-30)
+            reading = (err, float(np.abs(shard[name] - t).max()) / mx,
+                       float(np.abs(ref - t).max()) / mx)
+            if reading[1] <= TP_FP64_FACTOR * reading[2] + DP_REL:
+                explained[f"{name}@{r}"] = reading
+            else:
+                bad.append(f"{name} on model rank {r}: {reading}")
+    return bad, explained
+
+
+def tp_failures(agree, shadow_err, shards, one, truth):
+    """What breaks TP_TOLERANCE: ``dp_failures`` on the agreement numbers
+    (``tp_agreement``, or ``dp_agreement`` on one rank's shard) with the
+    grads rule of ``tp_grad_failures`` in place of its first_grads_rel; also
+    returns the leaves past 1e-6 that the rule admits."""
+    bad = [b for b in dp_failures(agree, shadow_err) if not b.startswith("first_grads_rel")]
+    grads_bad, explained = tp_grad_failures(shards, one, truth)
+    return bad + grads_bad, explained
+
+
+@contextlib.contextmanager
+def bf16_partial_sum():
+    """TP_TOLERANCE's control: within the block every row GEMM's ring
+    (``matmul_reduce_scatter``, as the executor calls it) adds this rank's own
+    partial product to its chunk rounded to bf16, a fault the grads rule must
+    catch. The rounding goes into the forward values only; the cotangents
+    pass as they would."""
+    from repro_torch.kernels.dispatch import dispatch_tp_matmul
+    from repro_torch.train import executor
+    real = executor.matmul_reduce_scatter
+
+    def rounded(ring, h, w):
+        out = real(ring, h, w)
+        s = out.shape[1]
+        own = dispatch_tp_matmul(h[:, ring.rank * s:(ring.rank + 1) * s], w)
+        return out + (own.to(torch.bfloat16).to(own.dtype) - own).detach()
+    executor.matmul_reduce_scatter = rounded
+    try:
+        yield
+    finally:
+        executor.matmul_reduce_scatter = real
+
+
+def tp_gather_to_rank0(named, grid):
+    """Every grid rank's ``named`` host arrays (the same names, shapes and
+    dtypes on each) on rank 0, in one flat gather over the grid's gloo host
+    group, as the checkpoint's grid save does: [rank 0's, rank 1's, ...]
+    there, None elsewhere."""
+    import torch.distributed as dist
+    names = sorted(named)
+    arrays = [np.ascontiguousarray(named[n]) for n in names]
+    flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a in arrays]))
+    got = [torch.empty_like(flat) for _ in range(grid.size)] if grid.rank == 0 else None
+    dist.gather(flat, got, dst=0, group=grid.host_group)
+    if grid.rank != 0:
+        return None
+    out = []
+    for buf in got:
+        parts, off = {}, 0
+        for n, a in zip(names, arrays):
+            parts[n] = buf[off:off + a.nbytes].numpy().view(a.dtype).reshape(a.shape)
+            off += a.nbytes
+        out.append(parts)
+    return out
+
+
+def tp_setup(family, layers=None, dtype="bfloat16", tp=TP_RANKS, steps=1):
+    """A family's full-width config (cut to ``layers`` layers where given), its
+    plan (fp32 masters, ``dtype`` compute, remat "full", one microbatch of 1 x
+    TRAIN_SEQ, ``tp``), the model and ``steps`` train_4k batches."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    arch, cut = TP_FAMILIES[family]
+    cfg = get_config(arch)
+    if layers or cut:
+        cfg = dataclasses.replace(cfg, n_layers=layers or cut)
+    plan = ParallelPlan(compute_dtype=dtype, param_dtype="float32", remat="full",
+                        microbatches=1, tp=tp)
+    ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, 1, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(steps)]
+    return cfg, plan, build_model(cfg, plan), batches
+
+
+def tp_taps(params):
+    """The SSM family's conv taps drawn at random (``random_conv_taps``), the
+    same on every rank and on one device (those leaves are whole on each)."""
+    random_conv_taps(params, torch.Generator(device="cuda").manual_seed(5))
+
+
+def tp_want(family, cfg):
+    """The launches of one step (one microbatch, remat full): B1, B2, B3, B4
+    rows, B4 contract, B5, B6."""
+    n = cfg.n_layers
+    if family == "ssm":
+        return (0, 0, 0, 0, 0, 2 * n, n)
+    b4 = (9 * n, 3 * n) if family == "moe" else (0, 0)
+    return (2 * n, n, n, *b4, 0, 0)
+
+
+def tp_checked_microbatch(family, cfg, plan, grid, batch, out, keep_dir):
+    """A ``prepare`` for ``zero1_run``: the rank's first microbatch through
+    the TP loss and its backward with every kernel call held to its plain
+    version on the rank's own inputs (B1 FlashFwdCapture; B2/B3
+    FlashBwdCapture, dq also to fp64; B4 GemmCapture; B5/B6 SSDCapture). B4's
+    first call and first dx/dw, and B5/B6's first calls, are saved under
+    ``keep_dir`` for the times at the sharded shapes."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import Hyper
+    from repro_torch.train.executor import make_executor_loss_fn
+
+    def prepare(params):
+        if family == "ssm":
+            tp_taps(params)
+        loss_fn = make_executor_loss_fn(cfg, plan, grid, z_loss=Hyper().z_loss)
+        what = f"{cfg.arch_id} tp rank {grid.rank} microbatch"
+        n = cfg.n_layers
+        if family == "ssm":
+            with SSDCapture() as ssd:
+                loss, _ = loss_fn(params, batch)
+                loss.backward()
+            out["real_ssd"] = ssd.summary(what)
+            if keep_dir is not None:
+                torch.save(ssd.kept, Path(keep_dir) / "tp_ssd.pt")
+        else:
+            with FlashBwdCapture(fp64=True) as bwd, FlashFwdCapture() as fwd, \
+                    GemmCapture(keep=(0,), backward=True) as gemm:
+                loss, _ = loss_fn(params, batch)
+                loss.backward()
+            out["real_fwd_ulps"] = fwd.summary(f"{what} (forward and recompute)", 2 * n)
+            out["real_bwd_ulps"] = bwd.summary(what, n)
+            if family == "moe":
+                out["real_gemm_ulps"] = gemm.summary(what)
+                if keep_dir is not None:
+                    torch.save({"tp_forward": gemm.kept[0], "tp_dx": gemm.kept["dx"],
+                                "tp_dw": gemm.kept["dw"]}, Path(keep_dir) / "tp_gemm.pt")
+        out["microbatch_loss"] = float(loss)
+        for p in leaves(params):
+            p.grad = None
+    return prepare
+
+
+def tp_step_counter(family, cfg, grid, rec):
+    """A context-manager factory for ``zero1_run``'s ``around``: each step's
+    wall time (synchronised), its ring seconds by kind (ticks, all-reduces;
+    the ring waits for the device around each) and the kernels' launches,
+    which must be ``tp_want``'s and all on the Hopper bodies."""
+    want = tp_want(family, cfg)
+
+    @contextlib.contextmanager
+    def around(i):
+        reset_counts()
+        grid.model.timed = True
+        before = dict(grid.model.seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("tick", "all_reduce"):
+            rec[f"{k}_ms"].append((grid.model.seconds[k] - before[k]) * 1e3)
+        launches = all_counts() + ssd_counts()
+        rec["launches"] = launches
+        if launches != want:
+            raise AssertionError(f"{cfg.arch_id} tp step {i} launched {launches}, "
+                                 f"expected {want}")
+        check_bodies(f"{cfg.arch_id} tp rank {grid.rank} step {i}", launches,
+                     f"tp_{family}_train_step")
+        rec["bodies"] = BODY_COUNTS[f"tp_{family}_train_step"]
+        grid.model.timed = False
+    return around
+
+
+def tp_family(family, grid, out_dir):
+    """One family on this rank: the checked microbatch, the TP steps (the
+    first one's grads kept), peak memory; then, on model rank 0 while rank 1
+    waits, one device's steps on the same weights and batches, and the
+    readings against it (the first step's grads for the dense family, over
+    both ranks' shards)."""
+    from repro_torch.core.tree import named_leaves
+    from repro_torch.models import build_model
+    steps = TP_STEPS if family == "dense" else 1
+    cfg, plan, model, batches = tp_setup(family, steps=steps)
+    rec = {"layers": cfg.n_layers, "ms": [], "tick_ms": [], "all_reduce_ms": []}
+    check = tp_checked_microbatch(family, cfg, plan, grid, batches[0], rec,
+                                  out_dir if grid.rank == 0 else None)
+    torch.cuda.reset_peak_memory_stats()
+    watch = ZeroWatch(steps=1)
+    state, _, run = zero1_run(model, plan, batches, grid, watch=watch, prepare=check,
+                              around=tp_step_counter(family, cfg, grid, rec))
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["params_per_rank"] = sum(x.numel() for _, leaf in named_leaves(state.params)
+                                 for x in (leaf if isinstance(leaf, list) else [leaf]))
+    rec.update(loss=run["loss"], grad_norm=run["grad_norm"])
+    log(f"tp rank {grid.rank} {cfg.arch_id} ({cfg.n_layers} layers): steps "
+        f"{[round(x, 1) for x in rec['ms']]} ms, ticks {[round(x, 1) for x in rec['tick_ms']]} "
+        f"ms, all-reduces {[round(x, 1) for x in rec['all_reduce_ms']]} ms, losses "
+        f"{run['loss']}, peak {rec['peak_bytes'] / 1e9:.2f} GB")
+    del state
+    free()
+    shards = tp_gather_to_rank0(watch.grads, grid) if family == "dense" else None
+    grid.barrier_error(False)
+    if grid.rank == 0:
+        one_plan = dataclasses.replace(plan, tp=1)
+        _, _, one = zero1_run(build_model(cfg, one_plan), one_plan, batches,
+                              watch=ZeroWatch(steps=1),
+                              prepare=tp_taps if family == "ssm" else None)
+        rel = lambda a, b: abs(a - b) / abs(b)                      # noqa: E731
+        rec["one_device"] = {"loss": one["loss"], "grad_norm": one["grad_norm"],
+                             "loss_rel": [rel(a, b) for a, b in zip(run["loss"], one["loss"])],
+                             "grad_norm_rel": [rel(a, b) for a, b in
+                                               zip(run["grad_norm"], one["grad_norm"])]}
+        if shards is not None:
+            rec["one_device"]["first_grads_rel"] = tp_agreement(
+                run, one, shards)["first_grads_rel"]
+        log(f"tp {cfg.arch_id} against one device: {rec['one_device']}")
+        free()
+    grid.barrier_error(False)
+    return rec
+
+
+def tp_fp32(grid):
+    """The dense family in fp32 at TP_FP32_LAYERS layers, one step, held to
+    one device's step on the same weights and batch by TP_TOLERANCE (on model
+    rank 0, after the TP step and its control, ``bf16_partial_sum``, which
+    must fail the grads rule). The step's kernel launches are counted (B1 on
+    its fp32 body); the control's are not."""
+    from repro_torch.models import build_model
+    from repro_torch.train import Hyper
+    cfg, plan, model, batches = tp_setup("dense", TP_FP32_LAYERS, "float32")
+    reset_counts()
+    watch = ZeroWatch(steps=1, shadow=True)
+    _, _, run = zero1_run(model, plan, batches, grid, watch=watch)
+    rec = {"layers": cfg.n_layers, "launches": all_counts(), "bodies": body_counts(),
+           "loss": run["loss"], "grad_norm": run["grad_norm"], "shadow_err": watch.shadow_err}
+    free()
+    control = ZeroWatch(steps=1)
+    with bf16_partial_sum():
+        zero1_run(model, plan, batches, grid, watch=control)
+    free()
+    shards = tp_gather_to_rank0(watch.grads, grid)
+    control_shards = tp_gather_to_rank0(control.grads, grid)
+    grid.barrier_error(False)
+    if grid.rank == 0:
+        one_plan = dataclasses.replace(plan, tp=1)
+        one_model = build_model(cfg, one_plan)
+        _, _, one = zero1_run(one_model, one_plan, batches, watch=ZeroWatch(steps=1))
+        params = one_model.init(torch.Generator(device="cuda").manual_seed(0))
+        truth = fp64_first_grads(cfg, params, batches[0], 1, Hyper())
+        del params
+        agree = tp_agreement(run, one, shards)
+        bad, explained = tp_failures(agree, watch.shadow_err, shards, one["grads"], truth)
+        control_bad, _ = tp_grad_failures(control_shards, one["grads"], truth)
+        if not control_bad:
+            bad.append("the control (a bf16 partial sum in every row GEMM's ring) passes the "
+                       "grads rule")
+        rec.update(agree=agree, failures=bad, explained=explained, one_device_loss=one["loss"],
+                   one_device_grad_norm=one["grad_norm"],
+                   dp_tolerance_met=not bad and not explained,
+                   control_failures=len(control_bad), control_first=control_bad[:3])
+        log(f"tp fp32 {cfg.arch_id} ({cfg.n_layers} layers) against one device: loss "
+            f"{run['loss']} / {one['loss']}, {agree}; DP_TOLERANCE met "
+            f"{rec['dp_tolerance_met']}; leaves past 1e-6 that the fp64 rule admits "
+            f"(error, TP's distance from fp64, one device's) {explained}; the control fails "
+            f"the rule on {len(control_bad)} leaf shards, first {control_bad[:3]}; "
+            f"failures {bad}")
+        free()
+    grid.barrier_error(False)
+    return rec
+
+
+def tp_agreement(run, one, shards):
+    """The first step of a TP run against one device's: loss and grad norm
+    relative, and the clipped grads (``shards``, every model rank's) against
+    the TP shards of one device's, in units of each leaf's max."""
+    from repro_torch.core.sharding import tp_shard_of
+    rel = lambda a, b: abs(a - b) / abs(b)                      # noqa: E731
+    return {"loss_rel_step0": rel(run["loss"][0], one["loss"][0]),
+            "grad_norm_rel_step0": rel(run["grad_norm"][0], one["grad_norm"][0]),
+            "first_grads_rel": max(rel_err(s[n], tp_shard_of(n, g, r, len(shards)))
+                                   for n, g in one["grads"].items()
+                                   for r, s in enumerate(shards))}
+
+
+def tp_rank(rank, init_method, out_dir):
+    """One of the TP_RANKS processes of the TP phase, on cuda:0 over gloo:
+    the three families (``tp_family``), then the fp32 check (``tp_fp32``).
+    Results go to ``out_dir/tp_rank{rank}.json``."""
+    from repro_torch.core import resolve_device
+    from repro_torch.launch import init_grid_mesh
+    resolve_device()
+    grid = init_grid_mesh(1, TP_RANKS, "cuda:0", backend="gloo", init_method=init_method,
+                          rank=rank)
+    log(f"tp rank {rank}: {grid}")
+    out = {"rank": rank, "mesh": repr(grid)}
+    for family in TP_FAMILIES:
+        t0 = time.perf_counter()
+        out[family] = tp_family(family, grid, out_dir)
+        out[family]["seconds"] = time.perf_counter() - t0
+        free()
+    out["fp32"] = tp_fp32(grid)
+    grid.close()
+    (Path(out_dir) / f"tp_rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_tp():
+    """The TP phase: TP_RANKS spawned ranks on the one card over gloo
+    (``tp_rank``); their results checked here, then the kernels timed at the
+    sharded shapes (B1-B3 at each attention family's, B4 and B5/B6 on rank
+    0's kept inputs). Every process is joined or killed before this returns."""
+    import multiprocessing
+    import shutil
+    import tempfile
+    ctx = multiprocessing.get_context("spawn")
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="tp_", dir=ROOT / "build")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=tp_rank, args=(r, f"file://{tmp}/store", tmp))
+                 for r in range(TP_RANKS)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=480)
+        codes = [p.exitcode for p in procs]
+        if codes != [0] * TP_RANKS:
+            raise AssertionError(f"the TP ranks exited with {codes}")
+        ranks_s = time.perf_counter() - t0
+        ranks = [json.loads((Path(tmp) / f"tp_rank{r}.json").read_text())
+                 for r in range(TP_RANKS)]
+        tp_report(ranks)
+        t0 = time.perf_counter()
+        times = tp_times(tmp)
+        times_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase TP: ranks {ranks_s:.1f} s, kernel times {times_s:.1f} s")
+    return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
+
+
+def tp_times(keep_dir):
+    """The kernels at the TP path's sharded shapes: B1 (fwd_times_at) and
+    B2/B3 (bwd_times_at, with the plain backward) at each attention family's
+    (1, H/2, 4096, 128); B4 (gemm_times) and B5/B6 (ssd_times) on rank 0's
+    kept inputs."""
+    from repro_torch.kernels import flash_attention as tf
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for family, case in TP_CASES.items():
+        fwd = fwd_times_at(case, gen)
+        bwd = bwd_times_at(case, gen)
+        q, k, v, do, lse, delta, kw = bwd.pop("inputs")
+        bwd["plain_ms"] = cuda_ms(lambda: tf.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                                      **kw), 3, warmup=1)
+        out[family] = {"fwd": fwd, "bwd": bwd}
+        del q, k, v, do, lse, delta
+        free()
+    out["gemm"] = gemm_times(torch.load(Path(keep_dir) / "tp_gemm.pt"))
+    free()
+    out["ssd"] = ssd_times(f"{SSM_ARCH} tp", torch.load(Path(keep_dir) / "tp_ssd.pt"))
+    free()
+    return out
+
+
+def tp_report(ranks):
+    """Log the TP phase's results and hold them to their checks: every
+    family's losses finite and equal on both ranks, the fp32 step by
+    TP_TOLERANCE; keep the launches by body for the kernels line."""
+    r0 = ranks[0]
+    bad = []
+    for family in TP_FAMILIES:
+        for r in ranks:
+            f = r[family]
+            log(f"tp {family} rank {r['rank']} ({r['mesh']}): steps {f['ms']} ms, ticks "
+                f"{f['tick_ms']} ms, all-reduces {f['all_reduce_ms']} ms (two ranks share one "
+                f"card and the rings go through host memory: no measure of TP scaling or "
+                f"overlap); peak {f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} "
+                f"B params a rank; launches {f['launches']} a step; bodies {f['bodies']}; on its "
+                f"own inputs {({k: f[k] for k in f if k.startswith('real_')})}; "
+                f"{f['seconds']:.1f} s")
+            if not all(np.isfinite(x) for x in f["loss"] + f["grad_norm"]):
+                bad.append(f"{family} rank {r['rank']}: a loss or grad norm is not finite")
+            if (f["loss"], f["grad_norm"]) != (r0[family]["loss"], r0[family]["grad_norm"]):
+                bad.append(f"{family}: rank {r['rank']} reports {f['loss']} / {f['grad_norm']}")
+        log(f"tp {family} against one device (readings): {r0[family]['one_device']}")
+        BODY_COUNTS[f"tp_{family}_train_step"] = {
+            k: sum(r[family]["bodies"][k] for r in ranks) for k in r0[family]["bodies"]}
+    fp32 = r0["fp32"]
+    bad += [f"fp32: {b}" for b in fp32["failures"]]
+    BODY_COUNTS["tp_dense_fp32_train_step"] = {
+        k: sum(r["fp32"]["bodies"][k] for r in ranks) for k in r0["fp32"]["bodies"]}
+    if bad:
+        raise AssertionError("TP phase: " + "; ".join(bad))
+
+
+def tp_summary(tp):
+    """The TP phase's numbers for the kernels line (``qwen1.5-4b_tp``)."""
+    ranks = tp["ranks"]
+    keys = ("ms", "tick_ms", "all_reduce_ms", "launches", "peak_bytes", "params_per_rank",
+            "loss", "grad_norm", "seconds")
+    return {
+        "grid": {"data": 1, "model": TP_RANKS},
+        "transport": "gloo, host copies (two ranks on one card); no measure of TP scaling",
+        "families": {family: {"arch": TP_FAMILIES[family][0],
+                              "layers": ranks[0][family]["layers"],
+                              "ranks": [{k: r[family][k] for k in keys} for r in ranks],
+                              "one_device": ranks[0][family]["one_device"],
+                              "real_inputs": {k: ranks[0][family][k] for k in ranks[0][family]
+                                              if k.startswith("real_")}}
+                     for family in TP_FAMILIES},
+        "fp32": {k: v for k, v in ranks[0]["fp32"].items() if k != "bodies"},
+        "tolerance": TP_TOLERANCE,
+        "phase_s": {"ranks": tp["ranks_s"], "kernel_times": tp["times_s"]},
+    }
+
+
+def tp_launches(tp, i, families=("dense", "moe", "ssm", "fp32")):
+    """One kernel's launches on the TP paths (``i``: its index in the
+    launches tuple, B1, B2, B3, B4 rows, B4 contract, B5, B6), summed over the
+    ranks, by window: {"tp_<family>_train_step": n} (the fp32 step as
+    "tp_dense_fp32_train_step"); only the windows where it launched."""
+    out = {}
+    for family in families:
+        n = sum(r[family]["launches"][i] if i < len(r[family]["launches"]) else 0
+                for r in tp["ranks"])
+        if n:
+            out["tp_dense_fp32_train_step" if family == "fp32" else f"tp_{family}_train_step"] = n
+    return out
+
+
 def ft_summary(whisper, dp):
     """The fault-tolerance readings for the kernels line (``whisper-small_ft``):
     the phase's, the DP ranks' audit and sdc run, and the training phase's step
@@ -3673,18 +4223,20 @@ def ft_summary(whisper, dp):
     }
 
 
-def ssd_entries(ssd_errs, ssm):
+def ssd_entries(ssd_errs, ssm, tp):
     """The kernels-line entries of B5 and B6. ``ssd_errs``: (the bf16 kernel
     checks at each path shape, the worst error of each Hopper pass); ``ssm``:
-    {arch: (serving, training)} results."""
+    {arch: (serving, training)} results; ``tp``: the TP phase's."""
     path_errs, pass_worst = ssd_errs
     by_path = {"ssd_fwd": {}, "ssd_bwd": {}}
-    windows = []
+    windows = ["tp_ssm_train_step"]
     for arch, (serve, train) in ssm.items():
         by_path["ssd_fwd"][f"{arch}_forward"] = serve["b5"]
         by_path["ssd_fwd"][f"{arch}_train_step"] = train["launches"][5]
         by_path["ssd_bwd"][f"{arch}_train_step"] = train["launches"][6]
         windows += [f"{arch}_forward", f"{arch}_train_step"]
+    by_path["ssd_fwd"].update(tp_launches(tp, 5, ("ssm",)))
+    by_path["ssd_bwd"].update(tp_launches(tp, 6, ("ssm",)))
     out = []
     for name, kind, line, i, names, tol in (
             ("ssd_fwd", "fwd", 79, 0, ("y", "enters", "state"), SSD_FWD_TOLERANCE),
@@ -3720,13 +4272,15 @@ def ssd_entries(ssd_errs, ssm):
             "shapes": {f"{arch}_{which}": r["times"][kind] for arch, pair in ssm.items()
                        for which, r in zip(("serving", "training"), pair)
                        if kind in r["times"]},
+            "tp_shape": tp["times"]["ssd"][kind],
+            "tp_real_inputs_worst": tp["ranks"][0]["ssm"]["real_ssd"],
             "check": "pass",
         })
     return out
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm, whisper, dp):
+                moe_train, ssd_errs, ssm, whisper, dp, tp):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -3740,7 +4294,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_train_step": whisper["train"]["launches"][0],
                 "whisper_ft": whisper["ft"]["launches"][0],
                 "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
-                "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0]}
+                "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0],
+                **tp_launches(tp, 0)}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -3779,6 +4334,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "library_ms": head["library_ms"],
         "library_covers": "SDPA's forward (o only) on the same q, k, v",
         "shapes": shapes,
+        "tp_shapes": {family: tp["times"][family]["fwd"] for family in TP_CASES},
+        "tp_real_inputs_max_err_bf16_ulps": max(r[family]["real_fwd_ulps"] for r in tp["ranks"]
+                                                for family in TP_CASES),
         "check": "pass",
     }]
     hybrid_train = ssm[HYBRID_ARCH][1]["launches"]
@@ -3794,7 +4352,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                    f"{WHISPER_ARCH}_ft": whisper["ft"]["launches"][which + 1],
                    f"{WHISPER_ARCH}_dp_train_step": sum(r["launches"][which + 1]
                                                         for r in dp["ranks"]),
-                   f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1]}
+                   f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1],
+                   **tp_launches(tp, which + 1)}
         hy = bt["hybrid"]
         wh = {}
         for n in ("encoder", "train_cross", "train_self"):
@@ -3838,14 +4397,27 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
             f"{WHISPER_ARCH}_real_inputs_max_err_bf16_ulps": max(
                 whisper["train"]["real_bwd"][1 - which],
                 *(r["real_bwd_ulps"][1 - which] for r in dp["ranks"])),
+            "tp_shapes": {family: {
+                "shape": list(case[:6]), "ms": tp["times"][family]["bwd"]["ms"][which],
+                "bound_ms": tp["times"][family]["bwd"]["bounds"][which][0],
+                "bound_by": tp["times"][family]["bwd"]["bounds"][which][1],
+                "plain_ms": tp["times"][family]["bwd"]["plain_ms"],
+                "whole_backward_ms": tp["times"][family]["bwd"]["whole_ms"],
+                "library_ms": tp["times"][family]["bwd"]["library_ms"]}
+                for family, case in TP_CASES.items()},
+            "tp_real_inputs_max_err_bf16_ulps": max(
+                r[family]["real_bwd_ulps"][1 - which] for r in tp["ranks"] for family in TP_CASES),
             "check": "pass",
         })
     gt = {**moe_serve["times"], **moe_train["times"]}
     head = gt["prefill"]
     decode_steps = moe_serve["decode_b4"]
     train_b4 = moe_train["train_b4_rows"] + moe_train["train_b4_contract"]
-    b4_bodies = launches_by_body("gg_", ("moe_prefill", "moe_decode", "moe_train_step"))
-    if sum(b4_bodies.values()) != moe_serve["prefill_b4"] + decode_steps + train_b4:
+    tp_b4 = tuple(tp_launches(tp, i).get("tp_moe_train_step", 0) for i in (3, 4))
+    b4_bodies = launches_by_body("gg_", ("moe_prefill", "moe_decode", "moe_train_step",
+                                         "tp_moe_train_step"))
+    if sum(b4_bodies.values()) != (moe_serve["prefill_b4"] + decode_steps + train_b4
+                                   + sum(tp_b4)):
         raise AssertionError(f"B4's launches by body {b4_bodies} do not add up to its "
                              f"launches by path")
     entries.append({
@@ -3853,12 +4425,14 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
         "replaces": "src/repro/kernels/grouped_gemm.py:50",
-        "launches": moe_serve["prefill_b4"] + decode_steps + train_b4,
+        "launches": moe_serve["prefill_b4"] + decode_steps + train_b4 + sum(tp_b4),
         "launches_by_path": {"prefill": moe_serve["prefill_b4"],
                              "decode_step": decode_steps // DECODE_STEPS,
                              f"decode_{DECODE_STEPS}_steps": decode_steps,
                              "train_step_rows": moe_train["train_b4_rows"],
-                             "train_step_contract": moe_train["train_b4_contract"]},
+                             "train_step_contract": moe_train["train_b4_contract"],
+                             "tp_moe_train_step_rows": tp_b4[0],
+                             "tp_moe_train_step_contract": tp_b4[1]},
         "launches_by_body": b4_bodies,
         "max_abs_err": gemm_errs[0],
         "max_err_bf16_ulps": gemm_errs[1],
@@ -3871,12 +4445,15 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "library_ms": head["library_ms"],
         "library_covers": "one torch.bmm on the row-masked inputs at the same shape",
         "shapes": gt,
+        "tp_shapes": tp["times"]["gemm"],
+        "tp_real_inputs_max_err_bf16_ulps": max(r["moe"]["real_gemm_ulps"] for r in tp["ranks"]),
         "check": "pass",
     })
-    entries += ssd_entries(ssd_errs, ssm)
+    entries += ssd_entries(ssd_errs, ssm, tp)
     print(json.dumps({"kernels": entries, f"{WHISPER_ARCH}_checkpoint": whisper["ckpt"],
                       f"{WHISPER_ARCH}_dp": dp_summary(dp),
-                      f"{WHISPER_ARCH}_ft": ft_summary(whisper, dp)}), flush=True)
+                      f"{WHISPER_ARCH}_ft": ft_summary(whisper, dp),
+                      f"{TRAIN_ARCH}_tp": tp_summary(tp)}), flush=True)
 
 
 def free():
@@ -3919,8 +4496,10 @@ def main():
     whisper["ft"] = timed(f"{WHISPER_ARCH} fault tolerance", phase_whisper_ft)
     free()
     dp = timed(f"{WHISPER_ARCH} data parallel", phase_whisper_dp)
+    free()
+    tp = timed("tensor parallel", phase_tp)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -60,7 +60,11 @@ class MemoryCheckpointTier:
         """Snapshot ``tree`` into the ring (a blocking host copy); the oldest
         entry leaves when the ring is full. ``plan`` and ``mesh`` are recorded
         as the disk tier records them; under a data mesh of more than one rank
-        ``tree`` is this rank's ZeRO-1 ``TrainState``."""
+        ``tree`` is this rank's ZeRO-1 ``TrainState``. A tensor-parallel grid
+        is not served here yet (ROADMAP A13.2): it raises."""
+        if mesh is not None and mesh.shape.get("model", 1) > 1:
+            raise NotImplementedError("the RAM tier under a tensor-parallel grid "
+                                      "(ROADMAP A13.2); save to the disk tier")
         t0 = time.perf_counter()
         named = named_leaves(tree)
         specs = (train_state_specs(tree, mesh, plan) if mesh is not None and mesh.size > 1

@@ -63,6 +63,17 @@ read. ``check_plan`` routes by the reference's rule: replay
 when the recorded layout is the requested one, else reshard when elastic,
 else an error.
 
+Under a (data, model) grid with tensor parallelism (``launch.mesh.GridMesh``)
+each rank holds its TP shards of the params and moments, the moments also cut
+to its ZeRO-1 slice over its data group. ``save`` gathers every rank's parts
+to global rank 0 over the grid's gloo ``host_group`` and rank 0 writes whole
+leaves, one member each, as the reference's file holds them; the manifest
+records the plan's ``tp`` and ``mesh_axes`` ``{"data": D, "model": M}``.
+``restore`` under the grid cuts each whole leaf to the rank's TP shard
+(``core.sharding.overlap_spec_for_param``) and then to its ZeRO-1 slice, so
+a restore at tp 1 (``restore_resharded`` onto one process) and at the saved
+grid read the same file.
+
 Fault seams (``repro_torch.ft.inject``): ``ckpt.persist`` fires per persist
 attempt (``hang``, ``persist_exc``), and ``ckpt.shard_write`` after the
 manifest lands (``drop_write`` deletes the npz, ``truncate_write`` cuts it in
@@ -87,9 +98,10 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.sharding import (data_size, local_index, local_shape,
-                                       train_state_specs)
+from repro_torch.core.sharding import (data_size, leaf_tp_dim, local_index, local_shape,
+                                       tp_shard_of, train_state_specs)
 from repro_torch.core.tree import named_leaves, stacked_shape
+from repro_torch.launch.mesh import model_size
 
 
 class CorruptCheckpointError(IOError):
@@ -110,8 +122,8 @@ def _inject():
 # the layout axes a manifest records (the reference's store.py:95-145)
 
 # The reference's ParallelPlan layout axes, with each one's value on a plan
-# that lacks it: the port's plan has zero_stage of them and runs one device on
-# each of the others, so the manifest records those values and either
+# that lacks it: the port's plan has tp and zero_stage of them and runs one
+# device on each of the others, so the manifest records those values and either
 # package compares them. The reference's PLAN_AXES also records impl and
 # schedule knobs for forensics; the port's plan has none of those.
 PLAN_LAYOUT_AXES = {"tp": 1, "cp": 1, "dp_shard": 1, "zero_stage": 1, "ep": 1, "pp": 1,
@@ -402,7 +414,12 @@ class CheckpointManager:
                   "mesh_axes": dict(mesh.shape) if mesh is not None else None}
         path = self.dir / f"ckpt_{step:08d}"
         device = host = None
-        if mesh is not None and mesh.size > 1:
+        if model_size(mesh) > 1:
+            shapes, host = self._gather_grid(tree, named, plan, mesh)
+            self._fence = mesh
+            if mesh.rank != 0:
+                return path
+        elif mesh is not None and mesh.size > 1:
             shapes, host = self._gather_slices(tree, named, plan, mesh)
             self._fence = mesh
             if mesh.rank != 0:
@@ -500,6 +517,40 @@ class CheckpointManager:
         self.gather_seconds = time.perf_counter() - t1
         self.snapshot_seconds = time.perf_counter() - t0
         return [list(specs[name].shape) for name, _ in named], host
+
+    def _gather_grid(self, state, named, plan, mesh):
+        """The save's snapshot under a grid (module docstring): this rank's
+        leaves copied to the host and sent to global rank 0, which places every
+        rank's parts into whole leaves. Returns (the whole shapes, per leaf
+        [(array, manifest dtype, None)], the arrays on rank 0 only)."""
+        if not hasattr(state, "params"):
+            raise ValueError("a save under a grid takes a TrainState")
+        specs = train_state_specs(state, mesh, plan)
+        t0 = time.perf_counter()
+        host = [_host(x) for _, x in named]
+        self.fence_seconds, self.d2h_seconds = 0.0, time.perf_counter() - t0
+        t1 = time.perf_counter()
+        flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a, _ in host]))
+        got = [torch.empty_like(flat) for _ in range(mesh.size)] if mesh.rank == 0 else None
+        dist.gather(flat, got, dst=0, group=mesh.host_group)
+        n_data, n_model = mesh.shape["data"], mesh.shape["model"]
+        shapes = [list(_grid_whole_shape(name, specs[name], n_model)) for name, _ in named]
+        out = None
+        if mesh.rank == 0:
+            out = []
+            for name, (a, dt), shape in zip((n for n, _ in named), host, shapes):
+                out.append([(np.zeros(shape, dtype=a.dtype), dt, None)])
+            for r in range(mesh.size):
+                d_idx, m_idx = divmod(r, n_model)
+                off = 0
+                for (name, _), (a, _), parts in zip(named, host, out):
+                    b = got[r][off:off + a.nbytes].numpy().view(a.dtype).reshape(a.shape)
+                    box = _grid_index(name, specs[name], d_idx, n_data, m_idx, n_model)
+                    parts[0][0][tuple(slice(lo, hi) for lo, hi in box)] = b
+                    off += a.nbytes
+        self.gather_seconds = time.perf_counter() - t1
+        self.snapshot_seconds = time.perf_counter() - t0
+        return shapes, out
 
     def _persist_once(self, step: int, path: Path, arrays, manifest) -> None:
         """One atomic attempt: the npz, then the manifest, each written to a
@@ -703,8 +754,9 @@ class CheckpointManager:
                           verify: bool = True, *, mesh=None, plan=None) -> Tuple[int, Any]:
         """Elastic restore (survey §8.3.2) of a ``TrainState`` onto the layout
         of ``plan`` over ``mesh`` (no mesh: one process), whatever layout the
-        checkpoint was written on: dp n to m (1 included) and ZeRO stage 0 to
-        1 and back. ``tree_like`` must already be laid out so
+        checkpoint was written on: dp n to m (1 included), ZeRO stage 0 to
+        1 and back, and a grid's tp to another (1 included: the file holds
+        whole leaves). ``tree_like`` must already be laid out so
         (``init_train_state(model, gen, mesh, plan)``); every leaf is read
         whole and each rank takes its slices, as :meth:`restore` does."""
         specs = train_state_specs(tree_like, mesh, plan)
@@ -719,15 +771,44 @@ class CheckpointManager:
 
 def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None):
     """``tree_like`` refilled from a manifest's leaves (``_refill``; under a
-    data ``mesh`` this rank's slices), after checking that its names are the
+    data ``mesh`` this rank's slices; under a grid its TP shards, then their
+    slices over its data group), after checking that its names are the
     manifest's."""
     names = [n for n, _ in named_leaves(tree_like)]
     if names != manifest["names"]:
         raise ValueError("checkpoint tree structure mismatch: "
                          f"{sorted(set(names) ^ set(manifest['names']))[:5]}")
     by_name = dict(zip(names, zip(arrays, manifest["dtypes"])))
+    n_model = model_size(mesh)
+    if n_model > 1:
+        return _refill(tree_like, lambda n: tp_shard_of(n, _to_torch(*by_name[n]),
+                                                        mesh.model.rank, n_model),
+                       rank=(mesh.data.rank, mesh.data.size))
     rank = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     return _refill(tree_like, lambda n: _to_torch(*by_name[n]), rank=rank)
+
+
+def _grid_whole_shape(name: str, spec, n_model: int) -> Tuple[int, ...]:
+    """The whole leaf's stacked shape from a rank's TP shard (``spec.shape``)."""
+    d = leaf_tp_dim(name, spec.shape)
+    shape = list(spec.shape)
+    if d is not None:
+        shape[d] *= n_model
+    return tuple(shape)
+
+
+def _grid_index(name: str, spec, d_idx: int, n_data: int, m_idx: int,
+                n_model: int) -> List[List[int]]:
+    """The box of the whole leaf that the grid rank (``d_idx``, ``m_idx``)
+    holds, as [[start, stop], ...] per stacked dim: its TP shard, then its
+    ZeRO-1 slice of that (``spec`` is the leaf's layout on the rank's
+    shards)."""
+    d = leaf_tp_dim(name, spec.shape)
+    index = local_index(spec, d_idx, n_data)
+    if d is not None:
+        base = m_idx * spec.shape[d]
+        index[d] = [base + index[d][0], base + index[d][1]]
+    return index
 
 
 def _stack_dtype(leaf) -> torch.dtype:

@@ -27,6 +27,14 @@ the data ranks (ZeRO-1, ``repro_torch.core.sharding.opt_state_specs``), stage 0
 keeps them whole on every rank. Without a mesh it changes nothing. The
 reference's ZeRO-3 ``dp_shard`` is not here (ROADMAP A13.7).
 
+``ParallelPlan.tp`` and ``tp_impl`` are the reference's tensor-parallel
+degree and mode (survey §4.1.2): ``tp`` > 1 on a (data, model) grid
+(``repro_torch.launch.mesh.GridMesh``) runs the overlap rings of
+``repro_torch.train.tensor_parallel``. ``tp_impl`` reads differently: ``"auto"``
+and ``"overlap"`` both run the rings (the reference resolves ``"auto"`` to
+``"gspmd"`` off the TPU); ``"gspmd"`` raises ``NotImplementedError``, since the
+port has no XLA partitioner to lay the model out (ROADMAP queue A).
+
 ``ParallelPlan.integrity`` (``"off"`` | ``"audit"``) is the reference's
 silent-data-corruption audit: under ``"audit"`` the train step's metrics gain
 ``integrity_checksum`` and ``integrity_div`` (``repro_torch.ft.integrity``).
@@ -48,6 +56,7 @@ MOE_DISPATCH_MODES = ("einsum", "scatter")
 REMAT_MODES = ("none", "full", "selective")
 ZERO_STAGES = (0, 1)
 INTEGRITY_MODES = ("off", "audit")
+TP_IMPLS = ("auto", "gspmd", "overlap")
 
 
 class Family:
@@ -198,12 +207,27 @@ class ModelConfig:
         return self.param_count() - inactive
 
 
+def check_tp_impl(impl: str) -> None:
+    """Refuse a ``tp_impl`` the port cannot run (module docstring)."""
+    if impl not in TP_IMPLS:
+        raise ValueError(f"tp_impl must be one of {TP_IMPLS}, got {impl!r}")
+    if impl == "gspmd":
+        raise NotImplementedError(
+            "tp_impl='gspmd': the port has no XLA partitioner to lay tensor "
+            "parallelism out; 'auto' and 'overlap' run the rings (ROADMAP queue A, "
+            "a blocking TP path)")
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's other parallel axes (tp, cp, pp, ep, dp_shard)
+    defaults). The reference's other parallel axes (cp, pp, ep, dp_shard)
     come with the slices that implement them, so a plan cannot ask for a
     placement the port would quietly ignore."""
+    tp: int = 1                    # tensor-parallel degree: the grid's model axis
+    tp_impl: str = "auto"          # "auto" | "overlap": the rings of
+                                   # train/tensor_parallel.py; "gspmd" raises
+                                   # (module docstring)
     microbatches: int = 1          # grad-accumulation microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
                                    # or Mamba2 layer (train/executor.py)
@@ -237,6 +261,9 @@ class ParallelPlan:
             if getattr(self, knob) not in ATTN_IMPLS:
                 raise ValueError(f"{knob} must be one of {ATTN_IMPLS}, "
                                  f"got {getattr(self, knob)!r}")
+        check_tp_impl(self.tp_impl)
+        if not isinstance(self.tp, int) or self.tp < 1:
+            raise ValueError(f"tp must be an int >= 1, got {self.tp!r}")
         if self.moe_dispatch not in MOE_DISPATCH_MODES:
             raise ValueError(f"moe_dispatch must be one of {MOE_DISPATCH_MODES}, "
                              f"got {self.moe_dispatch!r}")

@@ -10,7 +10,8 @@ fault point          where it fires
 ``ckpt.shard_write`` the npz on disk after a successful-looking write
                      (``drop_write`` / ``truncate_write``)
 ``train.step``       the recovery driver's loop, via :func:`make_injector`
-``tp.ring.tick``     overlap-TP ring payloads (the seam comes with A13.2)
+``tp.ring.tick``     overlap-TP ring payloads as each all-gather tick lands
+                     (``train/tensor_parallel.py``)
 ``cp.ring.kv``       ring-attention KV chunks (A13.3)
 ``cp.ring.state``    the SSD entering-state chain (A13.3)
 ``ep.a2a.tick``      the EP all-to-all ring payloads (A13.4)

@@ -9,6 +9,8 @@ layers and move the arrays. No transposes.
 
 The caller turns a JAX tree into numpy itself
 (``jax.tree.map(np.asarray, params)``); this module imports no JAX.
+:func:`tp_params_from_numpy` carries a whole JAX tree onto one model rank of a
+tensor-parallel grid: its TP shards (``core.sharding.shard_params``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from repro_torch.core.config import ModelConfig
 from repro_torch.core.device import resolve_device, resolve_dtype
+from repro_torch.core.sharding import shard_params
 from repro_torch.models.ssm import FP32_LEAVES
 
 
@@ -57,6 +60,14 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, *, device=None,
                     dtype=torch.float32 if _keeps_fp32(path) else dtype)
 
     return _unstack_layers(tree, {(): cfg.n_layers, ("encoder",): cfg.enc_layers}, leaf)
+
+
+def tp_params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, rank: int, tp: int, *,
+                         device=None, dtype="float32") -> Dict[str, Any]:
+    """Reference params (whole, as numpy) -> model rank ``rank``'s TP shards of
+    the port's params over ``tp`` model ranks: :func:`params_from_numpy`,
+    then the reference's overlap layout cut (``core.sharding.shard_params``)."""
+    return shard_params(params_from_numpy(tree, cfg, device=device, dtype=dtype), rank, tp)
 
 
 def params_to_numpy(params: Dict[str, Any], cfg: ModelConfig) -> Dict[str, Any]:

@@ -21,7 +21,9 @@ mode, dw in contract mode), ``ssd_chunk_scan`` the one over the SSD forward
 (B5) and backward (B6), and the plain twins differentiate through autograd.
 The reference's
 ``dispatch_attention_lse`` and ``dispatch_attention_chunk_bwd`` come with the
-context-parallel slice.
+context-parallel slice. :func:`select_tp_impl` resolves ``ParallelPlan.tp_impl``
+and :func:`dispatch_tp_matmul` is the one tile GEMM of the tensor-parallel
+rings (``train/tensor_parallel.py``).
 
 On CUDA the kernel takes the head dims it has bodies for
 (``flash_attention.HEAD_DIMS``) and the call raises for any other; it never
@@ -51,7 +53,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.config import ATTN_IMPLS
+from repro_torch.core.config import ATTN_IMPLS, check_tp_impl
 from repro_torch.ft import inject as _inject
 from repro_torch.models import layers as _layers
 from repro_torch.models.ssm import ssd_scan
@@ -203,3 +205,27 @@ def dispatch_ssd_scan(x, dt, A, B, C, *, chunk: int, impl: str = "auto",
                         _layers.pad_seq(B, 1, l_pad), _layers.pad_seq(C, 1, l_pad), chunk=chunk,
                         initial_state=initial_state)
     return y[:, :l], state
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel rings
+
+
+def select_tp_impl(impl: str) -> str:
+    """Resolve ``ParallelPlan.tp_impl`` -> "overlap".
+
+    ``"overlap"`` is the rings of ``repro_torch.train.tensor_parallel``
+    (collective matmuls, sequence-sharded activations). ``"auto"`` resolves to
+    them on every device: the reference picks its GSPMD twin off the TPU, an
+    XLA partitioner the port does not have (ROADMAP queue C). ``"gspmd"``
+    raises ``NotImplementedError`` (``core.config.check_tp_impl``)."""
+    check_tp_impl(impl)
+    return "overlap"
+
+
+def dispatch_tp_matmul(x, w):
+    """One ring tick's partial GEMM: ``x`` (..., k) against the weight shard
+    ``w`` (k, f). In the reference it is an XLA dot, not a Pallas kernel, so
+    here it is ``torch.matmul``; every tile GEMM of the rings goes through it,
+    the single place a fused tile GEMM would slot in."""
+    return torch.matmul(x, w)

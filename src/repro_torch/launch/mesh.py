@@ -1,5 +1,6 @@
-"""The data-parallel mesh on ``torch.distributed`` (the port of the reference's
-``data`` mesh axis, ``repro/launch/mesh.py``).
+"""The data-parallel mesh and the (data, model) grid on ``torch.distributed``
+(the port of the reference's ``data`` and ``model`` mesh axes,
+``repro/launch/mesh.py``).
 
 :class:`DataMesh` is what the port passes as ``mesh=`` wherever the reference
 takes a mesh. Its ``shape`` is the reference mesh's contract, ``{"data": n}``,
@@ -24,6 +25,16 @@ Launch, one process per rank: under ``torchrun`` call
 address come from the environment); elsewhere pass ``init_method``
 (``"file:///path"`` or ``"tcp://localhost:PORT"``), ``rank`` and
 ``world_size``.
+
+:class:`GridMesh` (``init_grid_mesh(data=, model=, ...)``) is the reference's
+("data", "model") mesh for tensor parallelism: global rank ``d * model + m``
+sits at data index d and model index m, as the reference lays devices out.
+Each rank holds a :class:`DataMesh` over its data group (the ranks of its
+model index), on which the ZeRO-1 code runs unchanged, and a
+:class:`ModelRing` over its model group, which moves the rings' payloads
+(``shift``) and sums the partials (``all_reduce_sum``). The transport rule is
+the data mesh's: NCCL when each rank has its own card, gloo with host copies
+when ranks share one (gloo's ``send``/``recv`` take no CUDA tensors).
 """
 
 from __future__ import annotations
@@ -170,11 +181,24 @@ def init_data_mesh(device: Optional[Union[str, torch.device]] = None, *,
 
 
 def batch_axes_for(mesh, global_batch: int) -> Tuple[str, ...]:
-    """The reference's rule (``repro/launch/mesh.py:67``) on a data mesh: the
-    batch shards over ``data`` when its rows divide by the axis, else it is
-    replicated (every rank computes all of it)."""
+    """The reference's rule (``repro/launch/mesh.py:67``) on a data mesh or a
+    grid: the batch shards over ``data`` when its rows divide by the axis, else
+    it is replicated (every rank computes all of it). The ``model`` axis never
+    carries batch (the reference's ``dp_over_model`` remap is not ported): its
+    ranks hold the same rows and split the model."""
     n = int(mesh.shape.get("data", 1))
     return ("data",) if "data" in mesh.shape and global_batch % n == 0 else ()
+
+
+def data_mesh(mesh) -> Optional[DataMesh]:
+    """The :class:`DataMesh` the ZeRO-1 code runs on: a grid's data group, or
+    ``mesh`` itself."""
+    return mesh.data if isinstance(mesh, GridMesh) else mesh
+
+
+def model_size(mesh) -> int:
+    """The size of ``mesh``'s model axis (1 without one)."""
+    return int(mesh.shape.get("model", 1)) if mesh is not None else 1
 
 
 def rank_microbatches(batch: Dict[str, torch.Tensor], mesh: DataMesh,
@@ -201,3 +225,169 @@ def rank_microbatches(batch: Dict[str, torch.Tensor], mesh: DataMesh,
         lo = mesh.rank * k
     return [{name: v[i * m + lo:i * m + lo + k] for name, v in batch.items()}
             for i in range(microbatches)]
+
+
+class ModelRing:
+    """The model axis of a grid: a ring over the global ranks ``ranks`` (in
+    model-index order) of ``group``, this process at index ``rank`` (the
+    reference's ``axis_index``). It is the
+    reference's ``RingCtx`` (axis name, size) with the transport attached:
+    :meth:`shift` moves a tensor one hop (the reference's ``ppermute``),
+    :meth:`all_reduce_sum` sums over the ring (its ``psum``). ``group=None``
+    is the ring of one process, whose collectives are identities.
+
+    Each collective adds its wall time to ``seconds[kind]`` ("tick" for a
+    shift, "all_reduce"); with ``timed`` set it first waits for the device,
+    so that time is the collective's own."""
+
+    def __init__(self, group=None, ranks: Tuple[int, ...] = (0,),
+                 device: Union[str, torch.device] = "cpu"):
+        self.group = group
+        self.ranks = tuple(ranks)
+        self.device = torch.device(device)
+        self.size = len(self.ranks)
+        self.rank = self.ranks.index(dist.get_rank()) if group is not None else 0
+        self.backend = dist.get_backend(group) if group is not None else None
+        self.transport = ("host" if self.backend == "gloo" and self.device.type == "cuda"
+                          else "direct")
+        self.next = self.ranks[(self.rank + 1) % self.size]
+        self.prev = self.ranks[(self.rank - 1) % self.size]
+        self.timed = False
+        self.seconds: Dict[str, float] = {"tick": 0.0, "all_reduce": 0.0}
+
+    def __repr__(self) -> str:
+        return (f"ModelRing(model={self.size}, rank={self.rank}, backend={self.backend}, "
+                f"transport={self.transport})")
+
+    def _sync(self):
+        if self.timed and self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """``t`` sent ``step`` (+1 or -1) hops along the ring while the
+        tensor of the rank ``step`` hops back is received: a new tensor of
+        ``t``'s shape, dtype and device. One ``batch_isend_irecv`` pair (a
+        NCCL ring deadlocks on separate isends and irecvs)."""
+        if self.group is None:
+            return t.clone()
+        dst, src = (self.next, self.prev) if step == 1 else (self.prev, self.next)
+        self._sync()
+        t0 = time.perf_counter()
+        send = t.detach().contiguous()
+        if self.transport == "host":
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, self.group),
+                                         dist.P2POp(dist.irecv, recv, src, self.group)]):
+            w.wait()
+        out = recv.to(t.device) if self.transport == "host" else recv
+        self._sync()
+        self.seconds["tick"] += time.perf_counter() - t0
+        return out
+
+    def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the ring: a new tensor (``t`` is left as it
+        is, since autograd may have saved it)."""
+        return self._all_reduce(t, dist.ReduceOp.SUM)
+
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The elementwise max of ``t`` over the ring: a new tensor."""
+        return self._all_reduce(t, dist.ReduceOp.MAX)
+
+    def _all_reduce(self, t: torch.Tensor, op) -> torch.Tensor:
+        out = t.detach().contiguous().clone()
+        if self.group is None:
+            return out
+        self._sync()
+        t0 = time.perf_counter()
+        if self.transport == "host":
+            h = out.cpu()
+            dist.all_reduce(h, op=op, group=self.group)
+            out.copy_(h)
+        else:
+            dist.all_reduce(out, op=op, group=self.group)
+        self._sync()
+        self.seconds["all_reduce"] += time.perf_counter() - t0
+        return out
+
+
+class GridMesh:
+    """The (data, model) grid of one rank: ``data`` (a :class:`DataMesh` over
+    this rank's data group), ``model`` (a :class:`ModelRing` over its model
+    group), ``shape`` ``{"data": D, "model": M}`` (the reference mesh's
+    contract, which the layout rules and the checkpoint manifest read), the
+    global ``rank`` and ``size``, and ``host_group``, a gloo group of every
+    rank for host-side traffic (the checkpoint's gather)."""
+
+    def __init__(self, data: DataMesh, model: ModelRing, device, *, host_group=None):
+        self.data, self.model = data, model
+        self.device = torch.device(device)
+        self.host_group = host_group
+        self.size = data.size * model.size
+        self.rank = dist.get_rank() if dist.is_initialized() else 0
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return {"data": self.data.size, "model": self.model.size}
+
+    def __repr__(self) -> str:
+        return (f"GridMesh(data={self.data.size}, model={self.model.size}, rank={self.rank}, "
+                f"backend={self.model.backend}, transport={self.model.transport}, "
+                f"device={self.device})")
+
+    def barrier_error(self, failed: bool) -> bool:
+        """Whether any rank of ``host_group`` passed ``failed``: a barrier that
+        also spreads one rank's failure to all."""
+        if self.host_group is None:
+            return failed
+        flag = torch.tensor([1 if failed else 0], dtype=torch.int32)
+        dist.all_reduce(flag, group=self.host_group)
+        return bool(flag.item())
+
+    def close(self) -> None:
+        """Leave the process group (``dist.destroy_process_group``)."""
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        self.host_group = self.data.group = self.data.host_group = self.model.group = None
+
+
+def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.device]] = None,
+                   *, backend: Optional[str] = None, init_method: str = "env://",
+                   rank: Optional[int] = None) -> GridMesh:
+    """Join the process group of ``data * model`` ranks and return this rank's
+    :class:`GridMesh`. ``device`` and ``backend`` as in :func:`init_data_mesh`
+    (gloo on CUDA: the host transport, the only way to put two ranks on one
+    card). Every rank creates every data and model group, in the same order,
+    as ``dist.new_group`` requires; an axis of size 1 gets no group."""
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("NCCL moves CUDA tensors; a CPU mesh takes gloo")
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    world = data * model
+    kwargs = {} if rank is None else {"rank": rank, "world_size": world}
+    dist.init_process_group(backend, init_method=init_method, **kwargs)
+    if dist.get_world_size() != world:
+        raise ValueError(f"a ({data}, {model}) grid needs {world} ranks, the group has "
+                         f"{dist.get_world_size()}")
+    me = dist.get_rank()
+    d_idx, m_idx = divmod(me, model)
+    host_group = dist.new_group(backend="gloo")
+    data_mesh_ = DataMesh(device=device)
+    for m in range(model):                      # one data group per model index
+        ranks = [d * model + m for d in range(data)]
+        if data > 1:
+            g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
+            if m == m_idx:
+                data_mesh_ = DataMesh(g, device, host_group=hg)
+    ring = ModelRing(device=device)
+    for d in range(data):                       # one model ring per data index
+        ranks = [d * model + m for m in range(model)]
+        if model > 1:
+            g = dist.new_group(ranks)
+            if d == d_idx:
+                ring = ModelRing(g, ranks, device)
+    return GridMesh(data_mesh_, ring, device, host_group=host_group)

@@ -122,8 +122,9 @@ class Model:
         self.dtype = resolve_dtype(self.plan.compute_dtype)
         self.param_dtype = resolve_dtype(self.plan.param_dtype)
         self.windows = _layer_windows(cfg)
-        self._layer = exlib.decoder_layer(cfg, self.plan, self.dtype)
-        self._layer_kv = exlib.decoder_layer(cfg, self.plan, self.dtype,
+        local = exlib.local_context()
+        self._layer = exlib.decoder_layer(local, cfg, self.plan, self.dtype)
+        self._layer_kv = exlib.decoder_layer(local, cfg, self.plan, self.dtype,
                                              collect_kv=True)
 
     # -- params ------------------------------------------------------------
@@ -246,7 +247,7 @@ class SSMModel:
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.plan.compute_dtype)
         self.param_dtype = resolve_dtype(self.plan.param_dtype)
-        self._layer = exlib.ssm_layer(cfg, self.plan, self.dtype)
+        self._layer = exlib.ssm_layer(exlib.local_context(), cfg, self.plan, self.dtype)
 
     def _init_layers(self, gen):
         return [{"norm1": _zero_norm(self.cfg, gen),

@@ -45,9 +45,24 @@ new params and the clipped grads, and ``integrity_div``, its spread over the
 data ranks (0.0 when every rank holds the same bits; ``ft/integrity.py``, which
 also says how the ZeRO-1 grad slices are counted).
 
-The MoE family raises under more than one rank: its capacity queues and the
-load-balancing aux are global over the batch in the reference, which
-per-rank routing would change (ROADMAP A13.4).
+Tensor parallelism (survey §4.1.2): pass a (data, model) grid
+(``repro_torch.launch.mesh.GridMesh``) whose model axis is 2 or more, with a
+plan asking for it (``tp`` equal to that axis). :func:`init_train_state` then
+draws the whole params and keeps this rank's TP shards
+(``core.sharding.shard_params``), and the step takes the executor's
+tensor-parallel loss (``train.executor.make_executor_loss_fn``, the
+reference's ``_overlap_loss_fn``). After the backward the grads of the leaves
+the layout keeps whole on every model rank (norm scales, ``bq/bk/bv``, the
+router, ``wB/wC``, the SSM per-head leaves) hold each rank's share and are
+summed over the model ring (:func:`_sum_replicated_grads`, one all-reduce per
+dtype); the ZeRO-1 code then runs on each rank's shards over its data group
+as above, and the global-norm clip counts each sharded leaf's squares once a
+model rank and each replicated leaf once.
+
+The MoE family raises under more than one data rank: its capacity queues and
+the load-balancing aux are global over the batch in the reference, which
+per-rank routing would change (ROADMAP A13.4). Under tensor parallelism alone
+every model rank routes the same tokens, so it runs.
 """
 
 from __future__ import annotations
@@ -57,10 +72,12 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.core.config import Family, ParallelPlan
-from repro_torch.core.sharding import LeafSpec, dim_first, opt_state_specs
+from repro_torch.core.sharding import (LeafSpec, dim_first, opt_state_specs,
+                                       overlap_param_specs, shard_params, tp_dim)
 from repro_torch.core.tree import from_names, leaves, map_tree, named_leaves
 from repro_torch.ft.integrity import audit
-from repro_torch.launch.mesh import rank_microbatches
+from repro_torch.launch.mesh import data_mesh, rank_microbatches
+from .executor import make_executor_loss_fn, resolve_context
 from repro_torch.models.families import Model
 from repro_torch.optim import (AdamWState, adamw_init, adamw_update, adamw_update_sharded,
                                clip_by_global_norm, cosine_schedule)
@@ -85,15 +102,22 @@ def init_train_state(model: Model, gen: torch.Generator, mesh=None,
                      plan: Optional[ParallelPlan] = None) -> TrainState:
     """Fresh params from ``gen`` (as autograd leaves) and zero fp32 moments;
     with a data ``mesh`` the moments are born on ``plan``'s ZeRO-1 layout
-    (this rank's slices). Every rank must draw the same params: pass
+    (this rank's slices). On a grid whose plan runs tensor parallelism the
+    params are this rank's TP shards of the whole draw, and the ZeRO-1 layout
+    is over its data group. Every rank must draw the same params: pass
     generators seeded alike."""
+    plan = plan or model.plan
     params = model.init(gen)
+    ctx = resolve_context(model.cfg, plan, mesh)
+    if ctx.tp is not None:
+        params = shard_params(params, ctx.tp.rank, ctx.tp.size)
     for p in leaves(params):
         p.requires_grad_(True)
     if mesh is None:
         return TrainState(params, adamw_init(params))
-    specs = opt_state_specs(params, mesh, plan or model.plan)
-    return TrainState(params, adamw_init(params, mesh=mesh, specs=specs))
+    dmesh = data_mesh(mesh)
+    specs = opt_state_specs(params, dmesh, plan)
+    return TrainState(params, adamw_init(params, mesh=dmesh, specs=specs))
 
 
 def make_loss_fn(model: Model, hyper: Hyper) -> Callable:
@@ -137,19 +161,46 @@ def _scatter_grads(params: Any, specs: Dict[str, LeafSpec], mesh) -> Any:
     return from_names(out)
 
 
+@torch.no_grad()
+def _sum_replicated_grads(params: Any, ring) -> None:
+    """The grads of the leaves the overlap layout keeps whole on every model
+    rank, each rank's share, summed over ``ring`` in place: one all-reduce of
+    a flat buffer per dtype."""
+    specs = overlap_param_specs(params)
+    by_dtype: Dict[torch.dtype, list] = {}
+    for name, leaf in named_leaves(params):
+        if tp_dim(specs[name]) is None:
+            for p in (leaf if isinstance(leaf, list) else [leaf]):
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+    for grads in by_dtype.values():
+        flat = ring.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
+        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+            g.copy_(part.view_as(g))
+
+
 def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
                     mesh=None) -> Callable:
-    """The step for ``model`` under ``plan`` (``microbatches``, ``zero_stage``;
-    ``remat`` is the model's). ``batch`` holds the global batch's tensors on
-    the model's device; with a data ``mesh``, the same on every rank."""
+    """The step for ``model`` under ``plan`` (``microbatches``, ``zero_stage``,
+    ``tp``; ``remat`` is the model's). ``batch`` holds the global batch's
+    tensors on the model's device; with a data ``mesh`` or a grid, the same
+    on every rank."""
     plan.validate(model.cfg)
-    if mesh is not None and mesh.size > 1 and model.cfg.family == Family.MOE:
+    ctx = resolve_context(model.cfg, plan, mesh)
+    ring = ctx.tp
+    dmesh = data_mesh(mesh)
+    if dmesh is not None and dmesh.size > 1 and model.cfg.family == Family.MOE:
         raise NotImplementedError(
             "data parallelism over the MoE family: its capacity queues and "
             "load-balancing aux are global over the batch in the reference, and "
             "per-rank routing would change them; this comes with expert "
             "parallelism (ROADMAP A13.4)")
-    loss_fn = make_loss_fn(model, hyper)
+    loss_fn = (make_loss_fn(model, hyper) if ring is None
+               else make_executor_loss_fn(model.cfg, plan, mesh, z_loss=hyper.z_loss))
+    tp_split = (None if ring is None else
+                lambda params: {n for n, s in overlap_param_specs(params).items()
+                                if tp_dim(s) is not None})
     n = plan.microbatches
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -159,12 +210,14 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
         loss = torch.zeros((), dtype=torch.float32, device=model.device)
         aux = torch.zeros((), dtype=torch.float32, device=model.device)
         mbs = (_split_microbatches(batch, n) if mesh is None
-               else rank_microbatches(batch, mesh, n))
+               else rank_microbatches(batch, dmesh, n))
         for mb in mbs:
             total, parts = loss_fn(params, mb)
             (total / n).backward()
             loss += total.detach() / n
             aux += parts["moe_aux"].detach() / n
+        if ring is not None:
+            _sum_replicated_grads(params, ring)
         lr = cosine_schedule(opt.step, hyper.peak_lr, hyper.warmup_steps,
                              hyper.total_steps)
         specs = None
@@ -174,17 +227,18 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
             params, opt = adamw_update(grads, opt, params, lr,
                                        weight_decay=hyper.weight_decay)
         else:
-            specs = opt_state_specs(params, mesh, plan)
-            grads = _scatter_grads(params, specs, mesh)
-            grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip, mesh=mesh,
-                                               specs=specs)
-            params, opt = adamw_update_sharded(grads, opt, params, lr, mesh=mesh,
+            specs = opt_state_specs(params, dmesh, plan)
+            split = tp_split(params) if tp_split is not None else None
+            grads = _scatter_grads(params, specs, dmesh)
+            grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip, mesh=dmesh,
+                                               specs=specs, ring=ring, tp_split=split)
+            params, opt = adamw_update_sharded(grads, opt, params, lr, mesh=dmesh,
                                                specs=specs, weight_decay=hyper.weight_decay)
-            loss, aux = mesh.all_reduce_mean(torch.stack([loss, aux]))
+            loss, aux = dmesh.all_reduce_mean(torch.stack([loss, aux]))
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "moe_aux": aux}
         if plan.integrity == "audit":
             metrics["integrity_checksum"], metrics["integrity_div"] = audit(
-                params, grads, mesh, specs)
+                params, grads, dmesh, specs)
         return TrainState(params, opt), metrics
 
     return train_step

@@ -142,8 +142,18 @@ def test_plan_validates_attn_impl():
 @pytest.mark.parametrize("knob", ["tp", "cp", "pp", "ep", "zero_stage", "dp_shard"])
 def test_plan_has_no_knob_the_port_does_not_implement(knob):
     """A plan cannot ask for a placement the port would ignore: the axes of
-    later slices are not fields, and ``zero_stage`` (the data-parallel slice)
-    takes only the stages the port implements, 0 and 1."""
+    later slices are not fields, ``zero_stage`` (the data-parallel slice)
+    takes only the stages the port implements, 0 and 1, and ``tp`` (the
+    tensor-parallel slice) runs only the rings: ``tp_impl="gspmd"`` raises."""
+    if knob == "tp":
+        cfg = get_smoke_config("qwen2.5-14b")
+        for impl in ("auto", "overlap"):
+            ParallelPlan(tp=2, tp_impl=impl).validate(cfg)
+        with pytest.raises(NotImplementedError, match="gspmd"):
+            ParallelPlan(tp=2, tp_impl="gspmd").validate(cfg)
+        with pytest.raises(ValueError, match=knob):
+            ParallelPlan(tp=0).validate(cfg)
+        return
     if knob == "zero_stage":
         cfg = get_smoke_config("qwen2.5-14b")
         for stage in (0, 1):
