@@ -139,20 +139,40 @@ prints its seconds):
 15. tensor parallelism — the overlap rings (A13.2) on a (1, 2) grid: two rank
    processes (spawn) on the one card over gloo (each ring tick through host
    memory; no TP scaling or overlap is measured), 1 x 4096 tokens, bf16
-   compute, remat "full": qwen1.5-4b at full width on 8 of its 40 layers, 3
-   steps (B1/B2/B3 16/8/8 a rank a step at (1, 10, 4096, 128)),
+   compute, remat "full": qwen1.5-4b at full width on 4 of its 40 layers, 3
+   steps (B1/B2/B3 8/4/4 a rank a step at (1, 10, 4096, 128)),
    deepseek-moe-16b at full width on 2 of 28 layers, one step (B4 18 rows + 6
    contract a rank at d_expert 704), mamba2-370m at full width and depth, one
    step (B5/B6 96/48 a rank at (1, 16, 4096, 64, 128)); on each rank's first
    microbatch every kernel call held to its plain version on the rank's own
    inputs (dq also to fp64); each family's losses against one device's on the
    same weights and batches (readings), then one fp32 step of qwen1.5-4b at 2
-   layers held to one device's and to an fp64 evaluation by TP_TOLERANCE,
+   layers held to one device's and to an fp64 evaluation by GRID_TOLERANCE,
    and its control (a bf16 partial sum in every row GEMM's ring), which must
    fail the grads rule; step, ring tick and
    all-reduce ms, peak memory and the launches by body; the kernels timed at
    the sharded shapes. No checkpoint;
-16. times   — each kernel's time at its path's shapes beside its bound, its plain
+16. context parallelism — the ring and gather modes (A13.3) on a (1, 2, 1)
+   (data, cp, model) grid: two rank processes (spawn) on the one card over
+   gloo (each hop through host memory; no CP scaling is measured), bf16
+   compute, remat "full": qwen1.5-4b at full width on 4 of its 40 layers over
+   1 x 16,384 tokens in the ring mode (each rank two zigzag sub-chunks of
+   4096; B1/B2/B3 40/20/20 a rank a step: 5 tiles a layer, 2 diagonal and 3
+   full, the other 3 masked and never launched), a warm-up and 3 steps;
+   mamba2-370m at full width and depth over 1 x 65,536 (32,768 a rank, the
+   conv halo and the state chain; B5/B6 96/48 a rank a step at (1, 32,
+   32768, 64, 128)), a warm-up and 2 steps; on each rank's first microbatch
+   every kernel call held to its plain version on the rank's own inputs (B2/B3
+   against the merged statistics, dq also to fp64); one device's loss on the
+   same weights and batch (a reading); then fp32 steps at 2 layers, 1 x 4096:
+   dense in the ring and the gather modes and Mamba2, each held to one
+   device's and to an fp64 evaluation by GRID_TOLERANCE, and the ring's
+   control (each tile's o rounded to bf16 before the merge), which must fail
+   the grads rule; step, hop and all-reduce ms, peak memory and the launches
+   by body; the kernels timed at the CP shapes (B1 on a diagonal and a full
+   4096 x 4096 tile beside SDPA, B2/B3 on each against the row's merged
+   statistics, B5/B6 at the rank's chunk). No checkpoint;
+17. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -165,8 +185,8 @@ prints its seconds):
    and training cross- and self-attention shapes; printed as one JSON line.
 
 On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode,
-training, data- and tensor-parallel training; the fp32 TP step's B1 excepted)
-must run the Hopper body
+training, data-, tensor- and context-parallel training; the fp32 TP and CP
+steps' B1, B5 and B6 excepted) must run the Hopper body
 (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
@@ -557,18 +577,23 @@ def reset_counts():
     reset_ssd_counts()
 
 
-def check_bodies(what, counts, window=None):
+def check_bodies(what, counts, window=None, fp32=False):
     """Every B1 and B4 launch counted in ``counts`` (all_counts() since the
     last reset_counts(), then ssd_counts() on the SSM paths) ran the Hopper
-    body, and so did every B5 and B6 launch; the counts by body are kept under
-    ``window`` for the kernels line."""
+    body, and so did every B5 and B6 launch (with ``fp32``: the fp32 bodies of
+    B1 and B4 and the first-version bodies of B5 and B6, the only ones that
+    take fp32 inputs); the counts by body are kept under ``window`` for the
+    kernels line."""
     got = body_counts()
     b4 = counts[3] + counts[4]
     b5, b6 = counts[5:7] if len(counts) > 5 else (0, 0)
     log(f"bodies, {what}: " + ", ".join(f"{k} {v}" for k, v in got.items())
         + f" (B1 {counts[0]}, B4 {b4}, B5 {b5}, B6 {b6} launches)")
     want = dict.fromkeys(got, 0)
-    want.update(flash_fwd_sm90=counts[0], gg_sm90=b4, ssd_fwd_sm90=b5, ssd_bwd_sm90=b6)
+    if fp32:
+        want.update(flash_fwd_f32=counts[0], gg_f32=b4, ssd_fwd_simt=b5, ssd_bwd_simt=b6)
+    else:
+        want.update(flash_fwd_sm90=counts[0], gg_sm90=b4, ssd_fwd_sm90=b5, ssd_bwd_sm90=b6)
     if got != want:
         raise AssertionError(f"{what}: launches by body {got}, expected {want}")
     if window:
@@ -1097,6 +1122,7 @@ class FlashBwdCapture:
     B3, as FlashAttention.backward makes it) is held to the plain version on
     its own (q, k, v, dO, lse, delta); with ``fp64``, the kernel's dq and the
     plain version's are also each held to an fp64 evaluation (``dq_fp64``).
+    Each call is judged at its dtype's limit (GRAD_TOLERANCE).
     ``functools.wraps`` copies the launch counters onto the wrapper, so these
     launches leave the real counts alone."""
 
@@ -1105,17 +1131,21 @@ class FlashBwdCapture:
 
     def __enter__(self):
         from repro_torch.kernels import flash_attention as tf
-        self.real, self.errs = tf.flash_attention_bwd, []
+        self.real, self.errs, self.oks = tf.flash_attention_bwd, [], []
         real = self.real
 
         @functools.wraps(real)
         def checked_bwd(q, k, v, do, lse, delta, **kw):
             grads = real(q, k, v, do, lse, delta, **kw)
             ref = tf.flash_attention_bwd_plain(q, k, v, do, lse, delta, **kw)
-            self.errs.append([grad_error(g, r) for g, r in zip(grads, ref)])
+            errs = [grad_error(g, r) for g, r in zip(grads, ref)]
+            self.errs.append(errs)
+            self.oks.append(grads_within(q.dtype, errs))
             if self.fp64:
                 truth = dq_fp64(q, k, v, do, lse, delta, **kw)
-                self.dq64.append((grad_error(grads[0], truth)[1], grad_error(ref[0], truth)[1]))
+                kern = grad_error(grads[0], truth)
+                self.dq64.append((kern[1], grad_error(ref[0], truth)[1]))
+                self.oks[-1] &= grads_within(q.dtype, [kern])
             return grads
         tf.flash_attention_bwd = checked_bwd
         return self
@@ -1136,13 +1166,14 @@ class FlashBwdCapture:
         worst_abs = [max(e[i][0] for e in self.errs) for i in range(3)]
         log(f"real inputs, {what}: B2/B3 held to their plain version on {calls} calls, "
             f"max error dq/dk/dv {worst_abs[0]:.3e}/{worst_abs[1]:.3e}/{worst_abs[2]:.3e} = "
-            f"{worst[0]:.2f}/{worst[1]:.2f}/{worst[2]:.2f} bf16 ulps")
+            f"{worst[0]:.3g}/{worst[1]:.3g}/{worst[2]:.3g} in the limit's measure (bf16 ulps; "
+            f"fp32: of the tensor's max)")
         if self.dq64:
             kern, plain = (max(e[i] for e in self.dq64) for i in range(2))
             log(f"real inputs, {what}: dq against an fp64 evaluation, worst of {calls} calls: "
-                f"the kernel {kern:.2f}, the fp32 plain version {plain:.2f} bf16 ulps")
+                f"the kernel {kern:.3g}, the fp32 plain version {plain:.3g} in the same measure")
             worst.append(kern)
-        if max(worst) > GRAD_ULPS_BF16:
+        if not all(self.oks):
             raise AssertionError(f"flash_bwd disagrees with its plain version (or, for dq, "
                                  f"with fp64) on the {what}'s own inputs")
         return max(worst[1:3]), worst[0]
@@ -1151,7 +1182,8 @@ class FlashBwdCapture:
 class FlashFwdCapture:
     """Within the block, every call of B1's wrapper (as FlashAttention.forward
     makes it) is held to the plain version (flash_plain) on its own (q, k, v),
-    fully masked rows exactly, and must run the Hopper body.
+    fully masked rows exactly, each at its dtype's limit (TOLERANCE), and
+    must run the body ``summary`` names (the Hopper body unless told).
     ``functools.wraps`` copies the launch counters onto the wrapper, so these
     launches leave the real counts alone."""
 
@@ -1164,7 +1196,8 @@ class FlashFwdCapture:
         def checked_fwd(q, k, v, **kw):
             o, lse = real(q, k, v, **kw)
             po, plse = flash_plain(q, k, v, **kw)
-            self.errs.append((*match_errors(o, lse, po, plse), dead_rows_ok(o, lse, plse)[1]))
+            self.errs.append((*match_errors(o, lse, po, plse), dead_rows_ok(o, lse, plse)[1],
+                              o.dtype))
             return o, lse
         self.wrapper = checked_fwd
         tf.flash_attention_lse = checked_fwd
@@ -1174,14 +1207,15 @@ class FlashFwdCapture:
         from repro_torch.kernels import flash_attention as tf
         tf.flash_attention_lse = self.real
 
-    def summary(self, what, calls):
-        """Check that ``calls`` calls were held, each through the Hopper body,
-        and log them; returns the worst o error in bf16 ulps (None when no call
-        was expected)."""
-        hopper = self.wrapper.sm90_launches - self.real.sm90_launches
-        if len(self.errs) != calls or hopper != calls:
+    def summary(self, what, calls, body="sm90"):
+        """Check that ``calls`` calls were held, each through ``body`` ("sm90",
+        the Hopper body; "f32", the fp32 one), and log them; returns the worst
+        o error in bf16 ulps (None when no call was expected)."""
+        attr = f"{body}_launches"
+        through = getattr(self.wrapper, attr) - getattr(self.real, attr)
+        if len(self.errs) != calls or through != calls:
             raise AssertionError(f"checked {len(self.errs)} attention forwards on the {what} "
-                                 f"({hopper} through the Hopper body), expected {calls}")
+                                 f"({through} through the {body} body), expected {calls}")
         if not calls:
             return None
         o_abs, o_ulps, lse_rel = (max(e[i] for e in self.errs) for i in range(3))
@@ -1189,7 +1223,7 @@ class FlashFwdCapture:
         log(f"real inputs, {what}: B1 held to its plain version on {calls} calls, max o err "
             f"{o_abs:.3e} = {o_ulps:.2f} bf16 ulps, lse rel err {lse_rel:.3e}, fully "
             f"masked rows exact {dead_ok}")
-        if not (within_tolerance(torch.bfloat16, o_abs, o_ulps, lse_rel) and dead_ok):
+        if not all(within_tolerance(e[4], *e[:3]) and e[3] for e in self.errs):
             raise AssertionError(f"flash_fwd disagrees with its plain version on the "
                                  f"{what}'s own inputs")
         return o_ulps
@@ -1305,14 +1339,16 @@ def phase_training():
     return {"launches": launches, "real_dkv_ulps": real[0], "real_dq_ulps": real[1]}
 
 
-def bwd_times_at(case, gen):
+def bwd_times_at(case, gen, inputs=None):
     """B2 and B3 at one bf16 shape (CUDA events) beside their bounds; the
     whole FlashAttention.backward (the delta pass, B2 and B3) and SDPA's
-    backward, both through autograd on the same q, k, v and dO."""
+    backward, both through autograd on the same q, k, v and dO. ``inputs``
+    (q, k, v, dO, lse, delta) in place of ``bwd_inputs``' draw, for
+    statistics merged over more keys than the case's."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tf
     b, hq, hkv, s, t, hd, causal, window, cap, q_offset = case
-    q, k, v, do, lse, delta = bwd_inputs(gen, case, torch.bfloat16)
+    q, k, v, do, lse, delta = inputs or bwd_inputs(gen, case, torch.bfloat16)
     kw = dict(case_kw(case), scale=hd ** -0.5)
     out = [torch.empty_like(x) for x in (q, k, v)]
     ms = {which: cuda_ms(lambda: tf._bwd_launch(which, q, k, v, do, lse, delta, *out, **kw), 20)
@@ -3204,14 +3240,15 @@ def dp_failures(agree, shadow_err):
 
 
 def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
-              around=None, hyper=None):
+              around=None, hyper=None, keep_params=True):
     """``len(batches)`` steps from fresh params of ``seed`` (``prepare(params)``
     first, if given) on ``mesh`` or on one device, under ``watch`` (a
     ZeroWatch), each step inside ``around(i)`` (a context manager), if given.
     Returns the state, the step and a dict of per-step ``loss`` and
     ``grad_norm`` (and, under ``plan.integrity == "audit"``, ``integrity_div``
     and ``integrity_checksum``), the first step's ``grads`` (from the watch)
-    and the final ``params`` by name on the host."""
+    and the final ``params`` by name on the host (None without
+    ``keep_params``)."""
     import contextlib
     from repro_torch.checkpoint import store
     from repro_torch.core.tree import named_leaves
@@ -3233,7 +3270,8 @@ def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
                     out.setdefault("integrity_checksum", []).append(
                         int(m["integrity_checksum"]))
     out["grads"] = watch.grads if watch is not None else None
-    out["params"] = {n: store._host(x)[0] for n, x in named_leaves(state.params)}
+    out["params"] = ({n: store._host(x)[0] for n, x in named_leaves(state.params)}
+                     if keep_params else None)
     return state, step, out
 
 
@@ -3683,27 +3721,32 @@ def dp_summary(dp):
 # do: every ring tick goes D2H, through gloo, then H2D. The phase proves the
 # rings and the kernels on the sharded shapes; it cannot measure TP scaling
 # or overlap. Each family runs from the same two processes: qwen1.5-4b at
-# full width on TP_LAYERS["dense"] of its 40 layers for TP_STEPS steps, then
+# full width on TP_FAMILIES["dense"]'s 4 of its 40 layers (8 until the CP
+# phase needed the script's time) for TP_STEPS steps, then
 # one fp32 step at TP_FP32_LAYERS layers; deepseek-moe-16b at full width on 2
 # of its 28 layers and mamba2-370m at full width and depth, one step each;
 # 1 x 4096 tokens, bf16 compute, remat "full". Nothing is checkpointed.
 TP_RANKS = 2
 TP_STEPS = 3
-TP_FAMILIES = {"dense": (TRAIN_ARCH, 8), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, None)}
+TP_FAMILIES = {"dense": (TRAIN_ARCH, 4), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, None)}
 TP_FP32_LAYERS = 2
 TP_CASES = {"dense": (1, 10, 10, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0),
             "moe": (1, 8, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)}
-TP_FP64_FACTOR = 2.0              # a leaf past DP_REL: TP's distance from fp64 against one device's
-TP_TOLERANCE = ("the fp32 step at TP_FP32_LAYERS layers against one device's on the same weights "
-                "and batch: loss and grad norm to 1e-6 relative and each watched ZeRO-1 update "
-                "against adamw_update (DP_TOLERANCE); each rank's clipped grads to 1e-6 of each "
-                "leaf's max against its TP shard of one device's, and a leaf past that no "
-                "further from an fp64 evaluation of the step than TP_FP64_FACTOR (2) times one "
-                "device's distance plus 1e-6 of the leaf's max (one device's own fp32 grads sit "
-                "a few 1e-6 from fp64 at full width, and the rings add the sums they split in "
-                "another order: ROADMAP queue C, scripts/tp_fp32_probe.py). A control, one "
-                "partial sum of every row GEMM's ring rounded to bf16, must fail the grads rule. "
-                "The bf16 steps' loss and grads against one device are readings")
+# a leaf past DP_REL: the grid run's distance from fp64 against one device's
+GRID_FP64_FACTOR = 2.0
+GRID_TOLERANCE = ("an fp32 step on the grid (TP: TP_FP32_LAYERS layers; CP: CP_FP32_LAYERS, ring "
+                  "and gather modes and Mamba2) against one device's on the same weights and "
+                  "batch: loss and grad norm to 1e-6 relative and each watched ZeRO-1 update "
+                  "against adamw_update (DP_TOLERANCE); each rank's clipped grads to 1e-6 of each "
+                  "leaf's max against its part of one device's (its TP shard; the whole leaf "
+                  "under CP), and a leaf past that no further from an fp64 evaluation of the "
+                  "step than GRID_FP64_FACTOR (2) times one device's distance plus 1e-6 of the "
+                  "leaf's max (one device's own fp32 grads sit a few 1e-6 from fp64 at full "
+                  "width, and the rings add the sums they split in another order: ROADMAP queue "
+                  "C, scripts/tp_fp32_probe.py). A control must fail the grads rule: TP, one "
+                  "partial sum of every row GEMM's ring rounded to bf16; CP, each ring tile's o "
+                  "rounded to bf16 before the merge. The bf16 steps' loss and grads against one "
+                  "device are readings")
 
 
 @contextlib.contextmanager
@@ -3754,48 +3797,60 @@ def fp64_first_grads(cfg, params, batch, microbatches, hyper):
     return {n: (g * scale).cpu().numpy() for n, g in grads.items()}
 
 
-def tp_grad_failures(shards, one, truth):
-    """The first step's clipped grads of the TP run (``shards[r]``: model rank
-    r's, by name) against one device's (``one``, whole) by TP_TOLERANCE's
-    grads rule, with ``truth`` the fp64 evaluation of one device's step (None:
-    every leaf past 1e-6 of its max fails): (failures, {leaf@rank: (error,
-    the TP run's and one device's distances from fp64)} for the leaves past
-    1e-6 that the rule admits), each number in units of the leaf's max."""
+def tp_part(name, a, r, n):
+    """Model rank r's TP shard of one device's whole leaf ``a`` (of n)."""
     from repro_torch.core.sharding import tp_shard_of
+    return tp_shard_of(name, a, r, n)
+
+
+def whole_part(name, a, r, n):
+    """A CP rank's part of one device's leaf: all of it (cp replicates the
+    weights)."""
+    return a
+
+
+def grid_grad_failures(shards, one, truth, part=tp_part):
+    """The first step's clipped grads of a grid run (``shards[r]``: rank r's,
+    by name) against one device's (``one``, whole) by GRID_TOLERANCE's grads
+    rule, ``part(name, leaf, r, n)`` cutting one device's leaf to rank r's
+    part of it, with ``truth`` the fp64 evaluation of one device's step (None:
+    every leaf past 1e-6 of its max fails): (failures, {leaf@rank: (error,
+    the grid run's and one device's distances from fp64)} for the leaves past
+    1e-6 that the rule admits), each number in units of the leaf's max."""
     bad, explained = [], {}
     for name, g in one.items():
         for r, shard in enumerate(shards):
-            ref = tp_shard_of(name, g, r, len(shards))
+            ref = part(name, g, r, len(shards))
             err = rel_err(shard[name], ref)
             if err <= DP_REL:
                 continue
             if truth is None:
-                bad.append(f"{name} on model rank {r}: {err:.3e} (no fp64 evaluation)")
+                bad.append(f"{name} on rank {r}: {err:.3e} (no fp64 evaluation)")
                 continue
-            t = tp_shard_of(name, truth[name], r, len(shards))
-            mx = max(float(np.abs(t).max()), 1e-30)
-            reading = (err, float(np.abs(shard[name] - t).max()) / mx,
-                       float(np.abs(ref - t).max()) / mx)
-            if reading[1] <= TP_FP64_FACTOR * reading[2] + DP_REL:
+            t = part(name, truth[name], r, len(shards))       # numpy, or tensors on one device
+            mx = max(float(abs(t).max()), 1e-30)
+            reading = (err, float(abs(shard[name] - t).max()) / mx,
+                       float(abs(ref - t).max()) / mx)
+            if reading[1] <= GRID_FP64_FACTOR * reading[2] + DP_REL:
                 explained[f"{name}@{r}"] = reading
             else:
-                bad.append(f"{name} on model rank {r}: {reading}")
+                bad.append(f"{name} on rank {r}: {reading}")
     return bad, explained
 
 
-def tp_failures(agree, shadow_err, shards, one, truth):
-    """What breaks TP_TOLERANCE: ``dp_failures`` on the agreement numbers
-    (``tp_agreement``, or ``dp_agreement`` on one rank's shard) with the
-    grads rule of ``tp_grad_failures`` in place of its first_grads_rel; also
-    returns the leaves past 1e-6 that the rule admits."""
+def grid_failures(agree, shadow_err, shards, one, truth, part=tp_part):
+    """What breaks GRID_TOLERANCE: ``dp_failures`` on the agreement numbers
+    (``grid_agreement``, or ``dp_agreement`` on one rank's part) with the
+    grads rule of ``grid_grad_failures`` in place of its first_grads_rel;
+    also returns the leaves past 1e-6 that the rule admits."""
     bad = [b for b in dp_failures(agree, shadow_err) if not b.startswith("first_grads_rel")]
-    grads_bad, explained = tp_grad_failures(shards, one, truth)
+    grads_bad, explained = grid_grad_failures(shards, one, truth, part)
     return bad + grads_bad, explained
 
 
 @contextlib.contextmanager
 def bf16_partial_sum():
-    """TP_TOLERANCE's control: within the block every row GEMM's ring
+    """GRID_TOLERANCE's control: within the block every row GEMM's ring
     (``matmul_reduce_scatter``, as the executor calls it) adds this rank's own
     partial product to its chunk rounded to bf16, a fault the grads rule must
     catch. The rounding goes into the forward values only; the cotangents
@@ -3816,27 +3871,15 @@ def bf16_partial_sum():
         executor.matmul_reduce_scatter = real
 
 
-def tp_gather_to_rank0(named, grid):
+def grid_gather(named, grid):
     """Every grid rank's ``named`` host arrays (the same names, shapes and
     dtypes on each) on rank 0, in one flat gather over the grid's gloo host
-    group, as the checkpoint's grid save does: [rank 0's, rank 1's, ...]
-    there, None elsewhere."""
-    import torch.distributed as dist
+    group (``checkpoint.store.gather_flat``, the grid save's): [rank 0's,
+    rank 1's, ...] there, None elsewhere."""
+    from repro_torch.checkpoint.store import gather_flat
     names = sorted(named)
-    arrays = [np.ascontiguousarray(named[n]) for n in names]
-    flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a in arrays]))
-    got = [torch.empty_like(flat) for _ in range(grid.size)] if grid.rank == 0 else None
-    dist.gather(flat, got, dst=0, group=grid.host_group)
-    if grid.rank != 0:
-        return None
-    out = []
-    for buf in got:
-        parts, off = {}, 0
-        for n, a in zip(names, arrays):
-            parts[n] = buf[off:off + a.nbytes].numpy().view(a.dtype).reshape(a.shape)
-            off += a.nbytes
-        out.append(parts)
-    return out
+    got = gather_flat([named[n] for n in names], grid.host_group)
+    return None if got is None else [dict(zip(names, arrays)) for arrays in got]
 
 
 def tp_setup(family, layers=None, dtype="bfloat16", tp=TP_RANKS, steps=1):
@@ -3974,7 +4017,7 @@ def tp_family(family, grid, out_dir):
         f"{run['loss']}, peak {rec['peak_bytes'] / 1e9:.2f} GB")
     del state
     free()
-    shards = tp_gather_to_rank0(watch.grads, grid) if family == "dense" else None
+    shards = grid_gather(watch.grads, grid) if family == "dense" else None
     grid.barrier_error(False)
     if grid.rank == 0:
         one_plan = dataclasses.replace(plan, tp=1)
@@ -3987,7 +4030,7 @@ def tp_family(family, grid, out_dir):
                              "grad_norm_rel": [rel(a, b) for a, b in
                                                zip(run["grad_norm"], one["grad_norm"])]}
         if shards is not None:
-            rec["one_device"]["first_grads_rel"] = tp_agreement(
+            rec["one_device"]["first_grads_rel"] = grid_agreement(
                 run, one, shards)["first_grads_rel"]
         log(f"tp {cfg.arch_id} against one device: {rec['one_device']}")
         free()
@@ -3997,7 +4040,7 @@ def tp_family(family, grid, out_dir):
 
 def tp_fp32(grid):
     """The dense family in fp32 at TP_FP32_LAYERS layers, one step, held to
-    one device's step on the same weights and batch by TP_TOLERANCE (on model
+    one device's step on the same weights and batch by GRID_TOLERANCE (on model
     rank 0, after the TP step and its control, ``bf16_partial_sum``, which
     must fail the grads rule). The step's kernel launches are counted (B1 on
     its fp32 body); the control's are not."""
@@ -4014,8 +4057,8 @@ def tp_fp32(grid):
     with bf16_partial_sum():
         zero1_run(model, plan, batches, grid, watch=control)
     free()
-    shards = tp_gather_to_rank0(watch.grads, grid)
-    control_shards = tp_gather_to_rank0(control.grads, grid)
+    shards = grid_gather(watch.grads, grid)
+    control_shards = grid_gather(control.grads, grid)
     grid.barrier_error(False)
     if grid.rank == 0:
         one_plan = dataclasses.replace(plan, tp=1)
@@ -4024,9 +4067,9 @@ def tp_fp32(grid):
         params = one_model.init(torch.Generator(device="cuda").manual_seed(0))
         truth = fp64_first_grads(cfg, params, batches[0], 1, Hyper())
         del params
-        agree = tp_agreement(run, one, shards)
-        bad, explained = tp_failures(agree, watch.shadow_err, shards, one["grads"], truth)
-        control_bad, _ = tp_grad_failures(control_shards, one["grads"], truth)
+        agree = grid_agreement(run, one, shards)
+        bad, explained = grid_failures(agree, watch.shadow_err, shards, one["grads"], truth)
+        control_bad, _ = grid_grad_failures(control_shards, one["grads"], truth)
         if not control_bad:
             bad.append("the control (a bf16 partial sum in every row GEMM's ring) passes the "
                        "grads rule")
@@ -4045,15 +4088,14 @@ def tp_fp32(grid):
     return rec
 
 
-def tp_agreement(run, one, shards):
-    """The first step of a TP run against one device's: loss and grad norm
-    relative, and the clipped grads (``shards``, every model rank's) against
-    the TP shards of one device's, in units of each leaf's max."""
-    from repro_torch.core.sharding import tp_shard_of
+def grid_agreement(run, one, shards, part=tp_part):
+    """The first step of a grid run against one device's: loss and grad norm
+    relative, and the clipped grads (``shards``, every rank's) against each
+    rank's part of one device's, in units of each leaf's max."""
     rel = lambda a, b: abs(a - b) / abs(b)                      # noqa: E731
     return {"loss_rel_step0": rel(run["loss"][0], one["loss"][0]),
             "grad_norm_rel_step0": rel(run["grad_norm"][0], one["grad_norm"][0]),
-            "first_grads_rel": max(rel_err(s[n], tp_shard_of(n, g, r, len(shards)))
+            "first_grads_rel": max(rel_err(s[n], part(n, g, r, len(shards)))
                                    for n, g in one["grads"].items()
                                    for r, s in enumerate(shards))}
 
@@ -4079,42 +4121,51 @@ def tp_rank(rank, init_method, out_dir):
     (Path(out_dir) / f"tp_rank{rank}.json").write_text(json.dumps(out))
 
 
-def phase_tp():
-    """The TP phase: TP_RANKS spawned ranks on the one card over gloo
-    (``tp_rank``); their results checked here, then the kernels timed at the
-    sharded shapes (B1-B3 at each attention family's, B4 and B5/B6 on rank
-    0's kept inputs). Every process is joined or killed before this returns."""
+@contextlib.contextmanager
+def spawned_ranks(target, n, tag, timeout):
+    """``n`` rank processes of ``target(rank, init_method, out_dir)`` on the
+    card (spawn, not fork: the parent holds a CUDA context), joined within
+    ``timeout`` seconds each; yields (out_dir, the ranks' results from
+    ``out_dir/<tag>_rank<r>.json``, their seconds) once all exited 0. Every
+    process is joined or killed, and ``out_dir`` removed, on the way out."""
     import multiprocessing
     import shutil
     import tempfile
     ctx = multiprocessing.get_context("spawn")
     (ROOT / "build").mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix="tp_", dir=ROOT / "build")
+    tmp = tempfile.mkdtemp(prefix=f"{tag}_", dir=ROOT / "build")
     procs = []
     try:
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=tp_rank, args=(r, f"file://{tmp}/store", tmp))
-                 for r in range(TP_RANKS)]
+        procs = [ctx.Process(target=target, args=(r, f"file://{tmp}/store", tmp))
+                 for r in range(n)]
         for p in procs:
             p.start()
         for p in procs:
-            p.join(timeout=480)
+            p.join(timeout=timeout)
         codes = [p.exitcode for p in procs]
-        if codes != [0] * TP_RANKS:
-            raise AssertionError(f"the TP ranks exited with {codes}")
-        ranks_s = time.perf_counter() - t0
-        ranks = [json.loads((Path(tmp) / f"tp_rank{r}.json").read_text())
-                 for r in range(TP_RANKS)]
-        tp_report(ranks)
-        t0 = time.perf_counter()
-        times = tp_times(tmp)
-        times_s = time.perf_counter() - t0
+        if codes != [0] * n:
+            raise AssertionError(f"the {tag.upper()} ranks exited with {codes}")
+        ranks = [json.loads((Path(tmp) / f"{tag}_rank{r}.json").read_text()) for r in range(n)]
+        yield tmp, ranks, time.perf_counter() - t0
     finally:
         for p in procs:
             if p.is_alive():
                 p.kill()
                 p.join()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_tp():
+    """The TP phase: TP_RANKS spawned ranks on the one card over gloo
+    (``tp_rank``); their results checked here, then the kernels timed at the
+    sharded shapes (B1-B3 at each attention family's, B4 and B5/B6 on rank
+    0's kept inputs)."""
+    with spawned_ranks(tp_rank, TP_RANKS, "tp", timeout=480) as (tmp, ranks, ranks_s):
+        tp_report(ranks)
+        t0 = time.perf_counter()
+        times = tp_times(tmp)
+        times_s = time.perf_counter() - t0
     log(f"phase TP: ranks {ranks_s:.1f} s, kernel times {times_s:.1f} s")
     return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
 
@@ -4146,7 +4197,7 @@ def tp_times(keep_dir):
 def tp_report(ranks):
     """Log the TP phase's results and hold them to their checks: every
     family's losses finite and equal on both ranks, the fp32 step by
-    TP_TOLERANCE; keep the launches by body for the kernels line."""
+    GRID_TOLERANCE; keep the launches by body for the kernels line."""
     r0 = ranks[0]
     bad = []
     for family in TP_FAMILIES:
@@ -4190,7 +4241,7 @@ def tp_summary(tp):
                                               if k.startswith("real_")}}
                      for family in TP_FAMILIES},
         "fp32": {k: v for k, v in ranks[0]["fp32"].items() if k != "bodies"},
-        "tolerance": TP_TOLERANCE,
+        "tolerance": GRID_TOLERANCE,
         "phase_s": {"ranks": tp["ranks_s"], "kernel_times": tp["times_s"]},
     }
 
@@ -4209,6 +4260,489 @@ def tp_launches(tp, i, families=("dense", "moe", "ssm", "fp32")):
     return out
 
 
+# ---------------------------------------------------------------------------
+# context parallelism (A13.3): CP_RANKS spawned ranks on the one card over
+# gloo, a (1, 2, 1) (data, cp, model) grid. qwen1.5-4b at full width on
+# CP_DENSE_LAYERS of its 40 layers over 1 x CP_DENSE_SEQ tokens in the ring
+# mode (each rank two zigzag sub-chunks of CP_SUB), one warm-up and
+# CP_DENSE_STEPS steps; mamba2-370m at full width and depth over 1 x
+# CP_SSM_SEQ (each rank CP_SSM_SEQ / 2 contiguous), one warm-up and
+# CP_SSM_STEPS steps; bf16 compute, remat "full"; then fp32 steps at
+# CP_FP32_LAYERS layers and 1 x TRAIN_SEQ (dense ring and gather, Mamba2) held
+# to one device's by GRID_TOLERANCE. Nothing is checkpointed.
+CP_RANKS = 2
+CP_DENSE_LAYERS = 4
+CP_DENSE_SEQ = 16_384
+CP_DENSE_STEPS = 3                # timed, after one warm-up
+CP_SSM_SEQ = 65_536
+CP_SSM_STEPS = 2                  # timed, after one warm-up
+CP_FP32_LAYERS = 2
+CP_SUB = CP_DENSE_SEQ // (2 * CP_RANKS)          # a zigzag sub-chunk: one ring tile's side
+CP_CASES = {"diagonal": (1, 20, 20, CP_SUB, CP_SUB, 128, True, 0, 0.0, 0),
+            "full": (1, 20, 20, CP_SUB, CP_SUB, 128, False, 0, 0.0, 0)}
+
+
+def cp_setup(family, layers=None, dtype="bfloat16", seq=CP_DENSE_SEQ, steps=1, impl="ring"):
+    """A family's full-width config (qwen1.5-4b or mamba2-370m, cut to
+    ``layers`` layers where given), its plan (fp32 masters, ``dtype``
+    compute, remat "full", one microbatch of 1 x ``seq``, cp CP_RANKS in
+    ``impl``), the model and ``steps`` batches."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    cfg = get_config(TRAIN_ARCH if family == "dense" else SSM_ARCH)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    plan = ParallelPlan(compute_dtype=dtype, param_dtype="float32", remat="full",
+                        microbatches=1, cp=CP_RANKS, cp_impl=impl)
+    ds = SyntheticDataset(cfg, InputShape("cp", seq, 1, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(steps)]
+    return cfg, plan, build_model(cfg, plan), batches
+
+
+def cp_want(family, cfg, impl):
+    """The launches of one rank's step (one microbatch, remat full): B1, B2,
+    B3, B4 rows, B4 contract, B5, B6. The ring runs 2 cp + 1 tiles a layer
+    on each rank (of its 4 cp (q, k) sub-chunk pairs, the rest are masked
+    and launch nothing), the gather mode one; B1 twice (forward, recompute)."""
+    n = cfg.n_layers
+    if family == "ssm":
+        return (0, 0, 0, 0, 0, 2 * n, n)
+    tiles = 2 * CP_RANKS + 1 if impl == "ring" else 1
+    return (2 * tiles * n, tiles * n, tiles * n, 0, 0, 0, 0)
+
+
+def cp_window(family, impl, fp32=False):
+    """The kernels line's name for a CP path's step."""
+    return f"cp_{family}{'_' + impl if family == 'dense' else ''}{'_fp32' if fp32 else ''}_train_step"
+
+
+def cp_checked_microbatch(family, cfg, plan, grid, batch, out, keep_dir=None):
+    """A ``prepare`` for ``zero1_run``: the rank's microbatch through the CP
+    loss and its backward with every kernel call held to its plain version
+    on the rank's own inputs (B1 FlashFwdCapture on every ring tile or the
+    gather mode's one call, on the Hopper body in bf16 and the fp32 body in
+    fp32; B2/B3 FlashBwdCapture against the merged statistics, dq also to
+    fp64 in bf16; B5/B6 SSDCapture on the rank's chunk), as many calls as
+    ``cp_want`` predicts. B5/B6's first calls are saved under ``keep_dir``
+    for the times."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import Hyper
+    from repro_torch.train.executor import make_executor_loss_fn
+    want = cp_want(family, cfg, plan.cp_impl)
+    bf16 = plan.compute_dtype == "bfloat16"
+
+    def prepare(params):
+        if family == "ssm":
+            tp_taps(params)
+        loss_fn = make_executor_loss_fn(cfg, plan, grid, z_loss=Hyper().z_loss)
+        what = f"{cfg.arch_id} cp {plan.cp_impl} {plan.compute_dtype} rank {grid.rank} microbatch"
+        if family == "ssm":
+            with SSDCapture() as ssd:
+                loss, _ = loss_fn(params, batch)
+                loss.backward()
+            if (len(ssd.fwd_errs), len(ssd.bwd_errs)) != want[5:]:
+                raise AssertionError(f"{what}: checked {len(ssd.fwd_errs)} B5 and "
+                                     f"{len(ssd.bwd_errs)} B6 calls, expected {want[5:]}")
+            out["real_ssd"] = ssd.summary(what)
+            if keep_dir is not None:
+                torch.save(ssd.kept, Path(keep_dir) / "cp_ssd.pt")
+        else:
+            with FlashBwdCapture(fp64=bf16) as bwd, FlashFwdCapture() as fwd:
+                loss, _ = loss_fn(params, batch)
+                loss.backward()
+            out["real_fwd_ulps"] = fwd.summary(f"{what} (forward and recompute)", want[0],
+                                               body="sm90" if bf16 else "f32")
+            out["real_bwd_ulps"] = bwd.summary(f"{what} (merged statistics)", want[1])
+        out["microbatch_loss"] = float(loss)
+        for p in leaves(params):
+            p.grad = None
+    return prepare
+
+
+def cp_step_counter(family, cfg, impl, grid, rec):
+    """A context-manager factory for ``zero1_run``'s ``around``: each step's
+    wall time (synchronised), its cp ring seconds by kind (hops; all-reduces,
+    the grads' sum among them; the ring waits for the device around each) and
+    the kernels' launches, which must be ``cp_want``'s and all on the Hopper
+    bodies."""
+    want = cp_want(family, cfg, impl)
+    window = cp_window(family, impl)
+
+    @contextlib.contextmanager
+    def around(i):
+        reset_counts()
+        grid.cp.timed = True
+        before = dict(grid.cp.seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("tick", "all_reduce"):
+            rec[f"{k}_ms"].append((grid.cp.seconds[k] - before[k]) * 1e3)
+        launches = all_counts() + ssd_counts()
+        rec["launches"] = launches
+        if launches != want:
+            raise AssertionError(f"{cfg.arch_id} cp step {i} launched {launches}, "
+                                 f"expected {want}")
+        check_bodies(f"{cfg.arch_id} cp rank {grid.rank} step {i}", launches, window)
+        rec["bodies"] = BODY_COUNTS[window]
+        grid.cp.timed = False
+    return around
+
+
+def cp_family(family, grid, out_dir):
+    """One family on this rank: the checked microbatch, a warm-up and the
+    timed steps, peak memory; then, on rank 0 while rank 1 waits, one
+    device's loss on the first batch from the same weights (a reading)."""
+    from repro_torch.core.tree import named_leaves
+    from repro_torch.models import build_model
+    from repro_torch.train import Hyper, make_loss_fn
+    dense = family == "dense"
+    steps = 1 + (CP_DENSE_STEPS if dense else CP_SSM_STEPS)
+    cfg, plan, model, batches = cp_setup(family, CP_DENSE_LAYERS if dense else None,
+                                         seq=CP_DENSE_SEQ if dense else CP_SSM_SEQ, steps=steps)
+    rec = {"layers": cfg.n_layers, "seq": batches[0]["tokens"].shape[1], "ms": [],
+           "tick_ms": [], "all_reduce_ms": []}
+    check = cp_checked_microbatch(family, cfg, plan, grid, batches[0], rec,
+                                  out_dir if grid.rank == 0 else None)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, run = zero1_run(model, plan, batches, grid, prepare=check,
+                              around=cp_step_counter(family, cfg, plan.cp_impl, grid, rec),
+                              keep_params=False)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["params_per_rank"] = sum(x.numel() for _, leaf in named_leaves(state.params)
+                                 for x in (leaf if isinstance(leaf, list) else [leaf]))
+    rec.update(loss=run["loss"], grad_norm=run["grad_norm"])
+    log(f"cp rank {grid.rank} {cfg.arch_id} ({cfg.n_layers} layers, 1 x {rec['seq']}): steps "
+        f"{[round(x, 1) for x in rec['ms']]} ms, hops {[round(x, 1) for x in rec['tick_ms']]} "
+        f"ms, all-reduces {[round(x, 1) for x in rec['all_reduce_ms']]} ms, losses "
+        f"{run['loss']}, peak {rec['peak_bytes'] / 1e9:.2f} GB")
+    del state, model
+    free()
+    grid.barrier_error(False)
+    if grid.rank == 0:
+        one = build_model(cfg, dataclasses.replace(plan, cp=1))
+        params = one.init(torch.Generator(device="cuda").manual_seed(0))
+        if not dense:
+            tp_taps(params)
+        with torch.no_grad():
+            loss = float(make_loss_fn(one, Hyper())(params, batches[0])[0])
+        rec["one_device_loss"] = loss
+        rec["one_device_loss_rel"] = abs(run["loss"][0] - loss) / abs(loss)
+        log(f"cp {cfg.arch_id} step 0 loss {run['loss'][0]} against one device's {loss} on "
+            f"the same weights and batch: {rec['one_device_loss_rel']:.3e} relative (a reading)")
+        del params, one
+        free()
+    grid.barrier_error(False)
+    return rec
+
+
+@contextlib.contextmanager
+def tile_bf16_rounding():
+    """GRID_TOLERANCE's CP control: within the block each ring tile's o is
+    rounded to bf16 before it merges into its row (``executor._merge_lse``),
+    a fault the grads rule must catch."""
+    from repro_torch.train import executor
+    real = executor._merge_lse
+
+    def rounded(o, lse, o_c, lse_c):
+        return real(o, lse, o_c.to(torch.bfloat16).to(o_c.dtype), lse_c)
+    executor._merge_lse = rounded
+    try:
+        yield
+    finally:
+        executor._merge_lse = real
+
+
+def on_card(named):
+    """Host arrays by name as tensors on the card (the grads rule then runs
+    there: a few ms where numpy takes seconds on a full-width vocab)."""
+    return {n: torch.from_numpy(np.ascontiguousarray(a)).cuda() for n, a in named.items()}
+
+
+def cp_one_device(cfg, plan, batches, taps):
+    """One device's step on the CP run's weights (seed 0) and batches, and an
+    fp64 evaluation of its first step (``fp64_first_grads``); the first
+    step's grads and the evaluation on the card."""
+    from repro_torch.models import build_model
+    from repro_torch.train import Hyper
+    one_plan = dataclasses.replace(plan, cp=1)
+    model = build_model(cfg, one_plan)
+    _, _, one = zero1_run(model, one_plan, batches, watch=ZeroWatch(steps=1),
+                          prepare=tp_taps if taps else None, keep_params=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    if taps:
+        tp_taps(params)
+    truth = fp64_first_grads(cfg, params, batches[0], 1, Hyper())
+    del params, model
+    free()
+    return {**one, "grads": on_card(one["grads"])}, on_card(truth)
+
+
+def rank_checksums(named, grid):
+    """Every rank's exact uint32 checksum of its host arrays ``named``
+    (``ft.integrity.tree_checksum``), gathered over the grid's host group:
+    equal on every rank when they hold the same bits."""
+    import torch.distributed as dist
+    from repro_torch.ft.integrity import tree_checksum
+    mine = int(tree_checksum({n: torch.from_numpy(np.ascontiguousarray(a))
+                              for n, a in named.items()}))
+    out = [None] * grid.size
+    dist.all_gather_object(out, mine, group=grid.host_group)
+    return out
+
+
+def cp_fp32(grid):
+    """The fp32 steps at CP_FP32_LAYERS layers and 1 x TRAIN_SEQ: dense in the
+    ring and the gather modes, the ring's control (``tile_bf16_rounding``),
+    and Mamba2, each one step. Every rank holds the same grads after the cp
+    sum (checked by their checksums), so rank 0's first grads (whole leaves)
+    are held to one device's step and its fp64 evaluation by GRID_TOLERANCE,
+    which the control must fail. One device's step runs on rank 0 first,
+    while rank 1 waits. Before each step but the control's, the rank's
+    microbatch is checked whole (``cp_checked_microbatch``: every kernel call
+    against its plain version, on the fp32 bodies); before the gather step,
+    also in bf16 on the same weights, so that the gather mode's B1 with its
+    causal q_offset and its B2/B3 meet their plain versions on the Hopper
+    body. The steps' launches must be ``cp_want``'s, on the fp32 bodies; the
+    control's are not counted."""
+    out = {}
+    for family, runs in (("dense", (("ring", "ring", False), ("gather", "gather", False),
+                                     ("control", "ring", True))),
+                         ("ssm", (("ring", "ring", False),))):
+        cfg, plan, model, batches = cp_setup(family, CP_FP32_LAYERS, "float32", TRAIN_SEQ)
+        one = truth = None
+        if grid.rank == 0:
+            one, truth = cp_one_device(cfg, plan, batches, family == "ssm")
+        grid.barrier_error(False)
+        for name, impl, control in runs:
+            p = dataclasses.replace(plan, cp_impl=impl)
+            checked, checked_bf16 = {}, {}
+            prepare = None
+            if not control:
+                checks = [cp_checked_microbatch(family, cfg, p, grid, batches[0], checked)]
+                if impl == "gather":
+                    checks.append(cp_checked_microbatch(
+                        family, cfg, dataclasses.replace(p, compute_dtype="bfloat16"), grid,
+                        batches[0], checked_bf16))
+                prepare = lambda params: [c(params) for c in checks]     # noqa: E731
+            reset_counts()
+            watch = ZeroWatch(steps=1, shadow=not control)
+            with tile_bf16_rounding() if control else contextlib.nullcontext():
+                _, _, run = zero1_run(model, p, batches, grid, watch=watch, prepare=prepare,
+                                      keep_params=False)
+            rec = {"layers": cfg.n_layers, "launches": all_counts() + ssd_counts(),
+                   "bodies": body_counts(), "loss": run["loss"], "grad_norm": run["grad_norm"],
+                   "rank_checksums": rank_checksums(watch.grads, grid), **checked}
+            if checked_bf16:
+                rec["bf16_microbatch"] = checked_bf16
+            if not control:
+                want = cp_want(family, cfg, impl)
+                if tuple(rec["launches"]) != want:
+                    raise AssertionError(f"{cfg.arch_id} cp fp32 {name} step launched "
+                                         f"{rec['launches']}, expected {want}")
+                check_bodies(f"{cfg.arch_id} cp fp32 {name} rank {grid.rank}",
+                             rec["launches"], fp32=True)
+            free()
+            if grid.rank == 0:
+                shards = [on_card(watch.grads)]
+                bad = [] if len(set(rec["rank_checksums"])) == 1 else [
+                    f"the ranks' grads differ: checksums {rec['rank_checksums']}"]
+                if control:
+                    control_bad, _ = grid_grad_failures(shards, one["grads"], truth, whole_part)
+                    rec.update(control_failures=len(control_bad), control_first=control_bad[:3])
+                    if not control_bad:
+                        bad.append("the control (each ring tile's o rounded to bf16) passes "
+                                   "the grads rule")
+                    out["dense"]["ring"]["failures"] += bad
+                else:
+                    agree = grid_agreement(run, one, shards, whole_part)
+                    rule_bad, explained = grid_failures(agree, watch.shadow_err, shards,
+                                                        one["grads"], truth, whole_part)
+                    rec.update(agree=agree, failures=bad + rule_bad, explained=explained,
+                               one_device_loss=one["loss"],
+                               one_device_grad_norm=one["grad_norm"],
+                               dp_tolerance_met=not rule_bad and not explained)
+                log(f"cp fp32 {cfg.arch_id} {name} ({cfg.n_layers} layers, 1 x {TRAIN_SEQ}): "
+                    f"rank checksums {rec['rank_checksums']}; "
+                    + (f"fails the grads rule on {rec['control_failures']} leaves, first "
+                       f"{rec['control_first']}" if control else
+                       f"loss {run['loss']} / {one['loss']}, {rec['agree']}; leaves past 1e-6 "
+                       f"that the fp64 rule admits (error, CP's distance from fp64, one "
+                       f"device's) {rec['explained']}; failures {rec['failures']}"))
+                del shards
+            out.setdefault(family, {})[name] = rec
+            free()
+            grid.barrier_error(False)
+        del model, one, truth
+        free()
+    return out
+
+
+def cp_rank(rank, init_method, out_dir):
+    """One of the CP_RANKS processes of the CP phase, on cuda:0 over gloo:
+    the dense and Mamba2 paths (``cp_family``), then the fp32 checks
+    (``cp_fp32``). Results go to ``out_dir/cp_rank{rank}.json``."""
+    from repro_torch.core import resolve_device
+    from repro_torch.launch import init_grid_mesh
+    resolve_device()
+    grid = init_grid_mesh(1, 1, "cuda:0", cp=CP_RANKS, backend="gloo", init_method=init_method,
+                          rank=rank)
+    log(f"cp rank {rank}: {grid}")
+    out = {"rank": rank, "mesh": repr(grid)}
+    for family in ("dense", "ssm"):
+        t0 = time.perf_counter()
+        out[family] = cp_family(family, grid, out_dir)
+        out[family]["seconds"] = time.perf_counter() - t0
+        free()
+    t0 = time.perf_counter()
+    out["fp32"] = cp_fp32(grid)
+    out["fp32"]["seconds"] = time.perf_counter() - t0
+    grid.close()
+    (Path(out_dir) / f"cp_rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_cp():
+    """The CP phase: CP_RANKS spawned ranks on the one card over gloo
+    (``cp_rank``); their results checked here, then the kernels timed at the
+    CP shapes (B1 on a diagonal and a full ring tile, B2/B3 on each against
+    the statistics merged over the whole row, B5/B6 on rank 0's kept
+    inputs)."""
+    with spawned_ranks(cp_rank, CP_RANKS, "cp", timeout=600) as (tmp, ranks, ranks_s):
+        cp_report(ranks)
+        t0 = time.perf_counter()
+        times = cp_times(tmp)
+        times_s = time.perf_counter() - t0
+    log(f"phase CP: ranks {ranks_s:.1f} s, kernel times {times_s:.1f} s")
+    return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
+
+
+def cp_bwd_inputs(gen):
+    """q, dO and the two KV sub-chunks of a ring row (bf16, head-major views
+    of batch-major tensors) with the row's statistics merged over both: an
+    earlier sub-chunk seen whole and the row's own diagonal (lse from the
+    plain forward over the two, delta = rowsum(dO * O))."""
+    b, hq, hkv, s, t, hd = CP_CASES["diagonal"][:6]
+    q = batch_major(gen, b, hq, s, hd, torch.bfloat16)
+    k_full, v_full, k_diag, v_diag = (batch_major(gen, b, hkv, t, hd, torch.bfloat16)
+                                      for _ in range(4))
+    do = batch_major(gen, b, hq, s, hd, torch.bfloat16)
+    o, lse = flash_plain(q, torch.cat([k_full, k_diag], 2), torch.cat([v_full, v_diag], 2),
+                         causal=True, q_offset=t)
+    delta = (do.float() * o.float()).sum(-1)
+    return q, do, lse, delta, {"full": (k_full, v_full), "diagonal": (k_diag, v_diag)}
+
+
+def cp_times(keep_dir):
+    """The kernels at the CP path's shapes: B1 (fwd_times_at, beside SDPA) on
+    a diagonal and a full ring tile at (1, 20, CP_SUB, 128); B2/B3
+    (bwd_times_at, with the plain backward) on each against the statistics
+    merged over the row; B5/B6 (ssd_times) on rank 0's kept inputs at
+    (1, 32, CP_SSM_SEQ / 2, 64, 128)."""
+    from repro_torch.kernels import flash_attention as tf
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    out = {}
+    q, do, lse, delta, kv = cp_bwd_inputs(gen)
+    for name, case in CP_CASES.items():
+        fwd = fwd_times_at(case, gen)
+        k, v = kv[name]
+        bwd = bwd_times_at(case, gen, inputs=(q, k, v, do, lse, delta))
+        kw = bwd.pop("inputs")[-1]
+        bwd["plain_ms"] = cuda_ms(lambda: tf.flash_attention_bwd_plain(q, k, v, do, lse, delta,
+                                                                      **kw), 3, warmup=1)
+        out[name] = {"fwd": fwd, "bwd": bwd}
+        free()
+    del q, do, lse, delta, kv
+    free()
+    out["ssd"] = ssd_times(f"{SSM_ARCH} cp", torch.load(Path(keep_dir) / "cp_ssd.pt"))
+    free()
+    return out
+
+
+def cp_report(ranks):
+    """Log the CP phase's results and hold them to their checks: every
+    family's losses finite and equal on both ranks, the fp32 steps by
+    GRID_TOLERANCE and the control failing it; keep the launches by body for
+    the kernels line."""
+    r0 = ranks[0]
+    bad = []
+    for family in ("dense", "ssm"):
+        for r in ranks:
+            f = r[family]
+            log(f"cp {family} rank {r['rank']} ({r['mesh']}): steps {f['ms']} ms, hops "
+                f"{f['tick_ms']} ms, all-reduces {f['all_reduce_ms']} ms (two ranks share one "
+                f"card and the ring goes through host memory: no measure of CP scaling); peak "
+                f"{f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} B params a "
+                f"rank; launches {f['launches']} a step; bodies {f['bodies']}; on its own inputs "
+                f"{({k: f[k] for k in f if k.startswith('real_')})}; {f['seconds']:.1f} s")
+            if not all(np.isfinite(x) for x in f["loss"] + f["grad_norm"]):
+                bad.append(f"{family} rank {r['rank']}: a loss or grad norm is not finite")
+            if (f["loss"], f["grad_norm"]) != (r0[family]["loss"], r0[family]["grad_norm"]):
+                bad.append(f"{family}: rank {r['rank']} reports {f['loss']} / {f['grad_norm']}")
+        window = cp_window(family, "ring")
+        BODY_COUNTS[window] = {k: sum(r[family]["bodies"][k] for r in ranks)
+                               for k in r0[family]["bodies"]}
+    for family, runs in r0["fp32"].items():
+        if family == "seconds":
+            continue
+        for name, rec in runs.items():
+            bad += [f"fp32 {family} {name}: {b}" for b in rec.get("failures", [])]
+            if name != "control":
+                BODY_COUNTS[cp_window(family, name, fp32=True)] = {
+                    k: sum(r["fp32"][family][name]["bodies"][k] for r in ranks)
+                    for k in rec["bodies"]}
+    if bad:
+        raise AssertionError("CP phase: " + "; ".join(bad))
+
+
+def cp_launches(cp, i):
+    """One kernel's launches on the CP paths (``i``: its index in the
+    launches tuple), summed over the ranks, by window (``cp_window``); only
+    the windows where it launched."""
+    out = {}
+    for family in ("dense", "ssm"):
+        n = sum(r[family]["launches"][i] for r in cp["ranks"])
+        if n:
+            out[cp_window(family, "ring")] = n
+    for family, runs in cp["ranks"][0]["fp32"].items():
+        if family == "seconds":
+            continue
+        for name in runs:
+            n = sum(r["fp32"][family][name]["launches"][i] for r in cp["ranks"])
+            if n and name != "control":
+                out[cp_window(family, name, fp32=True)] = n
+    return out
+
+
+def cp_summary(cp):
+    """The CP phase's numbers for the kernels line (``qwen1.5-4b_cp``)."""
+    ranks = cp["ranks"]
+    keys = ("ms", "tick_ms", "all_reduce_ms", "launches", "peak_bytes", "params_per_rank",
+            "loss", "grad_norm", "seconds")
+    return {
+        "grid": {"data": 1, "cp": CP_RANKS, "model": 1},
+        "transport": "gloo, host copies (two ranks on one card); no measure of CP scaling",
+        "families": {family: {"arch": TRAIN_ARCH if family == "dense" else SSM_ARCH,
+                              "cp_impl": "ring", "layers": ranks[0][family]["layers"],
+                              "seq": ranks[0][family]["seq"],
+                              "ranks": [{k: r[family][k] for k in keys} for r in ranks],
+                              "one_device_loss": ranks[0][family]["one_device_loss"],
+                              "one_device_loss_rel": ranks[0][family]["one_device_loss_rel"],
+                              "real_inputs": {k: ranks[0][family][k] for k in ranks[0][family]
+                                              if k.startswith("real_")}}
+                     for family in ("dense", "ssm")},
+        "fp32": {family: {name: {k: v for k, v in rec.items() if k != "bodies"}
+                          for name, rec in runs.items()}
+                 for family, runs in ranks[0]["fp32"].items() if family != "seconds"},
+        "tolerance": GRID_TOLERANCE,
+        "phase_s": {"ranks": cp["ranks_s"], "kernel_times": cp["times_s"],
+                    "fp32_checks": ranks[0]["fp32"]["seconds"]},
+    }
+
+
 def ft_summary(whisper, dp):
     """The fault-tolerance readings for the kernels line (``whisper-small_ft``):
     the phase's, the DP ranks' audit and sdc run, and the training phase's step
@@ -4223,13 +4757,16 @@ def ft_summary(whisper, dp):
     }
 
 
-def ssd_entries(ssd_errs, ssm, tp):
+def ssd_entries(ssd_errs, ssm, tp, cp):
     """The kernels-line entries of B5 and B6. ``ssd_errs``: (the bf16 kernel
     checks at each path shape, the worst error of each Hopper pass); ``ssm``:
-    {arch: (serving, training)} results; ``tp``: the TP phase's."""
+    {arch: (serving, training)} results; ``tp``, ``cp``: the TP and CP
+    phases'. Every launch ran the Hopper body but the fp32 CP step's, which
+    ran the first version's (fp32)."""
     path_errs, pass_worst = ssd_errs
     by_path = {"ssd_fwd": {}, "ssd_bwd": {}}
-    windows = ["tp_ssm_train_step"]
+    fp32_window = cp_window("ssm", "ring", fp32=True)
+    windows = ["tp_ssm_train_step", cp_window("ssm", "ring"), fp32_window]
     for arch, (serve, train) in ssm.items():
         by_path["ssd_fwd"][f"{arch}_forward"] = serve["b5"]
         by_path["ssd_fwd"][f"{arch}_train_step"] = train["launches"][5]
@@ -4237,15 +4774,20 @@ def ssd_entries(ssd_errs, ssm, tp):
         windows += [f"{arch}_forward", f"{arch}_train_step"]
     by_path["ssd_fwd"].update(tp_launches(tp, 5, ("ssm",)))
     by_path["ssd_bwd"].update(tp_launches(tp, 6, ("ssm",)))
+    by_path["ssd_fwd"].update(cp_launches(cp, 5))
+    by_path["ssd_bwd"].update(cp_launches(cp, 6))
     out = []
     for name, kind, line, i, names, tol in (
             ("ssd_fwd", "fwd", 79, 0, ("y", "enters", "state"), SSD_FWD_TOLERANCE),
             ("ssd_bwd", "bwd", 179, 1, BWD_NAMES, SSD_BWD_TOLERANCE)):
         head = ssm[SSM_ARCH][0 if kind == "fwd" else 1]["times"][kind]
         bodies = launches_by_body(name, windows)
-        if bodies[f"{name}_sm90"] != sum(by_path[name].values()) or bodies[f"{name}_simt"]:
+        fp32 = by_path[name].get(fp32_window, 0)
+        if (bodies[f"{name}_sm90"], bodies[f"{name}_simt"]) != (
+                sum(by_path[name].values()) - fp32, fp32):
             raise AssertionError(f"{name}'s launches by body {bodies} do not add up to its "
-                                 f"launches by path {by_path[name]} on the Hopper body")
+                                 f"launches by path {by_path[name]} on the Hopper body (the "
+                                 f"fp32 step's on the first version's)")
         out.append({
             "name": name,
             "route": "cuda",
@@ -4274,13 +4816,16 @@ def ssd_entries(ssd_errs, ssm, tp):
                        if kind in r["times"]},
             "tp_shape": tp["times"]["ssd"][kind],
             "tp_real_inputs_worst": tp["ranks"][0]["ssm"]["real_ssd"],
+            "cp_shape": cp["times"]["ssd"][kind],
+            "cp_real_inputs_worst": {f"rank{r['rank']}": r["ssm"]["real_ssd"]
+                                     for r in cp["ranks"]},
             "check": "pass",
         })
     return out
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm, whisper, dp, tp):
+                moe_train, ssd_errs, ssm, whisper, dp, tp, cp):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -4295,7 +4840,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_ft": whisper["ft"]["launches"][0],
                 "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
                 "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0],
-                **tp_launches(tp, 0)}
+                **tp_launches(tp, 0), **cp_launches(cp, 0)}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -4337,6 +4882,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "tp_shapes": {family: tp["times"][family]["fwd"] for family in TP_CASES},
         "tp_real_inputs_max_err_bf16_ulps": max(r[family]["real_fwd_ulps"] for r in tp["ranks"]
                                                 for family in TP_CASES),
+        "cp_shapes": {name: cp["times"][name]["fwd"] for name in CP_CASES},
+        "cp_real_inputs_max_err_bf16_ulps": max(r["dense"]["real_fwd_ulps"]
+                                                for r in cp["ranks"]),
         "check": "pass",
     }]
     hybrid_train = ssm[HYBRID_ARCH][1]["launches"]
@@ -4353,7 +4901,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                    f"{WHISPER_ARCH}_dp_train_step": sum(r["launches"][which + 1]
                                                         for r in dp["ranks"]),
                    f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1],
-                   **tp_launches(tp, which + 1)}
+                   **tp_launches(tp, which + 1), **cp_launches(cp, which + 1)}
         hy = bt["hybrid"]
         wh = {}
         for n in ("encoder", "train_cross", "train_self"):
@@ -4407,6 +4955,17 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 for family, case in TP_CASES.items()},
             "tp_real_inputs_max_err_bf16_ulps": max(
                 r[family]["real_bwd_ulps"][1 - which] for r in tp["ranks"] for family in TP_CASES),
+            "cp_shapes_merged_lse": {name: {
+                "shape": list(case[:6]), "causal": case[6],
+                "ms": cp["times"][name]["bwd"]["ms"][which],
+                "bound_ms": cp["times"][name]["bwd"]["bounds"][which][0],
+                "bound_by": cp["times"][name]["bwd"]["bounds"][which][1],
+                "plain_ms": cp["times"][name]["bwd"]["plain_ms"],
+                "whole_backward_ms": cp["times"][name]["bwd"]["whole_ms"],
+                "library_ms": cp["times"][name]["bwd"]["library_ms"]}
+                for name, case in CP_CASES.items()},
+            "cp_real_inputs_max_err_bf16_ulps": max(r["dense"]["real_bwd_ulps"][1 - which]
+                                                    for r in cp["ranks"]),
             "check": "pass",
         })
     gt = {**moe_serve["times"], **moe_train["times"]}
@@ -4449,11 +5008,12 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "tp_real_inputs_max_err_bf16_ulps": max(r["moe"]["real_gemm_ulps"] for r in tp["ranks"]),
         "check": "pass",
     })
-    entries += ssd_entries(ssd_errs, ssm, tp)
+    entries += ssd_entries(ssd_errs, ssm, tp, cp)
     print(json.dumps({"kernels": entries, f"{WHISPER_ARCH}_checkpoint": whisper["ckpt"],
                       f"{WHISPER_ARCH}_dp": dp_summary(dp),
                       f"{WHISPER_ARCH}_ft": ft_summary(whisper, dp),
-                      f"{TRAIN_ARCH}_tp": tp_summary(tp)}), flush=True)
+                      f"{TRAIN_ARCH}_tp": tp_summary(tp),
+                      f"{TRAIN_ARCH}_cp": cp_summary(cp)}), flush=True)
 
 
 def free():
@@ -4498,8 +5058,10 @@ def main():
     dp = timed(f"{WHISPER_ARCH} data parallel", phase_whisper_dp)
     free()
     tp = timed("tensor parallel", phase_tp)
+    free()
+    cp = timed("context parallel", phase_cp)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

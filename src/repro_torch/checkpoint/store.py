@@ -72,7 +72,11 @@ records the plan's ``tp`` and ``mesh_axes`` ``{"data": D, "model": M}``.
 ``restore`` under the grid cuts each whole leaf to the rank's TP shard
 (``core.sharding.overlap_spec_for_param``) and then to its ZeRO-1 slice, so
 a restore at tp 1 (``restore_resharded`` onto one process) and at the saved
-grid read the same file.
+grid read the same file. Under context parallelism the params and moments
+are the same on every cp rank, so only the ranks at cp index 0 (the grid's
+``save_group``) take part in the gather; the manifest records the plan's
+``cp`` and the grid's ``{"data": D, "cp": C, "model": M}``, and a restore at
+another cp (1 included) routes "reshard", as the reference's does.
 
 Fault seams (``repro_torch.ft.inject``): ``ckpt.persist`` fires per persist
 attempt (``hang``, ``persist_exc``), and ``ckpt.shard_write`` after the
@@ -101,7 +105,7 @@ import torch.distributed as dist
 from repro_torch.core.sharding import (data_size, leaf_tp_dim, local_index, local_shape,
                                        tp_shard_of, train_state_specs)
 from repro_torch.core.tree import named_leaves, stacked_shape
-from repro_torch.launch.mesh import model_size
+from repro_torch.launch.mesh import GridMesh, cp_size, model_size
 
 
 class CorruptCheckpointError(IOError):
@@ -122,7 +126,7 @@ def _inject():
 # the layout axes a manifest records (the reference's store.py:95-145)
 
 # The reference's ParallelPlan layout axes, with each one's value on a plan
-# that lacks it: the port's plan has tp and zero_stage of them and runs one
+# that lacks it: the port's plan has tp, cp and zero_stage of them and runs one
 # device on each of the others, so the manifest records those values and either
 # package compares them. The reference's PLAN_AXES also records impl and
 # schedule knobs for forensics; the port's plan has none of those.
@@ -414,7 +418,7 @@ class CheckpointManager:
                   "mesh_axes": dict(mesh.shape) if mesh is not None else None}
         path = self.dir / f"ckpt_{step:08d}"
         device = host = None
-        if model_size(mesh) > 1:
+        if isinstance(mesh, GridMesh) and (model_size(mesh) > 1 or cp_size(mesh) > 1):
             shapes, host = self._gather_grid(tree, named, plan, mesh)
             self._fence = mesh
             if mesh.rank != 0:
@@ -519,35 +523,35 @@ class CheckpointManager:
         return [list(specs[name].shape) for name, _ in named], host
 
     def _gather_grid(self, state, named, plan, mesh):
-        """The save's snapshot under a grid (module docstring): this rank's
-        leaves copied to the host and sent to global rank 0, which places every
-        rank's parts into whole leaves. Returns (the whole shapes, per leaf
-        [(array, manifest dtype, None)], the arrays on rank 0 only)."""
+        """The save's snapshot under a grid (module docstring): the leaves of
+        each rank at cp index 0 copied to the host and sent to global rank 0
+        over the grid's ``save_group`` in one flat gather (:func:`gather_flat`),
+        and placed there into whole leaves; the other cp ranks hold the same
+        and send nothing. Returns (the whole shapes, per leaf [(array,
+        manifest dtype, None)] on rank 0, None elsewhere)."""
         if not hasattr(state, "params"):
             raise ValueError("a save under a grid takes a TrainState")
         specs = train_state_specs(state, mesh, plan)
-        t0 = time.perf_counter()
-        host = [_host(x) for _, x in named]
-        self.fence_seconds, self.d2h_seconds = 0.0, time.perf_counter() - t0
-        t1 = time.perf_counter()
-        flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a, _ in host]))
-        got = [torch.empty_like(flat) for _ in range(mesh.size)] if mesh.rank == 0 else None
-        dist.gather(flat, got, dst=0, group=mesh.host_group)
         n_data, n_model = mesh.shape["data"], mesh.shape["model"]
         shapes = [list(_grid_whole_shape(name, specs[name], n_model)) for name, _ in named]
+        t0 = time.perf_counter()
+        self.fence_seconds = self.d2h_seconds = self.gather_seconds = 0.0
+        if mesh.cp is not None and mesh.cp.rank != 0:
+            self.snapshot_seconds = 0.0
+            return shapes, None
+        host = [_host(x) for _, x in named]
+        self.d2h_seconds = time.perf_counter() - t0
+        t1 = time.perf_counter()
+        got = gather_flat([a for a, _ in host], mesh.save_group)
         out = None
-        if mesh.rank == 0:
-            out = []
-            for name, (a, dt), shape in zip((n for n, _ in named), host, shapes):
-                out.append([(np.zeros(shape, dtype=a.dtype), dt, None)])
-            for r in range(mesh.size):
+        if got is not None:
+            out = [[(np.zeros(shape, dtype=a.dtype), dt, None)]
+                   for (a, dt), shape in zip(host, shapes)]
+            for r, arrays in enumerate(got):        # save_group's order: (data, model)
                 d_idx, m_idx = divmod(r, n_model)
-                off = 0
-                for (name, _), (a, _), parts in zip(named, host, out):
-                    b = got[r][off:off + a.nbytes].numpy().view(a.dtype).reshape(a.shape)
+                for (name, _), b, parts in zip(named, arrays, out):
                     box = _grid_index(name, specs[name], d_idx, n_data, m_idx, n_model)
                     parts[0][0][tuple(slice(lo, hi) for lo, hi in box)] = b
-                    off += a.nbytes
         self.gather_seconds = time.perf_counter() - t1
         self.snapshot_seconds = time.perf_counter() - t0
         return shapes, out
@@ -769,6 +773,28 @@ class CheckpointManager:
         return self.restore(tree_like, step, verify, mesh=mesh)
 
 
+def gather_flat(arrays: List[np.ndarray], group) -> Optional[List[List[np.ndarray]]]:
+    """Every rank of ``group``'s host ``arrays`` (the same shapes and dtypes on
+    each) on global rank 0, in one flat gather of their bytes: per rank of
+    the group, in its order, the list of arrays there; None elsewhere."""
+    arrays = [np.ascontiguousarray(a) for a in arrays]
+    flat = torch.from_numpy(np.concatenate([a.reshape(-1).view(np.uint8) for a in arrays]))
+    me = dist.get_rank()
+    got = ([torch.empty_like(flat) for _ in range(dist.get_world_size(group))]
+           if me == 0 else None)
+    dist.gather(flat, got, dst=0, group=group)
+    if me != 0:
+        return None
+    out = []
+    for buf in got:
+        parts, off = [], 0
+        for a in arrays:
+            parts.append(buf[off:off + a.nbytes].numpy().view(a.dtype).reshape(a.shape))
+            off += a.nbytes
+        out.append(parts)
+    return out
+
+
 def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None):
     """``tree_like`` refilled from a manifest's leaves (``_refill``; under a
     data ``mesh`` this rank's slices; under a grid its TP shards, then their
@@ -780,7 +806,7 @@ def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mes
                          f"{sorted(set(names) ^ set(manifest['names']))[:5]}")
     by_name = dict(zip(names, zip(arrays, manifest["dtypes"])))
     n_model = model_size(mesh)
-    if n_model > 1:
+    if isinstance(mesh, GridMesh):
         return _refill(tree_like, lambda n: tp_shard_of(n, _to_torch(*by_name[n]),
                                                         mesh.model.rank, n_model),
                        rank=(mesh.data.rank, mesh.data.size))

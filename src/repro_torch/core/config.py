@@ -35,6 +35,15 @@ and ``"overlap"`` both run the rings (the reference resolves ``"auto"`` to
 ``"gspmd"`` off the TPU); ``"gspmd"`` raises ``NotImplementedError``, since the
 port has no XLA partitioner to lay the model out (ROADMAP queue A).
 
+``ParallelPlan.cp`` and ``cp_impl`` are the reference's context-parallel degree
+and mode (survey §4.1.4): ``cp`` > 1 on a grid with a cp axis of that size
+(``init_grid_mesh(cp=)``) shards the sequence over the cp ranks end to end
+(``repro_torch.train.executor``): ring attention with zigzag ownership
+(``"ring"``) or K/V all-gathered over contiguous chunks (``"gather"``), the
+Mamba2 conv halo and entering-state chain, MoE routed on the local tokens with
+the aux statistics summed over the ranks. ``"auto"`` takes the ring where it
+can (``repro_torch.kernels.dispatch.select_cp_impl``).
+
 ``ParallelPlan.integrity`` (``"off"`` | ``"audit"``) is the reference's
 silent-data-corruption audit: under ``"audit"`` the train step's metrics gain
 ``integrity_checksum`` and ``integrity_div`` (``repro_torch.ft.integrity``).
@@ -47,6 +56,7 @@ and ``validate()``.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional, Tuple
 
 from .device import resolve_dtype
@@ -57,6 +67,7 @@ REMAT_MODES = ("none", "full", "selective")
 ZERO_STAGES = (0, 1)
 INTEGRITY_MODES = ("off", "audit")
 TP_IMPLS = ("auto", "gspmd", "overlap")
+CP_IMPLS = ("auto", "gather", "ring")
 
 
 class Family:
@@ -218,16 +229,35 @@ def check_tp_impl(impl: str) -> None:
             "a blocking TP path)")
 
 
+def warn_shard_local_routing(cfg: ModelConfig) -> None:
+    """The reference's warning: under shard-local MoE routing (the ring
+    paths) a token-dropping capacity drops per shard, which may differ from
+    routing over the whole batch. No-op for other families and for a
+    capacity that drops nothing (``capacity_factor * top_k >= E``)."""
+    if cfg.moe is None or cfg.moe.capacity_factor * cfg.moe.top_k >= cfg.moe.num_experts:
+        return
+    warnings.warn(
+        "token-dropping capacity under shard-local MoE routing "
+        f"(capacity_factor={cfg.moe.capacity_factor} < "
+        f"E/top_k={cfg.moe.num_experts / cfg.moe.top_k:g}): drop decisions "
+        "are per data/context shard and may diverge from the global-routing "
+        "baseline; use capacity_factor >= E/top_k for exact equivalence",
+        UserWarning, stacklevel=3)
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's other parallel axes (cp, pp, ep, dp_shard)
-    come with the slices that implement them, so a plan cannot ask for a
-    placement the port would quietly ignore."""
+    defaults). The reference's other parallel axes (pp, ep, dp_shard) come
+    with the slices that implement them, so a plan cannot ask for a placement
+    the port would quietly ignore."""
     tp: int = 1                    # tensor-parallel degree: the grid's model axis
     tp_impl: str = "auto"          # "auto" | "overlap": the rings of
                                    # train/tensor_parallel.py; "gspmd" raises
                                    # (module docstring)
+    cp: int = 1                    # context-parallel degree: the grid's cp axis
+                                   # (the sequence sharded end to end)
+    cp_impl: str = "auto"          # "auto" | "gather" | "ring" (module docstring)
     microbatches: int = 1          # grad-accumulation microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
                                    # or Mamba2 layer (train/executor.py)
@@ -261,9 +291,22 @@ class ParallelPlan:
             if getattr(self, knob) not in ATTN_IMPLS:
                 raise ValueError(f"{knob} must be one of {ATTN_IMPLS}, "
                                  f"got {getattr(self, knob)!r}")
-        check_tp_impl(self.tp_impl)
         if not isinstance(self.tp, int) or self.tp < 1:
             raise ValueError(f"tp must be an int >= 1, got {self.tp!r}")
+        if self.cp_impl not in CP_IMPLS:
+            raise ValueError(f"cp_impl must be one of {CP_IMPLS}, got {self.cp_impl!r}")
+        if not isinstance(self.cp, int) or self.cp < 1:
+            raise ValueError(f"cp must be >= 1, got {self.cp!r}")
+        if self.cp > 1:
+            if cfg.family not in (Family.DENSE, Family.MOE, Family.SSM):
+                raise ValueError(f"cp > 1 supports dense/moe/ssm decoder-only families "
+                                 f"(the executor's wiring), got {cfg.family!r}")
+            if self.tp > 1 and self.tp_impl == "gspmd":
+                raise ValueError("cp > 1 composes with tp through the rings; set "
+                                 "tp_impl='overlap' (or 'auto')")
+        check_tp_impl(self.tp_impl)
+        if self.cp > 1 or self.tp > 1:
+            warn_shard_local_routing(cfg)
         if self.moe_dispatch not in MOE_DISPATCH_MODES:
             raise ValueError(f"moe_dispatch must be one of {MOE_DISPATCH_MODES}, "
                              f"got {self.moe_dispatch!r}")

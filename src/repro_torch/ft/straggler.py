@@ -15,13 +15,14 @@ rebalancing.
 - :func:`choose_pp_layout` — the mitigation: layers per pipeline stage
   re-partitioned from measured per-stage times.
 
-The port's ``ParallelPlan`` has no ``pp``, ``tp`` or ``cp`` yet (ROADMAP
-A13.2-A13.5): :func:`effective_layout` returns None on it and the timer models
-no stage or ring shares, so ``run_with_recovery``'s ``"rebalance"`` degrades to
-``"remesh"`` (with a hook) or ``"ignore"``, exactly as the reference's does on
-a plan without a pipeline. A plan-like object that carries ``pp`` (or ``tp``,
-``cp``) is read as the reference reads it, which is how the tests hold these
-paths to the reference.
+The port's ``ParallelPlan`` has ``tp`` and ``cp`` but no ``pp`` yet (ROADMAP
+A13.5): a plan with ``tp`` or ``cp`` > 1 fans each step out into per-rank
+shares of the ``tp.ring`` or ``cp.ring`` section, as the reference does;
+:func:`effective_layout` returns None on it, so ``run_with_recovery``'s
+``"rebalance"`` degrades to ``"remesh"`` (with a hook) or ``"ignore"``,
+exactly as the reference's does on a plan without a pipeline. A plan-like
+object that carries ``pp`` is read as the reference reads it, which is how the
+tests hold that path to the reference.
 
 Measurement model (the reference's): host-measurable sections (data fetch,
 checkpoint persist, the step itself) are timed for real; per-stage and

@@ -19,11 +19,14 @@ Function over the forward kernel (B1) and the two backward kernels (B2, B3),
 ``expert_gemm`` the one over the grouped GEMM (B4: forward and dx in rows
 mode, dw in contract mode), ``ssd_chunk_scan`` the one over the SSD forward
 (B5) and backward (B6), and the plain twins differentiate through autograd.
-The reference's
-``dispatch_attention_lse`` and ``dispatch_attention_chunk_bwd`` come with the
-context-parallel slice. :func:`select_tp_impl` resolves ``ParallelPlan.tp_impl``
-and :func:`dispatch_tp_matmul` is the one tile GEMM of the tensor-parallel
-rings (``train/tensor_parallel.py``).
+The ring
+attention of context parallelism (``train/executor.py``) calls B1 and B2/B3
+one tile at a time: :func:`dispatch_attention_lse` returns a tile's (o, lse)
+for the merge, and :func:`dispatch_attention_chunk_bwd` a tile's (dq, dk, dv)
+against the statistics merged over every tile of the row. :func:`select_cp_impl`
+resolves ``ParallelPlan.cp_impl``, :func:`select_tp_impl`
+``ParallelPlan.tp_impl``, and :func:`dispatch_tp_matmul` is the one tile GEMM
+of the tensor-parallel rings (``train/tensor_parallel.py``).
 
 On CUDA the kernel takes the head dims it has bodies for
 (``flash_attention.HEAD_DIMS``) and the call raises for any other; it never
@@ -53,10 +56,11 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.config import ATTN_IMPLS, check_tp_impl
+from repro_torch.core.config import ATTN_IMPLS, CP_IMPLS, Family, check_tp_impl
 from repro_torch.ft import inject as _inject
 from repro_torch.models import layers as _layers
 from repro_torch.models.ssm import ssd_scan
+from . import flash_attention as _fa
 from .flash_attention import HEAD_DIMS, flash_attention
 from .grouped_gemm import expert_gemm
 from .ssd_scan import ssd_chunk_scan
@@ -136,6 +140,44 @@ def dispatch_attention(q, k, v, *, impl: str = "auto", causal: bool = True,
         q_offset=q_offset, block_size=block_size, scale=scale)
 
 
+def dispatch_attention_lse(q, k, v, *, impl: str = "auto", causal: bool = True,
+                           window: int = 0, softcap: float = 0.0, q_offset: int = 0,
+                           scale: Optional[float] = None):
+    """One tile of chunked attention with its softmax statistic, batch-major:
+    q (B, S, Hq, hd), k/v (B, T, Hkv, hd) -> (o (B, S, Hq, hd), lse (B, S, Hq)
+    fp32). The kernel (B1's wrapper ``flash_attention_lse``) on "cuda", its
+    plain version on "plain"; never a fall-back from one to the other. A fully
+    masked row gives o = 0 and lse ~ ``NEG_INF``, so it drops out of the
+    merge."""
+    kw = dict(causal=causal, window=int(window), softcap=softcap, scale=scale,
+              q_offset=int(q_offset))
+    qh, kh, vh = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    if select_impl(impl, head_dim=q.shape[-1], device=q.device) == "cuda":
+        o, lse = _fa.flash_attention_lse(qh, kh, vh, **kw)
+    else:
+        o, lse = _fa.flash_attention_lse_plain(qh, kh, vh, **kw)
+    return o.transpose(1, 2), lse.transpose(1, 2)
+
+
+def dispatch_attention_chunk_bwd(q, k, v, do, lse, delta, *, impl: str = "auto",
+                                 causal: bool = True, softcap: float = 0.0,
+                                 q_offset: int = 0, scale: Optional[float] = None):
+    """One KV tile's (dq, dk, dv) against the softmax statistics ``lse`` and
+    ``delta`` (B, S, Hq), which may come from more keys than the tile holds,
+    batch-major: q/do (B, S, Hq, hd), k/v (B, T, Hkv, hd). B2/B3 (the wrapper
+    ``flash_attention_bwd``) on "cuda", their plain version on "plain". ``do``
+    is taken in q's dtype and the grads come back in it, as the reference's
+    kernel path casts them."""
+    kw = dict(causal=causal, window=0, softcap=softcap, scale=scale, q_offset=int(q_offset))
+    hm = lambda x: x.transpose(1, 2)          # noqa: E731 (batch- <-> head-major)
+    args = (hm(q), hm(k), hm(v), hm(do.to(q.dtype)), hm(lse), hm(delta))
+    if select_impl(impl, head_dim=q.shape[-1], device=q.device) == "cuda":
+        dq, dk, dv = _fa.flash_attention_bwd(*args, **kw)
+    else:
+        dq, dk, dv = _fa.flash_attention_bwd_plain(*args, **kw)
+    return hm(dq), hm(dk), hm(dv)
+
+
 # ---------------------------------------------------------------------------
 # MoE expert GEMM
 
@@ -166,16 +208,17 @@ def dispatch_expert_gemm(x, w, group_sizes=None, *, impl: str = "auto"):
 def select_ssd_impl(impl: str, *, device, has_initial_state: bool = False) -> str:
     """Resolve the SSD impl for a call on ``device`` -> "plain" | "cuda".
 
-    The kernels start from a zero state. Where the reference silently takes its
-    XLA twin for a caller's initial state, the port raises on a CUDA tensor under
-    "auto" and "cuda": the context-parallel slice (ROADMAP A13.3) must give the
-    kernel an initial state first. The plain twin honours one."""
+    The kernels start from a zero state, as the Pallas kernels do. Where the
+    reference silently takes its XLA twin for a caller's initial state, the
+    port raises on a CUDA tensor under "auto" and "cuda". No path passes one:
+    context parallelism scans each rank's chunk from a zero state and adds the
+    entering state's share in closed form (``train/executor.py``), as the
+    reference does. The plain twin honours one."""
     choice = _resolve(impl, "ssm_impl", device)
     if choice == "cuda" and has_initial_state:
         raise NotImplementedError(
-            f"ssm_impl={impl!r}: the SSD kernels start from a zero state; an initial "
-            f"state comes with the context-parallel slice (ROADMAP A13.3), or use "
-            f"ssm_impl='plain'")
+            f"ssm_impl={impl!r}: the SSD kernels start from a zero state; use "
+            f"ssm_impl='plain' for an initial state")
     return choice
 
 
@@ -208,7 +251,28 @@ def dispatch_ssd_scan(x, dt, A, B, C, *, chunk: int, impl: str = "auto",
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel rings
+# context- and tensor-parallel rings
+
+
+def select_cp_impl(impl: str, *, family: str = Family.DENSE, window: int = 0,
+                   local_global_alternating: bool = False) -> str:
+    """Resolve ``ParallelPlan.cp_impl`` -> "ring" | "gather" (the reference's
+    rule). The SSM family always runs "ring" (the entering-state chain; there
+    is no KV to gather). "ring" needs full causal attention, since its tiles'
+    masks are fixed by their place in the zigzag (no window, no local/global
+    alternation), and raises otherwise; "auto" takes "ring" where it can and
+    "gather" elsewhere."""
+    if impl not in CP_IMPLS:
+        raise ValueError(f"cp_impl must be one of {CP_IMPLS}, got {impl!r}")
+    if family == Family.SSM:
+        return "ring"
+    ring_ok = not window and not local_global_alternating
+    if impl == "ring" and not ring_ok:
+        raise ValueError("cp_impl='ring' needs full causal attention (no sliding window / "
+                         "local-global alternation); use cp_impl='gather'")
+    if impl == "auto":
+        return "ring" if ring_ok else "gather"
+    return impl
 
 
 def select_tp_impl(impl: str) -> str:

@@ -1,7 +1,7 @@
-"""Launch: the data-parallel mesh and the (data, model) grid (``mesh.py``)."""
+"""Launch: the data-parallel mesh and the (data, cp, model) grid (``mesh.py``)."""
 
-from .mesh import (DataMesh, GridMesh, ModelRing, batch_axes_for, data_mesh, init_data_mesh,
-                   init_grid_mesh, model_size, rank_microbatches)
+from .mesh import (DataMesh, GridMesh, ModelRing, batch_axes_for, cp_size, data_mesh,
+                   init_data_mesh, init_grid_mesh, model_size, rank_microbatches)
 
-__all__ = ["DataMesh", "GridMesh", "ModelRing", "batch_axes_for", "data_mesh",
+__all__ = ["DataMesh", "GridMesh", "ModelRing", "batch_axes_for", "cp_size", "data_mesh",
            "init_data_mesh", "init_grid_mesh", "model_size", "rank_microbatches"]

@@ -35,6 +35,14 @@ model index), on which the ZeRO-1 code runs unchanged, and a
 (``shift``) and sums the partials (``all_reduce_sum``). The transport rule is
 the data mesh's: NCCL when each rank has its own card, gloo with host copies
 when ranks share one (gloo's ``send``/``recv`` take no CUDA tensors).
+
+With ``cp`` > 1 (``init_grid_mesh(data=, model=, cp=)``) the grid is the
+reference's ("data", "cp", "model") mesh of context parallelism: global rank
+``(d * cp + c) * model + m``. Its cp axis is another :class:`ModelRing`
+(``GridMesh.cp``), over the ranks of one data and model index, which carries
+the ring attention's KV chunks, the Mamba2 halo and state chain and the
+sums over the sequence; the data group is then the ranks of one (cp, model)
+index.
 """
 
 from __future__ import annotations
@@ -201,6 +209,11 @@ def model_size(mesh) -> int:
     return int(mesh.shape.get("model", 1)) if mesh is not None else 1
 
 
+def cp_size(mesh) -> int:
+    """The size of ``mesh``'s cp axis (1 without one)."""
+    return int(mesh.shape.get("cp", 1)) if mesh is not None else 1
+
+
 def rank_microbatches(batch: Dict[str, torch.Tensor], mesh: DataMesh,
                       microbatches: int) -> List[Dict[str, torch.Tensor]]:
     """This rank's ``microbatches`` microbatches of the global ``batch``. The
@@ -228,9 +241,9 @@ def rank_microbatches(batch: Dict[str, torch.Tensor], mesh: DataMesh,
 
 
 class ModelRing:
-    """The model axis of a grid: a ring over the global ranks ``ranks`` (in
-    model-index order) of ``group``, this process at index ``rank`` (the
-    reference's ``axis_index``). It is the
+    """The model (or cp) axis of a grid: a ring over the global ranks
+    ``ranks`` (in axis-index order) of ``group``, this process at index
+    ``rank`` (the reference's ``axis_index``). It is the
     reference's ``RingCtx`` (axis name, size) with the transport attached:
     :meth:`shift` moves a tensor one hop (the reference's ``ppermute``),
     :meth:`all_reduce_sum` sums over the ring (its ``psum``). ``group=None``
@@ -312,28 +325,36 @@ class ModelRing:
 
 
 class GridMesh:
-    """The (data, model) grid of one rank: ``data`` (a :class:`DataMesh` over
-    this rank's data group), ``model`` (a :class:`ModelRing` over its model
-    group), ``shape`` ``{"data": D, "model": M}`` (the reference mesh's
-    contract, which the layout rules and the checkpoint manifest read), the
-    global ``rank`` and ``size``, and ``host_group``, a gloo group of every
-    rank for host-side traffic (the checkpoint's gather)."""
+    """The (data, cp, model) grid of one rank: ``data`` (a :class:`DataMesh`
+    over this rank's data group), ``model`` (a :class:`ModelRing` over its
+    model group), ``cp`` (a :class:`ModelRing` over its cp group, ``None``
+    without a cp axis), ``shape`` ``{"data": D, "cp": C, "model": M}`` (the
+    reference mesh's contract, which the layout rules and the checkpoint
+    manifest read; "cp" only when C > 1), the global ``rank`` and ``size``,
+    ``host_group``, a gloo group of every rank for host-side traffic, and
+    ``save_group``, the gloo group of the ranks at cp index 0 (all of them
+    without a cp axis), which hold every distinct shard of the state."""
 
-    def __init__(self, data: DataMesh, model: ModelRing, device, *, host_group=None):
-        self.data, self.model = data, model
+    def __init__(self, data: DataMesh, model: ModelRing, device, *, host_group=None,
+                 cp: Optional[ModelRing] = None, save_group=None):
+        self.data, self.model, self.cp = data, model, cp
         self.device = torch.device(device)
         self.host_group = host_group
-        self.size = data.size * model.size
+        self.save_group = save_group if save_group is not None else host_group
+        self.size = data.size * model.size * (cp.size if cp is not None else 1)
         self.rank = dist.get_rank() if dist.is_initialized() else 0
 
     @property
     def shape(self) -> Dict[str, int]:
-        return {"data": self.data.size, "model": self.model.size}
+        if self.cp is None:
+            return {"data": self.data.size, "model": self.model.size}
+        return {"data": self.data.size, "cp": self.cp.size, "model": self.model.size}
 
     def __repr__(self) -> str:
-        return (f"GridMesh(data={self.data.size}, model={self.model.size}, rank={self.rank}, "
-                f"backend={self.model.backend}, transport={self.model.transport}, "
-                f"device={self.device})")
+        cp = f"cp={self.cp.size}, " if self.cp is not None else ""
+        ring = self.cp if self.cp is not None and self.model.group is None else self.model
+        return (f"GridMesh(data={self.data.size}, {cp}model={self.model.size}, rank={self.rank}, "
+                f"backend={ring.backend}, transport={ring.transport}, device={self.device})")
 
     def barrier_error(self, failed: bool) -> bool:
         """Whether any rank of ``host_group`` passed ``failed``: a barrier that
@@ -348,17 +369,21 @@ class GridMesh:
         """Leave the process group (``dist.destroy_process_group``)."""
         if dist.is_initialized():
             dist.destroy_process_group()
-        self.host_group = self.data.group = self.data.host_group = self.model.group = None
+        self.host_group = self.save_group = self.data.group = self.data.host_group = None
+        self.model.group = None
+        if self.cp is not None:
+            self.cp.group = None
 
 
 def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.device]] = None,
-                   *, backend: Optional[str] = None, init_method: str = "env://",
+                   *, cp: int = 1, backend: Optional[str] = None, init_method: str = "env://",
                    rank: Optional[int] = None) -> GridMesh:
-    """Join the process group of ``data * model`` ranks and return this rank's
-    :class:`GridMesh`. ``device`` and ``backend`` as in :func:`init_data_mesh`
-    (gloo on CUDA: the host transport, the only way to put two ranks on one
-    card). Every rank creates every data and model group, in the same order,
-    as ``dist.new_group`` requires; an axis of size 1 gets no group."""
+    """Join the process group of ``data * cp * model`` ranks and return this
+    rank's :class:`GridMesh`. ``device`` and ``backend`` as in
+    :func:`init_data_mesh` (gloo on CUDA: the host transport, the only way to
+    put two ranks on one card). Every rank creates every data, cp and model
+    group, in the same order, as ``dist.new_group`` requires; an axis of size
+    1 gets no group."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -367,27 +392,44 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
         raise ValueError("NCCL moves CUDA tensors; a CPU mesh takes gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    world = data * model
+    world = data * cp * model
     kwargs = {} if rank is None else {"rank": rank, "world_size": world}
     dist.init_process_group(backend, init_method=init_method, **kwargs)
     if dist.get_world_size() != world:
-        raise ValueError(f"a ({data}, {model}) grid needs {world} ranks, the group has "
+        raise ValueError(f"a ({data}, {cp}, {model}) grid needs {world} ranks, the group has "
                          f"{dist.get_world_size()}")
     me = dist.get_rank()
-    d_idx, m_idx = divmod(me, model)
+
+    def at(d, c, m):
+        return (d * cp + c) * model + m
+    d_idx, rest = divmod(me, cp * model)
+    c_idx, m_idx = divmod(rest, model)
     host_group = dist.new_group(backend="gloo")
+    save_group = (dist.new_group([at(d, 0, m) for d in range(data) for m in range(model)],
+                                 backend="gloo") if cp > 1 else None)
     data_mesh_ = DataMesh(device=device)
-    for m in range(model):                      # one data group per model index
-        ranks = [d * model + m for d in range(data)]
-        if data > 1:
-            g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
-            if m == m_idx:
-                data_mesh_ = DataMesh(g, device, host_group=hg)
+    for c in range(cp):                         # one data group per (cp, model) index
+        for m in range(model):
+            ranks = [at(d, c, m) for d in range(data)]
+            if data > 1:
+                g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
+                if (c, m) == (c_idx, m_idx):
+                    data_mesh_ = DataMesh(g, device, host_group=hg)
+    cp_ring = None
+    for d in range(data):                       # one cp ring per (data, model) index
+        for m in range(model):
+            ranks = [at(d, c, m) for c in range(cp)]
+            if cp > 1:
+                g = dist.new_group(ranks)
+                if (d, m) == (d_idx, m_idx):
+                    cp_ring = ModelRing(g, ranks, device)
     ring = ModelRing(device=device)
-    for d in range(data):                       # one model ring per data index
-        ranks = [d * model + m for m in range(model)]
-        if model > 1:
-            g = dist.new_group(ranks)
-            if d == d_idx:
-                ring = ModelRing(g, ranks, device)
-    return GridMesh(data_mesh_, ring, device, host_group=host_group)
+    for d in range(data):                       # one model ring per (data, cp) index
+        for c in range(cp):
+            ranks = [at(d, c, m) for m in range(model)]
+            if model > 1:
+                g = dist.new_group(ranks)
+                if (d, c) == (d_idx, c_idx):
+                    ring = ModelRing(g, ranks, device)
+    return GridMesh(data_mesh_, ring, device, host_group=host_group, cp=cp_ring,
+                    save_group=save_group)

@@ -62,14 +62,24 @@ def init_moe(gen: torch.Generator, cfg: ModelConfig):
 # ---------------------------------------------------------------------------
 # routing
 
-def router_probs(p, x, cfg: ModelConfig, dtype):
-    """x: (N, d) -> (probs (N, E) fp32, aux_loss scalar)."""
+def router_probs(p, x, cfg: ModelConfig, dtype, reduce=None, n_rep: int = 1):
+    """x: (N, d) -> (probs (N, E) fp32, aux_loss scalar).
+
+    The Switch-Transformer load-balancing aux takes its density statistics as
+    sums over the tokens divided by their count. Where the batch's tokens are
+    split over ranks (the context-parallel sequence chunks, the data rows),
+    ``reduce`` sums a statistic over those ranks (``train.executor``'s
+    ``ParallelContext.aux_sum``) and ``n_rep`` is their number, so every rank
+    computes the aux of the whole batch, as the reference's ``batch_axes`` /
+    ``n_dp`` psum does."""
     e = cfg.moe
     logits = (x @ p["router"].to(dtype)).float()
     probs = torch.softmax(logits, dim=-1)
     density_sum = probs.sum(dim=0)                          # (E,)
     proxy_sum = _one_hot(probs.argmax(dim=-1), e.num_experts, torch.float32).sum(dim=0)
-    n_tot = probs.shape[0]
+    if reduce is not None:
+        density_sum, proxy_sum = reduce(density_sum), reduce(proxy_sum)
+    n_tot = probs.shape[0] * n_rep
     aux = (e.num_experts
            * torch.sum((density_sum / n_tot) * (proxy_sum / n_tot))
            * e.aux_loss_coef)
@@ -180,15 +190,17 @@ def _expert_ffn(w, h, dtype, impl: str = "auto", group_sizes=None):
 # dense-dispatch path
 
 def moe_dense(p, x, cfg: ModelConfig, dtype, dispatch_mode: str = "einsum",
-              gemm_impl: str = "auto"):
-    """x: (B, S, d) -> (out, aux_loss), all experts on this device."""
+              gemm_impl: str = "auto", reduce=None, n_rep: int = 1):
+    """x: (B, S, d) -> (out, aux_loss), all experts on this device, routing
+    these tokens; ``reduce`` and ``n_rep`` complete the aux's statistics over
+    the ranks holding the rest of the batch (:func:`router_probs`)."""
     e = cfg.moe
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     n = b * s
     capacity = max(int(n * e.top_k / e.num_experts * e.capacity_factor), 1)
 
-    probs, aux = router_probs(p, xf, cfg, dtype)
+    probs, aux = router_probs(p, xf, cfg, dtype, reduce, n_rep)
     if dispatch_mode == "scatter":
         slot, wts = topk_scatter_dispatch(probs, cfg, capacity)
         gs = _group_sizes_from_slots(slot, e.num_experts, capacity)
@@ -208,9 +220,9 @@ def moe_dense(p, x, cfg: ModelConfig, dtype, dispatch_mode: str = "einsum",
     return out.reshape(b, s, d), aux
 
 
-def moe_block(p, x, cfg: ModelConfig, dtype, plan=None):
+def moe_block(p, x, cfg: ModelConfig, dtype, plan=None, reduce=None, n_rep: int = 1):
     """The MoE sublayer on one device: :func:`moe_dense` under
     ``plan.moe_dispatch`` and ``plan.moe_gemm_impl``."""
     mode = plan.moe_dispatch if plan is not None else "einsum"
     gemm_impl = plan.moe_gemm_impl if plan is not None else "auto"
-    return moe_dense(p, x, cfg, dtype, mode, gemm_impl)
+    return moe_dense(p, x, cfg, dtype, mode, gemm_impl, reduce, n_rep)

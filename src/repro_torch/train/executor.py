@@ -1,13 +1,13 @@
 """The family blocks and layer bodies under a placement, and the
-tensor-parallel loss (port of ``repro/train/executor.py`` and of the layer
-bodies of ``repro/models/families.build_enc_dec``).
+tensor- and context-parallel loss (port of ``repro/train/executor.py`` and of
+the layer bodies of ``repro/models/families.build_enc_dec``).
 
 The reference's executor defines each family's math once and lets a
-:class:`ParallelContext` place it. The port has two placements:
+:class:`ParallelContext` place it. The port has these placements:
 
-- local (``ctx.tp is None``, :func:`local_context`): the single-device bodies
-  every model runs, unchanged by the context;
-- ``ctx.tp``, the model ring of a (data, model) grid (``launch.mesh``,
+- local (``ctx.tp`` and ``ctx.cp`` both None, :func:`local_context`): the
+  single-device bodies every model runs, unchanged by the context;
+- ``ctx.tp``, the model ring of a grid (``launch.mesh``,
   ``train/tensor_parallel.py``): column GEMMs take the sequence all-gather in
   their ring ticks (:func:`_proj_cols`), row GEMMs reduce-scatter
   (:func:`_proj_rows`), and the residual stream stays (B, S/tp, d) between
@@ -17,12 +17,35 @@ The reference's executor defines each family's math once and lets a
   runs the experts on the rank's d_expert columns and sums the partials
   (:func:`moe_block_ex`); Mamba2 fuses the in-projection into the ring,
   computes B/C on the gathered copy and runs the SSD scan on the rank's heads,
-  its gated RMSNorm summing the squares over the ring (:func:`ssm_block_ex`).
+  its gated RMSNorm summing the squares over the ring (:func:`ssm_block_ex`);
+- ``ctx.cp``, the cp ring of a (data, cp, model) grid (survey §4.1.4): the
+  sequence itself is sharded end to end, so no rank holds the whole context.
+  Attention runs as ``cp_impl`` says: ``"ring"`` (:func:`ring_attention`),
+  where each rank owns a zigzag pair of sub-chunks (rank i holds sub-chunks i
+  and 2 cp - 1 - i of 2 cp, so the causal triangle spreads evenly), the K/V
+  chunks travel around the ring while B1 runs each (q, k) tile whose mask is
+  fixed by the pair's place (masked: no launch; diagonal: causal; below:
+  full), and the tiles' (o, lse) merge exactly (:func:`_merge_lse`); its
+  backward is the reversed ring, B2/B3 on each tile against the merged (lse,
+  Δ), the dk/dv accumulators riding with their chunk and coming home on a last
+  hop. ``"gather"`` (:func:`gather_attention`) all-gathers K/V over contiguous
+  chunks and runs B1 with the rank's causal ``q_offset``. Mamba2 takes a
+  (d_conv - 1)-token halo from the left rank for its convs
+  (:func:`cp_halo_left`), scans the rank's chunk from a zero state through the
+  dispatcher, and adds the entering state's share of y in closed form around
+  the state chain (:func:`cp_chain_state`). MoE routes the rank's own tokens,
+  its aux statistics summed over the ranks that hold the rest of the batch.
+  cp composes with tp: a block's tp rings run inside the cp chunk.
 
-The reference's cp and ep fields come with the context- and expert-parallel
-slices (ROADMAP A13.3, A13.4). :func:`make_executor_loss_fn` assembles the
-tensor-parallel loss: the vocab-parallel embedding, the layers (``plan.remat``
-per layer), the final norm and the vocab-parallel head.
+Every ring collective runs on every rank in the same order, in the forward,
+in a recompute and in the backward: a rank that needs no value from one (the
+first rank's halo, a chain message not yet final) masks what it receives with
+``torch.where``, so the collective's backward still runs.
+
+The reference's ep field comes with the expert-parallel slice (ROADMAP
+A13.4). :func:`make_executor_loss_fn` assembles the tensor- and
+context-parallel loss: the embedding, the layers (``plan.remat`` per layer),
+the final norm and the head, with the nll summed over the cp ring.
 
 A layer is written as pieces around the attention call (``decoder_layer``) or
 the SSD scan (``ssm_layer``), so that ``remat="selective"`` can recompute the
@@ -37,26 +60,29 @@ only; the reference writes them inside ``build_enc_dec`` and wraps each in
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
-from repro_torch.core.config import Family, ModelConfig, ParallelPlan
+from repro_torch.core.config import (Family, ModelConfig, ParallelPlan,
+                                     warn_shard_local_routing)
 from repro_torch.core.device import resolve_dtype
-from repro_torch.ft.inject import remat_context
-from repro_torch.kernels.dispatch import (dispatch_attention, dispatch_ssd_scan,
-                                          select_tp_impl)
-from repro_torch.launch.mesh import model_size
+from repro_torch.ft.inject import remat_context, taint
+from repro_torch.kernels.dispatch import (dispatch_attention, dispatch_attention_chunk_bwd,
+                                          dispatch_attention_lse, dispatch_ssd_scan,
+                                          select_cp_impl)
+from repro_torch.launch.mesh import DataMesh, ModelRing, cp_size, data_mesh, model_size
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import mlp_block, qkv_proj, rms_norm, rope
-from repro_torch.launch.mesh import ModelRing
-from .tensor_parallel import (all_gather_matmul, all_reduce_sum,
-                              check_overlap_support, matmul_reduce_scatter,
-                              ring_all_gather, ring_reduce_scatter, scale_grad, tp_embed,
-                              tp_head_nll)
+from repro_torch.models.layers import NEG_INF, mlp_block, qkv_proj, rms_norm, rope
+from .loss import cross_entropy
+from .tensor_parallel import (all_gather_matmul, all_reduce_replicated, all_reduce_sum,
+                              check_overlap_support, decoder_only_support_errors,
+                              matmul_reduce_scatter, ring_all_gather, ring_reduce_scatter,
+                              ring_shift, scale_grad, tp_embed, tp_head_nll)
 
 
 def checkpoint(fn, *args):
@@ -86,13 +112,46 @@ def _apply(remat: str, body, selective, *args):
 
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
-    """How a family block runs: ``tp`` is the model ring (``None``: local).
-    The reference's cp and ep rings come with their slices."""
+    """How a family block runs: ``tp`` is the model ring, ``cp`` the cp ring
+    (``None``: that axis is off), ``cp_impl`` the resolved attention mode
+    ("ring" | "gather"), and ``data`` the data group over which the batch's
+    rows are split (``None``: one data rank), which with ``cp`` completes the
+    MoE aux statistics. The reference's ep ring comes with its slice."""
     tp: Optional[ModelRing] = None
+    cp: Optional[ModelRing] = None
+    cp_impl: str = "ring"
+    data: Optional[DataMesh] = None
 
     @property
     def n_tp(self) -> int:
         return self.tp.size if self.tp is not None else 1
+
+    @property
+    def n_cp(self) -> int:
+        return self.cp.size if self.cp is not None else 1
+
+    @property
+    def n_dp(self) -> int:
+        return self.data.size if self.data is not None else 1
+
+    @property
+    def n_rep(self) -> int:
+        """The ranks holding distinct tokens of the batch: local token counts
+        times this are the batch's."""
+        return self.n_dp * self.n_cp
+
+    def aux_sum(self, t):
+        """A MoE aux statistic summed over the cp ring and the data group
+        (itself without either).
+        Over the cp ring every rank consumes the sum alike, so its backward
+        passes the cotangent through; over the data group the step averages
+        the grads, so there the backward sums the cotangents
+        (``train/tensor_parallel.py``)."""
+        if self.cp is not None:
+            t = all_reduce_replicated(self.cp, t)
+        if self.data is not None:
+            t = all_reduce_sum(self.data, t)
+        return t
 
 
 def local_context() -> ParallelContext:
@@ -123,23 +182,259 @@ def _proj_rows(ctx: ParallelContext, h, w):
     return h @ w
 
 
+def check_cp_support(cfg: ModelConfig, cp: int):
+    """Static preconditions of the cp axis (the families and positions the
+    tp rings also take); raises ValueError naming each that fails."""
+    bad = decoder_only_support_errors(cfg)
+    if bad:
+        raise ValueError(f"cp={cp} unsupported here: " + "; ".join(bad))
+
+
 def resolve_context(cfg: ModelConfig, plan: ParallelPlan, mesh) -> ParallelContext:
-    """The placement of ``plan`` on ``mesh`` (the TP half of the reference's
-    ``resolve_context``): ``plan.tp`` must be the size of the mesh's model
-    axis (1 without one), and the rings run when it is 2 or more, on a config
-    that passes ``check_overlap_support``. The reference also lets a plan
-    with ``tp`` 1 run on a model axis, for its cp and ep rings; the port has
-    neither yet (ROADMAP A13.3, A13.4), so it refuses such a plan rather than
-    run the whole model on every model rank."""
-    select_tp_impl(plan.tp_impl)
+    """The placement of ``plan`` on ``mesh`` (the reference's
+    ``resolve_context`` without ep): ``plan.tp`` must be the size of the
+    mesh's model axis (1 without one), and the tp rings run when it is 2 or
+    more, on a config that passes ``check_overlap_support``; ``plan.cp`` > 1
+    needs a cp axis of that size, and resolves ``plan.cp_impl``
+    (``select_cp_impl``). The reference also lets a plan with ``tp`` 1 run on
+    a model axis, for its ep ring; the port has none yet (ROADMAP A13.4), so
+    it refuses such a plan rather than run the whole model on every model
+    rank. ``plan.tp_impl`` "gspmd" is refused by ``plan.validate``."""
     tp = model_size(mesh)
     if plan.tp != tp:
         raise ValueError(f"plan.tp={plan.tp} needs a 'model' mesh axis of that size, "
                          f"the mesh has {dict(mesh.shape) if mesh is not None else None}")
-    if tp == 1:
+    cp = cp_size(mesh) if plan.cp > 1 else 1
+    if cp != plan.cp:
+        raise ValueError(f"plan.cp={plan.cp} needs a 'cp' mesh axis of that size, "
+                         f"the mesh has {dict(mesh.shape) if mesh is not None else None}")
+    if cp_size(mesh) > 1 and plan.cp == 1:
+        raise ValueError(f"the mesh has a 'cp' axis ({dict(mesh.shape)}) but plan.cp is 1")
+    if tp == 1 and cp == 1:
         return local_context()
-    check_overlap_support(cfg, plan, tp)
-    return ParallelContext(tp=mesh.model)
+    if tp > 1:
+        check_overlap_support(cfg, plan, tp)
+    cp_impl = "ring"
+    if cp > 1:
+        check_cp_support(cfg, cp)
+        cp_impl = select_cp_impl(
+            plan.cp_impl, family=cfg.family, window=cfg.sliding_window,
+            local_global_alternating=bool(cfg.local_global_alternating
+                                          and cfg.sliding_window))
+    warn_shard_local_routing(cfg)
+    return ParallelContext(tp=mesh.model if tp > 1 else None,
+                           cp=mesh.cp if cp > 1 else None, cp_impl=cp_impl,
+                           data=data_mesh(mesh) if mesh.shape.get("data", 1) > 1 else None)
+
+
+# ---------------------------------------------------------------------------
+# the context-parallel sequence layout (zigzag)
+
+
+def zigzag_permutation(seq: int, cp: int) -> np.ndarray:
+    """The global positions in the zigzag ring layout: the sequence splits
+    into 2 cp contiguous sub-chunks and rank r owns sub-chunks r and
+    2 cp - 1 - r, so every rank attends the same number of causal (q, k)
+    pairs. ``tokens[:, perm]`` hands each rank its pair as a contiguous
+    chunk; everything position-wise (embedding, rope at explicit positions,
+    the per-token loss) is unchanged by the permutation."""
+    if seq % (2 * cp):
+        raise ValueError(f"the zigzag layout needs a sequence divisible by 2 cp = {2 * cp}, "
+                         f"got {seq}")
+    lc = seq // (2 * cp)
+    parts = []
+    for r in range(cp):
+        parts.append(np.arange(r * lc, (r + 1) * lc))
+        parts.append(np.arange((2 * cp - 1 - r) * lc, (2 * cp - r) * lc))
+    return np.concatenate(parts)
+
+
+def zigzag_pair_counts(seq: int, cp: int) -> np.ndarray:
+    """The causal (q, k) pairs each rank attends under the zigzag layout."""
+    perm = zigzag_permutation(seq, cp)
+    s_loc = seq // cp
+    return np.array([int(np.sum(perm[r * s_loc:(r + 1) * s_loc] + 1)) for r in range(cp)],
+                    dtype=np.int64)
+
+
+def cp_local_positions(ctx: ParallelContext, s_loc: int, zigzag: bool, device=None):
+    """The global positions of this rank's chunk of ``s_loc`` tokens in the
+    layout the caller sliced: ``zigzag`` (the ring mode outside SSM) its two
+    sub-chunks' ranges, else contiguous ``[i s_loc, (i + 1) s_loc)``; without
+    cp ``arange(s_loc)``."""
+    if ctx.cp is None:
+        return torch.arange(s_loc, device=device)
+    idx, cp = ctx.cp.rank, ctx.cp.size
+    if not zigzag:
+        return idx * s_loc + torch.arange(s_loc, device=device)
+    lc = s_loc // 2
+    return torch.cat([idx * lc + torch.arange(lc, device=device),
+                      (2 * cp - 1 - idx) * lc + torch.arange(lc, device=device)])
+
+
+# ---------------------------------------------------------------------------
+# ring attention (zigzag, lse merging, the reversed ring in the backward)
+
+
+def _merge_lse(o, lse, o_c, lse_c):
+    """The exact chunked-softmax merge of two normalised partials (fp32): the
+    running (o, lse) and a tile's (o_c, lse_c). A fully masked partial
+    carries o = 0 and lse ~ ``NEG_INF`` (finite), so it drops out, and two
+    such partials merge to a finite one."""
+    m = torch.maximum(lse, lse_c)
+    w1 = torch.exp(lse - m)
+    w2 = torch.exp(lse_c - m)
+    tot = w1 + w2
+    o_new = (o * w1[..., None] + o_c.float() * w2[..., None]) / tot[..., None]
+    return o_new, m + torch.log(tot)
+
+
+def _sub_ids(cp: int, owner: int) -> Tuple[int, int]:
+    """The zigzag sub-chunks rank ``owner`` holds."""
+    return owner, 2 * cp - 1 - owner
+
+
+def _tiles(cp: int, idx: int, src: int, lc: int):
+    """The (q slice, k slice, causal) tiles of rank ``idx``'s q sub-chunks
+    against rank ``src``'s KV sub-chunks that attend anything: a q sub-chunk
+    after the k sub-chunk attends all of it, the same sub-chunk its causal
+    diagonal, an earlier one nothing (no tile)."""
+    out = []
+    for qi, q_id in enumerate(_sub_ids(cp, idx)):
+        for ki, k_id in enumerate(_sub_ids(cp, src)):
+            if q_id >= k_id:
+                out.append((slice(qi * lc, (qi + 1) * lc), slice(ki * lc, (ki + 1) * lc),
+                            q_id == k_id))
+    return out
+
+
+def _ring_attn_fwd(ring: ModelRing, q, k, v, kw):
+    """The forward ring: cp steps; at each the rank attends its two q
+    sub-chunks against the visiting KV chunk's two sub-chunks (the tiles of
+    :func:`_tiles`), merging each tile's (o, lse) into the row's; the KV
+    chunk then moves one rank on (the ``cp.ring.kv`` seam on K as it lands).
+    Returns (o in q's dtype, lse fp32), (B, S/cp, ...)."""
+    cp, idx = ring.size, ring.rank
+    b, s_loc, hq, hd = q.shape
+    if s_loc % 2:
+        raise ValueError(f"ring cp needs an even chunk (two zigzag sub-chunks), got {s_loc}")
+    lc = s_loc // 2
+    o = q.new_zeros((b, s_loc, hq, hd), dtype=torch.float32)
+    lse = q.new_full((b, s_loc, hq), NEG_INF, dtype=torch.float32)
+    k_cur, v_cur = k, v
+    for step in range(cp):
+        for qs, ks, causal in _tiles(cp, idx, (idx - step) % cp, lc):
+            o_c, lse_c = dispatch_attention_lse(q[:, qs], k_cur[:, ks], v_cur[:, ks],
+                                                causal=causal, **kw)
+            o[:, qs], lse[:, qs] = _merge_lse(o[:, qs], lse[:, qs], o_c, lse_c)
+        if step < cp - 1:
+            # fault seam: the visiting K chunk as it lands from the hop
+            k_cur = taint("cp.ring.kv", ring.shift(k_cur, 1))
+            v_cur = ring.shift(v_cur, 1)
+    return o.to(q.dtype), lse
+
+
+def _accumulators_hop(ring: ModelRing, dk, dv):
+    """One hop of the dk/dv accumulators around the reversed ring; the hop
+    after the last step brings each chunk's sums home to its owner."""
+    return ring.shift(dk, -1), ring.shift(dv, -1)
+
+
+class _RingAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(fctx, ring, q, k, v, kw):
+        o, lse = _ring_attn_fwd(ring, q, k, v, kw)
+        fctx.ring, fctx.kw = ring, kw
+        fctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(fctx, g):
+        """The reversed ring: at each step B2/B3 on every tile of the rank's
+        q sub-chunks against the KV chunk it holds, against the merged
+        (lse, Δ); dq sums on the rank, dk/dv in fp32 accumulators that ride
+        the reversed ring with their KV chunk and come home on a last hop."""
+        ring, kw = fctx.ring, fctx.kw
+        q, k, v, o, lse = fctx.saved_tensors
+        cp, idx = ring.size, ring.rank
+        lc = q.shape[1] // 2
+        do = g.to(q.dtype)
+        delta = (g.float() * o.float()).sum(dim=-1)                   # (B, S/cp, Hq)
+        dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+        dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+        dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+        k_cur, v_cur = k, v
+        for step in range(cp):
+            for qs, ks, causal in _tiles(cp, idx, (idx + step) % cp, lc):
+                dq_c, dk_c, dv_c = dispatch_attention_chunk_bwd(
+                    q[:, qs], k_cur[:, ks], v_cur[:, ks], do[:, qs], lse[:, qs],
+                    delta[:, qs], causal=causal, **kw)
+                dq[:, qs] += dq_c.float()
+                dk[:, ks] += dk_c.float()
+                dv[:, ks] += dv_c.float()
+            if step < cp - 1:
+                k_cur, v_cur = ring.shift(k_cur, -1), ring.shift(v_cur, -1)
+            dk, dv = _accumulators_hop(ring, dk, dv)
+        return None, dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None
+
+
+def ring_attention(ring: ModelRing, q, k, v, *, impl: str = "auto", softcap: float = 0.0,
+                   scale: Optional[float] = None):
+    """Zigzag ring attention over the cp ring, differentiable. ``q``/``k``/
+    ``v``: (B, S/cp, H, hd), this rank's zigzag pair of sub-chunks, rope
+    applied at their global positions. Exact causal attention over the whole
+    sequence; no rank holds more than its chunk and one visiting chunk of
+    K/V. B1 (with lse) runs every tile, B2/B3 every tile of the backward."""
+    kw = dict(impl=impl, softcap=float(softcap), scale=scale)
+    return _RingAttention.apply(ring, q, k, v, kw)
+
+
+def gather_attention(ctx: ParallelContext, q, k, v, *, window: int, softcap: float,
+                     impl: str):
+    """``cp_impl="gather"``: K/V all-gathered over the cp ring (contiguous
+    chunks; the backward reduce-scatters their cotangents) and the local
+    queries attending the whole context through ``dispatch_attention`` at
+    the rank's causal ``q_offset``: O(S) K/V on every rank where the ring
+    holds O(S/cp)."""
+    s_loc = q.shape[1]
+    kf = ring_all_gather(ctx.cp, k, seam=None)
+    vf = ring_all_gather(ctx.cp, v, seam=None)
+    return dispatch_attention(q, kf, vf, impl=impl, causal=True, window=window,
+                              softcap=softcap, q_offset=ctx.cp.rank * s_loc)
+
+
+# ---------------------------------------------------------------------------
+# the context-parallel SSD pieces: the conv halo and the entering-state chain
+
+
+def _rank_is(ring: ModelRing, k: int, device):
+    return torch.tensor(ring.rank == k, device=device)
+
+
+def cp_halo_left(ctx: ParallelContext, x, width: int):
+    """The left neighbour's last ``width`` positions of ``x`` (B, L, C), zeros
+    on rank 0: one forward hop, on every rank."""
+    recv = ring_shift(ctx.cp, x[:, -width:].contiguous(), 1)
+    return torch.where(_rank_is(ctx.cp, 0, x.device), torch.zeros((), dtype=recv.dtype,
+                                                                  device=x.device), recv)
+
+
+def cp_chain_state(ctx: ParallelContext, state, decay):
+    """The state entering each rank's chunk of a linear recurrence: ``state``
+    (B, H, P, N) is the rank's final state from a zero start, ``decay`` (B, H)
+    the total decay over its chunk. Returns E_r = sum_{j<r} (prod_{j<k<r}
+    A_k) S_j after cp - 1 forward hops: at hop k every rank sends
+    ``state + decay * E`` and rank k keeps what it receives, which its left
+    neighbour finalised at the hop before (the ``cp.ring.state`` seam on the
+    message as it lands). The chain is linear, so autograd runs it backward
+    hop by hop."""
+    e = torch.zeros_like(state)
+    for k in range(1, ctx.cp.size):
+        msg = state + decay[..., None, None] * e
+        # fault seam: the chain message as it lands on the next rank
+        recv = taint("cp.ring.state", ring_shift(ctx.cp, msg, 1))
+        e = torch.where(_rank_is(ctx.cp, k, state.device), recv, e)
+    return e
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +478,13 @@ def moe_block_ex(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype,
     own sequence chunk, so the sum's backward sums the cotangents), and the
     shared experts' partials reduce-scatter into the chunks. The aux loss is
     computed whole on every rank, so its cotangent is scaled by 1/tp
-    (``scale_grad``) and its share of the summed router grads counts once."""
+    (``scale_grad``) and its share of the summed router grads counts once.
+    Under cp (with or without tp) the rank routes its own chunk's tokens (the
+    reference's shard-local routing: the same as one device's when the
+    capacity drops nothing), and the aux statistics are summed over the ranks
+    holding the rest of the batch (``ParallelContext.aux_sum``)."""
     if ctx.tp is None:
-        return moe_lib.moe_block(p, x, cfg, dtype, plan)
+        return moe_lib.moe_block(p, x, cfg, dtype, plan, ctx.aux_sum, ctx.n_rep)
     e = cfg.moe
     mode = plan.moe_dispatch if plan is not None else "einsum"
     gemm_impl = plan.moe_gemm_impl if plan is not None else "auto"
@@ -196,7 +495,7 @@ def moe_block_ex(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype,
     n = b * s_full
     xf = xg.reshape(n, d)
     capacity = max(int(n * e.top_k / e.num_experts * e.capacity_factor), 1)
-    probs, aux = moe_lib.router_probs(p, xf, cfg, dtype)
+    probs, aux = moe_lib.router_probs(p, xf, cfg, dtype, ctx.aux_sum, ctx.n_rep)
     aux = scale_grad(aux, 1.0 / ring.size)
     if mode == "scatter":
         slot, wts = moe_lib.topk_scatter_dispatch(probs, cfg, capacity)
@@ -232,21 +531,30 @@ def ssm_in_ex(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype):
     """The Mamba2 block before the scan for any placement: (xh, dt, A, B, C,
     z) as ``models.ssm.ssm_in_part``. Under tp ``wz/wx/wdt`` ride the ring,
     B/C come from the gathered copy (``wB/wC`` whole), and ``dt_bias``,
-    ``conv_x`` and ``A_log`` are sliced to the rank's heads and channels."""
-    if ctx.tp is None:
+    ``conv_x`` and ``A_log`` are sliced to the rank's heads and channels.
+    Under cp the three causal convs take the left rank's last d_conv - 1
+    positions of their inputs (one halo hop for the three, concatenated)."""
+    if ctx.tp is None and ctx.cp is None:
         return ssm_lib.ssm_in_part(p, x, cfg, dtype)
     s = cfg.ssm
     di, nh, g, n = ssm_lib.ssm_dims(cfg)
     nh_l, di_l = nh // ctx.n_tp, di // ctx.n_tp
-    (z, xin, dtp), xg = all_gather_matmul(
-        ctx.tp, x, (p["wz"].to(dtype), p["wx"].to(dtype), p["wdt"].to(dtype)))
+    if ctx.tp is not None:
+        (z, xin, dtp), xg = all_gather_matmul(
+            ctx.tp, x, (p["wz"].to(dtype), p["wx"].to(dtype), p["wdt"].to(dtype)))
+    else:
+        z, xin, dtp, xg = x @ p["wz"].to(dtype), x @ p["wx"].to(dtype), x @ p["wdt"].to(dtype), x
     Bv = xg @ p["wB"].to(dtype)
     Cv = xg @ p["wC"].to(dtype)
     b, l = xin.shape[:2]
     dt = F.softplus(dtp.float() + _slice_tp(ctx, p["dt_bias"], nh_l))
-    xin = F.silu(ssm_lib._causal_conv(xin, _slice_tp(ctx, p["conv_x"], di_l), dtype))
-    Bv = F.silu(ssm_lib._causal_conv(Bv, p["conv_B"], dtype))
-    Cv = F.silu(ssm_lib._causal_conv(Cv, p["conv_C"], dtype))
+    lx = lB = lC = None
+    if ctx.cp is not None and s.d_conv > 1:
+        halo = cp_halo_left(ctx, torch.cat([xin, Bv, Cv], dim=-1), s.d_conv - 1)
+        lx, lB, lC = halo.split([xin.shape[-1], Bv.shape[-1], Cv.shape[-1]], dim=-1)
+    xin = F.silu(ssm_lib._causal_conv(xin, _slice_tp(ctx, p["conv_x"], di_l), dtype, left=lx))
+    Bv = F.silu(ssm_lib._causal_conv(Bv, p["conv_B"], dtype, left=lB))
+    Cv = F.silu(ssm_lib._causal_conv(Cv, p["conv_C"], dtype, left=lC))
     A = -torch.exp(_slice_tp(ctx, p["A_log"], nh_l).float())
     return (xin.reshape(b, l, nh_l, s.head_dim), dt, A, Bv.reshape(b, l, g, n),
             Cv.reshape(b, l, g, n), z)
@@ -272,17 +580,39 @@ def ssm_out_ex(ctx: ParallelContext, p, y, xh, z, cfg: ModelConfig, dtype):
     return _proj_rows(ctx, yn, p["out_proj"].to(dtype))
 
 
+def ssm_scan_ex(ctx: ParallelContext, xh, dt, A, Bm, Cm, cfg: ModelConfig,
+                plan: Optional[ParallelPlan] = None):
+    """The SSD scan for any placement: the dispatcher's scan of the rank's
+    chunk from a zero state (y fp32). Under cp the state entering the chunk
+    adds its share of y in closed form, ``C_t exp(cum dA_t) E`` (the
+    recurrence is linear in its initial state, so the scan is not rerun): the
+    chunk's own final state and total decay go around :func:`cp_chain_state`
+    for E."""
+    y, _ = dispatch_ssd_scan(xh, dt, A, Bm, Cm, chunk=cfg.ssm.chunk,
+                             impl=plan.ssm_impl if plan is not None else "auto")
+    if ctx.cp is None:
+        return y
+    b, l, h, hd = xh.shape
+    g, n = Bm.shape[2], Bm.shape[3]
+    hpg = h // g
+    cum = torch.cumsum((dt * A).float(), dim=1)                      # (B, L, H)
+    xd = (xh * dt[..., None]).float() * torch.exp(cum[:, -1:] - cum)[..., None]
+    state = torch.einsum("btgn,btghp->bghpn", Bm.float(),
+                         xd.reshape(b, l, g, hpg, hd)).reshape(b, h, hd, n)
+    e_in = cp_chain_state(ctx, state, torch.exp(cum[:, -1]))
+    y_in = torch.einsum("btgn,bghpn->btghp", Cm.float(), e_in.reshape(b, g, hpg, hd, n))
+    return y + (y_in * torch.exp(cum).reshape(b, l, g, hpg, 1)).reshape(b, l, h, hd)
+
+
 def ssm_block_ex(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype,
                  plan: Optional[ParallelPlan] = None):
     """The Mamba2 block for any placement. x: (B, L_loc, d) -> same shape:
-    :func:`ssm_in_ex`, the SSD scan on the rank's heads through the
-    dispatcher, :func:`ssm_out_ex`. Locally ``models.ssm.ssm_block``."""
-    if ctx.tp is None:
+    :func:`ssm_in_ex`, the SSD scan on the rank's heads (:func:`ssm_scan_ex`),
+    :func:`ssm_out_ex`. Locally ``models.ssm.ssm_block``."""
+    if ctx.tp is None and ctx.cp is None:
         return ssm_lib.ssm_block(p, x, cfg, dtype, plan=plan)
     xh, dt, A, Bv, Cv, z = ssm_in_ex(ctx, p, x, cfg, dtype)
-    y, _ = dispatch_ssd_scan(xh, dt, A, Bv, Cv, chunk=cfg.ssm.chunk,
-                             impl=plan.ssm_impl if plan is not None else "auto")
-    return ssm_out_ex(ctx, p, y, xh, z, cfg, dtype)
+    return ssm_out_ex(ctx, p, ssm_scan_ex(ctx, xh, dt, A, Bv, Cv, cfg, plan), xh, z, cfg, dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -334,9 +664,14 @@ def decoder_layer(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dt
         return x + m, aux
 
     def attend(q, k, v, window):
-        return dispatch_attention(q, k, v, impl=impl, causal=True,
-                                  window=window if alternating else cfg.sliding_window,
-                                  softcap=cfg.attn_logit_softcap)
+        window = window if alternating else cfg.sliding_window
+        if ctx.cp is None:
+            return dispatch_attention(q, k, v, impl=impl, causal=True, window=window,
+                                      softcap=cfg.attn_logit_softcap)
+        if ctx.cp_impl == "ring":
+            return ring_attention(ctx.cp, q, k, v, impl=impl, softcap=cfg.attn_logit_softcap)
+        return gather_attention(ctx, q, k, v, window=window, softcap=cfg.attn_logit_softcap,
+                                impl=impl)
 
     def body(x, lp, window, positions):
         q, k, v = pre(x, lp, positions)
@@ -385,7 +720,7 @@ def ssm_layer(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dtype)
 
     def selective(x, lp):
         xh, dt, A, Bv, Cv, z = checkpoint(pre, x, lp)
-        y, _ = dispatch_ssd_scan(xh, dt, A, Bv, Cv, chunk=cfg.ssm.chunk, impl=plan.ssm_impl)
+        y = ssm_scan_ex(ctx, xh, dt, A, Bv, Cv, cfg, plan)
         return checkpoint(post, x, y, xh, z, lp)
 
     def layer(x, lp, window=0, positions=None):
@@ -402,45 +737,74 @@ def layer_fn_for(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dty
 
 
 # ---------------------------------------------------------------------------
-# the tensor-parallel loss
+# the tensor- and context-parallel loss
 
 
 def make_executor_loss_fn(cfg: ModelConfig, plan: ParallelPlan, mesh, z_loss: float = 0.0):
-    """``loss_fn(params, batch)`` through the executor on ``mesh``'s model
-    ring (the reference's ``make_executor_loss_fn`` on tp alone): the
-    vocab-parallel embedding, the layers under ``plan.remat``, the final norm
-    on the sequence chunk, and the vocab-parallel head and loss.
+    """``loss_fn(params, batch)`` through the executor on ``mesh``'s tp and cp
+    rings (the reference's ``make_executor_loss_fn`` without ep): the
+    embedding (vocab-parallel under tp), the layers under ``plan.remat``, the
+    final norm on the rank's chunk, and the head (vocab-parallel under tp).
 
-    ``params`` are this rank's TP shards (``core.sharding.shard_params``);
-    ``batch`` holds this rank's rows (its data group's, ``rank_microbatches``)
-    with the whole sequence, the same on every rank of the ring. The loss is
-    the mean over those rows: the mean over the data ranks is the train
-    step's, as under data parallelism alone (its grads reduce-scatter as a
-    mean over the data group). Returns ``(loss + aux, {"xent", "moe_aux"})``,
-    the same on every rank of the ring."""
-    from repro_torch.models.families import _layer_windows  # noqa: PLC0415 (import cycle)
+    ``params`` are this rank's TP shards (``core.sharding.shard_params``;
+    whole without tp, and the same on every cp rank); ``batch`` holds this
+    rank's rows (its data group's, ``rank_microbatches``) with the whole
+    sequence, the same on every rank of the tp and cp rings. Under cp the
+    rank takes its chunk of the sequence: in the ring mode (outside the SSM
+    family) after the zigzag permutation of tokens and labels, contiguous
+    otherwise; rope runs at the true global positions. The loss is the mean
+    over those rows and the whole sequence: under cp the nll is summed over
+    the cp ring (every rank consumes the sum alike, so its backward passes the
+    cotangent through) and divided by the rows' token count, so the cp ranks'
+    grads sum to the grads of that loss (the train step sums them); the mean
+    over the data ranks is the train step's, as under data parallelism alone.
+    Returns ``(loss + aux, {"xent", "moe_aux"})``, the same on every rank of
+    the tp and cp rings."""
+    from repro_torch.models.families import _embed, _layer_windows, _logits  # noqa: PLC0415
     ctx = resolve_context(cfg, plan, mesh)
-    if ctx.tp is None:
-        raise ValueError("the executor loss needs tensor parallelism: a 'model' mesh axis "
-                         ">= 2 and plan.tp its size")
+    if ctx.tp is None and ctx.cp is None:
+        raise ValueError("the executor loss needs tensor or context parallelism: a 'model' "
+                         "mesh axis >= 2 with plan.tp its size, or plan.cp > 1 with a 'cp' "
+                         "axis of that size")
     dtype = resolve_dtype(plan.compute_dtype)
     windows = _layer_windows(cfg)
     layer = layer_fn_for(ctx, cfg, plan, dtype)
-    ring = ctx.tp
+    n_cp, n_tp = ctx.n_cp, ctx.n_tp
+    zigzag = ctx.cp is not None and ctx.cp_impl == "ring" and cfg.family != Family.SSM
 
     def loss_fn(params, batch):
         tokens, labels = batch["tokens"], batch["labels"]
-        s = tokens.shape[1]
-        if s % ring.size:
-            raise ValueError(f"sequence {s} does not split over tp={ring.size}")
-        x = tp_embed(params, tokens, cfg, dtype, ring)
-        positions = torch.arange(s, device=x.device)
+        b, s = tokens.shape
+        split = 2 * n_cp if zigzag else n_cp
+        if s % split or (s // n_cp) % n_tp:
+            raise ValueError(f"sequence {s} does not split over cp={n_cp} "
+                             f"({'zigzag, ' if zigzag else ''}tp={n_tp})")
+        s_loc = s // n_cp
+        if ctx.cp is not None:
+            if zigzag:
+                perm = torch.from_numpy(zigzag_permutation(s, n_cp)).to(tokens.device)
+                tokens, labels = tokens[:, perm], labels[:, perm]
+            lo = ctx.cp.rank * s_loc
+            tokens, labels = tokens[:, lo:lo + s_loc], labels[:, lo:lo + s_loc]
+        if ctx.tp is not None:
+            x = tp_embed(params, tokens, cfg, dtype, ctx.tp)
+        else:
+            x = _embed(params, tokens, cfg, dtype)
+        positions = cp_local_positions(ctx, s_loc, zigzag, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, w in zip(params["layers"], windows):
             x, a = layer(x, lp, w, positions)
             aux = aux + a
         x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
-        loss = tp_head_nll(params, x, labels, cfg, ring, dtype, z_loss).mean()
+        if ctx.tp is not None:
+            nll = tp_head_nll(params, x, labels, cfg, ctx.tp, dtype, z_loss)
+        else:
+            nll = cross_entropy(_logits(params, x, cfg, dtype), labels, z_loss=z_loss,
+                                reduction="none")
+        tot = nll.sum()
+        if ctx.cp is not None:
+            tot = all_reduce_replicated(ctx.cp, tot)
+        loss = tot / (b * s)
         return loss + aux, {"xent": loss, "moe_aux": aux}
 
     return loss_fn

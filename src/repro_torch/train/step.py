@@ -59,6 +59,16 @@ dtype); the ZeRO-1 code then runs on each rank's shards over its data group
 as above, and the global-norm clip counts each sharded leaf's squares once a
 model rank and each replicated leaf once.
 
+Context parallelism (survey §4.1.4): pass a grid with a cp axis
+(``init_grid_mesh(cp=)``) and a plan whose ``cp`` is its size. The params are
+whole on every cp rank (or its tp shards, the same on every cp rank of a model
+index); the step takes the executor's context-parallel loss, whose value is
+the mean over the rank's rows and the whole sequence, and after the backward
+every leaf's grads are summed over the cp ring (:func:`_sum_grads`, one
+all-reduce per dtype in buckets): they are the cp ranks' shares of that loss's
+grads, so they are summed, not averaged. The tp sum and ZeRO-1 over the data
+group then run as above, and every cp rank makes the same update.
+
 The MoE family raises under more than one data rank: its capacity queues and
 the load-balancing aux are global over the batch in the reference, which
 per-rank routing would change (ROADMAP A13.4). Under tensor parallelism alone
@@ -161,34 +171,53 @@ def _scatter_grads(params: Any, specs: Dict[str, LeafSpec], mesh) -> Any:
     return from_names(out)
 
 
+# the most elements one all-reduce of :func:`_sum_grads` moves: its flat copy,
+# the ring's result and their host copies stay a few hundred MB a rank
+GRAD_BUCKET = 1 << 26
+
+
 @torch.no_grad()
-def _sum_replicated_grads(params: Any, ring) -> None:
-    """The grads of the leaves the overlap layout keeps whole on every model
-    rank, each rank's share, summed over ``ring`` in place: one all-reduce of
-    a flat buffer per dtype."""
-    specs = overlap_param_specs(params)
+def _sum_grads(params: Any, ring, names=None) -> None:
+    """The grads of the leaves named in ``names`` (every leaf when None),
+    each rank's share, summed over ``ring`` in place: all-reduces of flat
+    buffers, one dtype at a time, of at most ``GRAD_BUCKET`` elements (a
+    larger grad goes alone). A leaf without a grad counts as zeros."""
     by_dtype: Dict[torch.dtype, list] = {}
     for name, leaf in named_leaves(params):
-        if tp_dim(specs[name]) is None:
+        if names is None or name in names:
             for p in (leaf if isinstance(leaf, list) else [leaf]):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
                 by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
     for grads in by_dtype.values():
-        flat = ring.all_reduce_sum(torch.cat([g.reshape(-1) for g in grads]))
-        for g, part in zip(grads, flat.split([g.numel() for g in grads])):
-            g.copy_(part.view_as(g))
+        bucket, size = [], 0
+        for g in grads + [None]:
+            if bucket and (g is None or size + g.numel() > GRAD_BUCKET):
+                flat = ring.all_reduce_sum(torch.cat([x.reshape(-1) for x in bucket]))
+                for x, part in zip(bucket, flat.split([x.numel() for x in bucket])):
+                    x.copy_(part.view_as(x))
+                bucket, size = [], 0
+            if g is not None:
+                bucket.append(g)
+                size += g.numel()
+
+
+def _sum_replicated_grads(params: Any, ring) -> None:
+    """The grads of the leaves the overlap layout keeps whole on every model
+    rank, each rank's share, summed over the model ``ring`` in place."""
+    specs = overlap_param_specs(params)
+    _sum_grads(params, ring, {n for n, s in specs.items() if tp_dim(s) is None})
 
 
 def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
                     mesh=None) -> Callable:
     """The step for ``model`` under ``plan`` (``microbatches``, ``zero_stage``,
-    ``tp``; ``remat`` is the model's). ``batch`` holds the global batch's
+    ``tp``, ``cp``; ``remat`` is the model's). ``batch`` holds the global batch's
     tensors on the model's device; with a data ``mesh`` or a grid, the same
     on every rank."""
     plan.validate(model.cfg)
     ctx = resolve_context(model.cfg, plan, mesh)
-    ring = ctx.tp
+    ring, cp_ring = ctx.tp, ctx.cp
     dmesh = data_mesh(mesh)
     if dmesh is not None and dmesh.size > 1 and model.cfg.family == Family.MOE:
         raise NotImplementedError(
@@ -196,7 +225,7 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
             "load-balancing aux are global over the batch in the reference, and "
             "per-rank routing would change them; this comes with expert "
             "parallelism (ROADMAP A13.4)")
-    loss_fn = (make_loss_fn(model, hyper) if ring is None
+    loss_fn = (make_loss_fn(model, hyper) if ring is None and cp_ring is None
                else make_executor_loss_fn(model.cfg, plan, mesh, z_loss=hyper.z_loss))
     tp_split = (None if ring is None else
                 lambda params: {n for n, s in overlap_param_specs(params).items()
@@ -216,6 +245,8 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
             (total / n).backward()
             loss += total.detach() / n
             aux += parts["moe_aux"].detach() / n
+        if cp_ring is not None:
+            _sum_grads(params, cp_ring)
         if ring is not None:
             _sum_replicated_grads(params, ring)
         lr = cosine_schedule(opt.step, hyper.peak_lr, hyper.warmup_steps,

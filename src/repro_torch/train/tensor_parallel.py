@@ -48,7 +48,7 @@ are each rank's share and are summed over the ring by the train step.
 from __future__ import annotations
 
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -62,9 +62,11 @@ def _seq_slice(x, start: int, n: int):
     return x[:, start:start + n]
 
 
-def _ag_matmul_impl(ring: ModelRing, x, ws: Sequence[torch.Tensor]):
+def _ag_matmul_impl(ring: ModelRing, x, ws: Sequence[torch.Tensor],
+                    seam: Optional[str] = "tp.ring.tick"):
     """The all-gather ring: (outs, x_full), tick k multiplying the chunk of
-    rank ``idx - k`` that this rank holds."""
+    rank ``idx - k`` that this rank holds; each landing payload passes the
+    fault seam ``seam`` (none when None)."""
     t, s_loc, idx = ring.size, x.shape[1], ring.rank
     outs = [x.new_empty(x.shape[:1] + (t * s_loc, w.shape[-1]),
                         dtype=torch.result_type(x, w)) for w in ws]
@@ -77,7 +79,9 @@ def _ag_matmul_impl(ring: ModelRing, x, ws: Sequence[torch.Tensor]):
         _seq_slice(xg, start, s_loc).copy_(cur)
         if k < t - 1:
             # fault seam: the ring payload as it lands from the hop
-            cur = taint("tp.ring.tick", ring.shift(cur, 1))
+            cur = ring.shift(cur, 1)
+            if seam is not None:
+                cur = taint(seam, cur)
     return outs, xg
 
 
@@ -199,19 +203,21 @@ def matmul_reduce_scatter(ring: ModelRing, h, w):
 
 class _RingAllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, ring, x):
+    def forward(ctx, ring, x, seam):
         ctx.ring = ring
-        return _ag_matmul_impl(ring, x, ())[1]
+        return _ag_matmul_impl(ring, x, (), seam)[1]
 
     @staticmethod
     def backward(ctx, dxg):
-        return None, _ring_rs_impl(ctx.ring, dxg)
+        return None, _ring_rs_impl(ctx.ring, dxg), None
 
 
-def ring_all_gather(ring: ModelRing, x):
+def ring_all_gather(ring: ModelRing, x, seam: Optional[str] = "tp.ring.tick"):
     """(B, S/tp, ...) chunk -> (B, S, ...) through the ring; its backward is
-    the mirrored reduce-scatter (no dead re-gather ring)."""
-    return _RingAllGather.apply(ring, x)
+    the mirrored reduce-scatter (no dead re-gather ring). The landing payloads
+    pass the fault seam ``seam`` (the cp gather's pass none, as the
+    reference's all-gather has none)."""
+    return _RingAllGather.apply(ring, x, seam)
 
 
 class _RingReduceScatter(torch.autograd.Function):
@@ -232,39 +238,65 @@ def ring_reduce_scatter(ring: ModelRing, x):
     return _RingReduceScatter.apply(ring, x)
 
 
+def _sum_over(ring, x):
+    """The sum of ``x`` over ``ring`` (a ``ModelRing``, or a ``DataMesh``,
+    whose sum is in place) as a new tensor."""
+    if isinstance(ring, ModelRing):
+        return ring.all_reduce_sum(x)
+    return ring.all_reduce_sum(x.detach().contiguous().clone())
+
+
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ring, x):
         ctx.ring = ring
-        return ring.all_reduce_sum(x)
+        return _sum_over(ring, x)
 
     @staticmethod
     def backward(ctx, g):
-        return None, ctx.ring.all_reduce_sum(g)
+        return None, _sum_over(ctx.ring, g)
 
 
-def all_reduce_sum(ring: ModelRing, x):
-    """The sum of ``x`` over the ring, for an output each rank consumes for
-    its own share of the work: the backward sums the cotangents (module
-    docstring)."""
+def all_reduce_sum(ring, x):
+    """The sum of ``x`` over the ring (a ``ModelRing``, or a ``DataMesh``),
+    for an output each rank consumes for its own share of the work: the
+    backward sums the cotangents (module docstring)."""
     return _AllReduceSum.apply(ring, x)
 
 
 class _AllReduceReplicated(torch.autograd.Function):
     @staticmethod
     def forward(ctx, ring, x):
-        return ring.all_reduce_sum(x)
+        return _sum_over(ring, x)
 
     @staticmethod
     def backward(ctx, g):
         return None, g
 
 
-def all_reduce_replicated(ring: ModelRing, x):
-    """The sum of ``x`` over the ring, for an output every rank consumes the
-    same way (the replicated loss): the backward passes the cotangent
-    through (module docstring)."""
+def all_reduce_replicated(ring, x):
+    """The sum of ``x`` over the ring (a ``ModelRing``, or a ``DataMesh``),
+    for an output every rank consumes the same way (the replicated loss): the
+    backward passes the cotangent through (module docstring)."""
     return _AllReduceReplicated.apply(ring, x)
+
+
+class _Shift(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, ring, x, step):
+        ctx.ring, ctx.step = ring, step
+        return ring.shift(x, step)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ring.shift(g.contiguous(), -ctx.step), None
+
+
+def ring_shift(ring: ModelRing, x, step: int = 1):
+    """``x`` sent ``step`` (+1 or -1) hops along the ring, differentiable: the
+    backward sends the cotangent back the other way. Every rank must run it
+    (and so its backward), as every ring collective."""
+    return _Shift.apply(ring, x, step)
 
 
 class _ScaleGrad(torch.autograd.Function):

@@ -143,8 +143,18 @@ def test_plan_validates_attn_impl():
 def test_plan_has_no_knob_the_port_does_not_implement(knob):
     """A plan cannot ask for a placement the port would ignore: the axes of
     later slices are not fields, ``zero_stage`` (the data-parallel slice)
-    takes only the stages the port implements, 0 and 1, and ``tp`` (the
-    tensor-parallel slice) runs only the rings: ``tp_impl="gspmd"`` raises."""
+    takes only the stages the port implements, 0 and 1, ``tp`` (the
+    tensor-parallel slice) runs only the rings: ``tp_impl="gspmd"`` raises,
+    and ``cp`` (the context-parallel slice) takes its three modes."""
+    if knob == "cp":
+        cfg = get_smoke_config("qwen2.5-14b")
+        for impl in ("auto", "ring", "gather"):
+            ParallelPlan(cp=2, cp_impl=impl).validate(cfg)
+        with pytest.raises(ValueError, match=knob):
+            ParallelPlan(cp=0).validate(cfg)
+        with pytest.raises(ValueError, match="cp_impl"):
+            ParallelPlan(cp=2, cp_impl="pallas").validate(cfg)
+        return
     if knob == "tp":
         cfg = get_smoke_config("qwen2.5-14b")
         for impl in ("auto", "overlap"):

@@ -232,8 +232,8 @@ def test_resolve_context():
                        (ParallelPlan(tp=4), _grid(2)), (ParallelPlan(tp=2), None)):
         with pytest.raises(ValueError, match="plan.tp"):
             resolve_context(cfg, plan, grid)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        resolve_context(cfg, ParallelPlan(tp=2, tp_impl="gspmd"), _grid(2))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):   # refused by the plan alone
+        ParallelPlan(tp=2, tp_impl="gspmd").validate(cfg)
     with pytest.raises(ValueError, match="heads"):
         resolve_context(cfg, ParallelPlan(tp=8), _grid(8))
 

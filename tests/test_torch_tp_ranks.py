@@ -15,7 +15,7 @@ grid (``launch.mesh.init_grid_mesh``) with a ``file://`` store under
   carried across (``interop.tp_params_from_numpy``). Leaving the replicated
   leaves' grads unsummed over the model ring must fail the same check.
 - ``make_train_step`` on a grid for 3 steps against one process, by
-  chip_smoke.py's ``TP_TOLERANCE`` (the DP checks, ``dp_agreement`` and
+  chip_smoke.py's ``GRID_TOLERANCE`` (the DP checks, ``dp_agreement`` and
   ``dp_failures``, with a leaf past 1e-6 of its max held to an fp64
   evaluation: no further from it than twice one process's distance plus
   1e-6), the data replicas' params bit-equal; the rule fails a moved leaf and
@@ -490,7 +490,7 @@ def _single_step(arch, data):
 @pytest.mark.parametrize("case", list(STEP_CASES))
 def test_train_step_matches_one_process(results, case):
     """STEPS steps on the grid against one process by chip_smoke.py's
-    TP_TOLERANCE: DP_TOLERANCE (the first step's loss and grad norm to 1e-6
+    GRID_TOLERANCE: DP_TOLERANCE (the first step's loss and grad norm to 1e-6
     relative, every watched ZeRO-1 update against adamw_update on the same
     grads, and each leaf's clipped grads to 1e-6 of its max against its shard
     of one process's), where a leaf past 1e-6 must be no further from an fp64
@@ -515,24 +515,24 @@ def test_train_step_matches_one_process(results, case):
         cut = {k: {n: tp_shard_of(n, a, m, grid[1]) for n, a in one[k].items()}
                for k in ("grads", "params")}
         agree = SMOKE.dp_agreement(run, {**one, **cut})
-        bad, explained = SMOKE.tp_failures(agree, run["shadow_err"], shards, one["grads"], truth)
+        bad, explained = SMOKE.grid_failures(agree, run["shadow_err"], shards, one["grads"], truth)
         assert bad == [], (agree, explained)
         assert agree["loss_rel"] <= REL and agree["grad_norm_rel"] <= REL, agree
 
 
 def test_the_grads_rule_fails_a_wrong_grad(results):
-    """TP_TOLERANCE's grads rule is no free pass: one process's own grads
+    """GRID_TOLERANCE's grads rule is no free pass: one process's own grads
     pass it, and one leaf of a rank's grads moved by 1e-3 of its max fails
     it."""
     arch, grid = STEP_CASES["qwen1.5-4b-1x2"]
     runs = [r["step/qwen1.5-4b-1x2"] for r in sorted(results[2], key=lambda r: r["model_index"])]
     one, truth = _single_step(arch, grid[0])
     ok = [{n: tp_shard_of(n, a, m, 2) for n, a in one["grads"].items()} for m in range(2)]
-    assert SMOKE.tp_grad_failures(ok, one["grads"], truth) == ([], {})
+    assert SMOKE.grid_grad_failures(ok, one["grads"], truth) == ([], {})
     shards = [dict(run["grads"]) for run in runs]
     name = "layers/mlp/down"
     shards[1][name] = shards[1][name] + 1e-3 * np.abs(shards[1][name]).max()
-    bad, _ = SMOKE.tp_grad_failures(shards, one["grads"], truth)
+    bad, _ = SMOKE.grid_grad_failures(shards, one["grads"], truth)
     assert any(b.startswith(name) for b in bad), bad
 
 
@@ -544,7 +544,7 @@ def test_the_grads_rule_fails_a_bf16_partial_sum(results):
     arch, grid = STEP_CASES["qwen1.5-4b-1x2"]
     one, truth = _single_step(arch, grid[0])
     shards = [r["control"] for r in sorted(results[2], key=lambda r: r["model_index"])]
-    bad, _ = SMOKE.tp_grad_failures(shards, one["grads"], truth)
+    bad, _ = SMOKE.grid_grad_failures(shards, one["grads"], truth)
     assert bad, "the control passes the grads rule"
 
 
