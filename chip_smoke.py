@@ -93,7 +93,8 @@ prints its seconds):
    8 x 4096 tokens with 8 x 1500 frames in 2 microbatches): B1/B2/B3 held to
    their plain versions on every call of one microbatch, one warm-up and three
    timed steps with the launches counted (B1 144, B2 72, B3 72), a profile;
-12. whisper-small checkpoint — its full-width training state saved with
+12. whisper-small checkpoint — its full-width training state (6 + 6 layers,
+   WHISPER_CUT_LAYERS) saved with
    async_snapshot after 2 steps, steps 3-4 while the copy drains, restored into
    a fresh state (bit for bit), steps 3-4 resumed (losses to 1e-6 relative),
    a save with free card memory for half the state restored bit for
@@ -102,8 +103,9 @@ prints its seconds):
 13. whisper-small fault tolerance — each dispatcher's fault seam (B1 at the
    encoder's shape, B4 and B5 at smoke shapes): unarmed, the undecorated call's
    bits; armed with nan, one NaN at the index the CPU computes. Then full width
-   and depth under ``run_with_recovery`` (the training plan, the batch cut to
-   4 x 4096 tokens with 4 x 1500 frames): a clean run of 11 steps; the chaos
+   on 6 of its 12 + 12 layers each (WHISPER_CUT_LAYERS) under
+   ``run_with_recovery`` (the training plan, the batch cut to 4 x 4096 tokens
+   with 4 x 1500 frames): a clean run of 11 steps; the chaos
    schedule (a spike x8 at step 5, kernel.attention NaN'd at 6 and 9, the
    step-8 shard write dropped, a 4 s hang at 10), whose actions, 3 restores
    and 1 corrupt checkpoint skipped are asserted, ending equal to the clean run
@@ -112,12 +114,13 @@ prints its seconds):
    that ends equal to the clean run bit for bit; B1/B2/B3 counted on every step of these runs (Hopper bodies); the
    audit's cost;
 14. whisper-small data parallel — ZeRO-1 on torch.distributed at full width
-   and depth (fp32 masters, bf16 compute, remat "full", ``Hyper()``): two rank
+   on 6 + 6 layers (WHISPER_CUT_LAYERS; fp32 masters, bf16 compute, remat
+   "full", ``Hyper()``): two rank
    processes (spawn) on the one card over gloo, the host transport (NCCL
    refuses two ranks on one device), the global batch of 8 x 4096 tokens with
    8 x 1500 frames, each rank 2 microbatches of its 2 rows of each; on each
-   rank, one microbatch of its own 2 rows first, with B1 (72 calls, forward
-   and recompute) and B2/B3 (36) held to their plain versions on every call
+   rank, one microbatch of its own 2 rows first, with B1 (36 calls, forward
+   and recompute) and B2/B3 (18) held to their plain versions on every call
    and dq to fp64 at the DP path's shapes (batch 2); then 4 steps
    against one device's step with 4 microbatches on the same batches and
    weights (``DP_TOLERANCE``: the first step's loss and grad norm to 1e-6
@@ -125,7 +128,7 @@ prints its seconds):
    against ``adamw_update`` on the same whole grads to 1e-6; the later steps
    and the params after 4 steps readings, beside the same readings between
    one device's runs at 2 and 4 microbatches; the first 2 steps watched, the
-   last 2 timed), B1/B2/B3 144/72/72 per rank per step on the
+   last 2 timed), B1/B2/B3 72/36/36 per rank per step on the
    Hopper bodies, step, reduce-scatter and all-gather ms, peak memory and the
    moment bytes each rank holds; a ZeRO-1 checkpoint saved at dp 2 (stall,
    gather, persist), restored at dp 2 ("replay") and onto one process
@@ -142,8 +145,8 @@ prints its seconds):
    compute, remat "full": qwen1.5-4b at full width on 4 of its 40 layers, 3
    steps (B1/B2/B3 8/4/4 a rank a step at (1, 10, 4096, 128)),
    deepseek-moe-16b at full width on 2 of 28 layers, one step (B4 18 rows + 6
-   contract a rank at d_expert 704), mamba2-370m at full width and depth, one
-   step (B5/B6 96/48 a rank at (1, 16, 4096, 64, 128)); on each rank's first
+   contract a rank at d_expert 704), mamba2-370m at full width on 24 of its 48
+   layers, one step (B5/B6 48/24 a rank at (1, 16, 4096, 64, 128)); on each rank's first
    microbatch every kernel call held to its plain version on the rank's own
    inputs (dq also to fp64); each family's losses against one device's on the
    same weights and batches (readings), then one fp32 step of qwen1.5-4b at 2
@@ -158,10 +161,10 @@ prints its seconds):
    compute, remat "full": qwen1.5-4b at full width on 4 of its 40 layers over
    1 x 16,384 tokens in the ring mode (each rank two zigzag sub-chunks of
    4096; B1/B2/B3 40/20/20 a rank a step: 5 tiles a layer, 2 diagonal and 3
-   full, the other 3 masked and never launched), a warm-up and 3 steps;
-   mamba2-370m at full width and depth over 1 x 65,536 (32,768 a rank, the
-   conv halo and the state chain; B5/B6 96/48 a rank a step at (1, 32,
-   32768, 64, 128)), a warm-up and 2 steps; on each rank's first microbatch
+   full, the other 3 masked and never launched), a warm-up and 1 step;
+   mamba2-370m at full width on 24 of its 48 layers over 1 x 65,536 (32,768 a
+   rank, the conv halo and the state chain; B5/B6 48/24 a rank a step at (1,
+   32, 32768, 64, 128)), a warm-up and 2 steps; on each rank's first microbatch
    every kernel call held to its plain version on the rank's own inputs (B2/B3
    against the merged statistics, dq also to fp64); one device's loss on the
    same weights and batch (a reading); then fp32 steps at 2 layers, 1 x 4096:
@@ -172,7 +175,26 @@ prints its seconds):
    by body; the kernels timed at the CP shapes (B1 on a diagonal and a full
    4096 x 4096 tile beside SDPA, B2/B3 on each against the row's merged
    statistics, B5/B6 at the rank's chunk). No checkpoint;
-17. times   — each kernel's time at its path's shapes beside its bound, its plain
+17. expert parallelism — the EP exchange (A13.4) on a (1, 2) grid in the
+   ep-only placement (ep 2 on the model axis; attention a cp ring over it):
+   two rank processes (spawn) on the one card over gloo (every exchange
+   through host memory; no EP scaling or overlap is measured),
+   deepseek-moe-16b at full width on 4 of its 28 layers over 1 x 4096 tokens,
+   bf16 compute, remat "full", each rank 32 of the 64 routed experts: the
+   overlap ring (a warm-up and 2 steps; B4 96 rows + 24 contract a rank a
+   step on a tick's (32, 240, 2048) chunk) and the blocking exchange (one
+   step; B4 36 + 12 on the (32, 480, 2048) buffer), B1/B2/B3 40/20/20 a rank
+   a step on the 1024 x 1024 ring tiles; on each rank's first microbatch in
+   each mode every kernel call held to its plain version on the rank's own
+   inputs (B2/B3 against the merged statistics, dq also to fp64); then fp32
+   steps at 2 layers, 1 x 1024, a no-drop capacity (11 >= E / top_k): the
+   overlap ring held to one device's and to an fp64 evaluation by
+   GRID_TOLERANCE, the blocking step to the ring's (1e-6), and the control
+   (each chunk's expert output rounded to bf16 before the combine), which
+   must fail the grads rule; step, exchange, hop and all-reduce ms, peak
+   memory and the launches by body; B4 timed on the kept chunk and buffer
+   inputs and B1-B3 on the ring tiles. No checkpoint;
+18. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -185,8 +207,8 @@ prints its seconds):
    and training cross- and self-attention shapes; printed as one JSON line.
 
 On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode,
-training, data-, tensor- and context-parallel training; the fp32 TP and CP
-steps' B1, B5 and B6 excepted) must run the Hopper body
+training, data-, tensor-, context- and expert-parallel training; the fp32 TP,
+CP and EP steps' B1, B4, B5 and B6 excepted) must run the Hopper body
 (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
@@ -327,6 +349,11 @@ GEMM_CASES = [
     (64, 468, 2048, 1408, "random", False), (64, 468, 1408, 2048, "random", False),
     (64, 1, 2048, 1408, "random", False), (64, 1, 1408, 2048, "random", False),
     (64, 480, 2048, 1408, "random", False), (64, 480, 1408, 2048, "random", False),
+    # the expert-parallel exchange (EP_SEQ over two ranks: C 240 a peer): a rank's
+    # 32 experts on one ring tick's chunk and on the blocking path's two peers'
+    # rows, every row real to the kernel (group sizes None)
+    (32, 240, 2048, 1408, None, False), (32, 240, 1408, 2048, None, False),
+    (32, 480, 2048, 1408, None, False), (32, 480, 1408, 2048, None, False),
     (5, 100, 136, 72, "random", False),
     (3, 33, 20, 17, (33, 7, 0), False),           # strides off the 16-byte rule
     (4, 100, 136, 72, (100, 0, 64, 65), False),   # a zero-load expert, loads on tile edges
@@ -348,6 +375,10 @@ GEMM_TOLERANCE = ("fp32 5e-5 of the tensor's max |value|, bf16 2 ulps of |plain|
                   "(floor 2^-10 of the max); padding rows and zero-load experts exactly 0")
 
 WHISPER_ARCH = "whisper-small"
+# the checkpoint, fault-tolerance and data-parallel phases keep whisper-small's full width on
+# WHISPER_CUT_LAYERS of its 12 encoder and 12 decoder layers each (the script's
+# time limit: the expert-parallel phase took their time)
+WHISPER_CUT_LAYERS = 6
 # serving: frames (4, 1500, 768) through fill_cross, a 4-token prompt through
 # decode_step, then DECODE_STEPS greedy steps; the decoder's context is 448
 # tokens (arXiv:2212.04356)
@@ -1812,7 +1843,8 @@ def gemm_times(kept):
     routes the input to) beside its bound, its plain version and one
     ``torch.bmm`` on the masked inputs. The bound counts what this input needs:
     the real rows of the activations, the weights of experts with a load, the
-    whole output written, 2 FLOP a multiply-add of real rows."""
+    whole output written, 2 FLOP a multiply-add of real rows (every row where
+    the call has no group sizes, as on the expert-parallel path)."""
     from repro_torch.kernels import grouped_gemm as tg
     res = {}
     for name, (a, b, gs, mask) in kept.items():
@@ -1824,6 +1856,8 @@ def gemm_times(kept):
         body = tg.gemm_body(a, b)
         ms = body_ms[body]
         plain_ms = cuda_ms(lambda: tg.grouped_gemm_plain(a, b, gs, mask=mask), 5, warmup=1)
+        if gs is None:
+            gs = torch.full((e,), m if mask == "rows" else k, dtype=torch.int32, device="cuda")
         g = gs[:, None, None]
         if mask == "rows":
             am = torch.where(torch.arange(m, device="cuda")[None, :, None] < g, a, 0)
@@ -2550,15 +2584,21 @@ def phase_whisper_serving():
             "real_fwd": max(real_enc, real_cross)}
 
 
-def whisper_train_setup():
+def whisper_cut(cfg):
+    """whisper-small at full width on WHISPER_CUT_LAYERS encoder and decoder
+    layers."""
+    return dataclasses.replace(cfg, n_layers=WHISPER_CUT_LAYERS, enc_layers=WHISPER_CUT_LAYERS)
+
+
+def whisper_train_setup(cut=False):
     """whisper-small's full-width training model (fp32 masters, bf16 compute,
-    remat "full", TRAIN_MICRO microbatches), its params from seed 0 as
-    autograd leaves, and train_4k batches of WHISPER_TRAIN_BATCH sequences with
-    their frames."""
+    remat "full", TRAIN_MICRO microbatches; with ``cut``, ``whisper_cut``'s
+    layers), its params from seed 0 as autograd leaves, and train_4k batches
+    of WHISPER_TRAIN_BATCH sequences with their frames."""
     from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
     from repro_torch.data import SyntheticDataset
     from repro_torch.models import build_model
-    cfg = get_config(WHISPER_ARCH)
+    cfg = whisper_cut(get_config(WHISPER_ARCH)) if cut else get_config(WHISPER_ARCH)
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
                         microbatches=TRAIN_MICRO)
     model = build_model(cfg, plan)
@@ -2655,7 +2695,8 @@ def host_named(tree):
 
 
 def phase_whisper_checkpoint():
-    """A checkpoint round trip of whisper-small's full-width training state in
+    """A checkpoint round trip of whisper-small's full-width training state
+    (``whisper_cut``'s layers: the script's time limit) in
     a temporary directory under build/ (removed after): 2 steps; the state as
     saved copied to the host (host_named) and into the RAM tier; an async
     save; steps 3 and 4 while the copy drains; a second save with steps 5 and
@@ -2674,7 +2715,7 @@ def phase_whisper_checkpoint():
     from repro_torch.optim import adamw_init
     from repro_torch.train import Hyper, TrainState, init_train_state, make_train_step
 
-    cfg, plan, model, params, batches = whisper_train_setup()
+    cfg, plan, model, params, batches = whisper_train_setup(cut=True)
     state = TrainState(params, adamw_init(params))
     del params
     step = make_train_step(model, plan, Hyper())
@@ -2936,12 +2977,12 @@ def phase_whisper_ft():
     from repro_torch.train import Hyper, init_train_state, make_train_step
 
     seams = ft_seam_checks()
-    cfg = get_config(WHISPER_ARCH)
+    cfg = whisper_cut(get_config(WHISPER_ARCH))
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
                         microbatches=TRAIN_MICRO)
-    log(f"fault tolerance: {WHISPER_ARCH} at full width and depth; cut: the batch "
-        f"{WHISPER_TRAIN_BATCH} -> {FT_BATCH} x {TRAIN_SEQ} tokens ({FT_BATCH} x "
-        f"{cfg.enc_frames} frames), {FT_STEPS} steps")
+    log(f"fault tolerance: {WHISPER_ARCH} at full width; cut: {cfg.enc_layers} + "
+        f"{cfg.n_layers} layers, the batch {WHISPER_TRAIN_BATCH} -> {FT_BATCH} x {TRAIN_SEQ} "
+        f"tokens ({FT_BATCH} x {cfg.enc_frames} frames), {FT_STEPS} steps")
     model = build_model(cfg, plan)
     ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, FT_BATCH, "train"))
     batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
@@ -3276,7 +3317,8 @@ def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
 
 
 def dp_setup(microbatches):
-    """whisper-small's full-width training model for the DP phase (fp32
+    """whisper-small's full-width training model for the DP phase
+    (``whisper_cut``: WHISPER_CUT_LAYERS + WHISPER_CUT_LAYERS layers; fp32
     masters, bf16 compute, remat "full", ZeRO-1, the integrity audit on,
     ``microbatches`` per rank) and
     DP_STEPS + 1 train_4k batches of WHISPER_TRAIN_BATCH sequences with their
@@ -3284,7 +3326,7 @@ def dp_setup(microbatches):
     from repro_torch.core import InputShape, ParallelPlan, get_config
     from repro_torch.data import SyntheticDataset
     from repro_torch.models import build_model
-    cfg = get_config(WHISPER_ARCH)
+    cfg = whisper_cut(get_config(WHISPER_ARCH))
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
                         microbatches=microbatches, zero_stage=1, integrity="audit")
     ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, WHISPER_TRAIN_BATCH, "train"))
@@ -3411,7 +3453,7 @@ def dp_sdc_run(model, plan, batches, mesh, clean, clean_opt, out_dir):
 
 def dp_rank(rank, init_method, out_dir):
     """One of the DP_RANKS processes of the DP phase, on cuda:0 over gloo:
-    whisper-small at full width and depth under ZeRO-1, one microbatch of the
+    whisper-small at full width (``whisper_cut``) under ZeRO-1, one microbatch of the
     rank's rows with B1-B3 held to their plain versions
     (``dp_checked_microbatch``), DP_STEPS steps (the
     first DP_WATCHED watched: the first one's whole grads kept, each ZeRO-1
@@ -3724,11 +3766,12 @@ def dp_summary(dp):
 # full width on TP_FAMILIES["dense"]'s 4 of its 40 layers (8 until the CP
 # phase needed the script's time) for TP_STEPS steps, then
 # one fp32 step at TP_FP32_LAYERS layers; deepseek-moe-16b at full width on 2
-# of its 28 layers and mamba2-370m at full width and depth, one step each;
+# of its 28 layers and mamba2-370m at full width on 24 of its 48 layers (the
+# script's time limit), one step each;
 # 1 x 4096 tokens, bf16 compute, remat "full". Nothing is checkpointed.
 TP_RANKS = 2
 TP_STEPS = 3
-TP_FAMILIES = {"dense": (TRAIN_ARCH, 4), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, None)}
+TP_FAMILIES = {"dense": (TRAIN_ARCH, 4), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, 24)}
 TP_FP32_LAYERS = 2
 TP_CASES = {"dense": (1, 10, 10, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0),
             "moe": (1, 8, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)}
@@ -4265,7 +4308,7 @@ def tp_launches(tp, i, families=("dense", "moe", "ssm", "fp32")):
 # gloo, a (1, 2, 1) (data, cp, model) grid. qwen1.5-4b at full width on
 # CP_DENSE_LAYERS of its 40 layers over 1 x CP_DENSE_SEQ tokens in the ring
 # mode (each rank two zigzag sub-chunks of CP_SUB), one warm-up and
-# CP_DENSE_STEPS steps; mamba2-370m at full width and depth over 1 x
+# CP_DENSE_STEPS steps; mamba2-370m at full width on CP_SSM_LAYERS layers over 1 x
 # CP_SSM_SEQ (each rank CP_SSM_SEQ / 2 contiguous), one warm-up and
 # CP_SSM_STEPS steps; bf16 compute, remat "full"; then fp32 steps at
 # CP_FP32_LAYERS layers and 1 x TRAIN_SEQ (dense ring and gather, Mamba2) held
@@ -4273,8 +4316,9 @@ def tp_launches(tp, i, families=("dense", "moe", "ssm", "fp32")):
 CP_RANKS = 2
 CP_DENSE_LAYERS = 4
 CP_DENSE_SEQ = 16_384
-CP_DENSE_STEPS = 3                # timed, after one warm-up
+CP_DENSE_STEPS = 1                # timed, after one warm-up
 CP_SSM_SEQ = 65_536
+CP_SSM_LAYERS = 24                # of mamba2-370m's 48 (the script's time limit)
 CP_SSM_STEPS = 2                  # timed, after one warm-up
 CP_FP32_LAYERS = 2
 CP_SUB = CP_DENSE_SEQ // (2 * CP_RANKS)          # a zigzag sub-chunk: one ring tile's side
@@ -4402,7 +4446,7 @@ def cp_family(family, grid, out_dir):
     from repro_torch.train import Hyper, make_loss_fn
     dense = family == "dense"
     steps = 1 + (CP_DENSE_STEPS if dense else CP_SSM_STEPS)
-    cfg, plan, model, batches = cp_setup(family, CP_DENSE_LAYERS if dense else None,
+    cfg, plan, model, batches = cp_setup(family, CP_DENSE_LAYERS if dense else CP_SSM_LAYERS,
                                          seq=CP_DENSE_SEQ if dense else CP_SSM_SEQ, steps=steps)
     rec = {"layers": cfg.n_layers, "seq": batches[0]["tokens"].shape[1], "ms": [],
            "tick_ms": [], "all_reduce_ms": []}
@@ -4620,12 +4664,13 @@ def phase_cp():
     return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
 
 
-def cp_bwd_inputs(gen):
+def cp_bwd_inputs(gen, cases=CP_CASES):
     """q, dO and the two KV sub-chunks of a ring row (bf16, head-major views
     of batch-major tensors) with the row's statistics merged over both: an
     earlier sub-chunk seen whole and the row's own diagonal (lse from the
-    plain forward over the two, delta = rowsum(dO * O))."""
-    b, hq, hkv, s, t, hd = CP_CASES["diagonal"][:6]
+    plain forward over the two, delta = rowsum(dO * O)); the shapes of
+    ``cases``' diagonal tile."""
+    b, hq, hkv, s, t, hd = cases["diagonal"][:6]
     q = batch_major(gen, b, hq, s, hd, torch.bfloat16)
     k_full, v_full, k_diag, v_diag = (batch_major(gen, b, hkv, t, hd, torch.bfloat16)
                                       for _ in range(4))
@@ -4636,17 +4681,14 @@ def cp_bwd_inputs(gen):
     return q, do, lse, delta, {"full": (k_full, v_full), "diagonal": (k_diag, v_diag)}
 
 
-def cp_times(keep_dir):
-    """The kernels at the CP path's shapes: B1 (fwd_times_at, beside SDPA) on
-    a diagonal and a full ring tile at (1, 20, CP_SUB, 128); B2/B3
-    (bwd_times_at, with the plain backward) on each against the statistics
-    merged over the row; B5/B6 (ssd_times) on rank 0's kept inputs at
-    (1, 32, CP_SSM_SEQ / 2, 64, 128)."""
+def ring_tile_times(cases, gen):
+    """B1 (fwd_times_at, beside SDPA) on a diagonal and a full ring tile of
+    ``cases``; B2/B3 (bwd_times_at, with the plain backward) on each against
+    the statistics merged over the row."""
     from repro_torch.kernels import flash_attention as tf
-    gen = torch.Generator(device="cuda").manual_seed(8)
     out = {}
-    q, do, lse, delta, kv = cp_bwd_inputs(gen)
-    for name, case in CP_CASES.items():
+    q, do, lse, delta, kv = cp_bwd_inputs(gen, cases)
+    for name, case in cases.items():
         fwd = fwd_times_at(case, gen)
         k, v = kv[name]
         bwd = bwd_times_at(case, gen, inputs=(q, k, v, do, lse, delta))
@@ -4657,6 +4699,14 @@ def cp_times(keep_dir):
         free()
     del q, do, lse, delta, kv
     free()
+    return out
+
+
+def cp_times(keep_dir):
+    """The kernels at the CP path's shapes: B1-B3 on a diagonal and a full
+    ring tile at (1, 20, CP_SUB, 128) (``ring_tile_times``); B5/B6
+    (ssd_times) on rank 0's kept inputs at (1, 32, CP_SSM_SEQ / 2, 64, 128)."""
+    out = ring_tile_times(CP_CASES, torch.Generator(device="cuda").manual_seed(8))
     out["ssd"] = ssd_times(f"{SSM_ARCH} cp", torch.load(Path(keep_dir) / "cp_ssd.pt"))
     free()
     return out
@@ -4743,6 +4793,425 @@ def cp_summary(cp):
     }
 
 
+# ---------------------------------------------------------------------------
+# expert parallelism (A13.4)
+
+
+@contextlib.contextmanager
+def ep_bf16_rounding():
+    """GRID_TOLERANCE's EP control: within the block each chunk's expert
+    output (``models.moe.ep_chunk_ffn``, as the executor calls it: every tick
+    of the overlap ring, the blocking path's one call) is rounded to bf16
+    before the combine exchange, a fault the grads rule must catch."""
+    from repro_torch.models import moe
+    real = moe.ep_chunk_ffn
+
+    def rounded(w, h, **kw):
+        y = real(w, h, **kw)
+        return y.to(torch.bfloat16).to(y.dtype)
+    moe.ep_chunk_ffn = rounded
+    try:
+        yield
+    finally:
+        moe.ep_chunk_ffn = real
+
+
+def ep_part(plan, places, sizes):
+    """A ``part`` for ``grid_grad_failures`` under an ep ``plan``: rank r's
+    part of one device's whole leaf (its expert block, its TP shard where tp
+    is on; ``places[r]`` the rank's ``core.sharding.grid_place`` index)."""
+    from repro_torch.core.sharding import layout_part
+
+    def part(name, a, r, n):
+        return layout_part(name, a, plan, places[r], sizes)
+    return part
+
+
+# EP_RANKS spawned ranks on the one card over gloo, a (1, 2) grid: the ep-only
+# placement (ep 2 on the model axis; attention a cp ring over it, the zigzag
+# layout). deepseek-moe-16b at full width on EP_LAYERS of its 28 layers over 1 x
+# EP_SEQ tokens (2048 a rank), bf16 compute, remat "full": the overlap ring, a
+# warm-up and EP_STEPS steps; the blocking exchange, one step; then fp32 steps at
+# EP_FP32_LAYERS layers and 1 x EP_FP32_SEQ at a no-drop capacity held to one
+# device's by GRID_TOLERANCE. Nothing is checkpointed.
+EP_RANKS = 2
+EP_LAYERS = 4
+EP_SEQ = TRAIN_SEQ
+EP_STEPS = 2                      # the overlap ring's timed steps, after one warm-up
+EP_FP32_LAYERS = 2
+EP_FP32_SEQ = 1024
+EP_SUB = EP_SEQ // (2 * EP_RANKS)                # a zigzag sub-chunk: one ring tile's side
+EP_CASES = {"diagonal": (1, 16, 16, EP_SUB, EP_SUB, 128, True, 0, 0.0, 0),
+            "full": (1, 16, 16, EP_SUB, EP_SUB, 128, False, 0, 0.0, 0)}
+
+
+def ep_setup(layers, dtype="bfloat16", seq=EP_SEQ, steps=1, impl="overlap", no_drop=False):
+    """deepseek-moe-16b's full-width config cut to ``layers`` layers (with
+    ``no_drop``, a capacity factor of ceil(E / top_k), which drops nothing),
+    its ep-only plan (fp32 masters, ``dtype`` compute, remat "full", one
+    microbatch of 1 x ``seq``, ep EP_RANKS in ``impl``), the model and
+    ``steps`` batches."""
+    import math
+    from repro_torch.core import InputShape, ParallelPlan, get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=layers)
+    if no_drop:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=float(math.ceil(cfg.moe.num_experts / cfg.moe.top_k))))
+    plan = ParallelPlan(compute_dtype=dtype, param_dtype="float32", remat="full",
+                        microbatches=1, ep=EP_RANKS, ep_impl=impl)
+    ds = SyntheticDataset(cfg, InputShape("ep", seq, 1, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(steps)]
+    return cfg, plan, build_model(cfg, plan), batches
+
+
+def ep_want(cfg, impl):
+    """The launches of one rank's step (one microbatch, remat full): B1, B2,
+    B3, B4 rows, B4 contract, B5, B6. Attention is the cp ring over the ep
+    ring: 2 cp + 1 tiles a layer, B1 twice (forward, recompute). The expert
+    SwiGLU's 3 GEMMs a call: "blocking" calls them once on all peers' rows
+    in the forward and once in the recompute, and the backward runs 3 dx
+    (rows) and 3 dw (contract); "overlap" calls them once a tick (EP_RANKS
+    ticks) in the forward and in the recompute, and its backward re-runs each
+    tick's forward (3 rows) before its 3 dx and 3 dw."""
+    n, t = cfg.n_layers, EP_RANKS
+    tiles = 2 * EP_RANKS + 1
+    rows, contract = (9 * n, 3 * n) if impl == "blocking" else (12 * t * n, 3 * t * n)
+    return (2 * tiles * n, tiles * n, tiles * n, rows, contract, 0, 0)
+
+
+def ep_window(impl, fp32=False):
+    """The kernels line's name for an EP path's step."""
+    return f"ep_{impl}{'_fp32' if fp32 else ''}_train_step"
+
+
+def ep_checked_microbatch(cfg, plan, grid, batch, out, keep_dir=None):
+    """A ``prepare`` for ``zero1_run``: the rank's microbatch through the EP
+    loss and its backward with every kernel call held to its plain version
+    on the rank's own inputs (B1 FlashFwdCapture on every ring tile; B2/B3
+    FlashBwdCapture against the merged statistics, dq also to fp64 in bf16;
+    B4 GemmCapture on every expert GEMM of every chunk, forward, recompute,
+    dx and dw), as many calls as ``ep_want`` predicts. B4's first call and
+    first dx/dw are saved under ``keep_dir`` for the times."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import Hyper
+    from repro_torch.train.executor import make_executor_loss_fn
+    want = ep_want(cfg, plan.ep_impl)
+    bf16 = plan.compute_dtype == "bfloat16"
+
+    def prepare(params):
+        loss_fn = make_executor_loss_fn(cfg, plan, grid, z_loss=Hyper().z_loss)
+        what = f"{cfg.arch_id} ep {plan.ep_impl} {plan.compute_dtype} rank {grid.rank} microbatch"
+        with FlashBwdCapture(fp64=bf16) as bwd, FlashFwdCapture() as fwd, \
+                GemmCapture(keep=(0,), backward=True) as gemm:
+            loss, _ = loss_fn(params, batch)
+            loss.backward()
+        out["real_fwd_ulps"] = fwd.summary(f"{what} (forward and recompute)", want[0],
+                                           body="sm90" if bf16 else "f32")
+        out["real_bwd_ulps"] = bwd.summary(f"{what} (merged statistics)", want[1])
+        calls = tuple(sum(e[0] == m for e in gemm.errs) for m in ("rows", "contract"))
+        if calls != want[3:5]:
+            raise AssertionError(f"{what}: checked {calls} B4 calls (rows, contract), "
+                                 f"expected {want[3:5]}")
+        out["real_gemm_ulps"] = gemm.summary(what)
+        if keep_dir is not None:
+            impl = plan.ep_impl
+            torch.save({f"ep_{impl}_forward": gemm.kept[0], f"ep_{impl}_dx": gemm.kept["dx"],
+                        f"ep_{impl}_dw": gemm.kept["dw"]}, Path(keep_dir) / f"ep_{impl}_gemm.pt")
+        out["microbatch_loss"] = float(loss)
+        for p in leaves(params):
+            p.grad = None
+    return prepare
+
+
+def ep_step_counter(cfg, impl, grid, rec, fp32=False):
+    """A context-manager factory for ``zero1_run``'s ``around``: each step's
+    wall time (synchronised), its expert ring's seconds by kind (the ring
+    attention's hops, the EP exchanges, the all-reduces with the grads' sum
+    among them; the ring waits for the device around each) and the kernels'
+    launches, which must be ``ep_want``'s and all on the Hopper bodies (the
+    fp32 bodies with ``fp32``)."""
+    want = ep_want(cfg, impl)
+    window = ep_window(impl, fp32)
+
+    @contextlib.contextmanager
+    def around(i):
+        reset_counts()
+        grid.ep.timed = True
+        before = dict(grid.ep.seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        yield
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        for k in ("tick", "a2a", "all_reduce"):
+            rec[f"{k}_ms"].append((grid.ep.seconds[k] - before[k]) * 1e3)
+        launches = all_counts() + ssd_counts()
+        rec["launches"] = launches
+        if launches != want:
+            raise AssertionError(f"{cfg.arch_id} ep {impl} step {i} launched {launches}, "
+                                 f"expected {want}")
+        check_bodies(f"{cfg.arch_id} ep {impl} rank {grid.rank} step {i}", launches, window,
+                     fp32=fp32)
+        rec["bodies"] = BODY_COUNTS[window]
+        grid.ep.timed = False
+    return around
+
+
+def ep_path(impl, grid, out_dir):
+    """One exchange mode on this rank at full width: the checked microbatch,
+    then the steps (the overlap ring a warm-up and EP_STEPS, the blocking
+    exchange one), their readings and peak memory."""
+    from repro_torch.core.tree import named_leaves
+    steps = 1 + EP_STEPS if impl == "overlap" else 1
+    cfg, plan, model, batches = ep_setup(EP_LAYERS, steps=steps, impl=impl)
+    rec = {"layers": cfg.n_layers, "seq": batches[0]["tokens"].shape[1], "ms": [],
+           "tick_ms": [], "a2a_ms": [], "all_reduce_ms": []}
+    check = ep_checked_microbatch(cfg, plan, grid, batches[0], rec,
+                                  out_dir if grid.rank == 0 else None)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, run = zero1_run(model, plan, batches, grid, prepare=check,
+                              around=ep_step_counter(cfg, impl, grid, rec), keep_params=False)
+    rec["peak_bytes"] = torch.cuda.max_memory_allocated()
+    rec["params_per_rank"] = sum(x.numel() for _, leaf in named_leaves(state.params)
+                                 for x in (leaf if isinstance(leaf, list) else [leaf]))
+    rec.update(loss=run["loss"], grad_norm=run["grad_norm"])
+    log(f"ep rank {grid.rank} {cfg.arch_id} {impl} ({cfg.n_layers} layers, 1 x {rec['seq']}): "
+        f"steps {[round(x, 1) for x in rec['ms']]} ms, exchanges "
+        f"{[round(x, 1) for x in rec['a2a_ms']]} ms, ring-attention hops "
+        f"{[round(x, 1) for x in rec['tick_ms']]} ms, all-reduces "
+        f"{[round(x, 1) for x in rec['all_reduce_ms']]} ms, losses {run['loss']}, peak "
+        f"{rec['peak_bytes'] / 1e9:.2f} GB")
+    del state, model
+    free()
+    grid.barrier_error(False)
+    return rec
+
+
+def ep_one_device(cfg, plan, batches):
+    """One device's step on the EP run's weights (seed 0) and batch, and an
+    fp64 evaluation of its first step (``fp64_first_grads``), both on the
+    host."""
+    from repro_torch.models import build_model
+    from repro_torch.train import Hyper
+    one_plan = dataclasses.replace(plan, ep=1)
+    model = build_model(cfg, one_plan)
+    _, _, one = zero1_run(model, one_plan, batches, watch=ZeroWatch(steps=1), keep_params=False)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    truth = fp64_first_grads(cfg, params, batches[0], 1, Hyper())
+    del params, model
+    free()
+    return one, truth
+
+
+def ep_fp32(grid):
+    """The fp32 steps at EP_FP32_LAYERS layers and 1 x EP_FP32_SEQ at a
+    no-drop capacity: the overlap ring, the blocking exchange and the
+    control (``ep_bf16_rounding``), each one step from the same weights. One
+    device's step and its fp64 evaluation run on rank 0 first, while rank 1
+    waits. The overlap step's first grads, every rank's (rank 1 sends its
+    expert blocks to rank 0; the other leaves are the same bits on both, by
+    their checksums), are held to one device's by GRID_TOLERANCE; the
+    blocking step's agree with the overlap ring's on each rank (1e-6 of each
+    leaf's max, the same loss to 1e-6); the control must fail the grads rule
+    (on rank 0's part). The overlap step's microbatch is checked call by call
+    first (``ep_checked_microbatch``, the fp32 bodies); the steps' launches
+    must be ``ep_want``'s on the fp32 bodies; the control's are not counted."""
+    from repro_torch.core.sharding import grid_place
+    cfg, plan, model, batches = ep_setup(EP_FP32_LAYERS, "float32", EP_FP32_SEQ, no_drop=True)
+    one = truth = None
+    if grid.rank == 0:
+        one, truth = ep_one_device(cfg, plan, batches)
+    grid.barrier_error(False)
+    out, kept = {}, {}
+    for name, impl, control in (("overlap", "overlap", False), ("blocking", "blocking", False),
+                                ("control", "overlap", True)):
+        p = dataclasses.replace(plan, ep_impl=impl)
+        checked = {}
+        prepare = (ep_checked_microbatch(cfg, p, grid, batches[0], checked)
+                   if name == "overlap" else None)
+        rec = {"layers": cfg.n_layers, "ms": [], "tick_ms": [], "a2a_ms": [],
+               "all_reduce_ms": []}
+        watch = ZeroWatch(steps=1, shadow=not control)
+        with ep_bf16_rounding() if control else contextlib.nullcontext():
+            _, _, run = zero1_run(model, p, batches, grid, watch=watch, prepare=prepare,
+                                  around=None if control else
+                                  ep_step_counter(cfg, impl, grid, rec, fp32=True),
+                                  keep_params=False)
+        rec.update(loss=run["loss"], grad_norm=run["grad_norm"], **checked)
+        if control and grid.rank != 0:
+            watch.grads = None                  # rank 0 alone holds the control to the rule
+        kept[name] = (run, watch)
+        out[name] = rec
+        free()
+    run, watch = kept["overlap"]
+    grads = on_card(watch.grads)
+    blocking = on_card(kept["blocking"][1].grads)
+    out["blocking"]["against_overlap"] = {
+        "loss_rel": abs(kept["blocking"][0]["loss"][0] - run["loss"][0]) / abs(run["loss"][0]),
+        "grads_rel": max(rel_err(blocking[n], g) for n, g in grads.items())}
+    del blocking
+    experts = sorted(n for n in watch.grads if "experts" in n)
+    shared = {n: a for n, a in watch.grads.items() if n not in experts}
+    sums = rank_checksums(shared, grid)
+    got = grid_gather({n: watch.grads[n] for n in experts}, grid)
+    free()
+    if grid.rank == 0:
+        bad = [] if len(set(sums)) == 1 else [f"the ranks' shared grads differ: {sums}"]
+        if out["blocking"]["against_overlap"]["loss_rel"] > DP_REL or \
+                out["blocking"]["against_overlap"]["grads_rel"] > DP_REL:
+            bad.append(f"the blocking step against the overlap ring: "
+                       f"{out['blocking']['against_overlap']}")
+        shards = [grads] + [{**grads, **on_card(g)} for g in got[1:]]
+        places = [grid_place(grid)[0] | {"model": r} for r in range(EP_RANKS)]
+        part = ep_part(plan, places, grid_place(grid)[1])
+        one_grads, truth = on_card(one["grads"]), on_card(truth)
+        agree = grid_agreement(run, {**one, "grads": one_grads}, shards, part)
+        rule_bad, explained = grid_failures(agree, watch.shadow_err, shards, one_grads, truth,
+                                            part)
+        control = on_card(kept["control"][1].grads)
+        control_bad, _ = grid_grad_failures([control], one_grads, truth, part)
+        if not control_bad:
+            bad.append("the control (each chunk's expert output rounded to bf16) passes the "
+                       "grads rule")
+        out["overlap"].update(agree=agree, failures=bad + rule_bad, explained=explained,
+                              one_device_loss=one["loss"], one_device_grad_norm=one["grad_norm"],
+                              dp_tolerance_met=not rule_bad and not explained)
+        out["control"].update(control_failures=len(control_bad), control_first=control_bad[:3])
+        log(f"ep fp32 {cfg.arch_id} ({cfg.n_layers} layers, 1 x {EP_FP32_SEQ}): loss "
+            f"{run['loss']} / {one['loss']}, {agree}; leaves past 1e-6 that the fp64 rule admits "
+            f"(error, EP's distance from fp64, one device's) {explained}; blocking against the "
+            f"overlap ring {out['blocking']['against_overlap']}; the control fails the rule on "
+            f"{len(control_bad)} leaves, first {control_bad[:3]}; failures "
+            f"{out['overlap']['failures']}")
+        del shards, one_grads, truth, control
+    del grads, got, kept, model, one
+    free()
+    grid.barrier_error(False)
+    return out
+
+
+def ep_rank(rank, init_method, out_dir):
+    """One of the EP_RANKS processes of the EP phase, on cuda:0 over gloo:
+    the overlap ring and the blocking exchange at full width (``ep_path``),
+    then the fp32 checks (``ep_fp32``). Results go to
+    ``out_dir/ep_rank{rank}.json``."""
+    from repro_torch.core import resolve_device
+    from repro_torch.launch import init_grid_mesh
+    resolve_device()
+    grid = init_grid_mesh(1, EP_RANKS, "cuda:0", backend="gloo", init_method=init_method,
+                          rank=rank)
+    log(f"ep rank {rank}: {grid}")
+    out = {"rank": rank, "mesh": repr(grid)}
+    for impl in ("overlap", "blocking"):
+        t0 = time.perf_counter()
+        out[impl] = ep_path(impl, grid, out_dir)
+        out[impl]["seconds"] = time.perf_counter() - t0
+        free()
+    t0 = time.perf_counter()
+    out["fp32"] = ep_fp32(grid)
+    out["fp32"]["seconds"] = time.perf_counter() - t0
+    grid.close()
+    (Path(out_dir) / f"ep_rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_ep():
+    """The EP phase: EP_RANKS spawned ranks on the one card over gloo
+    (``ep_rank``); their results checked here, then the kernels timed at the
+    EP shapes (B4 on rank 0's kept inputs of both modes, B1-B3 on a diagonal
+    and a full ring tile)."""
+    with spawned_ranks(ep_rank, EP_RANKS, "ep", timeout=480) as (tmp, ranks, ranks_s):
+        ep_report(ranks)
+        t0 = time.perf_counter()
+        times = ep_times(tmp)
+        times_s = time.perf_counter() - t0
+    log(f"phase EP: ranks {ranks_s:.1f} s, kernel times {times_s:.1f} s")
+    return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
+
+
+def ep_times(keep_dir):
+    """The kernels at the EP path's shapes: B4 (gemm_times) on rank 0's kept
+    inputs, a ring tick's chunk (32, C, 2048) and the blocking exchange's
+    (32, 2 C, 2048) with their dx and dw; B1-B3 on the ep-only ring tiles
+    (``ring_tile_times``)."""
+    kept = {}
+    for impl in ("overlap", "blocking"):
+        kept.update(torch.load(Path(keep_dir) / f"ep_{impl}_gemm.pt"))
+    out = {"gemm": gemm_times(kept)}
+    del kept
+    free()
+    out.update(ring_tile_times(EP_CASES, torch.Generator(device="cuda").manual_seed(9)))
+    return out
+
+
+def ep_report(ranks):
+    """Log the EP phase's results and hold them to their checks: each mode's
+    losses finite and equal on both ranks, the fp32 steps by GRID_TOLERANCE
+    and the control failing it; keep the launches by body for the kernels
+    line."""
+    r0 = ranks[0]
+    bad = []
+    for impl in ("overlap", "blocking"):
+        for r in ranks:
+            f = r[impl]
+            log(f"ep {impl} rank {r['rank']} ({r['mesh']}): steps {f['ms']} ms, exchanges "
+                f"{f['a2a_ms']} ms, ring-attention hops {f['tick_ms']} ms, all-reduces "
+                f"{f['all_reduce_ms']} ms (two ranks share one card and the exchanges go "
+                f"through host memory: no measure of EP scaling or overlap); peak "
+                f"{f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} B params a "
+                f"rank; launches {f['launches']} a step; bodies {f['bodies']}; on its own inputs "
+                f"{({k: f[k] for k in f if k.startswith('real_')})}; {f['seconds']:.1f} s")
+            if not all(np.isfinite(x) for x in f["loss"] + f["grad_norm"]):
+                bad.append(f"{impl} rank {r['rank']}: a loss or grad norm is not finite")
+            if (f["loss"], f["grad_norm"]) != (r0[impl]["loss"], r0[impl]["grad_norm"]):
+                bad.append(f"{impl}: rank {r['rank']} reports {f['loss']} / {f['grad_norm']}")
+        BODY_COUNTS[ep_window(impl)] = {k: sum(r[impl]["bodies"][k] for r in ranks)
+                                        for k in r0[impl]["bodies"]}
+    for impl in ("overlap", "blocking"):
+        BODY_COUNTS[ep_window(impl, fp32=True)] = {
+            k: sum(r["fp32"][impl]["bodies"][k] for r in ranks)
+            for k in r0["fp32"][impl]["bodies"]}
+    bad += [f"fp32: {b}" for b in r0["fp32"]["overlap"].get("failures", [])]
+    if bad:
+        raise AssertionError("EP phase: " + "; ".join(bad))
+
+
+def ep_launches(ep, i):
+    """One kernel's launches on the EP paths (``i``: its index in the
+    launches tuple), summed over the ranks, by window (``ep_window``); only
+    the windows where it launched."""
+    out = {}
+    for fp32 in (False, True):
+        for impl in ("overlap", "blocking"):
+            n = sum((r["fp32"] if fp32 else r)[impl]["launches"][i] for r in ep["ranks"])
+            if n:
+                out[ep_window(impl, fp32)] = n
+    return out
+
+
+def ep_summary(ep):
+    """The EP phase's numbers for the kernels line (``deepseek-moe-16b_ep``)."""
+    ranks = ep["ranks"]
+    keys = ("ms", "a2a_ms", "tick_ms", "all_reduce_ms", "launches", "peak_bytes",
+            "params_per_rank", "loss", "grad_norm", "seconds")
+    return {
+        "grid": {"data": 1, "model": EP_RANKS}, "plan": {"ep": EP_RANKS, "tp": 1, "cp": 1},
+        "transport": "gloo, host copies (two ranks on one card); no measure of EP scaling",
+        "layers": ranks[0]["overlap"]["layers"], "seq": ranks[0]["overlap"]["seq"],
+        "modes": {impl: {"ranks": [{k: r[impl][k] for k in keys} for r in ranks],
+                         "real_inputs": {k: ranks[0][impl][k] for k in ranks[0][impl]
+                                         if k.startswith("real_")}}
+                  for impl in ("overlap", "blocking")},
+        "fp32": {name: {k: v for k, v in rec.items() if k != "bodies"}
+                 for name, rec in ranks[0]["fp32"].items() if name != "seconds"},
+        "tolerance": GRID_TOLERANCE,
+        "phase_s": {"ranks": ep["ranks_s"], "kernel_times": ep["times_s"],
+                    "fp32_checks": ranks[0]["fp32"]["seconds"]},
+    }
+
+
 def ft_summary(whisper, dp):
     """The fault-tolerance readings for the kernels line (``whisper-small_ft``):
     the phase's, the DP ranks' audit and sdc run, and the training phase's step
@@ -4825,7 +5294,7 @@ def ssd_entries(ssd_errs, ssm, tp, cp):
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm, whisper, dp, tp, cp):
+                moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -4840,7 +5309,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_ft": whisper["ft"]["launches"][0],
                 "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
                 "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0],
-                **tp_launches(tp, 0), **cp_launches(cp, 0)}
+                **tp_launches(tp, 0), **cp_launches(cp, 0), **ep_launches(ep, 0)}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -4885,6 +5354,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "cp_shapes": {name: cp["times"][name]["fwd"] for name in CP_CASES},
         "cp_real_inputs_max_err_bf16_ulps": max(r["dense"]["real_fwd_ulps"]
                                                 for r in cp["ranks"]),
+        "ep_shapes": {name: ep["times"][name]["fwd"] for name in EP_CASES},
+        "ep_real_inputs_max_err_bf16_ulps": max(r[impl]["real_fwd_ulps"] for r in ep["ranks"]
+                                                for impl in ("overlap", "blocking")),
         "check": "pass",
     }]
     hybrid_train = ssm[HYBRID_ARCH][1]["launches"]
@@ -4901,7 +5373,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                    f"{WHISPER_ARCH}_dp_train_step": sum(r["launches"][which + 1]
                                                         for r in dp["ranks"]),
                    f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1],
-                   **tp_launches(tp, which + 1), **cp_launches(cp, which + 1)}
+                   **tp_launches(tp, which + 1), **cp_launches(cp, which + 1),
+                   **ep_launches(ep, which + 1)}
         hy = bt["hybrid"]
         wh = {}
         for n in ("encoder", "train_cross", "train_self"):
@@ -4966,6 +5439,18 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 for name, case in CP_CASES.items()},
             "cp_real_inputs_max_err_bf16_ulps": max(r["dense"]["real_bwd_ulps"][1 - which]
                                                     for r in cp["ranks"]),
+            "ep_shapes_merged_lse": {name: {
+                "shape": list(case[:6]), "causal": case[6],
+                "ms": ep["times"][name]["bwd"]["ms"][which],
+                "bound_ms": ep["times"][name]["bwd"]["bounds"][which][0],
+                "bound_by": ep["times"][name]["bwd"]["bounds"][which][1],
+                "plain_ms": ep["times"][name]["bwd"]["plain_ms"],
+                "whole_backward_ms": ep["times"][name]["bwd"]["whole_ms"],
+                "library_ms": ep["times"][name]["bwd"]["library_ms"]}
+                for name, case in EP_CASES.items()},
+            "ep_real_inputs_max_err_bf16_ulps": max(
+                r[impl]["real_bwd_ulps"][1 - which] for r in ep["ranks"]
+                for impl in ("overlap", "blocking")),
             "check": "pass",
         })
     gt = {**moe_serve["times"], **moe_train["times"]}
@@ -4973,10 +5458,12 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
     decode_steps = moe_serve["decode_b4"]
     train_b4 = moe_train["train_b4_rows"] + moe_train["train_b4_contract"]
     tp_b4 = tuple(tp_launches(tp, i).get("tp_moe_train_step", 0) for i in (3, 4))
+    ep_b4 = {f"{w}_{mode}": n for i, mode in ((3, "rows"), (4, "contract"))
+             for w, n in ep_launches(ep, i).items()}
     b4_bodies = launches_by_body("gg_", ("moe_prefill", "moe_decode", "moe_train_step",
-                                         "tp_moe_train_step"))
+                                         "tp_moe_train_step", *ep_launches(ep, 3)))
     if sum(b4_bodies.values()) != (moe_serve["prefill_b4"] + decode_steps + train_b4
-                                   + sum(tp_b4)):
+                                   + sum(tp_b4) + sum(ep_b4.values())):
         raise AssertionError(f"B4's launches by body {b4_bodies} do not add up to its "
                              f"launches by path")
     entries.append({
@@ -4984,14 +5471,15 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
         "replaces": "src/repro/kernels/grouped_gemm.py:50",
-        "launches": moe_serve["prefill_b4"] + decode_steps + train_b4 + sum(tp_b4),
+        "launches": (moe_serve["prefill_b4"] + decode_steps + train_b4 + sum(tp_b4)
+                     + sum(ep_b4.values())),
         "launches_by_path": {"prefill": moe_serve["prefill_b4"],
                              "decode_step": decode_steps // DECODE_STEPS,
                              f"decode_{DECODE_STEPS}_steps": decode_steps,
                              "train_step_rows": moe_train["train_b4_rows"],
                              "train_step_contract": moe_train["train_b4_contract"],
                              "tp_moe_train_step_rows": tp_b4[0],
-                             "tp_moe_train_step_contract": tp_b4[1]},
+                             "tp_moe_train_step_contract": tp_b4[1], **ep_b4},
         "launches_by_body": b4_bodies,
         "max_abs_err": gemm_errs[0],
         "max_err_bf16_ulps": gemm_errs[1],
@@ -5006,6 +5494,9 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "shapes": gt,
         "tp_shapes": tp["times"]["gemm"],
         "tp_real_inputs_max_err_bf16_ulps": max(r["moe"]["real_gemm_ulps"] for r in tp["ranks"]),
+        "ep_shapes": ep["times"]["gemm"],
+        "ep_real_inputs_max_err_bf16_ulps": max(r[impl]["real_gemm_ulps"] for r in ep["ranks"]
+                                                for impl in ("overlap", "blocking")),
         "check": "pass",
     })
     entries += ssd_entries(ssd_errs, ssm, tp, cp)
@@ -5013,7 +5504,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                       f"{WHISPER_ARCH}_dp": dp_summary(dp),
                       f"{WHISPER_ARCH}_ft": ft_summary(whisper, dp),
                       f"{TRAIN_ARCH}_tp": tp_summary(tp),
-                      f"{TRAIN_ARCH}_cp": cp_summary(cp)}), flush=True)
+                      f"{TRAIN_ARCH}_cp": cp_summary(cp),
+                      f"{MOE_ARCH}_ep": ep_summary(ep)}), flush=True)
 
 
 def free():
@@ -5060,8 +5552,10 @@ def main():
     tp = timed("tensor parallel", phase_tp)
     free()
     cp = timed("context parallel", phase_cp)
+    free()
+    ep = timed("expert parallel", phase_ep)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -169,7 +169,7 @@ class MemoryCheckpointTier:
             raise ValueError(f"memory-tier layout mismatch (recorded != requested): {diffs}; "
                              f"a remesh restores through the disk tier")
         arrays = [self._fetch(e, metas[0], verify) for metas in man["shards"]]
-        tree = fill_tree(tree_like, man, arrays, mesh)
+        tree = fill_tree(tree_like, man, arrays, mesh, plan)
         self.restore_seconds = time.perf_counter() - t0
         if self.flight is not None:
             self.flight.record("mem.restore", man["step"], rebuilt_shards=self.last_rebuild,

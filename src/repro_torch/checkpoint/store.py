@@ -76,7 +76,14 @@ grid read the same file. Under context parallelism the params and moments
 are the same on every cp rank, so only the ranks at cp index 0 (the grid's
 ``save_group``) take part in the gather; the manifest records the plan's
 ``cp`` and the grid's ``{"data": D, "cp": C, "model": M}``, and a restore at
-another cp (1 included) routes "reshard", as the reference's does.
+another cp (1 included) routes "reshard", as the reference's does. Under
+expert parallelism each rank of the fold holds its own block of the routed
+experts (``core.sharding.ep_spec_for_param``), so every rank of the grid takes
+part in the gather (``host_group``), rank 0 places each block into the whole
+leaf, and the manifest records the plan's ``ep``; a restore cuts each whole
+leaf to the rank's part under the requested plan (``plan=``), so ep 1, 2 and
+4 read the same file, and ``check_plan`` refuses an ep change as a layout
+mismatch while ``ep_impl``, which moves nothing, is free to change.
 
 Fault seams (``repro_torch.ft.inject``): ``ckpt.persist`` fires per persist
 attempt (``hang``, ``persist_exc``), and ``ckpt.shard_write`` after the
@@ -102,8 +109,9 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.sharding import (data_size, leaf_tp_dim, local_index, local_shape,
-                                       tp_shard_of, train_state_specs)
+from repro_torch.core.sharding import (data_size, grid_place, layout_box, layout_part,
+                                       local_index, local_shape, train_state_specs,
+                                       whole_shape)
 from repro_torch.core.tree import named_leaves, stacked_shape
 from repro_torch.launch.mesh import GridMesh, cp_size, model_size
 
@@ -126,8 +134,8 @@ def _inject():
 # the layout axes a manifest records (the reference's store.py:95-145)
 
 # The reference's ParallelPlan layout axes, with each one's value on a plan
-# that lacks it: the port's plan has tp, cp and zero_stage of them and runs one
-# device on each of the others, so the manifest records those values and either
+# that lacks it: the port's plan has tp, cp, ep and zero_stage of them and runs
+# one device on each of the others, so the manifest records those values and either
 # package compares them. The reference's PLAN_AXES also records impl and
 # schedule knobs for forensics; the port's plan has none of those.
 PLAN_LAYOUT_AXES = {"tp": 1, "cp": 1, "dp_shard": 1, "zero_stage": 1, "ep": 1, "pp": 1,
@@ -524,33 +532,39 @@ class CheckpointManager:
 
     def _gather_grid(self, state, named, plan, mesh):
         """The save's snapshot under a grid (module docstring): the leaves of
-        each rank at cp index 0 copied to the host and sent to global rank 0
-        over the grid's ``save_group`` in one flat gather (:func:`gather_flat`),
-        and placed there into whole leaves; the other cp ranks hold the same
-        and send nothing. Returns (the whole shapes, per leaf [(array,
-        manifest dtype, None)] on rank 0, None elsewhere)."""
+        each rank at cp index 0 (every rank under ep, whose expert blocks
+        differ over the cp ranks too) copied to the host and sent to global
+        rank 0 over the grid's ``save_group`` (``host_group``) in one flat
+        gather (:func:`gather_flat`), and placed there into whole leaves; the
+        other cp ranks hold the same and send nothing. Returns (the whole
+        shapes, per leaf [(array, manifest dtype, None)] on rank 0, None
+        elsewhere)."""
         if not hasattr(state, "params"):
             raise ValueError("a save under a grid takes a TrainState")
         specs = train_state_specs(state, mesh, plan)
-        n_data, n_model = mesh.shape["data"], mesh.shape["model"]
-        shapes = [list(_grid_whole_shape(name, specs[name], n_model)) for name, _ in named]
+        n_data, n_cp, n_model = mesh.shape["data"], mesh.shape.get("cp", 1), mesh.shape["model"]
+        place, sizes = grid_place(mesh)
+        ep = getattr(plan, "ep", 1) > 1
+        members = [(d, c, m) for d in range(n_data) for c in range(n_cp if ep else 1)
+                   for m in range(n_model)]          # the gather group's order
+        shapes = [list(whole_shape(name, specs[name].shape, plan, sizes)) for name, _ in named]
         t0 = time.perf_counter()
         self.fence_seconds = self.d2h_seconds = self.gather_seconds = 0.0
-        if mesh.cp is not None and mesh.cp.rank != 0:
+        if not ep and mesh.cp is not None and mesh.cp.rank != 0:
             self.snapshot_seconds = 0.0
             return shapes, None
         host = [_host(x) for _, x in named]
         self.d2h_seconds = time.perf_counter() - t0
         t1 = time.perf_counter()
-        got = gather_flat([a for a, _ in host], mesh.save_group)
+        got = gather_flat([a for a, _ in host], mesh.host_group if ep else mesh.save_group)
         out = None
         if got is not None:
             out = [[(np.zeros(shape, dtype=a.dtype), dt, None)]
                    for (a, dt), shape in zip(host, shapes)]
-            for r, arrays in enumerate(got):        # save_group's order: (data, model)
-                d_idx, m_idx = divmod(r, n_model)
+            for (d, c, m), arrays in zip(members, got):
                 for (name, _), b, parts in zip(named, arrays, out):
-                    box = _grid_index(name, specs[name], d_idx, n_data, m_idx, n_model)
+                    box = _grid_index(name, specs[name], plan, d, n_data,
+                                      {"model": m, "cp": c}, sizes)
                     parts[0][0][tuple(slice(lo, hi) for lo, hi in box)] = b
         self.gather_seconds = time.perf_counter() - t1
         self.snapshot_seconds = time.perf_counter() - t0
@@ -740,27 +754,28 @@ class CheckpointManager:
         return manifest, arrays
 
     def restore(self, tree_like: Any, step: Optional[int] = None, verify: bool = True, *,
-                mesh=None) -> Tuple[int, Any]:
+                mesh=None, plan=None) -> Tuple[int, Any]:
         """Restore into ``tree_like``: every tensor overwritten in place on its
         device and in its dtype, the optimizer step replaced; returns (step,
         tree). Every leaf is read whole (its shards reassembled); under a data
-        ``mesh`` a tensor that is this rank's ZeRO-1 slice takes its slice.
-        Raises CorruptCheckpointError on a failed digest."""
+        ``mesh`` a tensor that is this rank's ZeRO-1 slice takes its slice,
+        and under a grid the rank's part by ``plan``'s layout first (None: the
+        TP layout). Raises CorruptCheckpointError on a failed digest."""
         self.wait()
         if step is None:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         manifest, arrays = self._read_full(step, verify)
-        return step, fill_tree(tree_like, manifest, arrays, mesh)
+        return step, fill_tree(tree_like, manifest, arrays, mesh, plan)
 
     def restore_resharded(self, tree_like: Any, step: Optional[int] = None,
                           verify: bool = True, *, mesh=None, plan=None) -> Tuple[int, Any]:
         """Elastic restore (survey §8.3.2) of a ``TrainState`` onto the layout
         of ``plan`` over ``mesh`` (no mesh: one process), whatever layout the
         checkpoint was written on: dp n to m (1 included), ZeRO stage 0 to
-        1 and back, and a grid's tp to another (1 included: the file holds
-        whole leaves). ``tree_like`` must already be laid out so
+        1 and back, and a grid's tp, cp or ep to another (1 included: the
+        file holds whole leaves). ``tree_like`` must already be laid out so
         (``init_train_state(model, gen, mesh, plan)``); every leaf is read
         whole and each rank takes its slices, as :meth:`restore` does."""
         specs = train_state_specs(tree_like, mesh, plan)
@@ -770,7 +785,7 @@ class CheckpointManager:
                     stacked_shape(x) != local_shape(specs[name], n):
                 raise ValueError(f"{name}: {stacked_shape(x)} is not the layout of the "
                                  f"requested plan and mesh, {local_shape(specs[name], n)}")
-        return self.restore(tree_like, step, verify, mesh=mesh)
+        return self.restore(tree_like, step, verify, mesh=mesh, plan=plan)
 
 
 def gather_flat(arrays: List[np.ndarray], group) -> Optional[List[List[np.ndarray]]]:
@@ -795,9 +810,11 @@ def gather_flat(arrays: List[np.ndarray], group) -> Optional[List[List[np.ndarra
     return out
 
 
-def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None):
+def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None,
+              plan=None):
     """``tree_like`` refilled from a manifest's leaves (``_refill``; under a
-    data ``mesh`` this rank's slices; under a grid its TP shards, then their
+    data ``mesh`` this rank's slices; under a grid its parts by ``plan``'s
+    layout, TP shards and expert blocks (None: the TP layout), then their
     slices over its data group), after checking that its names are the
     manifest's."""
     names = [n for n, _ in named_leaves(tree_like)]
@@ -805,36 +822,23 @@ def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mes
         raise ValueError("checkpoint tree structure mismatch: "
                          f"{sorted(set(names) ^ set(manifest['names']))[:5]}")
     by_name = dict(zip(names, zip(arrays, manifest["dtypes"])))
-    n_model = model_size(mesh)
     if isinstance(mesh, GridMesh):
-        return _refill(tree_like, lambda n: tp_shard_of(n, _to_torch(*by_name[n]),
-                                                        mesh.model.rank, n_model),
+        place = grid_place(mesh)
+        return _refill(tree_like, lambda n: layout_part(n, _to_torch(*by_name[n]), plan, *place),
                        rank=(mesh.data.rank, mesh.data.size))
     rank = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     return _refill(tree_like, lambda n: _to_torch(*by_name[n]), rank=rank)
 
 
-def _grid_whole_shape(name: str, spec, n_model: int) -> Tuple[int, ...]:
-    """The whole leaf's stacked shape from a rank's TP shard (``spec.shape``)."""
-    d = leaf_tp_dim(name, spec.shape)
-    shape = list(spec.shape)
-    if d is not None:
-        shape[d] *= n_model
-    return tuple(shape)
-
-
-def _grid_index(name: str, spec, d_idx: int, n_data: int, m_idx: int,
-                n_model: int) -> List[List[int]]:
-    """The box of the whole leaf that the grid rank (``d_idx``, ``m_idx``)
-    holds, as [[start, stop], ...] per stacked dim: its TP shard, then its
-    ZeRO-1 slice of that (``spec`` is the leaf's layout on the rank's
-    shards)."""
-    d = leaf_tp_dim(name, spec.shape)
-    index = local_index(spec, d_idx, n_data)
-    if d is not None:
-        base = m_idx * spec.shape[d]
-        index[d] = [base + index[d][0], base + index[d][1]]
-    return index
+def _grid_index(name: str, spec, plan, d_idx: int, n_data: int, place,
+                sizes) -> List[List[int]]:
+    """The box of the whole leaf that the grid rank at data index ``d_idx``
+    and ``place`` holds, as [[start, stop], ...] per stacked dim: its part by
+    ``plan``'s layout, then its ZeRO-1 slice of that (``spec`` is the leaf's
+    layout on the rank's part)."""
+    part = layout_box(name, spec.shape, plan, place, sizes)
+    return [[base + lo, base + hi] for (base, _), (lo, hi)
+            in zip(part, local_index(spec, d_idx, n_data))]
 
 
 def _stack_dtype(leaf) -> torch.dtype:

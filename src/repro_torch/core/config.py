@@ -44,6 +44,16 @@ Mamba2 conv halo and entering-state chain, MoE routed on the local tokens with
 the aux statistics summed over the ranks. ``"auto"`` takes the ring where it
 can (``repro_torch.kernels.dispatch.select_cp_impl``).
 
+``ParallelPlan.ep`` and ``ep_impl`` are the reference's expert-parallel degree
+and mode (survey §4.1.5): ``ep`` > 1 shards the routed experts over the
+*folded* cp × model ranks of a grid (MoE parallel folding): with cp or tp on,
+``ep`` must equal cp × tp; with neither (the ep-only placement) the experts
+ride the model axis and attention runs as a cp ring over it. ``ep_impl``
+picks the token exchange: ``"blocking"`` (one all-to-all before the experts
+and one after) or ``"overlap"`` (ring ticks with the expert GEMMs between
+them); ``"auto"`` is ``"overlap"``
+(``repro_torch.kernels.dispatch.select_ep_impl``).
+
 ``ParallelPlan.integrity`` (``"off"`` | ``"audit"``) is the reference's
 silent-data-corruption audit: under ``"audit"`` the train step's metrics gain
 ``integrity_checksum`` and ``integrity_div`` (``repro_torch.ft.integrity``).
@@ -68,6 +78,7 @@ ZERO_STAGES = (0, 1)
 INTEGRITY_MODES = ("off", "audit")
 TP_IMPLS = ("auto", "gspmd", "overlap")
 CP_IMPLS = ("auto", "gather", "ring")
+EP_IMPLS = ("auto", "blocking", "overlap")
 
 
 class Family:
@@ -248,9 +259,9 @@ def warn_shard_local_routing(cfg: ModelConfig) -> None:
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's other parallel axes (pp, ep, dp_shard) come
-    with the slices that implement them, so a plan cannot ask for a placement
-    the port would quietly ignore."""
+    defaults). The reference's other parallel axes (pp, dp_shard) come with
+    the slices that implement them, so a plan cannot ask for a placement the
+    port would quietly ignore."""
     tp: int = 1                    # tensor-parallel degree: the grid's model axis
     tp_impl: str = "auto"          # "auto" | "overlap": the rings of
                                    # train/tensor_parallel.py; "gspmd" raises
@@ -258,6 +269,9 @@ class ParallelPlan:
     cp: int = 1                    # context-parallel degree: the grid's cp axis
                                    # (the sequence sharded end to end)
     cp_impl: str = "auto"          # "auto" | "gather" | "ring" (module docstring)
+    ep: int = 1                    # expert-parallel degree: the routed experts over
+                                   # the folded cp x model ranks (module docstring)
+    ep_impl: str = "auto"          # "auto" | "blocking" | "overlap" (module docstring)
     microbatches: int = 1          # grad-accumulation microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
                                    # or Mamba2 layer (train/executor.py)
@@ -305,8 +319,34 @@ class ParallelPlan:
                 raise ValueError("cp > 1 composes with tp through the rings; set "
                                  "tp_impl='overlap' (or 'auto')")
         check_tp_impl(self.tp_impl)
-        if self.cp > 1 or self.tp > 1:
+        if self.ep_impl not in EP_IMPLS:
+            raise ValueError(f"ep_impl must be one of {EP_IMPLS}, got {self.ep_impl!r}")
+        if isinstance(self.ep, bool) or not isinstance(self.ep, int):
+            raise ValueError(
+                "ParallelPlan.ep is an integer expert-parallel degree (the reference's "
+                f"legacy bool selected a GSPMD path the port does not have); got "
+                f"ep={self.ep!r} — use ep=<degree>")
+        if self.ep < 1:
+            raise ValueError(f"ep must be >= 1, got {self.ep}")
+        # shard-local routing drops per shard under a token-dropping capacity
+        # (the reference's documented divergence; exact when nothing drops)
+        if self.cp > 1 or self.tp > 1 or self.ep > 1:
             warn_shard_local_routing(cfg)
+        if self.ep > 1:
+            if cfg.family != Family.MOE:
+                raise ValueError(f"expert parallelism requires a MoE arch, got {cfg.family}")
+            # MoE parallel folding: the expert ring re-reads the cp x model
+            # ranks, so its size is theirs; the ep-only placement (tp == cp
+            # == 1) is checked against the grid by executor.resolve_context
+            fold = self.cp * self.tp
+            if fold > 1 and self.ep != fold:
+                raise ValueError(
+                    f"ep={self.ep} must equal cp×tp={fold}: the expert axis folds onto "
+                    "the existing cp/model ring (MoE parallel folding), a re-mapping of "
+                    "those ranks, not extra ones")
+            if cfg.moe.num_experts % self.ep:
+                raise ValueError(f"ep={self.ep} must divide num_experts="
+                                 f"{cfg.moe.num_experts} for expert parallelism")
         if self.moe_dispatch not in MOE_DISPATCH_MODES:
             raise ValueError(f"moe_dispatch must be one of {MOE_DISPATCH_MODES}, "
                              f"got {self.moe_dispatch!r}")

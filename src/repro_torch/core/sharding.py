@@ -32,6 +32,17 @@ on every model rank (the blocks slice what they need). :func:`shard_params`
 cuts a whole tree into rank r's TP shards and :func:`gather_params` puts the
 shards back together. The ZeRO-1 rule above then runs on each rank's TP
 shards, over its data group.
+
+Under expert parallelism (``plan.ep`` > 1, the reference's
+``ep_fold_axes``/``ep_spec_for_param``) the routed experts (the
+``experts/*`` leaves, E on dim 0 of each layer's tensor) are cut into ``ep``
+contiguous blocks over the fold of the cp and model axes, at full d_expert
+width, in place of the overlap layout's d_expert cut; the shared experts and
+the router are whole on every fold rank, and so is every other leaf under
+ep-only (the other leaves keep the overlap layout when tp is on).
+:func:`param_spec` is a leaf's layout under a plan, :func:`layout_part` cuts
+a whole leaf to a grid rank's part, :func:`shard_layout` a whole tree and
+:func:`gather_layout` puts the parts back together.
 """
 
 from __future__ import annotations
@@ -105,57 +116,29 @@ def leaf_tp_dim(name: str, shape) -> Optional[int]:
     return tp_dim(overlap_spec_for_param(tuple(name.split("/")), tuple(shape)))
 
 
-def _tp_cut(value, dim: int, rank: int, n: int):
-    """Rank ``rank``'s 1/n of ``value`` (a tensor or an array) along ``dim``,
-    a view."""
-    if value.shape[dim] % n:
-        raise ValueError(f"dim {dim} of {tuple(value.shape)} does not split over "
-                         f"{n} model ranks")
-    k = value.shape[dim] // n
-    return value[(slice(None),) * dim + (slice(rank * k, (rank + 1) * k),)]
+def _tp_place(rank: int, n: int):
+    return {"model": rank, "cp": 0}, {"model": n, "cp": 1}
 
 
 def tp_shard_of(name: str, value, rank: int, n: int):
     """Model rank ``rank``'s TP shard of the whole leaf ``name`` (``value``, a
     tensor or an array in stacked coordinates) over ``n`` model ranks, by the
     overlap layout: a view, or ``value`` itself for a leaf kept whole."""
-    d = leaf_tp_dim(name, value.shape)
-    return value if d is None else _tp_cut(value, d, rank, n)
+    return layout_part(name, value, None, *_tp_place(rank, n))
 
 
 def shard_params(params: Any, rank: int, n: int) -> Any:
     """Rank ``rank``'s TP shards of a whole per-layer param tree over ``n``
     model ranks (new contiguous tensors, so each rank's shards are leaves of
     their own); leaves the layout keeps whole are copied."""
-    specs = overlap_param_specs(params)
-    out = {}
-    for name, leaf in named_leaves(params):
-        d = tp_dim(specs[name])
-        ps = leaf if isinstance(leaf, list) else [leaf]
-        off = 1 if isinstance(leaf, list) else 0            # a layer list's L dim
-        cut = [(p if d is None else _tp_cut(p.detach(), d - off, rank, n)).detach().clone()
-               for p in ps]
-        out[name] = cut if isinstance(leaf, list) else cut[0]
-    return _unflatten_like(params, out)
+    return shard_layout(params, None, *_tp_place(rank, n))
 
 
 def gather_params(shards: List[Any]) -> Any:
     """The whole tree from every model rank's shards (``shards[r]`` rank r's,
     as :func:`shard_params` cut them): the inverse of :func:`shard_params`,
     bit for bit; leaves kept whole come from rank 0."""
-    specs = overlap_param_specs(shards[0])
-    named = [dict(named_leaves(s)) for s in shards]
-    out = {}
-    for name, leaf in named[0].items():
-        d = tp_dim(specs[name])
-        if isinstance(leaf, list):
-            out[name] = [p.detach().clone() if d is None else
-                         torch.cat([nm[name][i].detach() for nm in named], dim=d - 1)
-                         for i, p in enumerate(leaf)]
-        else:
-            out[name] = (leaf.detach().clone() if d is None else
-                         torch.cat([nm[name].detach() for nm in named], dim=d))
-    return _unflatten_like(shards[0], out)
+    return gather_layout(shards, None, _tp_place(0, len(shards))[1])
 
 
 def _unflatten_like(tree: Any, named: Dict[str, Any], prefix: str = "") -> Any:
@@ -169,6 +152,152 @@ def _unflatten_like(tree: Any, named: Dict[str, Any], prefix: str = "") -> Any:
                                      if n.startswith(prefix)}, prefix)
                 for i, lp in enumerate(tree)]
     return named[prefix[:-1]]
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: the folded expert ring's layout
+
+
+def ep_fold_axes(plan) -> Tuple[str, ...]:
+    """The mesh axes the expert ring folds onto (MoE parallel folding): ("cp",
+    "model") when both are engaged, the one engaged, and ("model",) in the
+    ep-only placement (tp == cp == 1: the experts ride the model axis, and
+    attention runs as a cp ring over it). Empty when ep is off."""
+    if plan.ep <= 1:
+        return ()
+    axes = ("cp",) if plan.cp > 1 else ()
+    if plan.tp > 1 or plan.cp <= 1:
+        axes = axes + ("model",)
+    return axes
+
+
+def ep_spec_for_param(path_names: Tuple[str, ...], shape: Tuple[int, ...], plan) -> Optional[Spec]:
+    """The layout EP imposes on one leaf, or None where it imposes none (the
+    leaf keeps its tp or whole layout): routed experts ((L?, E, ...), with
+    "experts" in the path) split their E dim over :func:`ep_fold_axes` (a
+    tuple of names for a folded ring) at full d_expert width, so each fold
+    rank holds whole experts; the shared experts and the router are whole."""
+    axes = ep_fold_axes(plan)
+    if not axes:
+        return None
+    if "experts" in path_names:
+        spec: List[Any] = [None] * len(shape)
+        spec[1 if "layers" in path_names else 0] = axes if len(axes) > 1 else axes[0]
+        return tuple(spec)
+    if "shared" in path_names or path_names[-1] == "router":
+        return (None,) * len(shape)
+    return None
+
+
+def param_spec(name: str, shape: Tuple[int, ...], plan=None) -> Spec:
+    """The layout of the leaf ``name`` (stacked ``shape``) on a grid under
+    ``plan``: EP's (:func:`ep_spec_for_param`), else the overlap layout where
+    the plan runs tp, else whole. ``plan=None`` is the TP layout."""
+    path = tuple(name.split("/"))
+    if plan is not None:
+        spec = ep_spec_for_param(path, shape, plan)
+        if spec is not None:
+            return spec
+        if plan.tp <= 1:
+            return (None,) * len(shape)
+    return overlap_spec_for_param(path, shape)
+
+
+def spec_axes(spec: Spec) -> Tuple[str, ...]:
+    """The mesh axes that split a leaf of layout ``spec``."""
+    return tuple(a for e in spec if e is not None for a in (e if isinstance(e, tuple) else (e,)))
+
+
+def grid_place(mesh) -> Tuple[Dict[str, int], Dict[str, int]]:
+    """A grid rank's index on the model and cp axes, and their sizes."""
+    cp = mesh.cp
+    return ({"model": mesh.model.rank, "cp": cp.rank if cp is not None else 0},
+            {"model": mesh.model.size, "cp": cp.size if cp is not None else 1})
+
+
+def _box(spec: Spec, shape, place, sizes) -> List[Tuple[int, int]]:
+    """[start, stop) per dim of the part of a whole leaf of ``shape`` that the
+    rank at ``place`` holds under ``spec`` (a folded entry indexes its axes
+    row-major)."""
+    box = []
+    for d, entry in enumerate(spec):
+        if entry is None:
+            box.append((0, shape[d]))
+            continue
+        idx, n = 0, 1
+        for a in (entry if isinstance(entry, tuple) else (entry,)):
+            idx, n = idx * sizes[a] + place[a], n * sizes[a]
+        if shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(shape)} does not split over {n} ranks")
+        k = shape[d] // n
+        box.append((idx * k, (idx + 1) * k))
+    return box
+
+
+def whole_shape(name: str, local_shape, plan, sizes) -> Tuple[int, ...]:
+    """The whole leaf's stacked shape from a rank's part of it under ``plan``
+    on a grid of ``sizes``."""
+    spec = param_spec(name, tuple(local_shape), plan)
+    return tuple(s * math.prod(sizes[a] for a in spec_axes((e,))) for s, e
+                 in zip(local_shape, spec))
+
+
+def layout_box(name: str, local_shape, plan, place, sizes) -> List[List[int]]:
+    """The box (per stacked dim [start, stop]) of the whole leaf ``name`` that
+    a rank's part of stacked ``local_shape`` is, at ``place`` (``grid_place``)."""
+    spec = param_spec(name, tuple(local_shape), plan)
+    return [list(b) for b in _box(spec, whole_shape(name, local_shape, plan, sizes),
+                                  place, sizes)]
+
+
+def _cut(value, spec: Spec, place, sizes):
+    """``value`` cut to the box :func:`_box` gives: a view, or ``value``."""
+    for d, (lo, hi) in enumerate(_box(spec, tuple(value.shape), place, sizes)):
+        if hi - lo != value.shape[d]:
+            value = value[(slice(None),) * d + (slice(lo, hi),)]
+    return value
+
+
+def layout_part(name: str, value, plan, place, sizes):
+    """The grid rank at ``place`` 's part of the whole leaf ``name``
+    (``value``, a tensor or array in stacked coordinates) under ``plan``: a
+    view, or ``value`` itself for a leaf it holds whole."""
+    return _cut(value, param_spec(name, tuple(value.shape), plan), place, sizes)
+
+
+def shard_layout(params: Any, plan, place, sizes) -> Any:
+    """The grid rank at ``place`` 's parts of a whole per-layer param tree
+    under ``plan`` (new contiguous tensors, each a leaf of its own; a layer
+    list cut layer by layer)."""
+    out = {}
+    for name, leaf in named_leaves(params):
+        spec = param_spec(name, stacked_shape(leaf), plan)
+        if isinstance(leaf, list):
+            out[name] = [_cut(p.detach(), spec[1:], place, sizes).clone() for p in leaf]
+        else:
+            out[name] = _cut(leaf.detach(), spec, place, sizes).clone()
+    return _unflatten_like(params, out)
+
+
+def gather_layout(shards: List[Any], plan, sizes) -> Any:
+    """The whole tree from every rank's parts under ``plan``: ``shards[c *
+    model + m]`` the tree of the rank at cp index c and model index m (the
+    fold's row-major order); the inverse of :func:`shard_layout`, bit for bit.
+    Leaves held whole come from ``shards[0]``."""
+    named = [dict(named_leaves(s)) for s in shards]
+    out = {}
+    for name, leaf in named[0].items():
+        parts = [torch.stack([p.detach() for p in nm[name]]) if isinstance(leaf, list)
+                 else nm[name].detach() for nm in named]
+        spec = param_spec(name, tuple(parts[0].shape), plan)
+        shape = whole_shape(name, parts[0].shape, plan, sizes)
+        whole = parts[0].clone() if not spec_axes(spec) else parts[0].new_empty(shape)
+        for i, part in enumerate(parts if spec_axes(spec) else []):
+            c, m = divmod(i, sizes["model"])
+            box = _box(spec, shape, {"model": m, "cp": c}, sizes)
+            whole[tuple(slice(lo, hi) for lo, hi in box)] = part
+        out[name] = [x.clone() for x in whole.unbind(0)] if isinstance(leaf, list) else whole
+    return _unflatten_like(shards[0], out)
 
 
 def data_size(mesh) -> int:

@@ -23,7 +23,8 @@ fault point          where it fires
 ===================  ========================================================
 
 All thirteen names are the reference's, so a :class:`FaultSpec` validates the
-same in both packages; the ring points have no seam until their axes land.
+same in both packages; ``pp.stage.tick`` has no seam until pipeline
+parallelism lands.
 
 **Eager semantics.** The reference bakes a corruption into a traced function:
 :func:`taint` fires while the *trace* runs inside an armed block, and the

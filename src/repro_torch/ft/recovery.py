@@ -311,7 +311,8 @@ def run_with_recovery(
                     got, tree = ckpt.restore_resharded(
                         template, step=s, mesh=the_mesh, plan=the_plan)
                 else:
-                    got, tree = ckpt.restore(template, step=s, mesh=the_mesh)
+                    got, tree = ckpt.restore(template, step=s, mesh=the_mesh,
+                                             plan=the_plan)
             except CorruptCheckpointError as e:
                 fallbacks += 1
                 monitor.note("ckpt_corrupt", s, repr(e))

@@ -27,6 +27,9 @@ against the statistics merged over every tile of the row. :func:`select_cp_impl`
 resolves ``ParallelPlan.cp_impl``, :func:`select_tp_impl`
 ``ParallelPlan.tp_impl``, and :func:`dispatch_tp_matmul` is the one tile GEMM
 of the tensor-parallel rings (``train/tensor_parallel.py``).
+:func:`dispatch_ep_a2a` is the expert-parallel exchange around the expert
+GEMMs (``ParallelPlan.ep_impl``, resolved by :func:`select_ep_impl`): the
+blocking all-to-all or the overlap ring of ticks.
 
 On CUDA the kernel takes the head dims it has bodies for
 (``flash_attention.HEAD_DIMS``) and the call raises for any other; it never
@@ -56,7 +59,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.config import ATTN_IMPLS, CP_IMPLS, Family, check_tp_impl
+from repro_torch.core.config import ATTN_IMPLS, CP_IMPLS, EP_IMPLS, Family, check_tp_impl
 from repro_torch.ft import inject as _inject
 from repro_torch.models import layers as _layers
 from repro_torch.models.ssm import ssd_scan
@@ -293,3 +296,137 @@ def dispatch_tp_matmul(x, w):
     here it is ``torch.matmul``; every tile GEMM of the rings goes through it,
     the single place a fused tile GEMM would slot in."""
     return torch.matmul(x, w)
+
+
+# ---------------------------------------------------------------------------
+# the expert-parallel dispatch / combine exchange (survey §4.1.5)
+
+
+def select_ep_impl(impl: str) -> str:
+    """Resolve ``ParallelPlan.ep_impl`` -> "blocking" | "overlap" (the
+    reference's rule). ``"blocking"`` runs one all-to-all before the expert
+    GEMMs and one after them, the whole exchange on the critical path;
+    ``"overlap"`` splits each into ring ticks with the GEMMs of the chunk the
+    rank already holds between them. ``"auto"`` is ``"overlap"`` everywhere:
+    the two compute the same function."""
+    if impl not in EP_IMPLS:
+        raise ValueError(f"ep_impl must be one of {EP_IMPLS}, got {impl!r}")
+    return "overlap" if impl == "auto" else impl
+
+
+class _AllToAll(torch.autograd.Function):
+    """``ring.all_to_all``, differentiable: the exchange is its own transpose,
+    so the backward sends every cotangent block back to where its block came
+    from with the same call."""
+
+    @staticmethod
+    def forward(ctx, ring, x):
+        ctx.ring = ring
+        return ring.all_to_all(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.ring.all_to_all(g.contiguous())
+
+
+def _ep_a2a_blocking(fn, ring, w, h):
+    """The exposed exchange: dispatch all-to-all, ``fn`` on the rank's
+    experts over every peer's rows, combine all-to-all. Plain autograd runs
+    its backward (the reverse exchanges), so it is the gradient oracle of the
+    overlap ring."""
+    n = ring.size
+    e, c, d = h.shape
+    e_loc = e // n
+    # fault seam: the dispatched payload as it lands
+    hx = _inject.taint("ep.a2a.tick", _AllToAll.apply(ring, h.reshape(n, e_loc, c, d)))
+    # hx[j]: peer j's rows for this rank's experts, blocked per source peer
+    y = fn(w, hx.transpose(0, 1).reshape(e_loc, n * c, d))
+    yr = y.reshape(e_loc, n, c, -1).transpose(0, 1).contiguous()
+    return _AllToAll.apply(ring, yr).reshape(e, c, -1)
+
+
+def _ep_overlap_ticks(fn, ring, w, h):
+    """The overlap ring's forward: at tick t the rank sends the chunk meant
+    for rank r + t, receives from rank r - t the chunk that rank dispatched
+    to this rank's experts, runs ``fn`` on it and ships the result back t
+    hops; tick 0 is its own chunk, with no exchange."""
+    n, r = ring.size, ring.rank
+    e, c, d = h.shape
+    hr = h.reshape(n, e // n, c, d)
+    y0 = fn(w, hr[r])
+    out = y0.new_empty((n,) + tuple(y0.shape))
+    out[r] = y0
+    for t in range(1, n):
+        # fault seam: the dispatched chunk as it lands from rank r - t
+        recv = _inject.taint("ep.a2a.tick", ring.shift(hr[(r + t) % n], t, kind="a2a"))
+        out[(r + t) % n] = ring.shift(fn(w, recv), -t, kind="a2a")
+    return out.reshape(e, c, -1)
+
+
+class _EPOverlap(torch.autograd.Function):
+    """The overlap ring with the reference's backward (``_ep_overlap_bwd``):
+    it saves only its inputs and re-runs the dispatch ring, sending each
+    tick's output cotangent along with the chunk, takes the grads of ``fn``
+    on that chunk (``torch.autograd.grad``) and sends the chunk's input grad
+    back along the combine direction. The weights' grads add up over the
+    ticks. Every rank runs every hop, in the same order, in the forward, a
+    remat recompute and the backward."""
+
+    @staticmethod
+    def forward(ctx, fn, ring, keys, h, *ws):
+        ctx.fn, ctx.ring, ctx.keys = fn, ring, keys
+        ctx.save_for_backward(h, *ws)
+        return _ep_overlap_ticks(fn, ring, dict(zip(keys, ws)), h)
+
+    @staticmethod
+    def backward(ctx, dout):
+        fn, ring, keys = ctx.fn, ctx.ring, ctx.keys
+        h, *ws = ctx.saved_tensors
+        n, r = ring.size, ring.rank
+        e, c, d = h.shape
+        hr = h.reshape(n, e // n, c, d)
+        dr = dout.reshape(n, e // n, c, -1)
+        dh = torch.empty_like(hr)
+        dws = [None] * len(ws)
+
+        def vjp(chunk, dy):
+            with torch.enable_grad():
+                x = chunk.detach().requires_grad_()
+                wl = [w.detach().requires_grad_() for w in ws]
+                y = fn(dict(zip(keys, wl)), x)
+                grads = torch.autograd.grad(y, (x, *wl), dy)
+            for i, g in enumerate(grads[1:]):
+                dws[i] = g if dws[i] is None else dws[i] + g
+            return grads[0]
+
+        dh[r] = vjp(hr[r], dr[r])
+        for t in range(1, n):
+            j = (r + t) % n
+            recv = ring.shift(hr[j], t, kind="a2a")
+            dy = ring.shift(dr[j].contiguous(), t, kind="a2a")
+            dh[j] = ring.shift(vjp(recv, dy), -t, kind="a2a")
+        return (None, None, None, dh.reshape(e, c, d), *dws)
+
+
+def dispatch_ep_a2a(fn, w, h, *, ring, impl: str = "auto"):
+    """The EP dispatch -> expert compute -> combine exchange, one seam.
+
+    ``h``: (E, C, d), this rank's dispatch buffers for all E experts (E
+    divisible by the ring's size; ring rank j owns the E / size experts of
+    block j). ``fn(w, chunk)`` runs this rank's experts (``w``, a dict of
+    tensors, e.g. ``models.moe.ep_chunk_ffn``) on a (E / size, C', d) row
+    block and must be row-wise (shape-polymorphic in C'), so that a chunk at
+    a time equals the whole buffer. ``ring`` (``launch.mesh.ModelRing``, the
+    grid's expert ring; None: one rank) carries the exchange, as
+    ``select_ep_impl(impl)`` says. Returns the combined (E, C, f) buffers in
+    dispatch order."""
+    choice = select_ep_impl(impl)
+    if ring is None or ring.size == 1:
+        return fn(w, h)
+    if h.shape[0] % ring.size:
+        raise ValueError(f"the global expert dim {h.shape[0]} must divide over the ep "
+                         f"ring's {ring.size} ranks")
+    if choice == "blocking":
+        return _ep_a2a_blocking(fn, ring, w, h)
+    keys = tuple(sorted(w))
+    return _EPOverlap.apply(fn, ring, keys, h, *(w[k] for k in keys))

@@ -43,6 +43,14 @@ reference's ("data", "cp", "model") mesh of context parallelism: global rank
 the ring attention's KV chunks, the Mamba2 halo and state chain and the
 sums over the sequence; the data group is then the ranks of one (cp, model)
 index.
+
+``GridMesh.ep`` is the expert ring of expert parallelism (MoE parallel
+folding): the cp × model ranks of one data index as one flat ring, in (cp,
+model) row-major order (the reference's axis tuple ``("cp", "model")``). It
+is the model ring when the grid has no cp axis (the ep-only placement and
+ep = tp), the cp ring when its model axis is 1, and a group of its own
+otherwise. Its :meth:`ModelRing.all_to_all` and the hops of t steps
+(:meth:`ModelRing.shift`) carry the expert tokens there and back.
 """
 
 from __future__ import annotations
@@ -241,21 +249,25 @@ def rank_microbatches(batch: Dict[str, torch.Tensor], mesh: DataMesh,
 
 
 class ModelRing:
-    """The model (or cp) axis of a grid: a ring over the global ranks
+    """The model, cp or expert axis of a grid: a ring over the global ranks
     ``ranks`` (in axis-index order) of ``group``, this process at index
-    ``rank`` (the reference's ``axis_index``). It is the
-    reference's ``RingCtx`` (axis name, size) with the transport attached:
-    :meth:`shift` moves a tensor one hop (the reference's ``ppermute``),
-    :meth:`all_reduce_sum` sums over the ring (its ``psum``). ``group=None``
-    is the ring of one process, whose collectives are identities.
+    ``rank`` (the reference's ``axis_index``). It is the reference's
+    ``RingCtx`` (``axis``: the mesh axis name, or the tuple of names of a
+    folded ring; ``size``) with the transport attached: :meth:`shift` moves a
+    tensor some hops (the reference's ``ppermute``), :meth:`all_to_all`
+    exchanges blocks with every rank, :meth:`all_reduce_sum` sums over the
+    ring (its ``psum``). ``group=None`` is the ring of one process, whose
+    collectives are identities.
 
     Each collective adds its wall time to ``seconds[kind]`` ("tick" for a
-    shift, "all_reduce"); with ``timed`` set it first waits for the device,
-    so that time is the collective's own."""
+    shift unless its caller names another kind, "a2a" for an all-to-all,
+    "all_reduce"); with ``timed`` set it first waits for the device, so that
+    time is the collective's own."""
 
     def __init__(self, group=None, ranks: Tuple[int, ...] = (0,),
-                 device: Union[str, torch.device] = "cpu"):
+                 device: Union[str, torch.device] = "cpu", axis="model"):
         self.group = group
+        self.axis = axis
         self.ranks = tuple(ranks)
         self.device = torch.device(device)
         self.size = len(self.ranks)
@@ -263,27 +275,27 @@ class ModelRing:
         self.backend = dist.get_backend(group) if group is not None else None
         self.transport = ("host" if self.backend == "gloo" and self.device.type == "cuda"
                           else "direct")
-        self.next = self.ranks[(self.rank + 1) % self.size]
-        self.prev = self.ranks[(self.rank - 1) % self.size]
         self.timed = False
-        self.seconds: Dict[str, float] = {"tick": 0.0, "all_reduce": 0.0}
+        self.seconds: Dict[str, float] = {"tick": 0.0, "a2a": 0.0, "all_reduce": 0.0}
 
     def __repr__(self) -> str:
-        return (f"ModelRing(model={self.size}, rank={self.rank}, backend={self.backend}, "
+        return (f"ModelRing({self.axis}={self.size}, rank={self.rank}, backend={self.backend}, "
                 f"transport={self.transport})")
 
     def _sync(self):
         if self.timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def shift(self, t: torch.Tensor, step: int = 1) -> torch.Tensor:
-        """``t`` sent ``step`` (+1 or -1) hops along the ring while the
-        tensor of the rank ``step`` hops back is received: a new tensor of
-        ``t``'s shape, dtype and device. One ``batch_isend_irecv`` pair (a
-        NCCL ring deadlocks on separate isends and irecvs)."""
+    def shift(self, t: torch.Tensor, step: int = 1, kind: str = "tick") -> torch.Tensor:
+        """``t`` sent ``step`` hops along the ring (negative: backwards)
+        while the tensor of the rank ``step`` hops back is received: a new
+        tensor of ``t``'s shape, dtype and device, its time under
+        ``seconds[kind]``. One ``batch_isend_irecv`` pair (a NCCL ring
+        deadlocks on separate isends and irecvs)."""
         if self.group is None:
             return t.clone()
-        dst, src = (self.next, self.prev) if step == 1 else (self.prev, self.next)
+        dst = self.ranks[(self.rank + step) % self.size]
+        src = self.ranks[(self.rank - step) % self.size]
         self._sync()
         t0 = time.perf_counter()
         send = t.detach().contiguous()
@@ -295,7 +307,30 @@ class ModelRing:
             w.wait()
         out = recv.to(t.device) if self.transport == "host" else recv
         self._sync()
-        self.seconds["tick"] += time.perf_counter() - t0
+        self.seconds[kind] += time.perf_counter() - t0
+        return out
+
+    def all_to_all(self, t: torch.Tensor) -> torch.Tensor:
+        """The all-to-all of ``t`` (size, ...): block j of dim 0 goes to ring
+        rank j, and block j of the result is what ring rank j sent this rank
+        (``all_to_all_single``): a new tensor of ``t``'s shape, dtype and
+        device. It is its own transpose, so its backward is the same call on
+        the cotangent."""
+        if t.shape[0] != self.size:
+            raise ValueError(f"an all-to-all over {self.size} ranks takes {self.size} "
+                             f"blocks, got dim 0 of {tuple(t.shape)}")
+        if self.group is None:
+            return t.clone()
+        self._sync()
+        t0 = time.perf_counter()
+        send = t.detach().contiguous()
+        if self.transport == "host":
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        dist.all_to_all_single(recv, send, group=self.group)
+        out = recv.to(t.device) if self.transport == "host" else recv
+        self._sync()
+        self.seconds["a2a"] += time.perf_counter() - t0
         return out
 
     def all_reduce_sum(self, t: torch.Tensor) -> torch.Tensor:
@@ -328,7 +363,8 @@ class GridMesh:
     """The (data, cp, model) grid of one rank: ``data`` (a :class:`DataMesh`
     over this rank's data group), ``model`` (a :class:`ModelRing` over its
     model group), ``cp`` (a :class:`ModelRing` over its cp group, ``None``
-    without a cp axis), ``shape`` ``{"data": D, "cp": C, "model": M}`` (the
+    without a cp axis), ``ep`` (the expert ring over its data index's cp ×
+    model ranks, module docstring), ``shape`` ``{"data": D, "cp": C, "model": M}`` (the
     reference mesh's contract, which the layout rules and the checkpoint
     manifest read; "cp" only when C > 1), the global ``rank`` and ``size``,
     ``host_group``, a gloo group of every rank for host-side traffic, and
@@ -336,8 +372,11 @@ class GridMesh:
     without a cp axis), which hold every distinct shard of the state."""
 
     def __init__(self, data: DataMesh, model: ModelRing, device, *, host_group=None,
-                 cp: Optional[ModelRing] = None, save_group=None):
+                 cp: Optional[ModelRing] = None, save_group=None,
+                 ep: Optional[ModelRing] = None):
         self.data, self.model, self.cp = data, model, cp
+        self.ep = ep if ep is not None else (cp if cp is not None and model.size == 1
+                                             else model)
         self.device = torch.device(device)
         self.host_group = host_group
         self.save_group = save_group if save_group is not None else host_group
@@ -370,7 +409,7 @@ class GridMesh:
         if dist.is_initialized():
             dist.destroy_process_group()
         self.host_group = self.save_group = self.data.group = self.data.host_group = None
-        self.model.group = None
+        self.model.group = self.ep.group = None
         if self.cp is not None:
             self.cp.group = None
 
@@ -382,8 +421,9 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
     rank's :class:`GridMesh`. ``device`` and ``backend`` as in
     :func:`init_data_mesh` (gloo on CUDA: the host transport, the only way to
     put two ranks on one card). Every rank creates every data, cp and model
-    group, in the same order, as ``dist.new_group`` requires; an axis of size
-    1 gets no group."""
+    group, in the same order, as ``dist.new_group`` requires, and last the
+    expert rings where both cp and model are 2 or more; an axis of size 1 gets
+    no group."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -422,7 +462,7 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
             if cp > 1:
                 g = dist.new_group(ranks)
                 if (d, m) == (d_idx, m_idx):
-                    cp_ring = ModelRing(g, ranks, device)
+                    cp_ring = ModelRing(g, ranks, device, axis="cp")
     ring = ModelRing(device=device)
     for d in range(data):                       # one model ring per (data, cp) index
         for c in range(cp):
@@ -431,5 +471,12 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
                 g = dist.new_group(ranks)
                 if (d, c) == (d_idx, c_idx):
                     ring = ModelRing(g, ranks, device)
+    fold = None
+    for d in range(data):                       # one expert ring per data index
+        ranks = [at(d, c, m) for c in range(cp) for m in range(model)]
+        if cp > 1 and model > 1:
+            g = dist.new_group(ranks)
+            if d == d_idx:
+                fold = ModelRing(g, ranks, device, axis=("cp", "model"))
     return GridMesh(data_mesh_, ring, device, host_group=host_group, cp=cp_ring,
-                    save_group=save_group)
+                    save_group=save_group, ep=fold)

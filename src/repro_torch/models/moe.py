@@ -16,8 +16,9 @@ What differs from the reference, and why the numbers do not:
   range gives a zero row (as ``jax.nn.one_hot``), and nothing waits on the
   device — the group sizes and the routing never reach the host.
 - Slots are int64 (PyTorch's index type), where the reference keeps int32.
-- The reference's ``batch_axes``/``n_dp`` aux reduction and ``ep_chunk_ffn``
-  serve its sharded placements; they come with the port's expert-parallel work.
+- The reference's ``batch_axes``/``n_dp`` aux reduction is ``router_probs``'s
+  ``reduce``/``n_rep``, which the sharded placements pass
+  (``train.executor.ParallelContext.aux_sum``).
 
 Capacity is per call, ``max(int(n * k / E * capacity_factor), 1)`` with n the
 call's tokens, so a decode step of batch 4 has capacity 1 and drops colliding
@@ -184,6 +185,17 @@ def _expert_ffn(w, h, dtype, impl: str = "auto", group_sizes=None):
     u = dispatch_expert_gemm(h, w["up"].to(dtype), group_sizes, impl=impl)
     return dispatch_expert_gemm(F.silu(g) * u, w["down"].to(dtype), group_sizes,
                                 impl=impl)
+
+
+def ep_chunk_ffn(w, h, *, dtype, impl: str = "auto"):
+    """This rank's experts on one chunk of the expert-parallel exchange
+    (``kernels.dispatch.dispatch_ep_a2a``): ``h`` (E_loc, C', d) ->
+    (E_loc, C', d), :func:`_expert_ffn` without group sizes. Row-wise and
+    shape-polymorphic in C', as the overlap ring needs; rows arrive blocked
+    per source peer, so no prefix mask applies, and the zero padding rows
+    drop out of the GEMMs numerically. Pass it as ``functools.partial(
+    ep_chunk_ffn, dtype=..., impl=...)``."""
+    return _expert_ffn(w, h, dtype, impl, None)
 
 
 # ---------------------------------------------------------------------------

@@ -13,28 +13,30 @@ def global_norm(tree):
 
 
 @torch.no_grad()
-def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None, ring=None,
-                        tp_split=None):
+def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None, splits=()):
     """Scale every grad by min(1, max_norm / max(norm, 1e-12)), **in place**
     (the reference returns a new tree). Returns (grads, norm).
 
     Under a data ``mesh`` (ZeRO-1) ``grads`` holds this rank's slices by name
     and ``specs`` says which leaves are split (``core.sharding``): the squares
     of the slices are summed over the ranks, and a leaf kept whole, which every
-    rank holds the same, is counted once. Under tensor parallelism ``ring`` is
-    the model ring and ``tp_split`` the names of the leaves split over it:
-    their squares are summed over the ring first, and a leaf every model rank
-    holds whole is counted once."""
-    if ring is not None:
+    rank holds the same, is counted once. ``splits`` is a list of (ring,
+    names) for leaves that are also split over a model-parallel ring (TP
+    shards over the model ring, expert blocks over the expert ring): their
+    squares are summed over that ring first, and a leaf every rank of the
+    grid holds whole is counted once."""
+    if splits:
         named = named_leaves(grads)
-        # [data-split, data-whole] squares, of the TP-split and the TP-whole leaves
-        sq_tp = torch.zeros(2, dtype=torch.float32, device=mesh.device)
-        sq_rep = torch.zeros(2, dtype=torch.float32, device=mesh.device)
+        group = {n: i for i, (_, names) in enumerate(splits) for n in names}
+        # per split group and for the grid-whole leaves: [data-split, data-whole] squares
+        sq = torch.zeros((len(splits) + 1, 2), dtype=torch.float32, device=mesh.device)
         for n, x in named:
-            (sq_tp if n in tp_split else sq_rep)[0 if specs[n].dim is not None else 1] += \
+            sq[group.get(n, len(splits))][0 if specs[n].dim is not None else 1] += \
                 x.float().square().sum()
-        sq = ring.all_reduce_sum(sq_tp) + sq_rep
-        norm = torch.sqrt(mesh.all_reduce_sum(sq[:1].clone())[0] + sq[1])
+        tot = sq[-1]
+        for i, (ring, _) in enumerate(splits):
+            tot = ring.all_reduce_sum(sq[i]) + tot
+        norm = torch.sqrt(mesh.all_reduce_sum(tot[:1].clone())[0] + tot[1])
     elif mesh is None:
         norm = global_norm(grads)
     else:

@@ -35,16 +35,25 @@ The reference's executor defines each family's math once and lets a
   dispatcher, and adds the entering state's share of y in closed form around
   the state chain (:func:`cp_chain_state`). MoE routes the rank's own tokens,
   its aux statistics summed over the ranks that hold the rest of the batch.
-  cp composes with tp: a block's tp rings run inside the cp chunk.
+  cp composes with tp: a block's tp rings run inside the cp chunk;
+- ``ctx.ep``, the expert ring (survey §4.1.5, MoE parallel folding): the MoE
+  sublayer re-reads the cp × model ranks as one flat ring (the grid's
+  ``GridMesh.ep``). Each rank routes its own tokens, holds E / ep whole
+  experts (``core.sharding.ep_spec_for_param``) and exchanges the dispatch
+  buffers with its peers around them (``kernels.dispatch.dispatch_ep_a2a``,
+  ``ctx.ep_impl``); the aux statistics are summed over the fold and the data
+  group. In the ep-only placement (tp == cp == 1 in the plan) the experts
+  ride the model axis and attention runs as a cp ring over that same ring;
+- ``ctx.data`` alone, MoE under data parallelism: each data rank routes its
+  own rows, the aux statistics summed over the data group (the reference
+  executor's ``batch_axes``).
 
 Every ring collective runs on every rank in the same order, in the forward,
 in a recompute and in the backward: a rank that needs no value from one (the
 first rank's halo, a chain message not yet final) masks what it receives with
 ``torch.where``, so the collective's backward still runs.
 
-The reference's ep field comes with the expert-parallel slice (ROADMAP
-A13.4). :func:`make_executor_loss_fn` assembles the tensor- and
-context-parallel loss: the embedding, the layers (``plan.remat`` per layer),
+:func:`make_executor_loss_fn` assembles the parallel loss: the embedding, the layers (``plan.remat`` per layer),
 the final norm and the head, with the nll summed over the cp ring.
 
 A layer is written as pieces around the attention call (``decoder_layer``) or
@@ -60,6 +69,7 @@ only; the reference writes them inside ``build_enc_dec`` and wraps each in
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
@@ -72,8 +82,8 @@ from repro_torch.core.config import (Family, ModelConfig, ParallelPlan,
 from repro_torch.core.device import resolve_dtype
 from repro_torch.ft.inject import remat_context, taint
 from repro_torch.kernels.dispatch import (dispatch_attention, dispatch_attention_chunk_bwd,
-                                          dispatch_attention_lse, dispatch_ssd_scan,
-                                          select_cp_impl)
+                                          dispatch_attention_lse, dispatch_ep_a2a,
+                                          dispatch_ssd_scan, select_cp_impl, select_ep_impl)
 from repro_torch.launch.mesh import DataMesh, ModelRing, cp_size, data_mesh, model_size
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
@@ -114,13 +124,20 @@ def _apply(remat: str, body, selective, *args):
 class ParallelContext:
     """How a family block runs: ``tp`` is the model ring, ``cp`` the cp ring
     (``None``: that axis is off), ``cp_impl`` the resolved attention mode
-    ("ring" | "gather"), and ``data`` the data group over which the batch's
-    rows are split (``None``: one data rank), which with ``cp`` completes the
-    MoE aux statistics. The reference's ep ring comes with its slice."""
+    ("ring" | "gather"), ``ep`` the expert ring and ``ep_impl`` its resolved
+    exchange ("blocking" | "overlap"), and ``data`` the data group over which
+    the batch's rows are split (``None``: one data rank), which with ``cp``
+    or ``ep`` completes the MoE aux statistics."""
     tp: Optional[ModelRing] = None
     cp: Optional[ModelRing] = None
     cp_impl: str = "ring"
+    ep: Optional[ModelRing] = None
+    ep_impl: str = "overlap"
     data: Optional[DataMesh] = None
+
+    @property
+    def is_local(self) -> bool:
+        return self.tp is None and self.cp is None and self.ep is None and self.data is None
 
     @property
     def n_tp(self) -> int:
@@ -137,18 +154,22 @@ class ParallelContext:
     @property
     def n_rep(self) -> int:
         """The ranks holding distinct tokens of the batch: local token counts
-        times this are the batch's."""
+        times this are the batch's (under ep every fold rank routes its own
+        tokens, the fold subsuming the cp ring)."""
+        if self.ep is not None:
+            return self.n_dp * self.ep.size
         return self.n_dp * self.n_cp
 
     def aux_sum(self, t):
-        """A MoE aux statistic summed over the cp ring and the data group
-        (itself without either).
-        Over the cp ring every rank consumes the sum alike, so its backward
-        passes the cotangent through; over the data group the step averages
-        the grads, so there the backward sums the cotangents
+        """A MoE aux statistic summed over the expert ring (or, without one,
+        the cp ring) and the data group (itself without any).
+        Over the expert or cp ring every rank consumes the sum alike, so its
+        backward passes the cotangent through; over the data group the step
+        averages the grads, so there the backward sums the cotangents
         (``train/tensor_parallel.py``)."""
-        if self.cp is not None:
-            t = all_reduce_replicated(self.cp, t)
+        ring = self.ep if self.ep is not None else self.cp
+        if ring is not None:
+            t = all_reduce_replicated(ring, t)
         if self.data is not None:
             t = all_reduce_sum(self.data, t)
         return t
@@ -192,39 +213,65 @@ def check_cp_support(cfg: ModelConfig, cp: int):
 
 def resolve_context(cfg: ModelConfig, plan: ParallelPlan, mesh) -> ParallelContext:
     """The placement of ``plan`` on ``mesh`` (the reference's
-    ``resolve_context`` without ep): ``plan.tp`` must be the size of the
-    mesh's model axis (1 without one), and the tp rings run when it is 2 or
-    more, on a config that passes ``check_overlap_support``; ``plan.cp`` > 1
-    needs a cp axis of that size, and resolves ``plan.cp_impl``
-    (``select_cp_impl``). The reference also lets a plan with ``tp`` 1 run on
-    a model axis, for its ep ring; the port has none yet (ROADMAP A13.4), so
-    it refuses such a plan rather than run the whole model on every model
-    rank. ``plan.tp_impl`` "gspmd" is refused by ``plan.validate``."""
+    ``resolve_context``): ``plan.tp`` must be the size of the mesh's model
+    axis (1 without one), and the tp rings run when it is 2 or more, on a
+    config that passes ``check_overlap_support``; ``plan.cp`` > 1 needs a cp
+    axis of that size, and resolves ``plan.cp_impl`` (``select_cp_impl``).
+    ``plan.ep`` > 1 takes the expert ring: in the ep-only placement (``tp``
+    and ``cp`` 1 in the plan) it rides a model axis of exactly ``ep`` ranks,
+    which attention then runs as a cp ring over (the zigzag layout); folded,
+    ``ep`` must equal the resolved cp × tp and the ring is the grid's
+    ``ep``. A plan with ``tp`` 1 on a model axis is refused unless it asks
+    for that ep ring, rather than run the whole model on every model rank.
+    The MoE family under a data axis alone routes each rank's rows, its aux
+    summed over the data group. ``plan.tp_impl`` "gspmd" is refused by
+    ``plan.validate``."""
+    shape = dict(mesh.shape) if mesh is not None else None
     tp = model_size(mesh)
+    data = data_mesh(mesh) if mesh is not None and mesh.shape.get("data", 1) > 1 else None
+    if plan.ep > 1 and plan.tp == 1 and plan.cp == 1:
+        if tp != plan.ep:
+            raise ValueError(f"plan.ep={plan.ep} needs a 'model' mesh axis of exactly that "
+                             f"size to ride (the mesh has {shape})")
+        if cp_size(mesh) > 1:
+            raise ValueError(f"the mesh has a 'cp' axis ({shape}) but plan.cp is 1")
+        check_cp_support(cfg, plan.ep)
+        warn_shard_local_routing(cfg)
+        return ParallelContext(cp=mesh.model, cp_impl=_cp_impl(cfg, plan), ep=mesh.model,
+                               ep_impl=select_ep_impl(plan.ep_impl), data=data)
     if plan.tp != tp:
         raise ValueError(f"plan.tp={plan.tp} needs a 'model' mesh axis of that size, "
-                         f"the mesh has {dict(mesh.shape) if mesh is not None else None}")
+                         f"the mesh has {shape}")
     cp = cp_size(mesh) if plan.cp > 1 else 1
     if cp != plan.cp:
         raise ValueError(f"plan.cp={plan.cp} needs a 'cp' mesh axis of that size, "
-                         f"the mesh has {dict(mesh.shape) if mesh is not None else None}")
+                         f"the mesh has {shape}")
     if cp_size(mesh) > 1 and plan.cp == 1:
-        raise ValueError(f"the mesh has a 'cp' axis ({dict(mesh.shape)}) but plan.cp is 1")
+        raise ValueError(f"the mesh has a 'cp' axis ({shape}) but plan.cp is 1")
+    if plan.ep > 1 and plan.ep != tp * cp:
+        raise ValueError(f"plan.ep={plan.ep} must equal the folded cp×model ring size "
+                         f"{tp * cp} (mesh {shape}): the expert axis re-maps those ranks, "
+                         "it does not add any")
     if tp == 1 and cp == 1:
+        if cfg.family == Family.MOE and data is not None:
+            return ParallelContext(data=data)
         return local_context()
     if tp > 1:
         check_overlap_support(cfg, plan, tp)
-    cp_impl = "ring"
     if cp > 1:
         check_cp_support(cfg, cp)
-        cp_impl = select_cp_impl(
-            plan.cp_impl, family=cfg.family, window=cfg.sliding_window,
-            local_global_alternating=bool(cfg.local_global_alternating
-                                          and cfg.sliding_window))
     warn_shard_local_routing(cfg)
     return ParallelContext(tp=mesh.model if tp > 1 else None,
-                           cp=mesh.cp if cp > 1 else None, cp_impl=cp_impl,
-                           data=data_mesh(mesh) if mesh.shape.get("data", 1) > 1 else None)
+                           cp=mesh.cp if cp > 1 else None,
+                           cp_impl=_cp_impl(cfg, plan) if cp > 1 else "ring",
+                           ep=mesh.ep if plan.ep > 1 else None,
+                           ep_impl=select_ep_impl(plan.ep_impl), data=data)
+
+
+def _cp_impl(cfg: ModelConfig, plan: ParallelPlan) -> str:
+    return select_cp_impl(plan.cp_impl, family=cfg.family, window=cfg.sliding_window,
+                          local_global_alternating=bool(cfg.local_global_alternating
+                                                        and cfg.sliding_window))
 
 
 # ---------------------------------------------------------------------------
@@ -482,12 +529,23 @@ def moe_block_ex(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype,
     Under cp (with or without tp) the rank routes its own chunk's tokens (the
     reference's shard-local routing: the same as one device's when the
     capacity drops nothing), and the aux statistics are summed over the ranks
-    holding the rest of the batch (``ParallelContext.aux_sum``)."""
-    if ctx.tp is None:
-        return moe_lib.moe_block(p, x, cfg, dtype, plan, ctx.aux_sum, ctx.n_rep)
+    holding the rest of the batch (``ParallelContext.aux_sum``); so under a
+    data group alone.
+
+    Under ep (``ctx.ep``) the rank routes its own tokens with no tp
+    re-gather, its aux statistics summed over the fold and the data group;
+    the dispatch buffers of all E experts go through ``dispatch_ep_a2a`` to
+    the ranks that own them (this rank's E / ep whole experts, at full
+    d_expert width, run every peer's rows, ``models.moe.ep_chunk_ffn``) and
+    back, and the combine and the shared experts run at full width on the
+    rank's tokens."""
     e = cfg.moe
     mode = plan.moe_dispatch if plan is not None else "einsum"
     gemm_impl = plan.moe_gemm_impl if plan is not None else "auto"
+    if ctx.ep is not None:
+        return _moe_ep(ctx, p, x, cfg, dtype, mode, gemm_impl)
+    if ctx.tp is None:
+        return moe_lib.moe_block(p, x, cfg, dtype, plan, ctx.aux_sum, ctx.n_rep)
     ring = ctx.tp
     b, s_in, d = x.shape
     xg = ring_all_gather(ring, x)                      # (B, S_loc * tp, d)
@@ -524,6 +582,32 @@ def moe_block_ex(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype,
         # the shared experts' width is the rank's: each rank's partial for
         # every token, summed into the chunks by the ring
         out = out + ring_reduce_scatter(ring, sh_part.reshape(b, s_full, d)).reshape(b * s_in, d)
+    return out.reshape(b, s_in, d), aux
+
+
+def _moe_ep(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype, mode: str, gemm_impl: str):
+    """:func:`moe_block_ex`'s ep branch (the reference's)."""
+    e = cfg.moe
+    b, s_in, d = x.shape
+    n = b * s_in
+    xf = x.reshape(n, d)
+    capacity = max(int(n * e.top_k / e.num_experts * e.capacity_factor), 1)
+    probs, aux = moe_lib.router_probs(p, xf, cfg, dtype, ctx.aux_sum, ctx.n_rep)
+    if mode == "scatter":
+        slot, wts = moe_lib.topk_scatter_dispatch(probs, cfg, capacity)
+        h = moe_lib._scatter_to_buffers(xf, slot, cfg, capacity)
+    else:
+        dispatch, combine = moe_lib.topk_dispatch(probs, cfg, capacity)
+        h = torch.einsum("nec,nd->ecd", dispatch.to(dtype), xf)
+    fn = functools.partial(moe_lib.ep_chunk_ffn, dtype=dtype, impl=gemm_impl)
+    y = dispatch_ep_a2a(fn, p["experts"], h, ring=ctx.ep, impl=ctx.ep_impl)
+    if mode == "scatter":
+        out = moe_lib._gather_from_buffers(y, slot, wts, dtype)
+    else:
+        out = torch.einsum("nec,ecd->nd", combine.to(dtype), y)
+    if e.num_shared_experts:
+        sh = F.silu(xf @ p["shared"]["gate"].to(dtype)) * (xf @ p["shared"]["up"].to(dtype))
+        out = out + sh @ p["shared"]["down"].to(dtype)
     return out.reshape(b, s_in, d), aux
 
 
@@ -741,13 +825,15 @@ def layer_fn_for(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dty
 
 
 def make_executor_loss_fn(cfg: ModelConfig, plan: ParallelPlan, mesh, z_loss: float = 0.0):
-    """``loss_fn(params, batch)`` through the executor on ``mesh``'s tp and cp
-    rings (the reference's ``make_executor_loss_fn`` without ep): the
-    embedding (vocab-parallel under tp), the layers under ``plan.remat``, the
-    final norm on the rank's chunk, and the head (vocab-parallel under tp).
+    """``loss_fn(params, batch)`` through the executor on ``mesh``'s tp, cp
+    and ep rings or, for the MoE family, its data group alone (the
+    reference's ``make_executor_loss_fn``): the embedding (vocab-parallel
+    under tp), the layers under ``plan.remat``, the final norm on the rank's
+    chunk, and the head (vocab-parallel under tp).
 
-    ``params`` are this rank's TP shards (``core.sharding.shard_params``;
-    whole without tp, and the same on every cp rank); ``batch`` holds this
+    ``params`` are this rank's parts (``core.sharding.shard_layout``: its TP
+    shards, its expert blocks under ep; whole without either, and the same on
+    every cp rank bar the expert blocks); ``batch`` holds this
     rank's rows (its data group's, ``rank_microbatches``) with the whole
     sequence, the same on every rank of the tp and cp rings. Under cp the
     rank takes its chunk of the sequence: in the ring mode (outside the SSM
@@ -762,10 +848,11 @@ def make_executor_loss_fn(cfg: ModelConfig, plan: ParallelPlan, mesh, z_loss: fl
     the tp and cp rings."""
     from repro_torch.models.families import _embed, _layer_windows, _logits  # noqa: PLC0415
     ctx = resolve_context(cfg, plan, mesh)
-    if ctx.tp is None and ctx.cp is None:
-        raise ValueError("the executor loss needs tensor or context parallelism: a 'model' "
-                         "mesh axis >= 2 with plan.tp its size, or plan.cp > 1 with a 'cp' "
-                         "axis of that size")
+    if ctx.is_local:
+        raise ValueError("the executor loss needs tensor, context or expert parallelism (a "
+                         "'model' mesh axis >= 2 with plan.tp or plan.ep its size, or "
+                         "plan.cp > 1 with a 'cp' axis of that size), or the MoE family "
+                         "under a data axis")
     dtype = resolve_dtype(plan.compute_dtype)
     windows = _layer_windows(cfg)
     layer = layer_fn_for(ctx, cfg, plan, dtype)

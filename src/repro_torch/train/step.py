@@ -49,12 +49,12 @@ Tensor parallelism (survey §4.1.2): pass a (data, model) grid
 (``repro_torch.launch.mesh.GridMesh``) whose model axis is 2 or more, with a
 plan asking for it (``tp`` equal to that axis). :func:`init_train_state` then
 draws the whole params and keeps this rank's TP shards
-(``core.sharding.shard_params``), and the step takes the executor's
+(``core.sharding.shard_layout``), and the step takes the executor's
 tensor-parallel loss (``train.executor.make_executor_loss_fn``, the
 reference's ``_overlap_loss_fn``). After the backward the grads of the leaves
 the layout keeps whole on every model rank (norm scales, ``bq/bk/bv``, the
 router, ``wB/wC``, the SSM per-head leaves) hold each rank's share and are
-summed over the model ring (:func:`_sum_replicated_grads`, one all-reduce per
+summed over the model ring (:func:`sum_grid_grads`, one all-reduce per
 dtype); the ZeRO-1 code then runs on each rank's shards over its data group
 as above, and the global-norm clip counts each sharded leaf's squares once a
 model rank and each replicated leaf once.
@@ -64,15 +64,30 @@ Context parallelism (survey §4.1.4): pass a grid with a cp axis
 whole on every cp rank (or its tp shards, the same on every cp rank of a model
 index); the step takes the executor's context-parallel loss, whose value is
 the mean over the rank's rows and the whole sequence, and after the backward
-every leaf's grads are summed over the cp ring (:func:`_sum_grads`, one
+every leaf's grads are summed over the cp ring (:func:`sum_grid_grads`, one
 all-reduce per dtype in buckets): they are the cp ranks' shares of that loss's
 grads, so they are summed, not averaged. The tp sum and ZeRO-1 over the data
 group then run as above, and every cp rank makes the same update.
 
-The MoE family raises under more than one data rank: its capacity queues and
-the load-balancing aux are global over the batch in the reference, which
-per-rank routing would change (ROADMAP A13.4). Under tensor parallelism alone
-every model rank routes the same tokens, so it runs.
+Expert parallelism (survey §4.1.5): a plan with ``ep`` > 1 on a grid whose
+cp × model ranks number ``ep`` (or whose model axis does, the ep-only
+placement). :func:`init_train_state` keeps this rank's expert blocks, after
+its TP shards where tp is on (``core.sharding.shard_layout``), and the step
+takes the executor's loss. The routed experts' grads are complete on their
+owner after the backward (the combine exchange's backward brought every
+peer's cotangent to it), so the sums over the cp and model rings cover every
+other leaf (a ring's sum skips the leaves split over its axis); ZeRO-1 then
+runs over the data group on the rank's leaves as they are, and the clip
+counts each expert block once per fold rank, as it counts TP shards. The
+integrity audit, like under TP, checks each rank's own leaves over its data
+group.
+
+The MoE family under data parallelism alone routes each rank's own rows and
+sums the aux statistics over the data group (the reference executor's
+``batch_axes`` rule, ``train.executor.ParallelContext``): the same as one
+device's step when the capacity drops nothing (``warn_shard_local_routing``
+flags the rest). The reference's GSPMD step routes over the global batch
+instead (ROADMAP queue C).
 """
 
 from __future__ import annotations
@@ -81,10 +96,10 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.config import Family, ParallelPlan
-from repro_torch.core.sharding import (LeafSpec, dim_first, opt_state_specs,
-                                       overlap_param_specs, shard_params, tp_dim)
-from repro_torch.core.tree import from_names, leaves, map_tree, named_leaves
+from repro_torch.core.config import ParallelPlan
+from repro_torch.core.sharding import (LeafSpec, dim_first, grid_place, opt_state_specs,
+                                       param_spec, shard_layout, spec_axes)
+from repro_torch.core.tree import from_names, leaves, map_tree, named_leaves, stacked_shape
 from repro_torch.ft.integrity import audit
 from repro_torch.launch.mesh import data_mesh, rank_microbatches
 from .executor import make_executor_loss_fn, resolve_context
@@ -112,15 +127,15 @@ def init_train_state(model: Model, gen: torch.Generator, mesh=None,
                      plan: Optional[ParallelPlan] = None) -> TrainState:
     """Fresh params from ``gen`` (as autograd leaves) and zero fp32 moments;
     with a data ``mesh`` the moments are born on ``plan``'s ZeRO-1 layout
-    (this rank's slices). On a grid whose plan runs tensor parallelism the
-    params are this rank's TP shards of the whole draw, and the ZeRO-1 layout
-    is over its data group. Every rank must draw the same params: pass
-    generators seeded alike."""
+    (this rank's slices). On a grid whose plan runs tensor or expert
+    parallelism the params are this rank's TP shards and expert blocks of the
+    whole draw, and the ZeRO-1 layout is over its data group. Every rank must
+    draw the same params: pass generators seeded alike."""
     plan = plan or model.plan
     params = model.init(gen)
     ctx = resolve_context(model.cfg, plan, mesh)
-    if ctx.tp is not None:
-        params = shard_params(params, ctx.tp.rank, ctx.tp.size)
+    if ctx.tp is not None or ctx.ep is not None:
+        params = shard_layout(params, plan, *grid_place(mesh))
     for p in leaves(params):
         p.requires_grad_(True)
     if mesh is None:
@@ -202,34 +217,45 @@ def _sum_grads(params: Any, ring, names=None) -> None:
                 size += g.numel()
 
 
-def _sum_replicated_grads(params: Any, ring) -> None:
-    """The grads of the leaves the overlap layout keeps whole on every model
-    rank, each rank's share, summed over the model ``ring`` in place."""
-    specs = overlap_param_specs(params)
-    _sum_grads(params, ring, {n for n, s in specs.items() if tp_dim(s) is None})
+def _split_axes(params: Any, plan: ParallelPlan) -> Dict[str, tuple]:
+    """{name: the grid axes that split the leaf under ``plan``}."""
+    return {n: spec_axes(param_spec(n, stacked_shape(leaf), plan))
+            for n, leaf in named_leaves(params)}
+
+
+def sum_grid_grads(params: Any, plan: ParallelPlan, ctx) -> Dict[str, tuple]:
+    """The grads of the leaves each of ``ctx``'s cp and model rings does not
+    split, each rank's share, summed over that ring in place (module
+    docstring); returns ``_split_axes``."""
+    axes = _split_axes(params, plan)
+    if ctx.cp is not None:
+        _sum_grads(params, ctx.cp, {n for n, a in axes.items() if ctx.cp.axis not in a})
+    if ctx.tp is not None:
+        _sum_grads(params, ctx.tp, {n for n, a in axes.items() if "model" not in a})
+    return axes
 
 
 def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
                     mesh=None) -> Callable:
     """The step for ``model`` under ``plan`` (``microbatches``, ``zero_stage``,
-    ``tp``, ``cp``; ``remat`` is the model's). ``batch`` holds the global batch's
+    ``tp``, ``cp``, ``ep``; ``remat`` is the model's). ``batch`` holds the global batch's
     tensors on the model's device; with a data ``mesh`` or a grid, the same
     on every rank."""
     plan.validate(model.cfg)
     ctx = resolve_context(model.cfg, plan, mesh)
-    ring, cp_ring = ctx.tp, ctx.cp
     dmesh = data_mesh(mesh)
-    if dmesh is not None and dmesh.size > 1 and model.cfg.family == Family.MOE:
-        raise NotImplementedError(
-            "data parallelism over the MoE family: its capacity queues and "
-            "load-balancing aux are global over the batch in the reference, and "
-            "per-rank routing would change them; this comes with expert "
-            "parallelism (ROADMAP A13.4)")
-    loss_fn = (make_loss_fn(model, hyper) if ring is None and cp_ring is None
+    loss_fn = (make_loss_fn(model, hyper) if ctx.is_local
                else make_executor_loss_fn(model.cfg, plan, mesh, z_loss=hyper.z_loss))
-    tp_split = (None if ring is None else
-                lambda params: {n for n, s in overlap_param_specs(params).items()
-                                if tp_dim(s) is not None})
+    grid_rings = {} if mesh is None or not hasattr(mesh, "ep") else {
+        ("model",): mesh.model, ("cp",): mesh.cp, ("cp", "model"): mesh.ep}
+
+    def splits(axes):
+        """(ring, names) of the leaves split over each model-parallel ring."""
+        out: Dict[tuple, set] = {}
+        for name, a in axes.items():
+            if a:
+                out.setdefault(a, set()).add(name)
+        return [(grid_rings[a], names) for a, names in out.items()]
     n = plan.microbatches
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]):
@@ -245,10 +271,7 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
             (total / n).backward()
             loss += total.detach() / n
             aux += parts["moe_aux"].detach() / n
-        if cp_ring is not None:
-            _sum_grads(params, cp_ring)
-        if ring is not None:
-            _sum_replicated_grads(params, ring)
+        axes = sum_grid_grads(params, plan, ctx)
         lr = cosine_schedule(opt.step, hyper.peak_lr, hyper.warmup_steps,
                              hyper.total_steps)
         specs = None
@@ -259,10 +282,9 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
                                        weight_decay=hyper.weight_decay)
         else:
             specs = opt_state_specs(params, dmesh, plan)
-            split = tp_split(params) if tp_split is not None else None
             grads = _scatter_grads(params, specs, dmesh)
             grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip, mesh=dmesh,
-                                               specs=specs, ring=ring, tp_split=split)
+                                               specs=specs, splits=splits(axes))
             params, opt = adamw_update_sharded(grads, opt, params, lr, mesh=dmesh,
                                                specs=specs, weight_decay=hyper.weight_decay)
             loss, aux = dmesh.all_reduce_mean(torch.stack([loss, aux]))

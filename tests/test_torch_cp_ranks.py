@@ -158,8 +158,8 @@ def _loss(grid, ref, impl, remat, faults=None):
     from repro_torch.ft import inject
     from repro_torch.interop import params_from_numpy, tp_params_from_numpy
     from repro_torch.launch import rank_microbatches
-    from repro_torch.train.executor import make_executor_loss_fn
-    from repro_torch.train.step import _sum_grads, _sum_replicated_grads
+    from repro_torch.train.executor import make_executor_loss_fn, resolve_context
+    from repro_torch.train.step import sum_grid_grads
     cfg = _cfg(ref["cfg"])
     cp, tp = grid.shape["cp"], grid.shape["model"]
     plan = ParallelPlan(remat=remat, compute_dtype="float32", cp=cp, cp_impl=impl, tp=tp)
@@ -172,9 +172,7 @@ def _loss(grid, ref, impl, remat, faults=None):
     with inject.armed(faults or []):
         total, _ = make_executor_loss_fn(cfg, plan, grid, z_loss=Z_LOSS)(params, mb)
         total.backward()
-    _sum_grads(params, grid.cp)
-    if tp > 1:
-        _sum_replicated_grads(params, grid.model)
+    sum_grid_grads(params, plan, resolve_context(cfg, plan, grid))
     for p in leaves(params):
         grid.data.all_reduce_mean(p.grad)
     loss = grid.data.all_reduce_mean(total.detach().clone())

@@ -333,14 +333,23 @@ def test_rank_microbatches_split_each_microbatch():
 
 
 def test_moe_raises_under_data_parallelism():
-    """MoE routing is global over the batch in the reference (capacity queues,
-    the aux's density sums): more than one rank raises and names A13.4; one
-    rank is the single-process step."""
+    """MoE under data parallelism routes each rank's own rows, its aux
+    statistics summed over the data group (the reference executor's
+    ``batch_axes`` rule): the step builds on 2 and 4 ranks with that
+    placement; it raises only where a plan asks for an expert ring the mesh
+    cannot hold (ep > 1 needs a model axis); one rank is the single-process
+    step. The step itself is held to one device in test_torch_ep_ranks.py."""
+    from repro_torch.core import ParallelPlan
+    from repro_torch.train.executor import resolve_context
     plan, model = _setup("olmoe-1b-7b", 2)
     for n in (2, 4):
         mesh = types.SimpleNamespace(shape={"data": n}, size=n, rank=0)
-        with pytest.raises(NotImplementedError, match="A13.4"):
-            ttrain.make_train_step(model, plan, HYPER, mesh=mesh)
+        ttrain.make_train_step(model, plan, HYPER, mesh=mesh)
+        ctx = resolve_context(model.cfg, plan, mesh)
+        assert ctx.data is mesh and ctx.n_rep == n and ctx.tp is ctx.cp is ctx.ep is None
+        with pytest.raises(ValueError, match="model"):
+            ttrain.make_train_step(model, ParallelPlan(ep=2, compute_dtype="float32"),
+                                   HYPER, mesh=mesh)
     ttrain.make_train_step(model, plan, HYPER, mesh=DataMesh())
 
 

@@ -316,6 +316,8 @@ def test_card_cases_hold_each_edge_class():
     assert all(c[4] == "random" or c[4] is None or len(c[4]) == c[0] for c in CARD_CASES)
     for shape in ((64, 468, 2048, 1408), (64, 1, 2048, 1408), (64, 480, 2048, 1408)):
         assert any(c[:4] == shape for c in CARD_CASES), shape
+    for shape in ((32, 240, 2048, 1408), (32, 480, 2048, 1408)):     # the EP chunks
+        assert any(c[:4] == shape and c[4] is None for c in CARD_CASES), shape
     assert any(c[1] % 128 and c[1] > 128 for c in EDGE_CASES), "M not a multiple of 128"
     assert any(c[2] < 64 for c in EDGE_CASES), "K shorter than one tile"
     assert any(c[1] == 1 for c in EDGE_CASES), "one row per expert (decode)"

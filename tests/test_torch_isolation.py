@@ -145,7 +145,20 @@ def test_plan_has_no_knob_the_port_does_not_implement(knob):
     later slices are not fields, ``zero_stage`` (the data-parallel slice)
     takes only the stages the port implements, 0 and 1, ``tp`` (the
     tensor-parallel slice) runs only the rings: ``tp_impl="gspmd"`` raises,
-    and ``cp`` (the context-parallel slice) takes its three modes."""
+    ``cp`` (the context-parallel slice) takes its three modes, and ``ep``
+    (the expert-parallel slice) takes an integer degree on the MoE family
+    and its three exchange modes."""
+    if knob == "ep":
+        cfg = get_smoke_config("olmoe-1b-7b")
+        for impl in ("auto", "blocking", "overlap"):
+            ParallelPlan(ep=2, ep_impl=impl).validate(cfg)
+        with pytest.raises(ValueError, match=knob):
+            ParallelPlan(ep=0).validate(cfg)
+        with pytest.raises(ValueError, match="ep_impl"):
+            ParallelPlan(ep=2, ep_impl="ring").validate(cfg)
+        with pytest.raises(ValueError, match="MoE"):
+            ParallelPlan(ep=2).validate(get_smoke_config("qwen2.5-14b"))
+        return
     if knob == "cp":
         cfg = get_smoke_config("qwen2.5-14b")
         for impl in ("auto", "ring", "gather"):

@@ -203,8 +203,8 @@ def _loss(grid, ref, remat, sum_replicated=True, faults=None):
     from repro_torch.ft import inject
     from repro_torch.interop import tp_params_from_numpy
     from repro_torch.launch import rank_microbatches
-    from repro_torch.train.step import _sum_replicated_grads
-    from repro_torch.train.executor import make_executor_loss_fn
+    from repro_torch.train.step import sum_grid_grads
+    from repro_torch.train.executor import make_executor_loss_fn, resolve_context
     cfg = _cfg(ref["cfg"])
     plan = ParallelPlan(remat=remat, compute_dtype="float32", tp=2, tp_impl="overlap",
                         moe_dispatch=ref["dispatch"])
@@ -217,7 +217,7 @@ def _loss(grid, ref, remat, sum_replicated=True, faults=None):
         total, _ = make_executor_loss_fn(cfg, plan, grid, z_loss=Z_LOSS)(params, mb)
         total.backward()
     if sum_replicated:
-        _sum_replicated_grads(params, grid.model)
+        sum_grid_grads(params, plan, resolve_context(cfg, plan, grid))
     for p in leaves(params):
         grid.data.all_reduce_mean(p.grad)
     loss = grid.data.all_reduce_mean(total.detach().clone())
