@@ -145,8 +145,8 @@ prints its seconds):
    compute, remat "full": qwen1.5-4b at full width on 4 of its 40 layers, 3
    steps (B1/B2/B3 8/4/4 a rank a step at (1, 10, 4096, 128)),
    deepseek-moe-16b at full width on 2 of 28 layers, one step (B4 18 rows + 6
-   contract a rank at d_expert 704), mamba2-370m at full width on 24 of its 48
-   layers, one step (B5/B6 48/24 a rank at (1, 16, 4096, 64, 128)); on each rank's first
+   contract a rank at d_expert 704), mamba2-370m at full width on 12 of its 48
+   layers, one step (B5/B6 24/12 a rank at (1, 16, 4096, 64, 128)); on each rank's first
    microbatch every kernel call held to its plain version on the rank's own
    inputs (dq also to fp64); each family's losses against one device's on the
    same weights and batches (readings), then one fp32 step of qwen1.5-4b at 2
@@ -162,8 +162,8 @@ prints its seconds):
    1 x 16,384 tokens in the ring mode (each rank two zigzag sub-chunks of
    4096; B1/B2/B3 40/20/20 a rank a step: 5 tiles a layer, 2 diagonal and 3
    full, the other 3 masked and never launched), a warm-up and 1 step;
-   mamba2-370m at full width on 24 of its 48 layers over 1 x 65,536 (32,768 a
-   rank, the conv halo and the state chain; B5/B6 48/24 a rank a step at (1,
+   mamba2-370m at full width on 12 of its 48 layers over 1 x 65,536 (32,768 a
+   rank, the conv halo and the state chain; B5/B6 24/12 a rank a step at (1,
    32, 32768, 64, 128)), a warm-up and 2 steps; on each rank's first microbatch
    every kernel call held to its plain version on the rank's own inputs (B2/B3
    against the merged statistics, dq also to fp64); one device's loss on the
@@ -194,7 +194,20 @@ prints its seconds):
    must fail the grads rule; step, exchange, hop and all-reduce ms, peak
    memory and the launches by body; B4 timed on the kept chunk and buffer
    inputs and B1-B3 on the ring tiles. No checkpoint;
-18. times   — each kernel's time at its path's shapes beside its bound, its plain
+18. pipeline parallelism — GPipe and 1F1B (A13.5) on a (pod 2) grid: two rank
+   processes (spawn) on the one card over gloo (every pod hop and the pod sum
+   through host memory; no PP scaling or stage overlap is measured),
+   qwen1.5-4b at full width on 8 of its 40 layers (4 a stage), 4
+   microbatches of 1 x 4096 tokens, bf16 compute, remat "full": a checked
+   call at M = 2 (every B1-B3 call of both stages held to its plain version
+   on the rank's own inputs, dq also to fp64), 1F1B a warm-up and 2 steps
+   (B1/B2/B3 64/16/16 a step on stage 0, 48/16/16 on the last stage), GPipe
+   one step (32/16/16); each schedule's peak memory, step, pod hop and pod
+   sum ms; then fp32 steps at 2 layers, 4 x 1 x 1024: both schedules held to
+   one device's and to an fp64 evaluation by GRID_TOLERANCE, GPipe to 1F1B
+   (1e-6), and the control (each stage's outgoing activation rounded to bf16
+   in the pod shift), which must fail the grads rule. No checkpoint;
+19. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -207,8 +220,8 @@ prints its seconds):
    and training cross- and self-attention shapes; printed as one JSON line.
 
 On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode,
-training, data-, tensor-, context- and expert-parallel training; the fp32 TP,
-CP and EP steps' B1, B4, B5 and B6 excepted) must run the Hopper body
+training, data-, tensor-, context-, expert- and pipeline-parallel training; the
+fp32 TP, CP, EP and PP steps' B1, B4, B5 and B6 excepted) must run the Hopper body
 (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
@@ -3766,12 +3779,12 @@ def dp_summary(dp):
 # full width on TP_FAMILIES["dense"]'s 4 of its 40 layers (8 until the CP
 # phase needed the script's time) for TP_STEPS steps, then
 # one fp32 step at TP_FP32_LAYERS layers; deepseek-moe-16b at full width on 2
-# of its 28 layers and mamba2-370m at full width on 24 of its 48 layers (the
+# of its 28 layers and mamba2-370m at full width on 12 of its 48 layers (the
 # script's time limit), one step each;
 # 1 x 4096 tokens, bf16 compute, remat "full". Nothing is checkpointed.
 TP_RANKS = 2
 TP_STEPS = 3
-TP_FAMILIES = {"dense": (TRAIN_ARCH, 4), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, 24)}
+TP_FAMILIES = {"dense": (TRAIN_ARCH, 4), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, 12)}
 TP_FP32_LAYERS = 2
 TP_CASES = {"dense": (1, 10, 10, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0),
             "moe": (1, 8, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)}
@@ -4318,7 +4331,7 @@ CP_DENSE_LAYERS = 4
 CP_DENSE_SEQ = 16_384
 CP_DENSE_STEPS = 1                # timed, after one warm-up
 CP_SSM_SEQ = 65_536
-CP_SSM_LAYERS = 24                # of mamba2-370m's 48 (the script's time limit)
+CP_SSM_LAYERS = 12                # of mamba2-370m's 48 (the script's time limit)
 CP_SSM_STEPS = 2                  # timed, after one warm-up
 CP_FP32_LAYERS = 2
 CP_SUB = CP_DENSE_SEQ // (2 * CP_RANKS)          # a zigzag sub-chunk: one ring tile's side
@@ -5212,6 +5225,433 @@ def ep_summary(ep):
     }
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism
+
+
+def pp_train_step(loss_fn, plan, grid, hyper, watch=None):
+    """A train step composed around a pipelined loss (``make_train_step``
+    refuses ``plan.pp`` > 1, as the reference's callers compose theirs):
+    backward (the pipeline completes the grads), the global-norm clip over
+    the stages (``pipeline_splits``) and the ZeRO-1 AdamW update on this
+    rank's slices of its grads over its data group. Returns step(state,
+    batch) -> (state, {"loss", "grad_norm", "lr", "moe_aux"}); with a
+    ``watch`` dict, a copy of the first step's clipped grads (this rank's, by
+    name) lands in ``watch["grads"]``."""
+    from repro_torch.core.sharding import opt_state_specs
+    from repro_torch.core.tree import from_names, leaves, named_leaves
+    from repro_torch.optim import adamw_update_sharded, clip_by_global_norm, cosine_schedule
+    from repro_torch.train import TrainState
+    from repro_torch.train.pipeline import pipeline_splits
+    dmesh = grid.data
+
+    def step(state, batch):
+        params, opt = state
+        for p in leaves(params):
+            p.grad = None
+        total, parts = loss_fn(params, batch)
+        total.backward()
+        specs = opt_state_specs(params, dmesh, plan)
+        grads = {}
+        with torch.no_grad():
+            for name, leaf in named_leaves(params):
+                g = (torch.stack([p.grad for p in leaf]) if isinstance(leaf, list)
+                     else leaf.grad)
+                sp = specs[name]
+                if sp.dim is not None:
+                    k = sp.shape[sp.dim] // dmesh.size
+                    g = g.narrow(sp.dim, dmesh.rank * k, k).contiguous()
+                grads[name] = g
+        for p in leaves(params):
+            p.grad = None
+        # the grads are the same on every data rank: each slice counts once
+        grads, gnorm = clip_by_global_norm(from_names(grads), hyper.grad_clip, mesh=dmesh,
+                                           specs=specs,
+                                           splits=pipeline_splits(params, plan, grid))
+        if watch is not None and "grads" not in watch:
+            watch["grads"] = {n: g.detach().float().clone() for n, g in named_leaves(grads)}
+        lr = cosine_schedule(opt.step, hyper.peak_lr, hyper.warmup_steps, hyper.total_steps)
+        params, opt = adamw_update_sharded(grads, opt, params, lr, mesh=dmesh, specs=specs,
+                                           weight_decay=hyper.weight_decay)
+        return TrainState(params, opt), {"loss": parts["xent"].detach() + parts["moe_aux"].detach(),
+                                         "grad_norm": gnorm, "lr": lr,
+                                         "moe_aux": parts["moe_aux"].detach()}
+    return step
+
+
+# PP_RANKS spawned ranks on the one card over gloo, a (pod 2) grid: qwen1.5-4b at
+# full width on PP_LAYERS of its 40 layers (PP_LAYERS / 2 a stage), PP_MICRO
+# microbatches of 1 x TRAIN_SEQ, bf16 compute, remat "full". 1F1B a warm-up and
+# PP_STEPS timed steps, GPipe one step; before them each rank's checked call at
+# M = P (every B1-B3 call held to its plain version on the rank's inputs). Then
+# fp32 steps at PP_FP32_LAYERS layers (one a stage), PP_MICRO microbatches of 1
+# x PP_FP32_SEQ, both schedules held to one device's by GRID_TOLERANCE, and the
+# control (``pod_bf16_rounding``) failing it. Depth is cut: two ranks' fp32
+# state at the full 40 layers does not fit the card.
+PP_RANKS = 2
+PP_LAYERS = 8
+PP_MICRO = 4
+PP_STEPS = 2                      # 1F1B's timed steps, after one warm-up
+PP_FP32_LAYERS = 2
+PP_FP32_SEQ = 1024
+PP_SCHEDS = ("1f1b", "gpipe")
+
+
+def pp_setup(layers, dtype="bfloat16", seq=None, steps=1):
+    """qwen1.5-4b's full-width config cut to ``layers`` layers, its pipeline
+    plan (fp32 masters, ``dtype`` compute, remat "full", PP_MICRO
+    microbatches, pp PP_RANKS, 1F1B), the model and ``steps`` batches of
+    PP_MICRO x ``seq``."""
+    from repro_torch.core import InputShape, ParallelPlan, get_config
+    from repro_torch.data import SyntheticDataset
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=layers)
+    plan = ParallelPlan(compute_dtype=dtype, param_dtype="float32", remat="full",
+                        microbatches=PP_MICRO, pp=PP_RANKS)
+    ds = SyntheticDataset(cfg, InputShape("pp", seq or TRAIN_SEQ, PP_MICRO, "train"))
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
+               for i in range(steps)]
+    return cfg, plan, build_model(cfg, plan), batches
+
+
+def pp_want(cfg, plan, stage):
+    """The launches of one rank's pipelined step (remat full): B1, B2, B3, B4
+    rows, B4 contract, B5, B6. Each of the stage's layers runs each
+    microbatch once forward in the fill-drain; GPipe replays it in the
+    backward (B1 twice); 1F1B runs it again in the recompute (a), except on
+    the last stage, whose output goes nowhere, and in (b), with its replay
+    (B1 four times, three on the last stage). B2 and B3 once each."""
+    n = cfg.n_layers // PP_RANKS * plan.microbatches
+    per = 2 if plan.pp_schedule == "gpipe" else (3 if stage == PP_RANKS - 1 else 4)
+    return (per * n, n, n, 0, 0, 0, 0)
+
+
+def pp_window(sched, fp32=False):
+    """The kernels line's name for a PP schedule's step."""
+    return f"pp_{sched}{'_fp32' if fp32 else ''}_train_step"
+
+
+@contextlib.contextmanager
+def pod_bf16_rounding(grid):
+    """GRID_TOLERANCE's PP control: within the block every stage's outgoing
+    activation is rounded to bf16 in the pod shift (forward and recompute),
+    a fault the grads rule must catch."""
+    ring = grid.pod
+    real = ring.shift
+
+    def rounded(t, step=1, kind="tick", wrap=True):
+        if step > 0 and t.is_floating_point():
+            t = t.to(torch.bfloat16).to(t.dtype)
+        return real(t, step, kind, wrap)
+    ring.shift = rounded
+    try:
+        yield
+    finally:
+        ring.shift = real
+
+
+def pp_checked_call(cfg, plan, grid, params, batch, out):
+    """The rank's part of one pipelined call at M = P (``plan``'s
+    microbatches) and its backward, every B1 call (fill-drain, recompute,
+    rebuilt tick, remat replay) held to its plain version on its own inputs
+    (FlashFwdCapture, the Hopper body in bf16, the fp32 body in fp32) and
+    every B2/B3 call too (FlashBwdCapture, dq also to fp64 in bf16), as many
+    calls as ``pp_want`` predicts."""
+    from repro_torch.core.tree import leaves
+    from repro_torch.train import Hyper
+    from repro_torch.train.pipeline import pipelined_loss_fn
+    want = pp_want(cfg, plan, grid.pod.rank)
+    bf16 = plan.compute_dtype == "bfloat16"
+    loss_fn = pipelined_loss_fn(cfg, plan, grid, (), z_loss=Hyper().z_loss)
+    what = (f"{cfg.arch_id} pp {plan.pp_schedule} {plan.compute_dtype} stage {grid.pod.rank} "
+            f"call of {plan.microbatches} microbatches")
+    with FlashBwdCapture(fp64=bf16) as bwd, FlashFwdCapture() as fwd:
+        loss, _ = loss_fn(params, batch)
+        loss.backward()
+    out["real_fwd_ulps"] = fwd.summary(f"{what} (every pass)", want[0],
+                                       body="sm90" if bf16 else "f32")
+    out["real_bwd_ulps"] = bwd.summary(what, want[1])
+    out["checked_loss"] = float(loss.detach())
+    for p in leaves(params):
+        p.grad = None
+
+
+def pp_steps(cfg, plan, grid, state, batches, rec, fp32=False, watch=None, count=True):
+    """``len(batches)`` pipelined steps of ``plan``'s schedule from ``state``:
+    each step's wall time (synchronised), the pod ring's hops and all-reduces
+    (the grads' pod sum among them; the ring waits for the device around
+    each), the loss and grad norm, and the launches, which must be
+    ``pp_want``'s on the Hopper bodies (the fp32 bodies with ``fp32``;
+    unchecked without ``count``). Returns the state."""
+    from repro_torch.train import Hyper
+    from repro_torch.train.pipeline import pipelined_loss_fn
+    hyper = Hyper()
+    step = pp_train_step(pipelined_loss_fn(cfg, plan, grid, (), z_loss=hyper.z_loss), plan,
+                         grid, hyper, watch=watch)
+    want = pp_want(cfg, plan, grid.pod.rank)
+    window = pp_window(plan.pp_schedule, fp32)
+    for key in ("ms", "hop_ms", "pod_sum_ms", "loss", "grad_norm"):
+        rec.setdefault(key, [])
+    for i, batch in enumerate(batches):
+        reset_counts()
+        grid.pod.timed = True
+        before = dict(grid.pod.seconds)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        rec["ms"].append((time.perf_counter() - t0) * 1e3)
+        rec["hop_ms"].append((grid.pod.seconds["tick"] - before["tick"]) * 1e3)
+        rec["pod_sum_ms"].append((grid.pod.seconds["all_reduce"] - before["all_reduce"]) * 1e3)
+        grid.pod.timed = False
+        rec["loss"].append(float(m["loss"]))
+        rec["grad_norm"].append(float(m["grad_norm"]))
+        launches = all_counts() + ssd_counts()
+        rec["launches"] = launches
+        if count:
+            if launches != want:
+                raise AssertionError(f"{cfg.arch_id} pp {plan.pp_schedule} stage "
+                                     f"{grid.pod.rank} step {i} launched {launches}, "
+                                     f"expected {want}")
+            check_bodies(f"{cfg.arch_id} pp {plan.pp_schedule} rank {grid.rank} step {i}",
+                         launches, window, fp32=fp32)
+            rec["bodies"] = BODY_COUNTS[window]
+    return state
+
+
+def pp_path(grid):
+    """The main path on this rank at full width: the checked call, then 1F1B
+    (a warm-up and PP_STEPS) and GPipe (one step), each schedule's peak
+    memory; the 1F1B steps run on from the warm-up's state, GPipe's from
+    theirs."""
+    from repro_torch.core.tree import named_leaves
+    from repro_torch.train import init_train_state
+    cfg, plan, model, batches = pp_setup(PP_LAYERS, steps=PP_STEPS + 2)
+    state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), grid, plan)
+    rec = {"layers": cfg.n_layers, "seq": TRAIN_SEQ, "microbatches": PP_MICRO,
+           "stage": grid.pod.rank, "stage_layers": len(state.params["layers"]),
+           "params_per_rank": sum(x.numel() for _, leaf in named_leaves(state.params)
+                                  for x in (leaf if isinstance(leaf, list) else [leaf]))}
+    t0 = time.perf_counter()
+    checked = dataclasses.replace(plan, microbatches=PP_RANKS)
+    pp_checked_call(cfg, checked, grid, state.params,
+                    {k: v[:PP_RANKS] for k, v in batches[0].items()}, rec)
+    rec["checked_s"] = time.perf_counter() - t0
+    free()
+    for sched, run in (("1f1b", batches[:1 + PP_STEPS]), ("gpipe", batches[1 + PP_STEPS:])):
+        out = rec[sched] = {}
+        torch.cuda.reset_peak_memory_stats()
+        state = pp_steps(cfg, dataclasses.replace(plan, pp_schedule=sched), grid, state, run, out)
+        out["peak_bytes"] = torch.cuda.max_memory_allocated()
+        free()
+        log(f"pp rank {grid.rank} (stage {grid.pod.rank}) {cfg.arch_id} {sched} "
+            f"({cfg.n_layers} layers, {PP_MICRO} x 1 x {TRAIN_SEQ}): steps "
+            f"{[round(x, 1) for x in out['ms']]} ms, pod hops "
+            f"{[round(x, 1) for x in out['hop_ms']]} ms, pod sums "
+            f"{[round(x, 1) for x in out['pod_sum_ms']]} ms, losses {out['loss']}, peak "
+            f"{out['peak_bytes'] / 1e9:.2f} GB, launches {out['launches']}")
+    del state, model
+    free()
+    grid.barrier_error(False)
+    return rec
+
+
+def pp_fp32(grid):
+    """The fp32 steps at PP_FP32_LAYERS layers, PP_MICRO x 1 x PP_FP32_SEQ:
+    1F1B, GPipe and the control, each one step from the same weights (seed
+    0). One device's step (PP_MICRO microbatches) and its fp64 evaluation run
+    on rank 0 first, while rank 1 waits. After each step rank 1 sends its
+    stage's layer grads to rank 0 (the leaves every stage holds are the same
+    bits on both after the pod sum, by their checksums); rank 0 then holds
+    both schedules' to one device's by GRID_TOLERANCE (each rank's grads
+    against its part of one device's), GPipe's to 1F1B's (1e-6 of each
+    leaf's max, the loss to 1e-6), and the control must fail the grads rule.
+    The 1F1B step's call is checked call by call first (``pp_checked_call``,
+    fp32 bodies); the steps' launches must be ``pp_want``'s on the fp32
+    bodies; the control's are not counted."""
+    import torch.distributed as dist
+    from repro_torch.core.sharding import layout_part
+    from repro_torch.ft.integrity import tree_checksum
+    from repro_torch.models import build_model
+    from repro_torch.train import Hyper, init_train_state
+    cfg, plan, model, batches = pp_setup(PP_FP32_LAYERS, "float32", PP_FP32_SEQ)
+    one = truth = None
+    if grid.rank == 0:
+        one_plan = dataclasses.replace(plan, pp=1)
+        one_model = build_model(cfg, one_plan)
+        _, _, one = zero1_run(one_model, one_plan, batches, watch=ZeroWatch(steps=1),
+                              keep_params=False)
+        params = one_model.init(torch.Generator(device="cuda").manual_seed(0))
+        truth = fp64_first_grads(cfg, params, batches[0], PP_MICRO, Hyper())
+        del params, one_model
+        free()
+    grid.barrier_error(False)
+    out, grads = {}, {}
+    for name, sched, control in (("1f1b", "1f1b", False), ("gpipe", "gpipe", False),
+                                 ("control", "1f1b", True)):
+        p = dataclasses.replace(plan, pp_schedule=sched)
+        state = init_train_state(model, torch.Generator(device="cuda").manual_seed(0), grid, p)
+        rec, watch = {"layers": cfg.n_layers}, {}
+        if name == "1f1b":
+            pp_checked_call(cfg, p, grid, state.params, batches[0], rec)
+        with pod_bf16_rounding(grid) if control else contextlib.nullcontext():
+            pp_steps(cfg, p, grid, state, batches, rec, fp32=True, watch=watch,
+                     count=not control)
+        mine = watch["grads"]
+        shared = {n: g for n, g in mine.items() if not n.startswith("layers/")}
+        sums = [None] * grid.size
+        dist.all_gather_object(sums, int(tree_checksum(shared)), group=grid.host_group)
+        rec["rank_checksums"] = sums
+        got = grid_gather({n: g.cpu().numpy() for n, g in mine.items()
+                           if n.startswith("layers/")}, grid)
+        if got is not None:
+            grads[name] = [mine] + [{**shared, **on_card(g)} for g in got[1:]]
+        out[name] = rec
+        del state, watch, mine, shared
+        free()
+    grid.barrier_error(False)
+    if grid.rank == 0:
+        sizes = {"pod": PP_RANKS, "model": 1, "cp": 1}
+
+        def part(n, a, r, _n):
+            return layout_part(n, a, plan, {"pod": r, "model": 0, "cp": 0}, sizes)
+        one, truth = {**one, "grads": on_card(one["grads"])}, on_card(truth)
+        for name in ("1f1b", "gpipe"):
+            agree = grid_agreement(out[name], one, grads[name], part)
+            bad, explained = grid_failures(agree, [], grads[name], one["grads"], truth, part)
+            if len(set(out[name]["rank_checksums"])) != 1:
+                bad.append(f"the stages' shared grads differ: {out[name]['rank_checksums']}")
+            out[name].update(agree=agree, failures=bad, explained=explained,
+                             one_device_loss=one["loss"], one_device_grad_norm=one["grad_norm"])
+        against = {"loss_rel": abs(out["gpipe"]["loss"][0] - out["1f1b"]["loss"][0])
+                   / abs(out["1f1b"]["loss"][0]),
+                   "grads_rel": max(rel_err(g[n], f[n]) for g, f in
+                                    zip(grads["gpipe"], grads["1f1b"]) for n in f)}
+        out["gpipe"]["against_1f1b"] = against
+        if against["loss_rel"] > DP_REL or against["grads_rel"] > DP_REL:
+            out["gpipe"]["failures"].append(f"GPipe against 1F1B: {against}")
+        control_bad, _ = grid_grad_failures(grads["control"], one["grads"], truth, part)
+        out["control"].update(control_failures=len(control_bad), control_first=control_bad[:3])
+        if not control_bad:
+            out["1f1b"]["failures"].append("the control (each stage's outgoing activation "
+                                           "rounded to bf16) passes the grads rule")
+        log(f"pp fp32 {cfg.arch_id} ({cfg.n_layers} layers, {PP_MICRO} x 1 x {PP_FP32_SEQ}): "
+            f"1f1b loss {out['1f1b']['loss']} / {one['loss']}, {out['1f1b']['agree']}; gpipe "
+            f"{out['gpipe']['agree']}, against 1f1b {against}; leaves past 1e-6 that the fp64 "
+            f"rule admits (error, PP's distance from fp64, one device's) "
+            f"{out['1f1b']['explained']} / {out['gpipe']['explained']}; the control fails the "
+            f"rule on {len(control_bad)} leaves, first {control_bad[:3]}; failures "
+            f"{out['1f1b']['failures'] + out['gpipe']['failures']}")
+        del grads, one, truth
+    del model
+    free()
+    grid.barrier_error(False)
+    return out
+
+
+def pp_rank(rank, init_method, out_dir):
+    """One of the PP_RANKS processes of the PP phase, on cuda:0 over gloo:
+    the main path (``pp_path``), then the fp32 checks (``pp_fp32``). Results
+    go to ``out_dir/pp_rank{rank}.json``."""
+    from repro_torch.core import resolve_device
+    from repro_torch.launch import init_grid_mesh
+    resolve_device()
+    grid = init_grid_mesh(1, 1, "cuda:0", pod=PP_RANKS, backend="gloo", init_method=init_method,
+                          rank=rank)
+    log(f"pp rank {rank}: {grid}")
+    out = {"rank": rank, "mesh": repr(grid)}
+    t0 = time.perf_counter()
+    out["path"] = pp_path(grid)
+    out["path"]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["fp32"] = pp_fp32(grid)
+    out["fp32"]["seconds"] = time.perf_counter() - t0
+    grid.close()
+    (Path(out_dir) / f"pp_rank{rank}.json").write_text(json.dumps(out))
+
+
+def phase_pp():
+    """The PP phase: PP_RANKS spawned ranks on the one card over gloo
+    (``pp_rank``), their results checked here (``pp_report``). The stage
+    tick's kernels run at the training shapes, timed by the training phase."""
+    with spawned_ranks(pp_rank, PP_RANKS, "pp", timeout=480) as (tmp, ranks, ranks_s):
+        pp_report(ranks)
+    log(f"phase PP: ranks {ranks_s:.1f} s")
+    return {"ranks": ranks, "ranks_s": ranks_s}
+
+
+def pp_report(ranks):
+    """Log the PP phase's results and hold them to their checks: each
+    schedule's losses finite and equal on both ranks, the fp32 steps by
+    GRID_TOLERANCE and the control failing it; keep the launches by body for
+    the kernels line."""
+    r0 = ranks[0]
+    bad = []
+    for sched in PP_SCHEDS:
+        for r in ranks:
+            f = r["path"][sched]
+            log(f"pp {sched} rank {r['rank']} ({r['mesh']}, stage {r['path']['stage']}, "
+                f"{r['path']['stage_layers']} layers): steps {f['ms']} ms, pod hops "
+                f"{f['hop_ms']} ms, pod sums {f['pod_sum_ms']} ms (two ranks share one card "
+                f"and the hops go through host memory: no measure of PP scaling or stage "
+                f"overlap); peak {f['peak_bytes'] / 1e9:.2f} GB, "
+                f"{r['path']['params_per_rank'] / 1e9:.3f} B params a rank; launches "
+                f"{f['launches']} a step; bodies {f['bodies']}")
+            if not all(np.isfinite(x) for x in f["loss"] + f["grad_norm"]):
+                bad.append(f"{sched} rank {r['rank']}: a loss or grad norm is not finite")
+            if (f["loss"], f["grad_norm"]) != (r0["path"][sched]["loss"],
+                                               r0["path"][sched]["grad_norm"]):
+                bad.append(f"{sched}: rank {r['rank']} reports {f['loss']} / {f['grad_norm']}")
+        BODY_COUNTS[pp_window(sched)] = {k: sum(r["path"][sched]["bodies"][k] for r in ranks)
+                                         for k in r0["path"][sched]["bodies"]}
+        BODY_COUNTS[pp_window(sched, fp32=True)] = {
+            k: sum(r["fp32"][sched]["bodies"][k] for r in ranks)
+            for k in r0["fp32"][sched]["bodies"]}
+    for r in ranks:
+        log(f"pp rank {r['rank']}: checked call {r['path']['checked_s']:.1f} s, B1 "
+            f"{r['path']['real_fwd_ulps']} ulps, B2/B3 {r['path']['real_bwd_ulps']}")
+    bad += [f"fp32: {b}" for s in PP_SCHEDS for b in r0["fp32"][s].get("failures", [])]
+    if bad:
+        raise AssertionError("PP phase: " + "; ".join(bad))
+
+
+def pp_launches(pp, i):
+    """One kernel's launches on the PP paths (``i``: its index in the
+    launches tuple), summed over the ranks, by window (``pp_window``); only
+    the windows where it launched."""
+    out = {}
+    for fp32 in (False, True):
+        for sched in PP_SCHEDS:
+            n = sum((r["fp32"] if fp32 else r["path"])[sched]["launches"][i]
+                    for r in pp["ranks"])
+            if n:
+                out[pp_window(sched, fp32)] = n
+    return out
+
+
+def pp_summary(pp):
+    """The PP phase's numbers for the kernels line (``qwen1.5-4b_pp``)."""
+    ranks = pp["ranks"]
+    keys = ("ms", "hop_ms", "pod_sum_ms", "launches", "peak_bytes", "loss", "grad_norm")
+    return {
+        "grid": {"pod": PP_RANKS}, "plan": {"pp": PP_RANKS, "microbatches": PP_MICRO,
+                                            "remat": "full"},
+        "transport": "gloo, host copies (two ranks on one card); no measure of PP scaling",
+        "layers": PP_LAYERS, "seq": TRAIN_SEQ,
+        "schedules": {s: {"ranks": [{"stage": r["path"]["stage"],
+                                     **{k: r["path"][s][k] for k in keys}} for r in ranks]}
+                      for s in PP_SCHEDS},
+        "params_per_rank": [r["path"]["params_per_rank"] for r in ranks],
+        "real_inputs": {r["rank"]: {k: r["path"][k] for k in ("real_fwd_ulps",
+                                                              "real_bwd_ulps")}
+                        for r in ranks},
+        "fp32": {name: {k: v for k, v in rec.items() if k != "bodies"}
+                 for name, rec in ranks[0]["fp32"].items() if name != "seconds"},
+        "tolerance": GRID_TOLERANCE,
+        "phase_s": {"ranks": pp["ranks_s"], "fp32_checks": ranks[0]["fp32"]["seconds"]},
+    }
+
+
 def ft_summary(whisper, dp):
     """The fault-tolerance readings for the kernels line (``whisper-small_ft``):
     the phase's, the DP ranks' audit and sdc run, and the training phase's step
@@ -5294,7 +5734,7 @@ def ssd_entries(ssd_errs, ssm, tp, cp):
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep):
+                moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -5309,7 +5749,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_ft": whisper["ft"]["launches"][0],
                 "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
                 "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0],
-                **tp_launches(tp, 0), **cp_launches(cp, 0), **ep_launches(ep, 0)}
+                **tp_launches(tp, 0), **cp_launches(cp, 0), **ep_launches(ep, 0),
+                **pp_launches(pp, 0)}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -5357,6 +5798,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "ep_shapes": {name: ep["times"][name]["fwd"] for name in EP_CASES},
         "ep_real_inputs_max_err_bf16_ulps": max(r[impl]["real_fwd_ulps"] for r in ep["ranks"]
                                                 for impl in ("overlap", "blocking")),
+        "pp_real_inputs_max_err_bf16_ulps": max(r["path"]["real_fwd_ulps"]
+                                                for r in pp["ranks"]),
         "check": "pass",
     }]
     hybrid_train = ssm[HYBRID_ARCH][1]["launches"]
@@ -5374,7 +5817,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                                                         for r in dp["ranks"]),
                    f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1],
                    **tp_launches(tp, which + 1), **cp_launches(cp, which + 1),
-                   **ep_launches(ep, which + 1)}
+                   **ep_launches(ep, which + 1), **pp_launches(pp, which + 1)}
         hy = bt["hybrid"]
         wh = {}
         for n in ("encoder", "train_cross", "train_self"):
@@ -5451,6 +5894,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
             "ep_real_inputs_max_err_bf16_ulps": max(
                 r[impl]["real_bwd_ulps"][1 - which] for r in ep["ranks"]
                 for impl in ("overlap", "blocking")),
+            "pp_real_inputs_max_err_bf16_ulps": max(r["path"]["real_bwd_ulps"][1 - which]
+                                                    for r in pp["ranks"]),
             "check": "pass",
         })
     gt = {**moe_serve["times"], **moe_train["times"]}
@@ -5505,7 +5950,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                       f"{WHISPER_ARCH}_ft": ft_summary(whisper, dp),
                       f"{TRAIN_ARCH}_tp": tp_summary(tp),
                       f"{TRAIN_ARCH}_cp": cp_summary(cp),
-                      f"{MOE_ARCH}_ep": ep_summary(ep)}), flush=True)
+                      f"{MOE_ARCH}_ep": ep_summary(ep),
+                      f"{TRAIN_ARCH}_pp": pp_summary(pp)}), flush=True)
 
 
 def free():
@@ -5554,8 +6000,10 @@ def main():
     cp = timed("context parallel", phase_cp)
     free()
     ep = timed("expert parallel", phase_ep)
+    free()
+    pp = timed("pipeline parallel", phase_pp)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

@@ -83,7 +83,17 @@ part in the gather (``host_group``), rank 0 places each block into the whole
 leaf, and the manifest records the plan's ``ep``; a restore cuts each whole
 leaf to the rank's part under the requested plan (``plan=``), so ep 1, 2 and
 4 read the same file, and ``check_plan`` refuses an ep change as a layout
-mismatch while ``ep_impl``, which moves nothing, is free to change.
+mismatch while ``ep_impl``, which moves nothing, is free to change. Under
+pipeline parallelism (a grid with a pod axis) each stage holds its own
+layers: the ranks that hold distinct state (every stage's ranks at cp index
+0, every rank under ep) send their parts to global rank 0 (a gather of
+objects, since the stages' parts differ in size under an uneven layout),
+which writes whole canonical leaves with every layer in order; the manifest
+records ``pp``, ``pp_layout`` and ``pp_schedule``. A restore cuts each whole
+leaf to the rank's stage under the requested plan, so any pp and pp_layout
+(pp 1 included) read the same file, and ``check_plan`` routes a
+``pp_layout`` change as a reshard (a rebalance is one), while a
+``pp_schedule`` change replays.
 
 Fault seams (``repro_torch.ft.inject``): ``ckpt.persist`` fires per persist
 attempt (``hang``, ``persist_exc``), and ``ckpt.shard_write`` after the
@@ -109,11 +119,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.sharding import (data_size, grid_place, layout_box, layout_part,
-                                       local_index, local_shape, train_state_specs,
-                                       whole_shape)
+from repro_torch.core.sharding import (LeafSpec, data_size, grid_place, layout_box,
+                                       layout_part, local_index, local_shape, opt_shard_dim,
+                                       train_state_specs, whole_box, whole_shape)
 from repro_torch.core.tree import named_leaves, stacked_shape
-from repro_torch.launch.mesh import GridMesh, cp_size, model_size
+from repro_torch.launch.mesh import GridMesh, cp_size, model_size, pod_size
 
 
 class CorruptCheckpointError(IOError):
@@ -134,18 +144,20 @@ def _inject():
 # the layout axes a manifest records (the reference's store.py:95-145)
 
 # The reference's ParallelPlan layout axes, with each one's value on a plan
-# that lacks it: the port's plan has tp, cp, ep and zero_stage of them and runs
-# one device on each of the others, so the manifest records those values and either
-# package compares them. The reference's PLAN_AXES also records impl and
-# schedule knobs for forensics; the port's plan has none of those.
+# that lacks it: the port's plan has all of them but dp_shard, which it runs at
+# one device, so the manifest records those values and either package compares
+# them. The reference's PLAN_AXES also records impl and schedule knobs for
+# forensics; of those the port records pp_schedule, never compared (a schedule
+# moves no state).
 PLAN_LAYOUT_AXES = {"tp": 1, "cp": 1, "dp_shard": 1, "zero_stage": 1, "ep": 1, "pp": 1,
                     "pp_layout": None}
+PLAN_RECORDED = {"pp_schedule": "1f1b"}
 
 
 def _plan_meta(plan) -> Optional[Dict[str, Any]]:
     if plan is None:
         return None
-    meta = {k: getattr(plan, k, d) for k, d in PLAN_LAYOUT_AXES.items()}
+    meta = {k: getattr(plan, k, d) for k, d in {**PLAN_LAYOUT_AXES, **PLAN_RECORDED}.items()}
     # tuples (pp_layout) JSON-round-trip as lists; normalised here so the
     # comparison in layout_diffs stays type-stable
     return {k: list(v) if isinstance(v, tuple) else v for k, v in meta.items()}
@@ -426,7 +438,8 @@ class CheckpointManager:
                   "mesh_axes": dict(mesh.shape) if mesh is not None else None}
         path = self.dir / f"ckpt_{step:08d}"
         device = host = None
-        if isinstance(mesh, GridMesh) and (model_size(mesh) > 1 or cp_size(mesh) > 1):
+        if isinstance(mesh, GridMesh) and (model_size(mesh) > 1 or cp_size(mesh) > 1
+                                           or pod_size(mesh) > 1):
             shapes, host = self._gather_grid(tree, named, plan, mesh)
             self._fence = mesh
             if mesh.rank != 0:
@@ -543,9 +556,11 @@ class CheckpointManager:
             raise ValueError("a save under a grid takes a TrainState")
         specs = train_state_specs(state, mesh, plan)
         n_data, n_cp, n_model = mesh.shape["data"], mesh.shape.get("cp", 1), mesh.shape["model"]
+        n_pod = pod_size(mesh)
         place, sizes = grid_place(mesh)
         ep = getattr(plan, "ep", 1) > 1
-        members = [(d, c, m) for d in range(n_data) for c in range(n_cp if ep else 1)
+        members = [(p, d, c, m) for p in range(n_pod) for d in range(n_data)
+                   for c in range(n_cp if ep else 1)
                    for m in range(n_model)]          # the gather group's order
         shapes = [list(whole_shape(name, specs[name].shape, plan, sizes)) for name, _ in named]
         t0 = time.perf_counter()
@@ -556,15 +571,19 @@ class CheckpointManager:
         host = [_host(x) for _, x in named]
         self.d2h_seconds = time.perf_counter() - t0
         t1 = time.perf_counter()
-        got = gather_flat([a for a, _ in host], mesh.host_group if ep else mesh.save_group)
+        group = mesh.host_group if ep else mesh.save_group
+        got = (gather_objects([a for a, _ in host], group) if n_pod > 1
+               else gather_flat([a for a, _ in host], group))
         out = None
         if got is not None:
             out = [[(np.zeros(shape, dtype=a.dtype), dt, None)]
                    for (a, dt), shape in zip(host, shapes)]
-            for (d, c, m), arrays in zip(members, got):
-                for (name, _), b, parts in zip(named, arrays, out):
-                    box = _grid_index(name, specs[name], plan, d, n_data,
-                                      {"model": m, "cp": c}, sizes)
+            for (p, d, c, m), arrays in zip(members, got):
+                at = {"model": m, "cp": c, "pod": p}
+                for (name, _), b, parts, shape in zip(named, arrays, out, shapes):
+                    spec = (_member_spec(name, shape, specs[name], plan, at, sizes, n_data)
+                            if n_pod > 1 else specs[name])
+                    box = _grid_index(name, spec, plan, d, n_data, at, sizes)
                     parts[0][0][tuple(slice(lo, hi) for lo, hi in box)] = b
         self.gather_seconds = time.perf_counter() - t1
         self.snapshot_seconds = time.perf_counter() - t0
@@ -808,6 +827,27 @@ def gather_flat(arrays: List[np.ndarray], group) -> Optional[List[List[np.ndarra
             off += a.nbytes
         out.append(parts)
     return out
+
+
+def gather_objects(arrays: List[np.ndarray], group) -> Optional[List[List[np.ndarray]]]:
+    """:func:`gather_flat` for arrays whose shapes differ over the ranks (a
+    pipeline's stages under an uneven layout): one ``gather_object``."""
+    me = dist.get_rank()
+    got = [None] * dist.get_world_size(group) if me == 0 else None
+    dist.gather_object([np.ascontiguousarray(a) for a in arrays], got, dst=0, group=group)
+    return got
+
+
+def _member_spec(name: str, whole, spec: LeafSpec, plan, place, sizes, n_data: int) -> LeafSpec:
+    """The layout of the leaf ``name`` (whole stacked shape ``whole``) on the
+    grid rank at ``place``: its part's shape, and for a moment its ZeRO-1
+    split over ``n_data`` ranks as on that part (a stage's layer count, and
+    so the split, may differ from this rank's, ``spec``)."""
+    shape = tuple(hi - lo for lo, hi in whole_box(name, whole, plan, place, sizes))
+    dim = spec.dim
+    if name.startswith(("opt/mu/", "opt/nu/")):
+        dim = opt_shard_dim(shape, n_data if getattr(plan, "zero_stage", 1) >= 1 else 1)
+    return LeafSpec(shape, dim, spec.dtype)
 
 
 def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None,

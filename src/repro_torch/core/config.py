@@ -54,6 +54,16 @@ and one after) or ``"overlap"`` (ring ticks with the expert GEMMs between
 them); ``"auto"`` is ``"overlap"``
 (``repro_torch.kernels.dispatch.select_ep_impl``).
 
+``ParallelPlan.pp``, ``pp_layout`` and ``pp_schedule`` are the reference's
+pipeline degree, layers per stage and schedule (survey §4.1.3): ``pp`` > 1 on
+a grid with a pod axis of that size (``init_grid_mesh(pod=)``) holds stage p's
+layers on the ranks of pod index p and runs ``repro_torch.train.pipeline``'s
+``pipelined_loss_fn`` (``"gpipe"``: autograd through the fill-drain ticks;
+``"1f1b"``, the default: a custom backward that interleaves the drain with
+the forward recompute). ``pp_layout`` is an uneven split (each stage >= 1
+layer, summing to ``n_layers``); without it ``pp`` must divide ``n_layers``.
+The single-device train step refuses ``pp`` > 1 (``train.step``).
+
 ``ParallelPlan.integrity`` (``"off"`` | ``"audit"``) is the reference's
 silent-data-corruption audit: under ``"audit"`` the train step's metrics gain
 ``integrity_checksum`` and ``integrity_div`` (``repro_torch.ft.integrity``).
@@ -79,6 +89,7 @@ INTEGRITY_MODES = ("off", "audit")
 TP_IMPLS = ("auto", "gspmd", "overlap")
 CP_IMPLS = ("auto", "gather", "ring")
 EP_IMPLS = ("auto", "blocking", "overlap")
+PP_SCHEDULES = ("gpipe", "1f1b")
 
 
 class Family:
@@ -259,9 +270,9 @@ def warn_shard_local_routing(cfg: ModelConfig) -> None:
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
     """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's other parallel axes (pp, dp_shard) come with
-    the slices that implement them, so a plan cannot ask for a placement the
-    port would quietly ignore."""
+    defaults). The reference's other axis, ZeRO-3's dp_shard, comes with the
+    slice that implements it, so a plan cannot ask for a placement the port
+    would quietly ignore."""
     tp: int = 1                    # tensor-parallel degree: the grid's model axis
     tp_impl: str = "auto"          # "auto" | "overlap": the rings of
                                    # train/tensor_parallel.py; "gspmd" raises
@@ -272,7 +283,12 @@ class ParallelPlan:
     ep: int = 1                    # expert-parallel degree: the routed experts over
                                    # the folded cp x model ranks (module docstring)
     ep_impl: str = "auto"          # "auto" | "blocking" | "overlap" (module docstring)
-    microbatches: int = 1          # grad-accumulation microbatches
+    pp: int = 1                    # pipeline stages over the grid's pod axis
+    pp_layout: Optional[Tuple[int, ...]] = None
+                                   # layers per stage (uneven, Malleus-style; each
+                                   # >= 1, summing to n_layers); None: the even split
+    pp_schedule: str = "1f1b"      # "gpipe" | "1f1b" (module docstring)
+    microbatches: int = 1          # grad-accumulation / pipeline microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
                                    # or Mamba2 layer (train/executor.py)
     pad_vocab_to_multiple: int = 0 # padded logits are masked to -1e9
@@ -296,6 +312,12 @@ class ParallelPlan:
                                    # checksum of the new params and clipped grads,
                                    # cross-checked over the data ranks
                                    # (ft/integrity.py; module docstring)
+
+    def __post_init__(self):
+        if self.pp_layout is not None:
+            # a tuple of ints, so the frozen plan stays hashable and a layout
+            # read back from JSON ([3, 1]) compares equal
+            object.__setattr__(self, "pp_layout", tuple(int(x) for x in self.pp_layout))
 
     def validate(self, cfg: ModelConfig) -> None:
         if self.integrity not in INTEGRITY_MODES:
@@ -364,6 +386,32 @@ class ParallelPlan:
         if self.pad_vocab_to_multiple < 0:
             raise ValueError(f"pad_vocab_to_multiple must be >= 0, "
                              f"got {self.pad_vocab_to_multiple}")
+        self._validate_pp(cfg)
+
+    def _validate_pp(self, cfg: ModelConfig) -> None:
+        """The reference's pipeline checks, and ``microbatches >= pp`` (its
+        ``pipelined_loss_fn`` asserts it)."""
+        if self.pp_schedule not in PP_SCHEDULES:
+            raise ValueError(f"pp_schedule must be one of {PP_SCHEDULES}, "
+                             f"got {self.pp_schedule!r}")
+        if not isinstance(self.pp, int) or self.pp < 1:
+            raise ValueError(f"pp must be an int >= 1, got {self.pp!r}")
+        if self.pp_layout is not None:
+            if self.pp <= 1:
+                raise ValueError(f"pp_layout requires pp > 1, got pp={self.pp}")
+            if len(self.pp_layout) != self.pp:
+                raise ValueError(f"pp_layout length {len(self.pp_layout)} != pp={self.pp}")
+            if any(x < 1 for x in self.pp_layout):
+                raise ValueError(f"pp_layout stages need >= 1 layer, got {self.pp_layout}")
+            if sum(self.pp_layout) != cfg.n_layers:
+                raise ValueError(f"pp_layout {self.pp_layout} sums to {sum(self.pp_layout)}, "
+                                 f"expected n_layers={cfg.n_layers}")
+        elif self.pp > 1 and cfg.n_layers % self.pp:
+            raise ValueError(f"n_layers={cfg.n_layers} must divide pp={self.pp} (or give an "
+                             "explicit pp_layout)")
+        if self.pp > 1 and self.microbatches < self.pp:
+            raise ValueError(f"pipelining needs microbatches >= pp, got microbatches="
+                             f"{self.microbatches} < pp={self.pp}")
 
 
 # ---------------------------------------------------------------------------

@@ -43,6 +43,19 @@ ep-only (the other leaves keep the overlap layout when tp is on).
 :func:`param_spec` is a leaf's layout under a plan, :func:`layout_part` cuts
 a whole leaf to a grid rank's part, :func:`shard_layout` a whole tree and
 :func:`gather_layout` puts the parts back together.
+
+Under pipeline parallelism (``plan.pp`` > 1, a grid with a pod axis) the
+layer leaves are split over the stages, the reference's ``P("pod")`` on the
+stacked layer dim: stage p holds layers ``[pp_offsets(layout)[p],
+pp_offsets(layout)[p] + layout[p])``, with ``layout`` the plan's
+``pp_layout`` or the even split. The port's params are per-layer lists, so an
+uneven stage simply holds ``layout[p]`` layers: no padded slots and no gather
+of the canonical stacks into them. The pod cut composes with the TP and EP
+cuts above (they never touch the layer dim); the embedding, the final norm
+and the head are whole on every stage. Within a stage every rank of its
+model, cp and expert rings runs the same layers, so the reference's masked
+uniform execution of padded slots has no counterpart here; what every rank of
+the grid must run on every tick is the pod shift (``train/pipeline.py``).
 """
 
 from __future__ import annotations
@@ -189,18 +202,36 @@ def ep_spec_for_param(path_names: Tuple[str, ...], shape: Tuple[int, ...], plan)
     return None
 
 
+def pp_offsets(layout) -> Tuple[int, ...]:
+    """The first layer of each stage of ``layout`` (layers per stage)."""
+    out, off = [], 0
+    for n in layout:
+        out.append(off)
+        off += int(n)
+    return tuple(out)
+
+
 def param_spec(name: str, shape: Tuple[int, ...], plan=None) -> Spec:
     """The layout of the leaf ``name`` (stacked ``shape``) on a grid under
     ``plan``: EP's (:func:`ep_spec_for_param`), else the overlap layout where
-    the plan runs tp, else whole. ``plan=None`` is the TP layout."""
+    the plan runs tp, else whole; under ``plan.pp`` > 1 a layer leaf's
+    stacked dim 0 is split over "pod" (module docstring). ``plan=None`` is
+    the TP layout."""
     path = tuple(name.split("/"))
-    if plan is not None:
-        spec = ep_spec_for_param(path, shape, plan)
-        if spec is not None:
-            return spec
-        if plan.tp <= 1:
-            return (None,) * len(shape)
-    return overlap_spec_for_param(path, shape)
+    if plan is None:
+        return overlap_spec_for_param(path, shape)
+    spec = ep_spec_for_param(path, shape, plan)
+    if spec is None:
+        spec = (overlap_spec_for_param(path, shape) if plan.tp > 1
+                else (None,) * len(shape))
+    if getattr(plan, "pp", 1) > 1 and "layers" in path:
+        spec = ("pod",) + tuple(spec[1:])
+    return spec
+
+
+def _layout_of(plan) -> Optional[Tuple[int, ...]]:
+    """``plan``'s uneven stage layout, None for the even split (or no pp)."""
+    return getattr(plan, "pp_layout", None) if plan is not None else None
 
 
 def spec_axes(spec: Spec) -> Tuple[str, ...]:
@@ -209,20 +240,32 @@ def spec_axes(spec: Spec) -> Tuple[str, ...]:
 
 
 def grid_place(mesh) -> Tuple[Dict[str, int], Dict[str, int]]:
-    """A grid rank's index on the model and cp axes, and their sizes."""
-    cp = mesh.cp
-    return ({"model": mesh.model.rank, "cp": cp.rank if cp is not None else 0},
-            {"model": mesh.model.size, "cp": cp.size if cp is not None else 1})
+    """A grid rank's index on the model, cp and pod axes, and their sizes."""
+    cp, pod = mesh.cp, getattr(mesh, "pod", None)
+    return ({"model": mesh.model.rank, "cp": cp.rank if cp is not None else 0,
+             "pod": pod.rank if pod is not None else 0},
+            {"model": mesh.model.size, "cp": cp.size if cp is not None else 1,
+             "pod": pod.size if pod is not None else 1})
 
 
-def _box(spec: Spec, shape, place, sizes) -> List[Tuple[int, int]]:
+def _box(spec: Spec, shape, place, sizes, layout=None) -> List[Tuple[int, int]]:
     """[start, stop) per dim of the part of a whole leaf of ``shape`` that the
     rank at ``place`` holds under ``spec`` (a folded entry indexes its axes
-    row-major)."""
+    row-major; "pod" takes the stage's layers of ``layout``, the even split
+    when None)."""
     box = []
     for d, entry in enumerate(spec):
         if entry is None:
             box.append((0, shape[d]))
+            continue
+        if entry == "pod":
+            n = sizes.get("pod", 1)
+            lay = layout or _even_layout(shape[d], n)
+            if sum(lay) != shape[d] or len(lay) != n:
+                raise ValueError(f"layout {tuple(lay)} does not split {shape[d]} layers over "
+                                 f"{n} stages")
+            lo = pp_offsets(lay)[place.get("pod", 0)]
+            box.append((lo, lo + lay[place.get("pod", 0)]))
             continue
         idx, n = 0, 1
         for a in (entry if isinstance(entry, tuple) else (entry,)):
@@ -234,27 +277,46 @@ def _box(spec: Spec, shape, place, sizes) -> List[Tuple[int, int]]:
     return box
 
 
+def _even_layout(n_layers: int, pp: int) -> Tuple[int, ...]:
+    if n_layers % pp:
+        raise ValueError(f"{n_layers} layers do not split evenly over {pp} stages")
+    return (n_layers // pp,) * pp
+
+
 def whole_shape(name: str, local_shape, plan, sizes) -> Tuple[int, ...]:
     """The whole leaf's stacked shape from a rank's part of it under ``plan``
-    on a grid of ``sizes``."""
+    on a grid of ``sizes`` (a stage's layers: the plan's ``pp_layout`` sums
+    them, the even split has ``pod`` times as many)."""
     spec = param_spec(name, tuple(local_shape), plan)
-    return tuple(s * math.prod(sizes[a] for a in spec_axes((e,))) for s, e
-                 in zip(local_shape, spec))
+    layout = _layout_of(plan)
+    return tuple(sum(layout) if e == "pod" and layout else
+                 s * math.prod(sizes.get(a, 1) for a in spec_axes((e,)))
+                 for s, e in zip(local_shape, spec))
+
+
+def whole_box(name: str, whole, plan, place, sizes) -> List[Tuple[int, int]]:
+    """The box (per stacked dim [start, stop)) of the whole leaf ``name`` of
+    stacked shape ``whole`` that the rank at ``place`` holds under ``plan``."""
+    return _box(param_spec(name, tuple(whole), plan), tuple(whole), place, sizes,
+                _layout_of(plan))
 
 
 def layout_box(name: str, local_shape, plan, place, sizes) -> List[List[int]]:
     """The box (per stacked dim [start, stop]) of the whole leaf ``name`` that
     a rank's part of stacked ``local_shape`` is, at ``place`` (``grid_place``)."""
-    spec = param_spec(name, tuple(local_shape), plan)
-    return [list(b) for b in _box(spec, whole_shape(name, local_shape, plan, sizes),
-                                  place, sizes)]
+    return [list(b) for b in whole_box(name, whole_shape(name, local_shape, plan, sizes),
+                                       plan, place, sizes)]
 
 
-def _cut(value, spec: Spec, place, sizes):
-    """``value`` cut to the box :func:`_box` gives: a view, or ``value``."""
-    for d, (lo, hi) in enumerate(_box(spec, tuple(value.shape), place, sizes)):
-        if hi - lo != value.shape[d]:
-            value = value[(slice(None),) * d + (slice(lo, hi),)]
+def _cut(value, spec: Spec, place, sizes, layout=None):
+    """``value`` cut to the box :func:`_box` gives: a view (a slice of a layer
+    list), or ``value``."""
+    shape = (len(value),) + tuple(value[0].shape) if isinstance(value, list) \
+        else tuple(value.shape)
+    for d, (lo, hi) in enumerate(_box(spec, shape, place, sizes, layout)):
+        if hi - lo != shape[d]:
+            value = value[lo:hi] if isinstance(value, list) else \
+                value[(slice(None),) * d + (slice(lo, hi),)]
     return value
 
 
@@ -262,29 +324,35 @@ def layout_part(name: str, value, plan, place, sizes):
     """The grid rank at ``place`` 's part of the whole leaf ``name``
     (``value``, a tensor or array in stacked coordinates) under ``plan``: a
     view, or ``value`` itself for a leaf it holds whole."""
-    return _cut(value, param_spec(name, tuple(value.shape), plan), place, sizes)
+    return _cut(value, param_spec(name, tuple(value.shape), plan), place, sizes,
+                _layout_of(plan))
 
 
 def shard_layout(params: Any, plan, place, sizes) -> Any:
     """The grid rank at ``place`` 's parts of a whole per-layer param tree
     under ``plan`` (new contiguous tensors, each a leaf of its own; a layer
-    list cut layer by layer)."""
+    list cut to the stage's layers, then layer by layer)."""
     out = {}
+    layout = _layout_of(plan)
     for name, leaf in named_leaves(params):
         spec = param_spec(name, stacked_shape(leaf), plan)
         if isinstance(leaf, list):
-            out[name] = [_cut(p.detach(), spec[1:], place, sizes).clone() for p in leaf]
+            stage = _cut(leaf, spec[:1], place, sizes, layout)
+            out[name] = [_cut(p.detach(), spec[1:], place, sizes).clone() for p in stage]
         else:
             out[name] = _cut(leaf.detach(), spec, place, sizes).clone()
-    return _unflatten_like(params, out)
+    n_layers = {len(v) for v in out.values() if isinstance(v, list)}
+    return _unflatten_like(_layers_like(params, max(n_layers, default=0)), out)
 
 
 def gather_layout(shards: List[Any], plan, sizes) -> Any:
-    """The whole tree from every rank's parts under ``plan``: ``shards[c *
-    model + m]`` the tree of the rank at cp index c and model index m (the
-    fold's row-major order); the inverse of :func:`shard_layout`, bit for bit.
-    Leaves held whole come from ``shards[0]``."""
+    """The whole tree from every rank's parts under ``plan``: ``shards[(p *
+    cp + c) * model + m]`` the tree of the rank at pod index p, cp index c
+    and model index m (the fold's row-major order, stage by stage); the
+    inverse of :func:`shard_layout`, bit for bit. Leaves held whole come from
+    ``shards[0]``."""
     named = [dict(named_leaves(s)) for s in shards]
+    layout = _layout_of(plan)
     out = {}
     for name, leaf in named[0].items():
         parts = [torch.stack([p.detach() for p in nm[name]]) if isinstance(leaf, list)
@@ -293,11 +361,23 @@ def gather_layout(shards: List[Any], plan, sizes) -> Any:
         shape = whole_shape(name, parts[0].shape, plan, sizes)
         whole = parts[0].clone() if not spec_axes(spec) else parts[0].new_empty(shape)
         for i, part in enumerate(parts if spec_axes(spec) else []):
-            c, m = divmod(i, sizes["model"])
-            box = _box(spec, shape, {"model": m, "cp": c}, sizes)
+            p, rest = divmod(i, sizes.get("cp", 1) * sizes["model"])
+            c, m = divmod(rest, sizes["model"])
+            box = _box(spec, shape, {"model": m, "cp": c, "pod": p}, sizes, layout)
             whole[tuple(slice(lo, hi) for lo, hi in box)] = part
         out[name] = [x.clone() for x in whole.unbind(0)] if isinstance(leaf, list) else whole
-    return _unflatten_like(shards[0], out)
+    n_layers = {len(v) for v in out.values() if isinstance(v, list)}
+    return _unflatten_like(_layers_like(shards[0], max(n_layers, default=0)), out)
+
+
+def _layers_like(tree: Any, n: int) -> Any:
+    """``tree``'s structure with each layer list ``n`` layers long (a stage's
+    tree standing for the whole one)."""
+    if isinstance(tree, dict):
+        return {k: _layers_like(v, n) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree[0]] * n
+    return tree
 
 
 def data_size(mesh) -> int:

@@ -18,7 +18,7 @@ chaos testing.
   data ranks (``plan.integrity = "audit"``);
 - :mod:`repro_torch.ft.straggler` — fail-slow attribution from host-side
   timing, and the uneven pipeline re-partition (:func:`choose_pp_layout`)
-  that waits for a pipeline (ROADMAP A13.5).
+  that ``run_with_recovery``'s ``"rebalance"`` applies.
 
 ``anomaly``, ``flight`` and ``preempt`` use only the standard library.
 """

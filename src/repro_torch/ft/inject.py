@@ -18,13 +18,13 @@ fault point          where it fires
 ``kernel.attention`` / ``kernel.expert_gemm`` / ``kernel.ssd``
                      the dispatchers' outputs (``kernels/dispatch.py``)
 ``integrity.checksum``  the integrity checksum input (``ft/integrity.py``)
-``pp.stage.tick``    per-stage pipeline tick timing (``slow`` only)
+``pp.stage.tick``    per-stage pipeline tick timing (``slow`` only; the
+                     straggler timer's per-stage shares under ``plan.pp``)
 ``data.fetch``       the driver's batch fetch (``slow`` only)
 ===================  ========================================================
 
 All thirteen names are the reference's, so a :class:`FaultSpec` validates the
-same in both packages; ``pp.stage.tick`` has no seam until pipeline
-parallelism lands.
+same in both packages.
 
 **Eager semantics.** The reference bakes a corruption into a traced function:
 :func:`taint` fires while the *trace* runs inside an armed block, and the

@@ -18,10 +18,9 @@ Where the port differs from the reference, and why:
 - A remesh tells the checkpoint manager to leave the old mesh
   (``CheckpointManager.leave_mesh``) before it restores: the old group has
   lost ranks, so no collective may run on it after the hook.
-- The port's plan has no pipeline yet, so ``"rebalance"`` always degrades, as
-  the reference's does on a plan without one (``straggler.effective_layout``
-  is None): the driver has no ``rebalance`` hook, and its report no
-  ``rebalances``, until the pipeline comes (ROADMAP A13.5).
+- A rebalance keeps the mesh (the same process group), so, unlike a
+  remesh, it leaves no mesh behind: the restore onto the new ``pp_layout``
+  runs on the same grid through ``restore_resharded``.
 
 Each anomaly kind from :class:`repro_torch.ft.anomaly.Monitor` maps through a
 :class:`repro_torch.core.RecoveryPolicy` table to an action:
@@ -47,11 +46,16 @@ Each anomaly kind from :class:`repro_torch.ft.anomaly.Monitor` maps through a
   the latest checkpoint onto it — params and ZeRO-1 optimizer moments are
   reassembled from the old mesh's shard slices and re-scattered over the
   new data axis — then continues on the shrunken cluster.
-- **rebalance** — the fail-slow mitigation (survey §8.1, Malleus-style): in
-  the reference a confirmed ``straggler`` attribution on a pipeline stage
-  relayouts the pipeline's layers. Without a pipeline it degrades to
-  ``remesh`` when that hook is wired, else to ``ignore``, and so it always
-  does here (above).
+- **rebalance** — the fail-slow mitigation (survey §8.1, Malleus-style): a
+  confirmed ``straggler`` attribution on a pipeline stage relayouts the
+  pipeline's layers: :func:`repro_torch.ft.straggler.choose_pp_layout` on the
+  timer's ``stage_times()`` picks the new ``pp_layout``, the ``rebalance``
+  hook returns the step and state template for it, and the driver
+  reshard-restores the latest checkpoint onto it. A stage already
+  rebalanced that is attributed again escalates instead of looping (its
+  per-layer cost will not change). Without a pipeline, a hook or a stage
+  attribution it degrades to ``remesh`` when that hook is wired, else to
+  ``ignore``.
 - **ignore** — log and continue (the hang watchdog's default, so slow-step
   jitter never rolls back a healthy run unless asked to).
 
@@ -108,13 +112,14 @@ from __future__ import annotations
 import dataclasses
 import time
 from contextlib import nullcontext
-from typing import Any, Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
 from repro_torch.checkpoint.store import CheckpointManager, CorruptCheckpointError
 from repro_torch.core.config import RecoveryPolicy
 from . import inject as _inject
 from .anomaly import Anomaly, Monitor
 from .preempt import choose_tier, clear_marker, read_marker, write_marker
+from .straggler import choose_pp_layout, effective_layout
 
 
 class RecoveryExhausted(RuntimeError):
@@ -153,6 +158,9 @@ class RunReport:
     restores: int
     losses: List[float]
     remeshes: int = 0
+    # pp_layout relayouts applied by the straggler ladder (each is also a
+    # restore — the reshard rides the checkpoint machinery)
+    rebalances: int = 0
     # (step, anomaly kind, action taken) — the policy audit trail
     actions: List[Tuple[int, str, str]] = dataclasses.field(default_factory=list)
     # corrupt checkpoints skipped by fallback restores
@@ -184,6 +192,7 @@ def run_with_recovery(
     rescue_step: Optional[Callable[[Any, Dict], Tuple[Any, Dict]]] = None,
     remesh: Optional[Callable[[], RemeshSpec]] = None,
     straggler=None,
+    rebalance: Optional[Callable[[Tuple[int, ...]], RemeshSpec]] = None,
     resume: bool = False,
     fault_step_fn: Optional[Callable[[int], Optional[Callable]]] = None,
     mem_ckpt=None,
@@ -211,9 +220,13 @@ def run_with_recovery(
     step, and calls ``straggler.after_step`` every step — which also
     executes any armed ``slow`` fault's real delay, so injected fail-slow
     costs wall clock. A confirmed attribution is noted as a ``straggler``
-    anomaly and routed through ``policy.straggler``; ``"rebalance"``
-    degrades to ``"remesh"`` when that hook exists, else to ``"ignore"``
-    (module docstring). ``resume=True`` picks up
+    anomaly and routed through ``policy.straggler``. ``rebalance(layout)``
+    is the mitigation hook: given the :func:`choose_pp_layout` target it
+    returns a :class:`RemeshSpec` for the same mesh with ``plan.pp_layout =
+    layout`` (its ``state_template`` laid out for it); the driver
+    reshard-restores onto it exactly like a remesh. Without the hook (or for
+    non-stage attributions) ``"rebalance"`` degrades to ``"remesh"`` when
+    that hook exists, else to ``"ignore"``. ``resume=True`` picks up
     from the latest checkpoint already in ``ckpt`` (resharding onto
     ``state``'s layout if it was written on a different one) instead of
     saving a fresh step-0 checkpoint; a ``PREEMPTED`` marker left by a
@@ -265,8 +278,12 @@ def run_with_recovery(
     actions: List[Tuple[int, str, str]] = []
     restores = 0
     remeshes = 0
+    rebalances = 0
     fallbacks = 0
     mem_restores = 0
+    # stages already relayouted by the straggler ladder: a re-attribution of
+    # the same rank (its per-layer cost is unchanged) escalates, not loops
+    rebalanced_ranks: Set[int] = set()
     spike_counts: Dict[int, int] = {}
     rescue_mode: Dict[int, str] = {}   # step -> "rescue" | "skip", sticky
     step = 0
@@ -351,7 +368,7 @@ def run_with_recovery(
     def _report(**over) -> RunReport:
         base = dict(steps_done=step, anomalies=monitor.anomalies,
                     restores=restores, losses=losses, remeshes=remeshes,
-                    actions=actions,
+                    rebalances=rebalances, actions=actions,
                     ckpt_fallbacks=fallbacks, mem_restores=mem_restores)
         base.update(over)
         return RunReport(**base)
@@ -461,9 +478,22 @@ def run_with_recovery(
                               else policy.repeated_spike)
                 else:
                     action = getattr(policy, anomaly.kind)
+                new_layout = None
                 if action == "rebalance":
-                    # no pipeline to relayout (module docstring)
-                    action = "remesh" if remesh is not None else "ignore"
+                    # applicable only to a pipeline-stage attribution with a
+                    # hook, a known layout, and a rank not already relayouted
+                    # (its per-layer cost won't change — escalate instead)
+                    lay = effective_layout(plan, getattr(straggler, "cfg", None))
+                    ok = (rebalance is not None and ev is not None
+                          and ev.section == "pp.stage" and lay is not None
+                          and ev.rank is not None
+                          and ev.rank not in rebalanced_ranks)
+                    if ok:
+                        new_layout = choose_pp_layout(straggler.stage_times(), lay)
+                        if new_layout == tuple(lay):
+                            action = "ignore"   # measurement says: balanced
+                    else:
+                        action = "remesh" if remesh is not None else "ignore"
                 if action == "remesh" and (anomaly.kind not in
                                            ("hang", "straggler")
                                            or remesh is None):
@@ -506,6 +536,35 @@ def run_with_recovery(
                     if straggler is not None:
                         straggler.plan = plan
                         straggler.reset()  # old-mesh baselines are stale
+                    del losses[step:]
+                    continue
+                if action == "rebalance":
+                    if restores >= policy.max_restores:
+                        raise RecoveryExhausted(restores, anomaly)
+                    spec = rebalance(new_layout)
+                    if mem_ckpt is not None:
+                        # RAM snapshots record the old pp_layout; the hot
+                        # tier cannot reshard, so don't keep failing on them
+                        mem_ckpt.clear()
+                    # the saved manifests record the old pp_layout, so
+                    # check_plan routes this restore "reshard": the relayout
+                    # is an elastic reshard, not a refusal
+                    step, state = _restore(spec.state_template, spec.plan, spec.mesh)
+                    train_step = spec.train_step
+                    if spec.plan is not None:
+                        plan = spec.plan
+                    if spec.mesh is not None:
+                        mesh = spec.mesh
+                    if spec.rescue_step is not None:
+                        rescue_step = spec.rescue_step
+                    restores += 1
+                    rebalances += 1
+                    rebalanced_ranks.add(ev.rank)
+                    straggler.plan = plan
+                    straggler.reset()      # new regime: re-learn baselines
+                    if flight is not None:
+                        flight.record("rebalance", step, rank=ev.rank,
+                                      layout=list(new_layout))
                     del losses[step:]
                     continue
                 # "ignore": fall through and accept the step

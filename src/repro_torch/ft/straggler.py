@@ -15,14 +15,15 @@ rebalancing.
 - :func:`choose_pp_layout` — the mitigation: layers per pipeline stage
   re-partitioned from measured per-stage times.
 
-The port's ``ParallelPlan`` has ``tp`` and ``cp`` but no ``pp`` yet (ROADMAP
-A13.5): a plan with ``tp`` or ``cp`` > 1 fans each step out into per-rank
-shares of the ``tp.ring`` or ``cp.ring`` section, as the reference does;
-:func:`effective_layout` returns None on it, so ``run_with_recovery``'s
-``"rebalance"`` degrades to ``"remesh"`` (with a hook) or ``"ignore"``,
-exactly as the reference's does on a plan without a pipeline. A plan-like
-object that carries ``pp`` is read as the reference reads it, which is how the
-tests hold that path to the reference.
+The timer reads the port's own plan as the reference reads its: under
+``plan.pp`` > 1 each step fans out into per-stage shares of the ``pp.stage``
+section, weighted by ``plan.pp_layout`` (:func:`effective_layout`), where an
+armed ``slow`` fault on the ``pp.stage.tick`` seam sleeps for its stage;
+``tp`` or ``cp`` > 1 fans it out into per-rank shares of the ``tp.ring`` or
+``cp.ring`` section. ``run_with_recovery``'s ``"rebalance"`` takes
+:func:`choose_pp_layout` on :meth:`StragglerTimer.stage_times`; without a
+pipeline it degrades to ``"remesh"`` (with a hook) or ``"ignore"``, as the
+reference's does.
 
 Measurement model (the reference's): host-measurable sections (data fetch,
 checkpoint persist, the step itself) are timed for real; per-stage and

@@ -1,5 +1,5 @@
-"""The data-parallel mesh and the (data, model) grid on ``torch.distributed``
-(the port of the reference's ``data`` and ``model`` mesh axes,
+"""The data-parallel mesh and the (pod, data, cp, model) grid on
+``torch.distributed`` (the port of the reference's mesh axes,
 ``repro/launch/mesh.py``).
 
 :class:`DataMesh` is what the port passes as ``mesh=`` wherever the reference
@@ -51,6 +51,18 @@ is the model ring when the grid has no cp axis (the ep-only placement and
 ep = tp), the cp ring when its model axis is 1, and a group of its own
 otherwise. Its :meth:`ModelRing.all_to_all` and the hops of t steps
 (:meth:`ModelRing.shift`) carry the expert tokens there and back.
+
+With ``pod`` > 1 (``init_grid_mesh(pod=)``) the grid is the reference's
+("pod", "data", "cp", "model") mesh of pipeline parallelism: global rank
+``((p * data + d) * cp + c) * model + m``. Stage p's ranks are those of pod
+index p; each holds a (data, cp, model) sub-grid of its own, whose data, cp,
+model and expert groups are the ones above, one set per pod index, so
+``resolve_context`` reads tp, cp, ep and data from it unchanged.
+``GridMesh.pod`` is a :class:`ModelRing` with ``axis="pod"`` over the ranks
+of one (data, cp, model) index, in stage order: it moves the activations
+one stage on a tick (:meth:`ModelRing.shift` with ``wrap=False``: the last
+stage sends nothing on, the first receives zeros) and sums the leaves every
+stage holds (embedding, final norm, head).
 """
 
 from __future__ import annotations
@@ -201,7 +213,10 @@ def batch_axes_for(mesh, global_batch: int) -> Tuple[str, ...]:
     grid: the batch shards over ``data`` when its rows divide by the axis, else
     it is replicated (every rank computes all of it). The ``model`` axis never
     carries batch (the reference's ``dp_over_model`` remap is not ported): its
-    ranks hold the same rows and split the model."""
+    ranks hold the same rows and split the model. Nor does ``pod``: it carries
+    pipeline stages, as in the reference under ``pp`` > 1, and the port runs
+    no pods as data replicas (``pp`` 1 on a pod axis is refused by
+    ``train.executor.resolve_context``)."""
     n = int(mesh.shape.get("data", 1))
     return ("data",) if "data" in mesh.shape and global_batch % n == 0 else ()
 
@@ -220,6 +235,11 @@ def model_size(mesh) -> int:
 def cp_size(mesh) -> int:
     """The size of ``mesh``'s cp axis (1 without one)."""
     return int(mesh.shape.get("cp", 1)) if mesh is not None else 1
+
+
+def pod_size(mesh) -> int:
+    """The size of ``mesh``'s pod axis, its pipeline stages (1 without one)."""
+    return int(mesh.shape.get("pod", 1)) if mesh is not None else 1
 
 
 def rank_microbatches(batch: Dict[str, torch.Tensor], mesh: DataMesh,
@@ -286,26 +306,37 @@ class ModelRing:
         if self.timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def shift(self, t: torch.Tensor, step: int = 1, kind: str = "tick") -> torch.Tensor:
+    def shift(self, t: torch.Tensor, step: int = 1, kind: str = "tick",
+              wrap: bool = True) -> torch.Tensor:
         """``t`` sent ``step`` hops along the ring (negative: backwards)
         while the tensor of the rank ``step`` hops back is received: a new
         tensor of ``t``'s shape, dtype and device, its time under
         ``seconds[kind]``. One ``batch_isend_irecv`` pair (a NCCL ring
-        deadlocks on separate isends and irecvs)."""
+        deadlocks on separate isends and irecvs). With ``wrap=False`` the
+        ring is a chain: a rank whose destination would wrap round sends
+        nothing, and one whose source would receives zeros."""
         if self.group is None:
-            return t.clone()
-        dst = self.ranks[(self.rank + step) % self.size]
-        src = self.ranks[(self.rank - step) % self.size]
+            return t.clone() if wrap else torch.zeros_like(t)
+        dst_i, src_i = self.rank + step, self.rank - step
+        send_ok = wrap or 0 <= dst_i < self.size
+        recv_ok = wrap or 0 <= src_i < self.size
         self._sync()
         t0 = time.perf_counter()
         send = t.detach().contiguous()
         if self.transport == "host":
             send = send.cpu()
-        recv = torch.empty_like(send)
-        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, send, dst, self.group),
-                                         dist.P2POp(dist.irecv, recv, src, self.group)]):
+        recv = torch.empty_like(send) if recv_ok else None
+        ops = []
+        if send_ok:
+            ops.append(dist.P2POp(dist.isend, send, self.ranks[dst_i % self.size], self.group))
+        if recv_ok:
+            ops.append(dist.P2POp(dist.irecv, recv, self.ranks[src_i % self.size], self.group))
+        for w in dist.batch_isend_irecv(ops) if ops else ():
             w.wait()
-        out = recv.to(t.device) if self.transport == "host" else recv
+        if recv is None:
+            out = torch.zeros_like(t)
+        else:
+            out = recv.to(t.device) if self.transport == "host" else recv
         self._sync()
         self.seconds[kind] += time.perf_counter() - t0
         return out
@@ -360,40 +391,49 @@ class ModelRing:
 
 
 class GridMesh:
-    """The (data, cp, model) grid of one rank: ``data`` (a :class:`DataMesh`
+    """The (pod, data, cp, model) grid of one rank: ``data`` (a :class:`DataMesh`
     over this rank's data group), ``model`` (a :class:`ModelRing` over its
     model group), ``cp`` (a :class:`ModelRing` over its cp group, ``None``
     without a cp axis), ``ep`` (the expert ring over its data index's cp ×
-    model ranks, module docstring), ``shape`` ``{"data": D, "cp": C, "model": M}`` (the
-    reference mesh's contract, which the layout rules and the checkpoint
-    manifest read; "cp" only when C > 1), the global ``rank`` and ``size``,
-    ``host_group``, a gloo group of every rank for host-side traffic, and
-    ``save_group``, the gloo group of the ranks at cp index 0 (all of them
-    without a cp axis), which hold every distinct shard of the state."""
+    model ranks, module docstring), ``pod`` (the pipeline's stage ring,
+    ``None`` without a pod axis), ``shape`` ``{"pod": P, "data": D, "cp": C,
+    "model": M}`` (the reference mesh's contract, which the layout rules and
+    the checkpoint manifest read; "pod" only when P > 1 and "cp" only when
+    C > 1), the global ``rank`` and ``size``, ``host_group``, a gloo group of
+    every rank for host-side traffic, and ``save_group``, the gloo group of
+    the ranks at cp index 0 (all of them without a cp axis), which hold every
+    distinct shard of the state."""
 
     def __init__(self, data: DataMesh, model: ModelRing, device, *, host_group=None,
                  cp: Optional[ModelRing] = None, save_group=None,
-                 ep: Optional[ModelRing] = None):
-        self.data, self.model, self.cp = data, model, cp
+                 ep: Optional[ModelRing] = None, pod: Optional[ModelRing] = None):
+        self.data, self.model, self.cp, self.pod = data, model, cp, pod
         self.ep = ep if ep is not None else (cp if cp is not None and model.size == 1
                                              else model)
         self.device = torch.device(device)
         self.host_group = host_group
         self.save_group = save_group if save_group is not None else host_group
-        self.size = data.size * model.size * (cp.size if cp is not None else 1)
+        self.size = (data.size * model.size * (cp.size if cp is not None else 1)
+                     * (pod.size if pod is not None else 1))
         self.rank = dist.get_rank() if dist.is_initialized() else 0
 
     @property
     def shape(self) -> Dict[str, int]:
-        if self.cp is None:
-            return {"data": self.data.size, "model": self.model.size}
-        return {"data": self.data.size, "cp": self.cp.size, "model": self.model.size}
+        out = {"pod": self.pod.size} if self.pod is not None else {}
+        out["data"] = self.data.size
+        if self.cp is not None:
+            out["cp"] = self.cp.size
+        out["model"] = self.model.size
+        return out
 
     def __repr__(self) -> str:
+        pod = f"pod={self.pod.size}, " if self.pod is not None else ""
         cp = f"cp={self.cp.size}, " if self.cp is not None else ""
-        ring = self.cp if self.cp is not None and self.model.group is None else self.model
-        return (f"GridMesh(data={self.data.size}, {cp}model={self.model.size}, rank={self.rank}, "
-                f"backend={ring.backend}, transport={ring.transport}, device={self.device})")
+        ring = next((r for r in (self.model, self.cp, self.pod)
+                     if r is not None and r.group is not None), self.model)
+        return (f"GridMesh({pod}data={self.data.size}, {cp}model={self.model.size}, "
+                f"rank={self.rank}, backend={ring.backend}, transport={ring.transport}, "
+                f"device={self.device})")
 
     def barrier_error(self, failed: bool) -> bool:
         """Whether any rank of ``host_group`` passed ``failed``: a barrier that
@@ -410,20 +450,21 @@ class GridMesh:
             dist.destroy_process_group()
         self.host_group = self.save_group = self.data.group = self.data.host_group = None
         self.model.group = self.ep.group = None
-        if self.cp is not None:
-            self.cp.group = None
+        for ring in (self.cp, self.pod):
+            if ring is not None:
+                ring.group = None
 
 
 def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.device]] = None,
-                   *, cp: int = 1, backend: Optional[str] = None, init_method: str = "env://",
-                   rank: Optional[int] = None) -> GridMesh:
-    """Join the process group of ``data * cp * model`` ranks and return this
-    rank's :class:`GridMesh`. ``device`` and ``backend`` as in
+                   *, cp: int = 1, pod: int = 1, backend: Optional[str] = None,
+                   init_method: str = "env://", rank: Optional[int] = None) -> GridMesh:
+    """Join the process group of ``pod * data * cp * model`` ranks and return
+    this rank's :class:`GridMesh`. ``device`` and ``backend`` as in
     :func:`init_data_mesh` (gloo on CUDA: the host transport, the only way to
     put two ranks on one card). Every rank creates every data, cp and model
-    group, in the same order, as ``dist.new_group`` requires, and last the
-    expert rings where both cp and model are 2 or more; an axis of size 1 gets
-    no group."""
+    group (one set per pod index), in the same order, as ``dist.new_group``
+    requires, then the expert rings where both cp and model are 2 or more,
+    and last the pod rings; an axis of size 1 gets no group."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -432,51 +473,65 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
         raise ValueError("NCCL moves CUDA tensors; a CPU mesh takes gloo")
     if device.type == "cuda":
         torch.cuda.set_device(device)
-    world = data * cp * model
+    world = pod * data * cp * model
     kwargs = {} if rank is None else {"rank": rank, "world_size": world}
     dist.init_process_group(backend, init_method=init_method, **kwargs)
     if dist.get_world_size() != world:
-        raise ValueError(f"a ({data}, {cp}, {model}) grid needs {world} ranks, the group has "
-                         f"{dist.get_world_size()}")
+        raise ValueError(f"a ({pod}, {data}, {cp}, {model}) grid needs {world} ranks, the "
+                         f"group has {dist.get_world_size()}")
     me = dist.get_rank()
 
-    def at(d, c, m):
-        return (d * cp + c) * model + m
-    d_idx, rest = divmod(me, cp * model)
+    def at(p, d, c, m):
+        return ((p * data + d) * cp + c) * model + m
+    p_idx, rest = divmod(me, data * cp * model)
+    d_idx, rest = divmod(rest, cp * model)
     c_idx, m_idx = divmod(rest, model)
     host_group = dist.new_group(backend="gloo")
-    save_group = (dist.new_group([at(d, 0, m) for d in range(data) for m in range(model)],
-                                 backend="gloo") if cp > 1 else None)
+    save_group = (dist.new_group([at(p, d, 0, m) for p in range(pod) for d in range(data)
+                                  for m in range(model)], backend="gloo") if cp > 1 else None)
     data_mesh_ = DataMesh(device=device)
-    for c in range(cp):                         # one data group per (cp, model) index
-        for m in range(model):
-            ranks = [at(d, c, m) for d in range(data)]
-            if data > 1:
-                g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
-                if (c, m) == (c_idx, m_idx):
-                    data_mesh_ = DataMesh(g, device, host_group=hg)
-    cp_ring = None
-    for d in range(data):                       # one cp ring per (data, model) index
-        for m in range(model):
-            ranks = [at(d, c, m) for c in range(cp)]
-            if cp > 1:
-                g = dist.new_group(ranks)
-                if (d, m) == (d_idx, m_idx):
-                    cp_ring = ModelRing(g, ranks, device, axis="cp")
-    ring = ModelRing(device=device)
-    for d in range(data):                       # one model ring per (data, cp) index
+    for p in range(pod):                        # one data group per (pod, cp, model) index
         for c in range(cp):
-            ranks = [at(d, c, m) for m in range(model)]
-            if model > 1:
-                g = dist.new_group(ranks)
-                if (d, c) == (d_idx, c_idx):
-                    ring = ModelRing(g, ranks, device)
+            for m in range(model):
+                ranks = [at(p, d, c, m) for d in range(data)]
+                if data > 1:
+                    g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
+                    if (p, c, m) == (p_idx, c_idx, m_idx):
+                        data_mesh_ = DataMesh(g, device, host_group=hg)
+    cp_ring = None
+    for p in range(pod):                        # one cp ring per (pod, data, model) index
+        for d in range(data):
+            for m in range(model):
+                ranks = [at(p, d, c, m) for c in range(cp)]
+                if cp > 1:
+                    g = dist.new_group(ranks)
+                    if (p, d, m) == (p_idx, d_idx, m_idx):
+                        cp_ring = ModelRing(g, ranks, device, axis="cp")
+    ring = ModelRing(device=device)
+    for p in range(pod):                        # one model ring per (pod, data, cp) index
+        for d in range(data):
+            for c in range(cp):
+                ranks = [at(p, d, c, m) for m in range(model)]
+                if model > 1:
+                    g = dist.new_group(ranks)
+                    if (p, d, c) == (p_idx, d_idx, c_idx):
+                        ring = ModelRing(g, ranks, device)
     fold = None
-    for d in range(data):                       # one expert ring per data index
-        ranks = [at(d, c, m) for c in range(cp) for m in range(model)]
-        if cp > 1 and model > 1:
-            g = dist.new_group(ranks)
-            if d == d_idx:
-                fold = ModelRing(g, ranks, device, axis=("cp", "model"))
+    for p in range(pod):                        # one expert ring per (pod, data) index
+        for d in range(data):
+            ranks = [at(p, d, c, m) for c in range(cp) for m in range(model)]
+            if cp > 1 and model > 1:
+                g = dist.new_group(ranks)
+                if (p, d) == (p_idx, d_idx):
+                    fold = ModelRing(g, ranks, device, axis=("cp", "model"))
+    pod_ring = None
+    for d in range(data):                       # one pod ring per (data, cp, model) index
+        for c in range(cp):
+            for m in range(model):
+                ranks = [at(p, d, c, m) for p in range(pod)]
+                if pod > 1:
+                    g = dist.new_group(ranks)
+                    if (d, c, m) == (d_idx, c_idx, m_idx):
+                        pod_ring = ModelRing(g, ranks, device, axis="pod")
     return GridMesh(data_mesh_, ring, device, host_group=host_group, cp=cp_ring,
-                    save_group=save_group, ep=fold)
+                    save_group=save_group, ep=fold, pod=pod_ring)

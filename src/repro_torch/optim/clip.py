@@ -22,9 +22,11 @@ def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None, splits
     of the slices are summed over the ranks, and a leaf kept whole, which every
     rank holds the same, is counted once. ``splits`` is a list of (ring,
     names) for leaves that are also split over a model-parallel ring (TP
-    shards over the model ring, expert blocks over the expert ring): their
-    squares are summed over that ring first, and a leaf every rank of the
-    grid holds whole is counted once."""
+    shards over the model ring, expert blocks over the expert ring, a
+    stage's layers over the pod ring; a tuple of rings for a leaf split over
+    several, each summed in turn): their squares are summed over that ring
+    first, and a leaf every rank of the grid holds whole (the embedding and
+    head every stage holds, without tp) is counted once."""
     if splits:
         named = named_leaves(grads)
         group = {n: i for i, (_, names) in enumerate(splits) for n in names}
@@ -34,8 +36,11 @@ def clip_by_global_norm(grads, max_norm: float, *, mesh=None, specs=None, splits
             sq[group.get(n, len(splits))][0 if specs[n].dim is not None else 1] += \
                 x.float().square().sum()
         tot = sq[-1]
-        for i, (ring, _) in enumerate(splits):
-            tot = ring.all_reduce_sum(sq[i]) + tot
+        for i, (rings, _) in enumerate(splits):
+            part = sq[i]
+            for ring in (rings if isinstance(rings, tuple) else (rings,)):
+                part = ring.all_reduce_sum(part)
+            tot = part + tot
         norm = torch.sqrt(mesh.all_reduce_sum(tot[:1].clone())[0] + tot[1])
     elif mesh is None:
         norm = global_norm(grads)

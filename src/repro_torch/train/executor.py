@@ -84,7 +84,8 @@ from repro_torch.ft.inject import remat_context, taint
 from repro_torch.kernels.dispatch import (dispatch_attention, dispatch_attention_chunk_bwd,
                                           dispatch_attention_lse, dispatch_ep_a2a,
                                           dispatch_ssd_scan, select_cp_impl, select_ep_impl)
-from repro_torch.launch.mesh import DataMesh, ModelRing, cp_size, data_mesh, model_size
+from repro_torch.launch.mesh import (DataMesh, ModelRing, cp_size, data_mesh, model_size,
+                                     pod_size)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import NEG_INF, mlp_block, qkv_proj, rms_norm, rope
@@ -211,6 +212,17 @@ def check_cp_support(cfg: ModelConfig, cp: int):
         raise ValueError(f"cp={cp} unsupported here: " + "; ".join(bad))
 
 
+def check_pp_support(cfg: ModelConfig, pp: int):
+    """Static preconditions of pipeline parallelism: the decoder-only
+    families the reference's ``pipelined_loss_fn`` supports (dense and VLM
+    backbones, and MoE); raises ValueError for the SSM, hybrid and
+    encoder-decoder families."""
+    if cfg.is_enc_dec or cfg.family not in (Family.DENSE, Family.VLM, Family.MOE):
+        raise ValueError(f"pp={pp} supports the decoder-only dense, VLM and MoE families "
+                         f"(the reference's pipeline), got {cfg.family!r}"
+                         f"{' (encoder-decoder)' if cfg.is_enc_dec else ''}")
+
+
 def resolve_context(cfg: ModelConfig, plan: ParallelPlan, mesh) -> ParallelContext:
     """The placement of ``plan`` on ``mesh`` (the reference's
     ``resolve_context``): ``plan.tp`` must be the size of the mesh's model
@@ -225,8 +237,13 @@ def resolve_context(cfg: ModelConfig, plan: ParallelPlan, mesh) -> ParallelConte
     for that ep ring, rather than run the whole model on every model rank.
     The MoE family under a data axis alone routes each rank's rows, its aux
     summed over the data group. ``plan.tp_impl`` "gspmd" is refused by
-    ``plan.validate``."""
+    ``plan.validate``. On a grid with a pod axis, ``plan.pp`` must be its
+    size; the stage's (data, cp, model) sub-grid then gives the placement
+    above unchanged (``train/pipeline.py`` runs it)."""
     shape = dict(mesh.shape) if mesh is not None else None
+    if pod_size(mesh) != plan.pp:
+        raise ValueError(f"plan.pp={plan.pp} needs a 'pod' mesh axis of that size (the port "
+                         f"runs no pods as data replicas), the mesh has {shape}")
     tp = model_size(mesh)
     data = data_mesh(mesh) if mesh is not None and mesh.shape.get("data", 1) > 1 else None
     if plan.ep > 1 and plan.tp == 1 and plan.cp == 1:

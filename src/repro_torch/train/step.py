@@ -127,14 +127,15 @@ def init_train_state(model: Model, gen: torch.Generator, mesh=None,
                      plan: Optional[ParallelPlan] = None) -> TrainState:
     """Fresh params from ``gen`` (as autograd leaves) and zero fp32 moments;
     with a data ``mesh`` the moments are born on ``plan``'s ZeRO-1 layout
-    (this rank's slices). On a grid whose plan runs tensor or expert
-    parallelism the params are this rank's TP shards and expert blocks of the
-    whole draw, and the ZeRO-1 layout is over its data group. Every rank must
+    (this rank's slices). On a grid whose plan runs tensor, expert or
+    pipeline parallelism the params are this rank's TP shards, expert blocks
+    and stage's layers of the whole draw, and the ZeRO-1 layout is over its
+    data group. Every rank must
     draw the same params: pass generators seeded alike."""
     plan = plan or model.plan
     params = model.init(gen)
     ctx = resolve_context(model.cfg, plan, mesh)
-    if ctx.tp is not None or ctx.ep is not None:
+    if ctx.tp is not None or ctx.ep is not None or plan.pp > 1:
         params = shard_layout(params, plan, *grid_place(mesh))
     for p in leaves(params):
         p.requires_grad_(True)
@@ -194,16 +195,26 @@ GRAD_BUCKET = 1 << 26
 @torch.no_grad()
 def _sum_grads(params: Any, ring, names=None) -> None:
     """The grads of the leaves named in ``names`` (every leaf when None),
-    each rank's share, summed over ``ring`` in place: all-reduces of flat
-    buffers, one dtype at a time, of at most ``GRAD_BUCKET`` elements (a
-    larger grad goes alone). A leaf without a grad counts as zeros."""
-    by_dtype: Dict[torch.dtype, list] = {}
+    each rank's share, summed over ``ring`` in place (:func:`sum_tensors`).
+    A leaf without a grad counts as zeros."""
+    grads = []
     for name, leaf in named_leaves(params):
         if names is None or name in names:
             for p in (leaf if isinstance(leaf, list) else [leaf]):
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-                by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
+                grads.append(p.grad)
+    sum_tensors(grads, ring)
+
+
+@torch.no_grad()
+def sum_tensors(tensors, ring) -> None:
+    """``tensors`` summed over ``ring`` (a ``ModelRing`` or a ``DataMesh``) in
+    place: all-reduces of flat buffers, one dtype at a time, of at most
+    ``GRAD_BUCKET`` elements (a larger tensor goes alone)."""
+    by_dtype: Dict[torch.dtype, list] = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
     for grads in by_dtype.values():
         bucket, size = [], 0
         for g in grads + [None]:
@@ -240,8 +251,14 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
     """The step for ``model`` under ``plan`` (``microbatches``, ``zero_stage``,
     ``tp``, ``cp``, ``ep``; ``remat`` is the model's). ``batch`` holds the global batch's
     tensors on the model's device; with a data ``mesh`` or a grid, the same
-    on every rank."""
+    on every rank. ``plan.pp`` > 1 is refused: a pipelined step is composed
+    around ``train.pipeline.pipelined_loss_fn``, as the reference's callers
+    compose theirs (its step builds no pipeline)."""
     plan.validate(model.cfg)
+    if plan.pp > 1:
+        raise ValueError(f"make_train_step runs no pipeline (plan.pp={plan.pp}): build the "
+                         "loss with repro_torch.train.pipeline.pipelined_loss_fn and compose "
+                         "the step around it")
     ctx = resolve_context(model.cfg, plan, mesh)
     dmesh = data_mesh(mesh)
     loss_fn = (make_loss_fn(model, hyper) if ctx.is_local

@@ -145,9 +145,10 @@ def test_plan_has_no_knob_the_port_does_not_implement(knob):
     later slices are not fields, ``zero_stage`` (the data-parallel slice)
     takes only the stages the port implements, 0 and 1, ``tp`` (the
     tensor-parallel slice) runs only the rings: ``tp_impl="gspmd"`` raises,
-    ``cp`` (the context-parallel slice) takes its three modes, and ``ep``
+    ``cp`` (the context-parallel slice) takes its three modes, ``ep``
     (the expert-parallel slice) takes an integer degree on the MoE family
-    and its three exchange modes."""
+    and its three exchange modes, and ``pp`` (the pipeline slice) its two
+    schedules."""
     if knob == "ep":
         cfg = get_smoke_config("olmoe-1b-7b")
         for impl in ("auto", "blocking", "overlap"):
@@ -183,6 +184,15 @@ def test_plan_has_no_knob_the_port_does_not_implement(knob):
             ParallelPlan(zero_stage=stage).validate(cfg)
         with pytest.raises(ValueError, match=knob):
             ParallelPlan(zero_stage=2).validate(cfg)
+        return
+    if knob == "pp":
+        cfg = get_smoke_config("qwen2.5-14b")
+        for sched in ("gpipe", "1f1b"):
+            ParallelPlan(pp=2, microbatches=2, pp_schedule=sched).validate(cfg)
+        with pytest.raises(ValueError, match=knob):
+            ParallelPlan(pp=0).validate(cfg)
+        with pytest.raises(ValueError, match="pp_schedule"):
+            ParallelPlan(pp=2, microbatches=2, pp_schedule="interleaved").validate(cfg)
         return
     with pytest.raises(TypeError, match=knob):
         ParallelPlan(**{knob: 2})
