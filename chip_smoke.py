@@ -93,7 +93,7 @@ prints its seconds):
    8 x 4096 tokens with 8 x 1500 frames in 2 microbatches): B1/B2/B3 held to
    their plain versions on every call of one microbatch, one warm-up and three
    timed steps with the launches counted (B1 144, B2 72, B3 72), a profile;
-12. whisper-small checkpoint — its full-width training state (6 + 6 layers,
+12. whisper-small checkpoint — its full-width training state (2 + 2 layers,
    WHISPER_CUT_LAYERS) saved with
    async_snapshot after 2 steps, steps 3-4 while the copy drains, restored into
    a fresh state (bit for bit), steps 3-4 resumed (losses to 1e-6 relative),
@@ -103,7 +103,7 @@ prints its seconds):
 13. whisper-small fault tolerance — each dispatcher's fault seam (B1 at the
    encoder's shape, B4 and B5 at smoke shapes): unarmed, the undecorated call's
    bits; armed with nan, one NaN at the index the CPU computes. Then full width
-   on 6 of its 12 + 12 layers each (WHISPER_CUT_LAYERS) under
+   on 2 of its 12 + 12 layers each (WHISPER_CUT_LAYERS) under
    ``run_with_recovery`` (the training plan, the batch cut to 4 x 4096 tokens
    with 4 x 1500 frames): a clean run of 11 steps; the chaos
    schedule (a spike x8 at step 5, kernel.attention NaN'd at 6 and 9, the
@@ -114,13 +114,13 @@ prints its seconds):
    that ends equal to the clean run bit for bit; B1/B2/B3 counted on every step of these runs (Hopper bodies); the
    audit's cost;
 14. whisper-small data parallel — ZeRO-1 on torch.distributed at full width
-   on 6 + 6 layers (WHISPER_CUT_LAYERS; fp32 masters, bf16 compute, remat
+   on 2 + 2 layers (WHISPER_CUT_LAYERS; fp32 masters, bf16 compute, remat
    "full", ``Hyper()``): two rank
    processes (spawn) on the one card over gloo, the host transport (NCCL
    refuses two ranks on one device), the global batch of 8 x 4096 tokens with
    8 x 1500 frames, each rank 2 microbatches of its 2 rows of each; on each
-   rank, one microbatch of its own 2 rows first, with B1 (36 calls, forward
-   and recompute) and B2/B3 (18) held to their plain versions on every call
+   rank, one microbatch of its own 2 rows first, with B1 (12 calls, forward
+   and recompute) and B2/B3 (6) held to their plain versions on every call
    and dq to fp64 at the DP path's shapes (batch 2); then 4 steps
    against one device's step with 4 microbatches on the same batches and
    weights (``DP_TOLERANCE``: the first step's loss and grad norm to 1e-6
@@ -128,7 +128,7 @@ prints its seconds):
    against ``adamw_update`` on the same whole grads to 1e-6; the later steps
    and the params after 4 steps readings, beside the same readings between
    one device's runs at 2 and 4 microbatches; the first 2 steps watched, the
-   last 2 timed), B1/B2/B3 72/36/36 per rank per step on the
+   last 2 timed), B1/B2/B3 24/12/12 per rank per step on the
    Hopper bodies, step, reduce-scatter and all-gather ms, peak memory and the
    moment bytes each rank holds; a ZeRO-1 checkpoint saved at dp 2 (stall,
    gather, persist), restored at dp 2 ("replay") and onto one process
@@ -137,16 +137,26 @@ prints its seconds):
    (0.0 on each rank, equal checksums), and the steps again under
    ``run_with_recovery`` with rank 1's checksum bit-flipped at step 2: an sdc
    rollback on both ranks from their RAM tiers, ending equal to the clean steps
-   bit for bit; then one NCCL rank at world size 1
+   bit for bit; then ZeRO-3 (``dp_shard`` 2: the params themselves split
+   over the two ranks, each layer gathered inside its remat boundary and its
+   grads reduce-scattered in the backward) on the same ranks, model and
+   batches: ZERO3_STEPS steps, each held by DP_TOLERANCE against the same
+   one-device run and timed (step, all-gather and reduce-scatter ms less the
+   check's own collectives, the param bytes a rank holds, peak memory beside
+   the ZeRO-1 run's), its params after those steps set beside ZeRO-1's and
+   one device's at 2 microbatches after as many; then one NCCL rank at world size 1
    through the same step code against one device's step with 2 microbatches;
 15. tensor parallelism — the overlap rings (A13.2) on a (1, 2) grid: two rank
    processes (spawn) on the one card over gloo (each ring tick through host
-   memory; no TP scaling or overlap is measured), 1 x 4096 tokens, bf16
-   compute, remat "full": qwen1.5-4b at full width on 4 of its 40 layers, 3
-   steps (B1/B2/B3 8/4/4 a rank a step at (1, 10, 4096, 128)),
-   deepseek-moe-16b at full width on 2 of 28 layers, one step (B4 18 rows + 6
-   contract a rank at d_expert 704), mamba2-370m at full width on 12 of its 48
-   layers, one step (B5/B6 24/12 a rank at (1, 16, 4096, 64, 128)); on each rank's first
+   memory; no TP scaling or overlap is measured; at the same time as phase
+   14's ranks until ZeRO-3, ``dp_and_tp``, so both phases' step readings
+   then are kept apart as taken beside each other; ZeRO-3, the NCCL rank and
+   the TP kernel timing run alone), 1 x 4096
+   tokens, bf16 compute, remat "full": qwen1.5-4b at full width on 2 of its 40 layers, 3
+   steps (B1/B2/B3 4/2/2 a rank a step at (1, 10, 4096, 128)),
+   deepseek-moe-16b at full width on 1 of 28 layers, one step (B4 9 rows + 3
+   contract a rank at d_expert 704), mamba2-370m at full width on 6 of its 48
+   layers, one step (B5/B6 12/6 a rank at (1, 16, 4096, 64, 128)); on each rank's first
    microbatch every kernel call held to its plain version on the rank's own
    inputs (dq also to fp64); each family's losses against one device's on the
    same weights and batches (readings), then one fp32 step of qwen1.5-4b at 2
@@ -158,12 +168,12 @@ prints its seconds):
 16. context parallelism — the ring and gather modes (A13.3) on a (1, 2, 1)
    (data, cp, model) grid: two rank processes (spawn) on the one card over
    gloo (each hop through host memory; no CP scaling is measured), bf16
-   compute, remat "full": qwen1.5-4b at full width on 4 of its 40 layers over
+   compute, remat "full": qwen1.5-4b at full width on 2 of its 40 layers over
    1 x 16,384 tokens in the ring mode (each rank two zigzag sub-chunks of
-   4096; B1/B2/B3 40/20/20 a rank a step: 5 tiles a layer, 2 diagonal and 3
+   4096; B1/B2/B3 20/10/10 a rank a step: 5 tiles a layer, 2 diagonal and 3
    full, the other 3 masked and never launched), a warm-up and 1 step;
-   mamba2-370m at full width on 12 of its 48 layers over 1 x 65,536 (32,768 a
-   rank, the conv halo and the state chain; B5/B6 24/12 a rank a step at (1,
+   mamba2-370m at full width on 6 of its 48 layers over 1 x 65,536 (32,768 a
+   rank, the conv halo and the state chain; B5/B6 12/6 a rank a step at (1,
    32, 32768, 64, 128)), a warm-up and 2 steps; on each rank's first microbatch
    every kernel call held to its plain version on the rank's own inputs (B2/B3
    against the merged statistics, dq also to fp64); one device's loss on the
@@ -179,11 +189,11 @@ prints its seconds):
    ep-only placement (ep 2 on the model axis; attention a cp ring over it):
    two rank processes (spawn) on the one card over gloo (every exchange
    through host memory; no EP scaling or overlap is measured),
-   deepseek-moe-16b at full width on 4 of its 28 layers over 1 x 4096 tokens,
+   deepseek-moe-16b at full width on 2 of its 28 layers over 1 x 4096 tokens,
    bf16 compute, remat "full", each rank 32 of the 64 routed experts: the
-   overlap ring (a warm-up and 2 steps; B4 96 rows + 24 contract a rank a
+   overlap ring (a warm-up and 1 step; B4 48 rows + 12 contract a rank a
    step on a tick's (32, 240, 2048) chunk) and the blocking exchange (one
-   step; B4 36 + 12 on the (32, 480, 2048) buffer), B1/B2/B3 40/20/20 a rank
+   step; B4 18 + 6 on the (32, 480, 2048) buffer), B1/B2/B3 20/10/10 a rank
    a step on the 1024 x 1024 ring tiles; on each rank's first microbatch in
    each mode every kernel call held to its plain version on the rank's own
    inputs (B2/B3 against the merged statistics, dq also to fp64); then fp32
@@ -197,17 +207,36 @@ prints its seconds):
 18. pipeline parallelism — GPipe and 1F1B (A13.5) on a (pod 2) grid: two rank
    processes (spawn) on the one card over gloo (every pod hop and the pod sum
    through host memory; no PP scaling or stage overlap is measured),
-   qwen1.5-4b at full width on 8 of its 40 layers (4 a stage), 4
+   qwen1.5-4b at full width on 4 of its 40 layers (2 a stage), 4
    microbatches of 1 x 4096 tokens, bf16 compute, remat "full": a checked
    call at M = 2 (every B1-B3 call of both stages held to its plain version
-   on the rank's own inputs, dq also to fp64), 1F1B a warm-up and 2 steps
-   (B1/B2/B3 64/16/16 a step on stage 0, 48/16/16 on the last stage), GPipe
-   one step (32/16/16); each schedule's peak memory, step, pod hop and pod
+   on the rank's own inputs, dq also to fp64), 1F1B a warm-up and 1 step
+   (B1/B2/B3 32/8/8 a step on stage 0, 24/8/8 on the last stage), GPipe
+   one step (16/8/8); each schedule's peak memory, step, pod hop and pod
    sum ms; then fp32 steps at 2 layers, 4 x 1 x 1024: both schedules held to
    one device's and to an fp64 evaluation by GRID_TOLERANCE, GPipe to 1F1B
    (1e-6), and the control (each stage's outgoing activation rounded to bf16
    in the pod shift), which must fail the grads rule. No checkpoint;
-19. times   — each kernel's time at its path's shapes beside its bound, its plain
+19. grid serving — the sequence-sharded KV cache and prefill (A13.6) on a
+   (1, 2) (data, model) grid: two rank processes (spawn) on the one card over
+   gloo (every collective through host memory; no serving scaling is
+   measured), gemma2-9b at full width and depth (42 layers, hd 256,
+   softcaps, alternating 4,096-token windows, 9.24 B random bf16 weights
+   from a seed, whole on each rank): a prefill of 1 x 6,144 tokens (batch 1:
+   at batch 2 the two ranks' peaks summed to 77.3 GB), each
+   rank's 3,072 queries against the K/V gathered over the ring (B1 42 a rank
+   on the hd-256 body, ``flash_fwd_bf16``, at q_offset 0 or 3,072; on layers
+   GRID_CHECK_LAYERS held to its plain version), max_seq 8,192 (each rank
+   4,096 positions of the cache), 32 greedy decode steps through the sharded
+   decode attention, then 2 more with every layer's decode attention held to
+   the single-device one on the whole cache (2 bf16 ulps of each head's
+   row, the cache writes exact); an fp32 run on 2 layers (1 x 1,536,
+   max_seq 2,048, 16 steps) against one device on the same weights (logits
+   to 1e-5, the tokens equal), and its control (each rank's partial o rounded
+   to bf16 before the combine), which must fail; prefill, decode and combine
+   ms, peak memory a rank; B1 timed at the prefill's shapes (a local and a
+   global layer) beside its bound, its plain version and SDPA;
+20. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -221,7 +250,8 @@ prints its seconds):
 
 On every path, every B1, B4, B5 and B6 launch (prefill, fill_cross, decode,
 training, data-, tensor-, context-, expert- and pipeline-parallel training; the
-fp32 TP, CP, EP and PP steps' B1, B4, B5 and B6 excepted) must run the Hopper body
+fp32 TP, CP, EP and PP steps' B1, B4, B5 and B6 excepted, and the grid prefill's
+B1 at hd 256, which must run the first version's body) must run the Hopper body
 (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
@@ -390,8 +420,8 @@ GEMM_TOLERANCE = ("fp32 5e-5 of the tensor's max |value|, bf16 2 ulps of |plain|
 WHISPER_ARCH = "whisper-small"
 # the checkpoint, fault-tolerance and data-parallel phases keep whisper-small's full width on
 # WHISPER_CUT_LAYERS of its 12 encoder and 12 decoder layers each (the script's
-# time limit: the expert-parallel phase took their time)
-WHISPER_CUT_LAYERS = 6
+# time limit: 6 until the expert-parallel phase, 4 until the grid serving phase)
+WHISPER_CUT_LAYERS = 2
 # serving: frames (4, 1500, 768) through fill_cross, a 4-token prompt through
 # decode_step, then DECODE_STEPS greedy steps; the decoder's context is 448
 # tokens (arXiv:2212.04356)
@@ -1251,13 +1281,15 @@ class FlashFwdCapture:
         from repro_torch.kernels import flash_attention as tf
         tf.flash_attention_lse = self.real
 
-    def summary(self, what, calls, body="sm90"):
+    def summary(self, what, calls, body="sm90", launches=None):
         """Check that ``calls`` calls were held, each through ``body`` ("sm90",
-        the Hopper body; "f32", the fp32 one), and log them; returns the worst
-        o error in bf16 ulps (None when no call was expected)."""
+        the Hopper body; "mma", the first version's; "f32", the fp32 one), of
+        ``launches`` through it (``calls`` unless given), and log them;
+        returns the worst o error in bf16 ulps (None when no call was
+        expected)."""
         attr = f"{body}_launches"
         through = getattr(self.wrapper, attr) - getattr(self.real, attr)
-        if len(self.errs) != calls or through != calls:
+        if len(self.errs) != calls or through != (calls if launches is None else launches):
             raise AssertionError(f"checked {len(self.errs)} attention forwards on the {what} "
                                  f"({through} through the {body} body), expected {calls}")
         if not calls:
@@ -1444,15 +1476,18 @@ def backward_times():
     return res
 
 
-def fwd_times_at(case, gen):
+def fwd_times_at(case, gen, bodies=("sm90", "mma"), masked_library=False):
     """B1 (CUDA events) at one bf16 shape, through the Hopper body and
-    through the first-version mma.sync body, beside its bound, the plain version
+    through the first-version mma.sync body (``bodies``: the first is the
+    path's, whose time is ``ms``), beside its bound, the plain version
     (flash_plain: in blocks of query rows where one call's fp32 scores would
-    pass PLAIN_SCORES) and SDPA. The bound counts
-    the attended pairs (two products, 4 hd FLOP a pair) and q, k, v read and o,
-    lse written once."""
+    pass PLAIN_SCORES) and SDPA (``masked_library``: under the case's causal
+    and window mask at its q_offset, as a boolean mask; SDPA has no softcap).
+    The bound counts the attended pairs (two products, 4 hd FLOP a pair) and
+    q, k, v read and o, lse written once."""
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as tf
+    from repro_torch.models.layers import attn_mask
     b, hq, hkv, s, t, hd, causal, window, cap, q_offset = case
     q = batch_major(gen, b, hq, s, hd, torch.bfloat16)
     k = batch_major(gen, b, hkv, t, hd, torch.bfloat16)
@@ -1461,21 +1496,27 @@ def fwd_times_at(case, gen):
     o = torch.empty_like(q)
     lse = torch.empty((b, hq, s), dtype=torch.float32, device="cuda")
     ms = {body: cuda_ms(lambda: tf._fwd_launch(body, q, k, v, o, lse, **kw), 20)
-          for body in ("sm90", "mma")}
+          for body in bodies}
     plain_ms = cuda_ms(lambda: flash_plain(q, k, v, **case_kw(case)), 3, warmup=1)
-    library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q, k, v, is_causal=causal, enable_gqa=hq != hkv), 20)
+    if masked_library:
+        mask = attn_mask(q_offset + torch.arange(s, device="cuda"),
+                         torch.arange(t, device="cuda"), causal=causal, window=window)
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=hq != hkv), 5)
+    else:
+        library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=hq != hkv), 20)
     flops = 4 * hd * attended_pairs(s, t, causal, window, q_offset) * b * hq
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel()
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_BYTES
-    res = {"shape": list(case[:6]), "ms": ms["sm90"], "mma_ms": ms["mma"],
-           "plain_ms": plain_ms, "library_ms": library_ms,
-           "bound_ms": max(t_ops, t_bytes) * 1e3,
+    res = {"shape": list(case[:6]), "ms": ms[bodies[0]], "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": max(t_ops, t_bytes) * 1e3,
            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
-    log(f"flash_fwd at {case}: Hopper body {ms['sm90']:.4f} ms, mma.sync body "
-        f"{ms['mma']:.4f} ms, bound {res['bound_ms']:.4f} ms ({flops:.3e} FLOP, "
-        f"{nbytes / 1e6:.1f} MB, {res['bound_by']}), plain "
-        f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
+    if "mma" in ms and bodies[0] != "mma":
+        res["mma_ms"] = ms["mma"]
+    log(f"flash_fwd at {case}: " + ", ".join(f"{b_} body {m:.4f} ms" for b_, m in ms.items())
+        + f", bound {res['bound_ms']:.4f} ms ({flops:.3e} FLOP, {nbytes / 1e6:.1f} MB, "
+        f"{res['bound_by']}), plain {plain_ms:.4f} ms, sdpa {library_ms:.4f} ms")
     return res
 
 
@@ -3205,11 +3246,15 @@ class ZeroWatch:
     ``adamw_update`` on the same whole grads beside each watched ZeRO-1
     update, and ``shadow_err[i]`` is their largest difference over the leaves,
     in units of each leaf's max |value|: the ZeRO-1 update checked apart from
-    the sum order of the grads."""
+    the sum order of the grads. Under ZeRO-3 the shadow holds the whole
+    params and each rank's parts are held to their cut of it (``part_of``).
+    ``own_seconds`` keeps, per watched call, the seconds of the watch's own
+    collectives by kind (a step's reading less them is the step's own)."""
 
     def __init__(self, steps=1, shadow=False):
         self.steps, self.shadow = steps, shadow
         self.grads, self.shadow_err, self.calls = None, [], 0
+        self.own_seconds = []             # per watched call: the watch's own collectives
         self._params = self._opt = None
 
     def __enter__(self):
@@ -3234,12 +3279,15 @@ class ZeroWatch:
         self.calls += 1
         return self._real[0](grads, opt, params, lr, **kw)
 
-    def _sharded(self, grads, opt, params, lr, *, mesh, specs, **kw):
+    def _sharded(self, grads, opt, params, lr, *, mesh, specs, sharded_params=False, **kw):
         from repro_torch.checkpoint import store
         from repro_torch.core.tree import leaves, map_tree, named_leaves
         from repro_torch.optim import adamw_init
+        from repro_torch.train.fsdp import gather_fsdp
         if self.calls >= self.steps:
-            return self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs, **kw)
+            return self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs,
+                                 sharded_params=sharded_params, **kw)
+        before = dict(mesh.seconds)
         whole = {}
         for name, g in named_leaves(grads):
             d = specs[name].dim
@@ -3248,18 +3296,35 @@ class ZeroWatch:
         self._keep(list(whole.items()))
         if self.shadow:
             if self._params is None:
-                self._params = map_tree(lambda p: p.detach().clone(), params)
+                # under ZeRO-3 the shadow holds the whole params the parts gather to
+                self._params = map_tree(lambda p: p.detach().clone(), gather_fsdp(
+                    params, mesh) if sharded_params else params)
                 self._opt = adamw_init(self._params)
             g = store._refill(map_tree(torch.empty_like, self._params), whole.__getitem__)
             self._params, self._opt = self._real[0](g, self._opt, self._params, lr, **kw)
             del g
         del whole
-        out = self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs, **kw)
+        self.own_seconds.append({k: mesh.seconds[k] - before[k] for k in before})
+        out = self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs,
+                            sharded_params=sharded_params, **kw)
         if self.shadow:
-            self.shadow_err.append(max(rel_err(p, s) for p, s in
-                                       zip(leaves(params), leaves(self._params))))
+            self.shadow_err.append(max(rel_err(p, part_of(s, p, mesh.rank)) for p, s in
+                                       zip(leaves(params), leaves(self._params))
+                                       if p.numel()))
         self.calls += 1
         return out
+
+
+def part_of(whole, t, rank):
+    """``whole`` cut to what the tensor ``t`` holds of it: its ZeRO-3 part
+    (``core.sharding.FsdpPart``: a slice, or the layer itself on its owner),
+    or all of it."""
+    from repro_torch.core.sharding import fsdp_part
+    part = fsdp_part(t)
+    if part is None or part.dim is None:
+        return whole
+    k = t.shape[part.dim]
+    return whole.narrow(part.dim, rank * k, k)
 
 
 def dp_agreement(dp, one):
@@ -3294,7 +3359,7 @@ def dp_failures(agree, shadow_err):
 
 
 def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
-              around=None, hyper=None, keep_params=True):
+              around=None, hyper=None, keep_params=True, params_at=None):
     """``len(batches)`` steps from fresh params of ``seed`` (``prepare(params)``
     first, if given) on ``mesh`` or on one device, under ``watch`` (a
     ZeroWatch), each step inside ``around(i)`` (a context manager), if given.
@@ -3302,10 +3367,9 @@ def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
     ``grad_norm`` (and, under ``plan.integrity == "audit"``, ``integrity_div``
     and ``integrity_checksum``), the first step's ``grads`` (from the watch)
     and the final ``params`` by name on the host (None without
-    ``keep_params``)."""
+    ``keep_params``); with ``params_at`` (a step count) also ``params_at``,
+    the whole params after that many steps."""
     import contextlib
-    from repro_torch.checkpoint import store
-    from repro_torch.core.tree import named_leaves
     from repro_torch.train import Hyper, init_train_state, make_train_step
     gen = torch.Generator(device=model.device).manual_seed(seed)
     state = init_train_state(model, gen, mesh, plan)
@@ -3323,10 +3387,22 @@ def zero1_run(model, plan, batches, mesh=None, seed=0, watch=None, prepare=None,
                     out.setdefault("integrity_div", []).append(float(m["integrity_div"]))
                     out.setdefault("integrity_checksum", []).append(
                         int(m["integrity_checksum"]))
+            if params_at == i + 1:
+                out["params_at"] = host_params(state.params, plan, mesh)
     out["grads"] = watch.grads if watch is not None else None
-    out["params"] = ({n: store._host(x)[0] for n, x in named_leaves(state.params)}
-                     if keep_params else None)
+    out["params"] = host_params(state.params, plan, mesh) if keep_params else None
     return state, step, out
+
+
+def host_params(params, plan, mesh):
+    """The whole params by name on the host (ZeRO-3's parts gathered first)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.core.tree import named_leaves
+    if mesh is not None and plan.dp_shard > 1:
+        from repro_torch.launch import data_mesh
+        from repro_torch.train.fsdp import gather_fsdp
+        params = gather_fsdp(params, data_mesh(mesh))
+    return {n: store._host(x)[0] for n, x in named_leaves(params)}
 
 
 def dp_setup(microbatches):
@@ -3348,10 +3424,10 @@ def dp_setup(microbatches):
     return cfg, plan, build_model(cfg, plan), batches
 
 
-def dp_step_counter(cfg, mesh, what, rec):
+def dp_step_counter(cfg, mesh, what, rec, timed_from=DP_WATCHED):
     """A context-manager factory for ``zero1_run``'s ``around``: each step's
     wall time (synchronised), its collectives' seconds (from the mesh, which
-    waits for the device around each one from step DP_WATCHED on) and its
+    waits for the device around each one from step ``timed_from`` on) and its
     B1/B2/B3 launches, which must be the counts stated before the run and all
     on the Hopper bodies."""
     import contextlib
@@ -3361,7 +3437,7 @@ def dp_step_counter(cfg, mesh, what, rec):
     @contextlib.contextmanager
     def around(i):
         reset_counts()
-        mesh.timed = i >= DP_WATCHED          # the watched steps are not timed
+        mesh.timed = i >= timed_from          # the watched steps are not timed
         before = dict(mesh.seconds)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -3464,7 +3540,7 @@ def dp_sdc_run(model, plan, batches, mesh, clean, clean_opt, out_dir):
     return out
 
 
-def dp_rank(rank, init_method, out_dir):
+def dp_rank(rank, init_method, out_dir, gate=None):
     """One of the DP_RANKS processes of the DP phase, on cuda:0 over gloo:
     whisper-small at full width (``whisper_cut``) under ZeRO-1, one microbatch of the
     rank's rows with B1-B3 held to their plain versions
@@ -3476,7 +3552,8 @@ def dp_rank(rank, init_method, out_dir):
     one process (routed "reshard"; refused without ``elastic``). Rank 0 then runs one device's
     step on the same batches with DP_RANKS x DP_MICRO microbatches, and once
     more with DP_MICRO (the sum-order reading). Results go to
-    ``out_dir/dp_rank{rank}.json``."""
+    ``out_dir/dp_rank{rank}.json``. ZeRO-3 starts once the file ``gate``
+    exists, if given (``dp_and_tp``)."""
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import resolve_device
     from repro_torch.core.sharding import bytes_per_device, local_index, opt_state_specs
@@ -3497,7 +3574,7 @@ def dp_rank(rank, init_method, out_dir):
                                   f"{WHISPER_ARCH} dp rank {rank}", real)
     torch.cuda.reset_peak_memory_stats()
     state, step, dp = zero1_run(model, plan, batches[:DP_STEPS], mesh, watch=watch,
-                                prepare=check, around=counter)
+                                prepare=check, around=counter, params_at=ZERO3_STEPS)
     peak = torch.cuda.max_memory_allocated()
     ospecs = opt_state_specs(state.params, mesh, plan)
     clean_opt = host_named(state.opt)
@@ -3576,19 +3653,82 @@ def dp_rank(rank, init_method, out_dir):
         single, m = make_train_step(model, plan1)(single, batches[DP_STEPS])
         out["resumed_dp1_rel"] = abs(float(m["loss"]) - loss_next) / abs(loss_next)
     del single
+    free()
+    if gate is not None:
+        out["waited_for_tp_s"] = wait_for(gate, f"dp rank {rank}")
+    out["zero3"], z3 = zero3_run(cfg, plan, batches, mesh, out["peak_bytes"])
     mesh.close()
     free()
 
     if rank == 0:
-        _, _, ref = zero1_run(model, plan1, batches[:DP_STEPS], watch=ZeroWatch())
+        _, _, ref = zero1_run(model, plan1, batches[:DP_STEPS], watch=ZeroWatch(),
+                              params_at=ZERO3_STEPS)
         out["agree"] = dp_agreement(dp, ref)
+        # ZeRO-3 ran ZERO3_STEPS steps: its params against one device's after as many
+        ref_at = {**ref, "params": ref["params_at"]}
+        out["zero3"]["agree"] = dp_agreement(z3, ref_at)
+        del z3
         free()
         _, _, ref2 = zero1_run(model, dataclasses.replace(plan, microbatches=DP_MICRO),
-                               batches[:DP_STEPS], watch=ZeroWatch())
+                               batches[:DP_STEPS], watch=ZeroWatch(), params_at=ZERO3_STEPS)
         out["one_device_mb2_vs_mb4"] = dp_agreement(ref2, ref)
+        out["params_rel_at_zero3_steps"] = {
+            "steps": ZERO3_STEPS, "zero3": out["zero3"]["agree"]["params_rel"],
+            "zero1": dp_agreement({**dp, "params": dp["params_at"]}, ref_at)["params_rel"],
+            "one_device_mb2_vs_mb4": dp_agreement({**ref2, "params": ref2["params_at"]},
+                                                  ref_at)["params_rel"]}
         out["one_device_loss"] = ref["loss"]
         out["one_device_grad_norm"] = ref["grad_norm"]
     (Path(out_dir) / f"dp_rank{rank}.json").write_text(json.dumps(out))
+
+
+ZERO3_STEPS = 2                   # every one watched (DP_TOLERANCE) and timed
+
+
+def zero3_run(cfg, plan, batches, mesh, zero1_peak):
+    """ZeRO-3 (``dp_shard`` 2) on the DP phase's ranks, model and batches:
+    ZERO3_STEPS steps from seed 0, each watched (the update held to
+    adamw_update on the same whole grads, ZeroWatch) and timed with the
+    collectives waited for; the B1-B3 launches of each step as ZeRO-1's
+    (dp_step_counter). Readings: step, all-gather and reduce-scatter ms less
+    the watch's own collectives, the param bytes a rank holds against
+    ZeRO-1's whole params, the peak memory against the ZeRO-1 run's. Returns
+    (readings, zero1_run's results)."""
+    from repro_torch.core.sharding import bytes_per_device, train_state_specs
+    from repro_torch.core.tree import leaves
+    from repro_torch.models import build_model
+    plan3 = dataclasses.replace(plan, dp_shard=DP_RANKS)
+    model = build_model(cfg, plan3, mesh=mesh)
+    rec = {"ms": [], "reduce_scatter_ms": [], "all_gather_ms": [], "all_reduce_ms": []}
+    counter = dp_step_counter(cfg, mesh, f"{WHISPER_ARCH} zero3 rank {mesh.rank}", rec,
+                              timed_from=0)
+    watch = ZeroWatch(steps=ZERO3_STEPS, shadow=True)
+    torch.cuda.reset_peak_memory_stats()
+    state, _, z3 = zero1_run(model, plan3, batches[:ZERO3_STEPS], mesh, watch=watch,
+                             around=counter)
+    mesh.timed = False
+    own = watch.own_seconds
+    for i, o in enumerate(own):           # the watch's own collectives out of the readings
+        rec["ms"][i] -= 1e3 * sum(o.values())
+        for k in ("reduce_scatter", "all_gather", "all_reduce"):
+            rec[f"{k}_ms"][i] -= 1e3 * o[k]
+    specs = train_state_specs(state, mesh, plan3)
+    pspecs = {k: s for k, s in specs.items() if k.startswith("params/")}
+    out = {**rec, "peak_bytes": torch.cuda.max_memory_allocated(), "zero1_peak_bytes": zero1_peak,
+           "param_bytes": sum(t.numel() * t.element_size() for t in leaves(state.params)),
+           "param_bytes_rule": bytes_per_device(pspecs, mesh),
+           "param_bytes_zero1": bytes_per_device(pspecs, None),
+           "loss": z3["loss"], "grad_norm": z3["grad_norm"], "shadow_err": watch.shadow_err,
+           "integrity_div": z3["integrity_div"], "bodies": rec.get("bodies")}
+    log(f"dp rank {mesh.rank} ZeRO-3: steps {[round(x, 1) for x in rec['ms']]} ms (all-gather "
+        f"{[round(x, 1) for x in rec['all_gather_ms']]}, reduce-scatter "
+        f"{[round(x, 1) for x in rec['reduce_scatter_ms']]}; the watch's own collectives "
+        f"taken out), params held {out['param_bytes'] / 1e9:.3f} GB (rule "
+        f"{out['param_bytes_rule'] / 1e9:.3f}, ZeRO-1 {out['param_bytes_zero1'] / 1e9:.3f}), "
+        f"peak {out['peak_bytes'] / 1e9:.2f} GB (ZeRO-1 {zero1_peak / 1e9:.2f}), losses "
+        f"{z3['loss']}, update against adamw_update {watch.shadow_err}")
+    del state, model
+    return out, z3
 
 
 def nccl_rank(init_method, out_dir):
@@ -3624,11 +3764,12 @@ def nccl_rank(init_method, out_dir):
     (Path(out_dir) / "nccl.json").write_text(json.dumps(out))
 
 
-def phase_whisper_dp():
+def phase_whisper_dp(gate=None):
     """The DP phase: DP_RANKS spawned ranks on the one card over gloo
-    (``dp_rank``), then one NCCL rank (``nccl_rank``), each a process of its
-    own (spawn, not fork: the parent holds a CUDA context); their results
-    checked here. Every process is joined or killed before this returns."""
+    (``dp_rank``; ZeRO-3 once the file ``gate`` exists, if given), then one
+    NCCL rank (``nccl_rank``), each a process of its own (spawn, not fork:
+    the parent holds a CUDA context); their results checked here. Every
+    process is joined or killed before this returns."""
     import multiprocessing
     import shutil
     import tempfile
@@ -3638,7 +3779,7 @@ def phase_whisper_dp():
     procs = []
     try:
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=dp_rank, args=(r, f"file://{tmp}/store", tmp))
+        procs = [ctx.Process(target=dp_rank, args=(r, f"file://{tmp}/store", tmp, gate))
                  for r in range(DP_RANKS)]
         for p in procs:
             p.start()
@@ -3669,6 +3810,60 @@ def phase_whisper_dp():
     return {"ranks": ranks, "nccl": nccl, "gloo_s": gloo_s, "nccl_s": nccl_s}
 
 
+DP_BESIDE_TP = ("ms", "reduce_scatter_ms", "all_gather_ms", "all_reduce_ms", "save",
+                "restore_dp2_s", "restore_dp1_s", "audit_ms", "sdc")
+TP_BESIDE_DP = ("ms", "tick_ms", "all_reduce_ms", "seconds")
+
+
+def dp_and_tp():
+    """The DP and TP phases at once (the script's 1,200 s: one after the
+    other they took 414.7 s of a 1,319.3 s run on an H100 machine with a
+    slow host). Their four
+    rank processes share the card and the host, so what is timed while both
+    run is neither phase's own: the ZeRO-1 steps, the checkpoint's and the
+    sdc run's seconds and the audit's ms (DP_BESIDE_TP), and the TP steps
+    (TP_BESIDE_DP). Those readings are kept apart as such, never as a step's
+    time. The DP ranks start ZeRO-3 only once the TP ranks have exited (the
+    file ``gate``), and the TP kernels are timed once the DP phase is over,
+    so ZeRO-3's, the NCCL rank's and the kernels' readings are each taken
+    alone."""
+    import shutil
+    import tempfile
+    import threading
+    (ROOT / "build").mkdir(exist_ok=True)
+    gate = Path(tempfile.mkdtemp(prefix="gate_", dir=ROOT / "build")) / "tp_ranks_done"
+    dp_done, out = threading.Event(), {}
+
+    def tp_thread():
+        try:
+            out["tp"] = timed("tensor parallel", phase_tp, gate, dp_done)
+        except BaseException as e:                    # re-raised in the main thread
+            out["error"] = e
+        finally:
+            gate.touch()
+    thread = threading.Thread(target=tp_thread)
+    thread.start()
+    try:
+        dp = timed(f"{WHISPER_ARCH} data parallel", phase_whisper_dp, str(gate))
+    finally:
+        dp_done.set()
+        thread.join()
+        shutil.rmtree(gate.parent, ignore_errors=True)
+    if "error" in out:
+        raise out["error"]
+    return dp, out["tp"]
+
+
+def wait_for(path, what, timeout=900):
+    """Wait until the file ``path`` exists; its seconds."""
+    t0 = time.perf_counter()
+    while not Path(path).exists():
+        if time.perf_counter() - t0 > timeout:
+            raise TimeoutError(f"{what}: no {path} after {timeout} s")
+        time.sleep(0.2)
+    return time.perf_counter() - t0
+
+
 def dp_report(ranks, nccl):
     """Log the DP phase's results and hold them to DP_TOLERANCE and the
     checkpoint's bit-for-bit restores; keep the ranks' launches by body for
@@ -3677,16 +3872,19 @@ def dp_report(ranks, nccl):
     for r in ranks:
         timed_ms = {k: r[k][DP_WATCHED:] for k in ("ms", "reduce_scatter_ms", "all_gather_ms",
                                                   "all_reduce_ms")}
-        log(f"dp rank {r['rank']} ({r['mesh']}): timed steps {timed_ms} (two ranks share one "
-            f"card and their collectives go through host memory: no measure of DP scaling); "
+        log(f"dp rank {r['rank']} ({r['mesh']}): timed steps beside the TP ranks (not the "
+            f"steps' own time) {timed_ms} (two ranks share one card and their collectives go "
+            f"through host memory: no measure of DP scaling); "
             f"peak {r['peak_bytes'] / 1e9:.2f} GB; moments held {r['moment_bytes'] / 1e9:.3f} "
             f"GB (the rule's {r['moment_bytes_rule'] / 1e9:.3f} of "
             f"{r['moment_bytes_whole'] / 1e9:.3f}); launches B1/B2/B3 {r['launches']} a step; "
             f"on its own rows B1 {r['real_fwd_ulps']:.2f}, B2 (dq) {r['real_bwd_ulps'][1]:.2f}, "
             f"B3 (dk/dv) {r['real_bwd_ulps'][0]:.2f} bf16 ulps from their plain versions; "
-            f"save stall {r['save']['stall_s']:.2f} s (host copy {r['save']['d2h_s']:.2f}, "
+            f"beside the TP ranks: save stall {r['save']['stall_s']:.2f} s (host copy "
+            f"{r['save']['d2h_s']:.2f}, "
             f"gather {r['save']['gather_s']:.2f}); restore at dp 2 {r['restore_dp2_s']:.2f} s, "
-            f"at dp 1 {r['restore_dp1_s']:.2f} s")
+            f"at dp 1 {r['restore_dp1_s']:.2f} s; ZeRO-3 waited "
+            f"{r.get('waited_for_tp_s', 0.0):.1f} s for the TP ranks to exit")
     agree = r0["agree"]
     log(f"dp {DP_RANKS} x {DP_MICRO} microbatches against one device x "
         f"{DP_RANKS * DP_MICRO}: losses {r0['loss']} / {r0['one_device_loss']}, grad norms "
@@ -3701,8 +3899,8 @@ def dp_report(ranks, nccl):
         f"{r0['resumed_dp1_rel']:.3e}")
     for r in ranks:
         log(f"dp rank {r['rank']}: integrity audit {r['integrity_div']} (checksums "
-            f"{r['integrity_checksum']}), the audit alone {[round(x, 2) for x in r['audit_ms']]} "
-            f"ms; sdc run: actions {r['sdc']['actions']}, restores {r['sdc']['restores_by_tier']}, "
+            f"{r['integrity_checksum']}), beside the TP ranks: the audit alone "
+            f"{[round(x, 2) for x in r['audit_ms']]} ms; sdc run: actions {r['sdc']['actions']}, restores {r['sdc']['restores_by_tier']}, "
             f"RAM restore {r['sdc']['ram_restore_s']:.2f} s ({r['sdc']['ram_rebuilt_members']} "
             f"members rebuilt), bit-equal {r['sdc']['state_bit_equal']}, {r['sdc']['seconds']:.1f} s")
     log(f"nccl ({nccl['mesh']}): seam {nccl['seam_equal']}, step {nccl['ms'][DP_WATCHED:]} ms, "
@@ -3742,22 +3940,40 @@ def dp_report(ranks, nccl):
         bad.append(f"one device's resumed step {r0['resumed_dp1_rel']:.3e}")
     if not nccl["seam_equal"]:
         bad.append("the NCCL seam changed a tensor at world size 1")
+    for r in ranks:
+        z3 = r["zero3"]
+        bad += [f"rank {r['rank']} ZeRO-3: {b}"
+                for b in dp_failures(z3.get("agree"), z3["shadow_err"])]
+        if any(d != 0.0 for d in z3["integrity_div"]):
+            bad.append(f"rank {r['rank']} ZeRO-3: the audit read {z3['integrity_div']}")
+        if z3["param_bytes"] != z3["param_bytes_rule"]:
+            bad.append(f"rank {r['rank']} ZeRO-3: params held {z3['param_bytes']} != rule")
+        if (z3["loss"], z3["grad_norm"]) != (r0["zero3"]["loss"], r0["zero3"]["grad_norm"]):
+            bad.append(f"rank {r['rank']} ZeRO-3 reports {z3['loss']} / {z3['grad_norm']}")
+    log(f"ZeRO-3 (dp_shard {DP_RANKS}) against one device: {r0['zero3']['agree']}; the "
+        f"params after {ZERO3_STEPS} steps against one device's, in units of each leaf's "
+        f"max: {r0['params_rel_at_zero3_steps']} (ZeRO-3, ZeRO-1 and one device at "
+        f"{DP_MICRO} microbatches; readings, DP_TOLERANCE)")
     if bad:
         raise AssertionError("DP phase: " + "; ".join(bad))
     BODY_COUNTS["whisper_dp_train_step"] = {
         k: sum(r["bodies"][k] for r in ranks) for k in r0["bodies"]}
+    BODY_COUNTS["whisper_zero3_train_step"] = {
+        k: sum(r["zero3"]["bodies"][k] for r in ranks) for k in r0["bodies"]}
     BODY_COUNTS["whisper_dp_nccl_train_step"] = nccl["bodies"]
 
 
 def dp_summary(dp):
     """The DP phase's numbers for the kernels line (``whisper-small_dp``)."""
-    keys = ("ms", "reduce_scatter_ms", "all_gather_ms", "all_reduce_ms", "launches",
-            "peak_bytes", "moment_bytes", "moment_bytes_whole", "save", "restore_dp2_s",
-            "restore_dp1_s", "resumed_dp2_rel", "shadow_err", "real_fwd_ulps", "real_bwd_ulps",
-            "integrity_div", "integrity_checksum", "audit_ms", "sdc")
+    keys = ("launches", "peak_bytes", "moment_bytes", "moment_bytes_whole",
+            "resumed_dp2_rel", "shadow_err", "real_fwd_ulps", "real_bwd_ulps",
+            "integrity_div", "integrity_checksum", "waited_for_tp_s")
     r0, nccl = dp["ranks"][0], dp["nccl"]
     return {
-        "ranks": [{k: r[k] for k in keys} for r in dp["ranks"]],
+        "ranks": [{**{k: r.get(k) for k in keys},
+                   "beside_tp_ranks": {k: r[k] for k in DP_BESIDE_TP}} for r in dp["ranks"]],
+        "beside_tp_ranks": "taken while the TP ranks ran on the same card and host "
+                           "(dp_and_tp): not the DP phase's own times",
         "transport": "gloo, host copies (two ranks on one card); no measure of DP scaling",
         "agreement_with_one_device": r0["agree"],
         "one_device_mb2_vs_mb4": r0["one_device_mb2_vs_mb4"],
@@ -3766,6 +3982,11 @@ def dp_summary(dp):
         "nccl_world_1": {k: nccl[k] for k in ("ms", "all_reduce_ms", "launches", "agree",
                                                "params_bit_identical", "shadow_err")},
         "phase_s": {"gloo_ranks": dp["gloo_s"], "nccl": dp["nccl_s"]},
+        "params_rel_at_zero3_steps": r0["params_rel_at_zero3_steps"],
+        "zero3": {"plan": {"dp_shard": DP_RANKS},
+                  "ranks": [{k: v for k, v in r["zero3"].items() if k not in ("agree", "bodies")}
+                            for r in dp["ranks"]],
+                  "agreement_with_one_device": r0["zero3"]["agree"]},
     }
 
 
@@ -3776,15 +3997,15 @@ def dp_summary(dp):
 # do: every ring tick goes D2H, through gloo, then H2D. The phase proves the
 # rings and the kernels on the sharded shapes; it cannot measure TP scaling
 # or overlap. Each family runs from the same two processes: qwen1.5-4b at
-# full width on TP_FAMILIES["dense"]'s 4 of its 40 layers (8 until the CP
-# phase needed the script's time) for TP_STEPS steps, then
-# one fp32 step at TP_FP32_LAYERS layers; deepseek-moe-16b at full width on 2
-# of its 28 layers and mamba2-370m at full width on 12 of its 48 layers (the
-# script's time limit), one step each;
+# full width on TP_FAMILIES["dense"]'s 2 of its 40 layers (8 until the CP
+# phase, 4 until the grid serving phase needed the script's time) for
+# TP_STEPS steps, then one fp32 step at TP_FP32_LAYERS layers;
+# deepseek-moe-16b at full width on 1 of its 28 layers and
+# mamba2-370m at full width on 6 of its 48 layers (the script's time limit), one step each;
 # 1 x 4096 tokens, bf16 compute, remat "full". Nothing is checkpointed.
 TP_RANKS = 2
 TP_STEPS = 3
-TP_FAMILIES = {"dense": (TRAIN_ARCH, 4), "moe": (MOE_ARCH, 2), "ssm": (SSM_ARCH, 12)}
+TP_FAMILIES = {"dense": (TRAIN_ARCH, 2), "moe": (MOE_ARCH, 1), "ssm": (SSM_ARCH, 6)}
 TP_FP32_LAYERS = 2
 TP_CASES = {"dense": (1, 10, 10, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0),
             "moe": (1, 8, 8, TRAIN_SEQ, TRAIN_SEQ, 128, True, 0, 0.0, 0)}
@@ -4212,13 +4433,19 @@ def spawned_ranks(target, n, tag, timeout):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
-def phase_tp():
+def phase_tp(ranks_done=None, before_times=None):
     """The TP phase: TP_RANKS spawned ranks on the one card over gloo
     (``tp_rank``); their results checked here, then the kernels timed at the
     sharded shapes (B1-B3 at each attention family's, B4 and B5/B6 on rank
-    0's kept inputs)."""
+    0's kept inputs). Under ``dp_and_tp``: the file ``ranks_done`` is made
+    once the ranks have exited, and the kernels are timed once the
+    threading.Event ``before_times`` is set."""
     with spawned_ranks(tp_rank, TP_RANKS, "tp", timeout=480) as (tmp, ranks, ranks_s):
+        if ranks_done is not None:
+            ranks_done.touch()
         tp_report(ranks)
+        if before_times is not None:
+            before_times.wait()
         t0 = time.perf_counter()
         times = tp_times(tmp)
         times_s = time.perf_counter() - t0
@@ -4259,10 +4486,10 @@ def tp_report(ranks):
     for family in TP_FAMILIES:
         for r in ranks:
             f = r[family]
-            log(f"tp {family} rank {r['rank']} ({r['mesh']}): steps {f['ms']} ms, ticks "
-                f"{f['tick_ms']} ms, all-reduces {f['all_reduce_ms']} ms (two ranks share one "
-                f"card and the rings go through host memory: no measure of TP scaling or "
-                f"overlap); peak {f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} "
+            log(f"tp {family} rank {r['rank']} ({r['mesh']}): beside the DP ranks (not the "
+                f"steps' own time) steps {f['ms']} ms, ticks {f['tick_ms']} ms, all-reduces "
+                f"{f['all_reduce_ms']} ms (two ranks share one card and the rings go through "
+                f"host memory: no measure of TP scaling or overlap); peak {f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} "
                 f"B params a rank; launches {f['launches']} a step; bodies {f['bodies']}; on its "
                 f"own inputs {({k: f[k] for k in f if k.startswith('real_')})}; "
                 f"{f['seconds']:.1f} s")
@@ -4284,14 +4511,18 @@ def tp_report(ranks):
 def tp_summary(tp):
     """The TP phase's numbers for the kernels line (``qwen1.5-4b_tp``)."""
     ranks = tp["ranks"]
-    keys = ("ms", "tick_ms", "all_reduce_ms", "launches", "peak_bytes", "params_per_rank",
-            "loss", "grad_norm", "seconds")
+    keys = ("launches", "peak_bytes", "params_per_rank", "loss", "grad_norm")
     return {
         "grid": {"data": 1, "model": TP_RANKS},
         "transport": "gloo, host copies (two ranks on one card); no measure of TP scaling",
+        "beside_dp_ranks": "taken while the DP ranks ran on the same card and host "
+                           "(dp_and_tp): not the TP steps' own times",
         "families": {family: {"arch": TP_FAMILIES[family][0],
                               "layers": ranks[0][family]["layers"],
-                              "ranks": [{k: r[family][k] for k in keys} for r in ranks],
+                              "ranks": [{**{k: r[family][k] for k in keys},
+                                         "beside_dp_ranks": {k: r[family][k]
+                                                             for k in TP_BESIDE_DP}}
+                                        for r in ranks],
                               "one_device": ranks[0][family]["one_device"],
                               "real_inputs": {k: ranks[0][family][k] for k in ranks[0][family]
                                               if k.startswith("real_")}}
@@ -4327,11 +4558,11 @@ def tp_launches(tp, i, families=("dense", "moe", "ssm", "fp32")):
 # CP_FP32_LAYERS layers and 1 x TRAIN_SEQ (dense ring and gather, Mamba2) held
 # to one device's by GRID_TOLERANCE. Nothing is checkpointed.
 CP_RANKS = 2
-CP_DENSE_LAYERS = 4
+CP_DENSE_LAYERS = 2
 CP_DENSE_SEQ = 16_384
 CP_DENSE_STEPS = 1                # timed, after one warm-up
 CP_SSM_SEQ = 65_536
-CP_SSM_LAYERS = 12                # of mamba2-370m's 48 (the script's time limit)
+CP_SSM_LAYERS = 6                 # of mamba2-370m's 48 (the script's time limit)
 CP_SSM_STEPS = 2                  # timed, after one warm-up
 CP_FP32_LAYERS = 2
 CP_SUB = CP_DENSE_SEQ // (2 * CP_RANKS)          # a zigzag sub-chunk: one ring tile's side
@@ -4848,9 +5079,9 @@ def ep_part(plan, places, sizes):
 # EP_FP32_LAYERS layers and 1 x EP_FP32_SEQ at a no-drop capacity held to one
 # device's by GRID_TOLERANCE. Nothing is checkpointed.
 EP_RANKS = 2
-EP_LAYERS = 4
+EP_LAYERS = 2
 EP_SEQ = TRAIN_SEQ
-EP_STEPS = 2                      # the overlap ring's timed steps, after one warm-up
+EP_STEPS = 1                      # the overlap ring's timed steps, after one warm-up
 EP_FP32_LAYERS = 2
 EP_FP32_SEQ = 1024
 EP_SUB = EP_SEQ // (2 * EP_RANKS)                # a zigzag sub-chunk: one ring tile's side
@@ -5289,9 +5520,9 @@ def pp_train_step(loss_fn, plan, grid, hyper, watch=None):
 # control (``pod_bf16_rounding``) failing it. Depth is cut: two ranks' fp32
 # state at the full 40 layers does not fit the card.
 PP_RANKS = 2
-PP_LAYERS = 8
+PP_LAYERS = 4
 PP_MICRO = 4
-PP_STEPS = 2                      # 1F1B's timed steps, after one warm-up
+PP_STEPS = 1                      # 1F1B's timed steps, after one warm-up
 PP_FP32_LAYERS = 2
 PP_FP32_SEQ = 1024
 PP_SCHEDS = ("1f1b", "gpipe")
@@ -5652,6 +5883,395 @@ def pp_summary(pp):
     }
 
 
+# ---------------------------------------------------------------------------
+# serving on a (data, model) grid (A13.6): the sequence-sharded KV cache
+#
+# Two rank processes (spawn) on the one card over gloo, a (1, 2) grid, as the
+# TP phase's: gemma2-9b (arXiv:2408.00118) at full width and depth, random
+# bf16 weights from a seed, every model rank holding the whole params. Batch 1
+# (at batch 2 the two ranks' peaks summed to 77.3 GB, above the 74 GB set for
+# the pair) and a 6,144-token prompt: each rank prefills its 3,072 queries with K/V
+# all-gathered over the model ring (B1 at hd 256, gemma2's softcap and
+# alternating 4,096-token windows, q_offset = rank x 3,072); max_seq 8,192,
+# gemma2's context, so each rank holds positions [r 4,096, (r + 1) 4,096) of
+# the cache and the prompt and every decode step span both blocks (the local
+# layers' window reaches into rank 0's block). 32 greedy decode steps through
+# the sharded decode attention, whose combine is one MAX and one SUM
+# all-reduce over the ring a layer. Every collective goes through host
+# memory: no serving scaling is measured.
+GRID_ARCH = "gemma2-9b"
+GRID_RANKS = 2
+GRID_BATCH, GRID_PROMPT, GRID_MAX_SEQ, GRID_STEPS = 1, 6144, 8192, 32
+GRID_CHECK_LAYERS = (0, 1, 40, 41)          # B1 held on these layers (local, global)
+GRID_CHECK_STEPS = 2                        # decode steps held call by call, after the timed
+GRID_FP32 = dict(layers=2, batch=1, prompt=1536, max_seq=2048, steps=16)
+GRID_REL = 1e-5
+GRID_SERVE_TOLERANCE = (
+    "B1 on the grid prefill's own inputs (layers GRID_CHECK_LAYERS): TOLERANCE; the "
+    "sharded decode attention on every layer's own inputs at GRID_CHECK_STEPS steps "
+    "against the single-device decode_attention on the whole cache: o to 2 bf16 ulps "
+    "of each head's row (row_ulps), "
+    "the cache writes exact; an fp32 run (GRID_FP32) against one device on the same "
+    "weights: prefill and decode logits to 1e-5 of each tensor's max, the greedy tokens "
+    "equal; the control (each rank's partial o rounded to bf16 before the combine) must "
+    "fail the logits rule")
+# B1 at the grid prefill's shape on rank 1 (its queries at q_offset 3,072), a
+# local and a global layer
+GRID_CASES = {"local": (GRID_BATCH, 16, 8, GRID_PROMPT // 2, GRID_PROMPT, 256, True, 4096,
+                        50.0, GRID_PROMPT // 2),
+              "global": (GRID_BATCH, 16, 8, GRID_PROMPT // 2, GRID_PROMPT, 256, True, 0,
+                         50.0, GRID_PROMPT // 2)}
+
+
+class SampledFwdCapture(FlashFwdCapture):
+    """FlashFwdCapture on the calls whose index (from 0, in call order) is in
+    ``sample`` only; every call counts as through the wrapper."""
+
+    def __init__(self, sample):
+        self.sample, self.calls = set(sample), 0
+
+    def __enter__(self):
+        from repro_torch.kernels import flash_attention as tf
+        real, self.errs = tf.flash_attention_lse, []
+        self.real = real
+
+        @functools.wraps(real)
+        def sampled(q, k, v, **kw):
+            i, self.calls = self.calls, self.calls + 1
+            o, lse = real(q, k, v, **kw)
+            if i in self.sample:
+                po, plse = flash_plain(q, k, v, **kw)
+                self.errs.append((*match_errors(o, lse, po, plse),
+                                  dead_rows_ok(o, lse, plse)[1], o.dtype))
+                del po, plse
+            return o, lse
+        self.wrapper = sampled
+        tf.flash_attention_lse = sampled
+        return self
+
+
+def row_ulps(out, ref):
+    """(max |out - ref|, the same in bf16 ulps of each head's row of ``ref``:
+    its largest |value| over hd, floored at 2^-10). The decode attention
+    rounds its softmax weights to bf16 against the running max, the local
+    block's on a rank and the whole cache's on one device, so two exact
+    evaluations differ by about one rounding of the weights: a share of the
+    row's scale, not of an element near zero."""
+    err = (out.float() - ref.float()).abs()
+    big = ref.float().abs().amax(dim=-1, keepdim=True).clamp(min=2 ** -10)
+    ulps = err / torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    return err.max().item(), ulps.max().item()
+
+
+class DecodeCapture:
+    """Within the block, every sharded ``decode_attention`` call (a layer's,
+    as the models make it through ``serve.attention``) is held to the
+    single-device version on the whole cache: the rank's block before the
+    call and the other ranks' (hops over the model ring, on every rank) make
+    the whole cache, the plain call writes it at ``pos`` and attends; the
+    sharded output must be within 2 bf16 ulps of each head's row
+    (``row_ulps``) and the rank's block after the call equal to its part of
+    the whole one."""
+
+    def __enter__(self):
+        from repro_torch.serve import attention as sa
+        self.mod, self.real, self.errs = sa, sa.decode_attention, []
+        real = self.real
+
+        def checked(q, kc, vc, kn, vn, pos, *, window=0, softcap=0.0, mesh=None, **kw):
+            pre = (kc.clone(), vc.clone())
+            out, kc, vc = real(q, kc, vc, kn, vn, pos, window=window, softcap=softcap,
+                               mesh=mesh, **kw)
+            ring = mesh.model
+            whole = []
+            for blk in pre:                       # blocks in rank order, every rank hops
+                parts = [blk]
+                for h in range(1, ring.size):
+                    parts.append(ring.shift(blk, h))
+                order = [(ring.rank - h) % ring.size for h in range(ring.size)]
+                whole.append(torch.cat([parts[order.index(r)] for r in range(ring.size)], 1))
+            ref, rk, rv = real(q, whole[0], whole[1], kn, vn, pos, window=window,
+                               softcap=softcap)
+            t = kc.shape[1]
+            lo = ring.rank * t
+            exact = bool(torch.equal(kc, rk[:, lo:lo + t]) and torch.equal(vc, rv[:, lo:lo + t]))
+            self.errs.append((*row_ulps(out, ref), exact))
+            return out, kc, vc
+        sa.decode_attention = checked
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.decode_attention = self.real
+
+    def summary(self, what, calls):
+        if len(self.errs) != calls:
+            raise AssertionError(f"checked {len(self.errs)} decode attentions on the {what}, "
+                                 f"expected {calls}")
+        o_abs, o_ulps = (max(e[i] for e in self.errs) for i in range(2))
+        exact = all(e[2] for e in self.errs)
+        log(f"real inputs, {what}: the sharded decode attention held to one device's on "
+            f"the whole cache on {calls} calls, max o err {o_abs:.3e} = {o_ulps:.2f} bf16 "
+            f"ulps, cache writes exact {exact}")
+        if not (o_ulps <= O_ULPS_BF16 and exact):
+            raise AssertionError(f"the sharded decode attention disagrees with one device's "
+                                 f"on the {what}'s own inputs")
+        return o_ulps
+
+
+def grid_serve_setup(grid, layers=None, dtype="bfloat16"):
+    """gemma2-9b (``layers`` of its 42; all by default) on ``grid`` and on one
+    device, in ``dtype`` for both compute and params, and its params from
+    seed 0 (the same on every rank)."""
+    from repro_torch.core import ParallelPlan, get_config
+    from repro_torch.models import build_model
+    cfg = get_config(GRID_ARCH)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    plan = ParallelPlan(compute_dtype=dtype, param_dtype=dtype)
+    model = build_model(cfg, plan, mesh=grid)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    return cfg, model, params
+
+
+def grid_bodies():
+    from repro_torch.kernels.flash_attention import flash_attention_lse as f
+    return {"flash_fwd_sm90": f.sm90_launches, "flash_fwd_bf16": f.mma_launches,
+            "flash_fwd_f32": f.f32_launches}
+
+
+def grid_serving(grid, out):
+    """The bf16 run at full width and depth (module notes above): a checked
+    prefill (B1 held on GRID_CHECK_LAYERS) as the warm-up, the timed prefill
+    and GRID_STEPS greedy decode steps, then GRID_CHECK_STEPS steps with every
+    decode attention held to one device's. Readings into ``out``."""
+    from repro_torch.kernels.flash_attention import flash_attention_lse
+    cfg, model, params = grid_serve_setup(grid)
+    n_params = sum(t.numel() for _, t in _named_tensors(params))
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab, (GRID_BATCH, GRID_PROMPT), generator=gen,
+                           device="cuda")
+    ring = grid.model
+    what = f"{GRID_ARCH} grid rank {grid.rank}"
+    torch.cuda.synchronize()
+    with SampledFwdCapture(GRID_CHECK_LAYERS) as fwd:
+        logits, cache = model.prefill(params, {"tokens": tokens}, GRID_MAX_SEQ)
+        del logits, cache
+    out["real_fwd_ulps"] = fwd.summary(f"{what} prefill (layers {GRID_CHECK_LAYERS})",
+                                       len(GRID_CHECK_LAYERS), body="mma",
+                                       launches=cfg.n_layers)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    ring.timed = True
+    before = dict(ring.seconds)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(params, {"tokens": tokens}, GRID_MAX_SEQ)
+    torch.cuda.synchronize()
+    out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
+    out["prefill_gather_ms"] = (ring.seconds["tick"] - before["tick"]) * 1e3
+    out["prefill_b1"] = flash_attention_lse.launches
+    out["bodies"] = grid_bodies()
+    if out["prefill_b1"] != cfg.n_layers or out["bodies"]["flash_fwd_bf16"] != cfg.n_layers:
+        raise AssertionError(f"{what} prefill: B1 {out['prefill_b1']} launches, by body "
+                             f"{out['bodies']}, expected {cfg.n_layers} on flash_fwd_bf16")
+    out["chunk"] = list(model.seq_chunk(GRID_PROMPT))
+    out["logits_shape"] = list(logits.shape)
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{what}: prefill logits are not finite")
+    tok = model.last_logits(logits, GRID_PROMPT).argmax(-1)
+    del logits
+    reset_counts()
+    before = dict(ring.seconds)
+    finite, toks = torch.ones((), dtype=torch.bool, device="cuda"), []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(GRID_STEPS):
+        lg, cache = model.decode_step(params, cache, tok, GRID_PROMPT + i)
+        finite &= torch.isfinite(lg).all()
+        tok = lg.argmax(-1)
+        toks.append(tok)
+    torch.cuda.synchronize()
+    out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / GRID_STEPS
+    out["combine_ms"] = (ring.seconds["all_reduce"] - before["all_reduce"]) * 1e3 / GRID_STEPS
+    out["decode_b1"] = flash_attention_lse.launches
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    out["tokens"] = torch.stack(toks, 1).tolist()
+    ring.timed = False
+    if not finite:
+        raise AssertionError(f"{what}: decode logits are not finite")
+    with DecodeCapture() as dec:
+        for i in range(GRID_CHECK_STEPS):
+            lg, cache = model.decode_step(params, cache, tok, GRID_PROMPT + GRID_STEPS + i)
+            tok = lg.argmax(-1)
+    out["decode_attn_ulps"] = dec.summary(f"{what} decode", GRID_CHECK_STEPS * cfg.n_layers)
+    out["params"] = n_params
+    out["cache_bytes_rank"] = sum(t.numel() * t.element_size() for t in cache.values())
+    log(f"{what}: prefill {GRID_BATCH}x{GRID_PROMPT} (this rank's chunk {out['chunk']}) "
+        f"{out['prefill_ms']:.1f} ms (K/V gathers {out['prefill_gather_ms']:.1f}), decode "
+        f"{out['decode_ms']:.2f} ms/step (combine all-reduces {out['combine_ms']:.2f}), peak "
+        f"{out['peak_bytes'] / 1e9:.2f} GB, cache part {out['cache_bytes_rank'] / 1e9:.2f} GB, "
+        f"{n_params / 1e9:.2f} B params; tokens row 0 {out['tokens'][0][:8]}")
+    del cache, params, model
+
+
+def _named_tensors(params):
+    from repro_torch.core.tree import leaves
+    return [(None, t) for t in leaves(params)]
+
+
+def grid_rounded_partials():
+    """The fp32 rule's control: each rank's partial o rounded to bf16 before
+    the combine (``serve.attention.combine_ring``)."""
+    from repro_torch.serve import attention as sa
+    real = sa.combine_ring
+
+    @contextlib.contextmanager
+    def ctx():
+        sa.combine_ring = lambda ring, o, m, l: real(ring, o.to(torch.bfloat16).float(), m, l)
+        try:
+            yield
+        finally:
+            sa.combine_ring = real
+    return ctx()
+
+
+def grid_fp32_run(model, params, tokens, c):
+    """Prefill and ``c["steps"]`` greedy decode steps: (prefill logits, the
+    decode logits, the tokens)."""
+    logits, cache = model.prefill(params, {"tokens": tokens}, c["max_seq"])
+    tok = (model.last_logits(logits, c["prompt"]) if hasattr(model, "last_logits")
+           and model.mesh is not None else logits[:, -1]).argmax(-1)
+    steps, toks = [], []
+    for i in range(c["steps"]):
+        lg, cache = model.decode_step(params, cache, tok, c["prompt"] + i)
+        tok = lg.argmax(-1)
+        steps.append(lg)
+        toks.append(tok)
+    return logits, steps, torch.stack(toks, 1)
+
+
+def grid_fp32(grid):
+    """The fp32 check (GRID_FP32): the grid's prefill and decode logits
+    against one device's run on the same weights, the greedy tokens equal;
+    then the control, which must fail the logits rule."""
+    from repro_torch.core import ParallelPlan
+    from repro_torch.models import build_model
+    c = GRID_FP32
+    cfg, model, params = grid_serve_setup(grid, c["layers"], "float32")
+    one = build_model(cfg, ParallelPlan(compute_dtype="float32", param_dtype="float32"))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    tokens = torch.randint(0, cfg.vocab, (c["batch"], c["prompt"]), generator=gen,
+                           device="cuda")
+    reset_counts()
+    got = grid_fp32_run(model, params, tokens, c)
+    bodies = grid_bodies()
+    want = grid_fp32_run(one, params, tokens, c)
+    lo, hi = model.seq_chunk(c["prompt"])
+
+    def rel(a, b):
+        return float((a - b).abs().max() / b.abs().max())
+
+    def agree(run):
+        return {"prefill_rel": rel(run[0], want[0][:, lo:hi]),
+                "decode_rel": max(rel(a, b) for a, b in zip(run[1], want[1])),
+                "tokens_equal": bool(torch.equal(run[2], want[2]))}
+    out = {"agree": agree(got), "bodies": bodies}
+    with grid_rounded_partials():
+        out["control"] = agree(grid_fp32_run(model, params, tokens, c))
+    out["ok"] = (out["agree"]["prefill_rel"] <= GRID_REL and out["agree"]["decode_rel"]
+                 <= GRID_REL and out["agree"]["tokens_equal"])
+    out["control_fails"] = not (out["control"]["prefill_rel"] <= GRID_REL
+                                and out["control"]["decode_rel"] <= GRID_REL)
+    log(f"{GRID_ARCH} grid rank {grid.rank} fp32 ({c}): {out['agree']}; control (partial o "
+        f"in bf16) {out['control']}; B1 by body {bodies}")
+    return out
+
+
+def grid_rank(rank, init_method, out_dir):
+    """One of the GRID_RANKS processes of the grid serving phase, on cuda:0
+    over gloo: the bf16 run (``grid_serving``), then the fp32 check
+    (``grid_fp32``). Results go to ``out_dir/grid_rank{rank}.json``."""
+    from repro_torch.core import resolve_device
+    from repro_torch.launch import init_grid_mesh
+    resolve_device()
+    grid = init_grid_mesh(1, GRID_RANKS, "cuda:0", backend="gloo", init_method=init_method,
+                          rank=rank)
+    log(f"grid rank {rank}: {grid}")
+    out = {"rank": rank, "mesh": repr(grid)}
+    t0 = time.perf_counter()
+    grid_serving(grid, out)
+    out["serve_s"] = time.perf_counter() - t0
+    free()
+    t0 = time.perf_counter()
+    out["fp32"] = grid_fp32(grid)
+    out["fp32_s"] = time.perf_counter() - t0
+    grid.close()
+    (Path(out_dir) / f"grid_rank{rank}.json").write_text(json.dumps(out))
+
+
+def grid_times():
+    """B1 at the grid prefill's shapes (GRID_CASES) through the body the path
+    runs at hd 256 (the first version's mma.sync body), beside its bound, the
+    plain version and SDPA under the same causal and window mask (SDPA has no
+    softcap)."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    return {name: fwd_times_at(case, gen, bodies=("mma",), masked_library=True)
+            for name, case in GRID_CASES.items()}
+
+
+def phase_grid_serving():
+    """The grid serving phase: GRID_RANKS spawned ranks on the one card over
+    gloo (``grid_rank``), their results checked here, then B1 timed at the
+    grid prefill's shapes."""
+    with spawned_ranks(grid_rank, GRID_RANKS, "grid", timeout=480) as (_, ranks, ranks_s):
+        grid_report(ranks)
+    t0 = time.perf_counter()
+    times = grid_times()
+    times_s = time.perf_counter() - t0
+    log(f"phase grid serving: ranks {ranks_s:.1f} s, kernel times {times_s:.1f} s")
+    return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
+
+
+def grid_report(ranks):
+    """Hold the ranks' results to GRID_SERVE_TOLERANCE; keep the prefill's
+    launches by body for the kernels line."""
+    bad = []
+    r0 = ranks[0]
+    for r in ranks:
+        if not r["fp32"]["ok"]:
+            bad.append(f"rank {r['rank']}: fp32 {r['fp32']['agree']}")
+        if not r["fp32"]["control_fails"]:
+            bad.append(f"rank {r['rank']}: the control passed {r['fp32']['control']}")
+        if r["tokens"] != r0["tokens"]:
+            bad.append(f"rank {r['rank']}: greedy tokens differ from rank 0's")
+        if r["decode_b1"] != 0:
+            bad.append(f"rank {r['rank']}: decode launched B1 {r['decode_b1']} times")
+    if bad:
+        raise AssertionError("grid serving phase: " + "; ".join(bad))
+    BODY_COUNTS["gemma2_grid_prefill"] = {
+        k: sum(r["bodies"].get(k, 0) for r in ranks) for k in body_counts()}
+
+
+def grid_summary(grid):
+    """The grid serving phase's numbers for the kernels line (``gemma2-9b_grid``)."""
+    keys = ("chunk", "prefill_ms", "prefill_gather_ms", "decode_ms", "combine_ms",
+            "peak_bytes", "cache_bytes_rank", "real_fwd_ulps", "decode_attn_ulps", "serve_s",
+            "fp32_s")
+    return {
+        "grid": {"data": 1, "model": GRID_RANKS},
+        "plan": {"seq_shard_decode": True, "seq_shard_attn": True},
+        "transport": "gloo, host copies (two ranks on one card); no measure of serving scaling",
+        "batch": GRID_BATCH, "prompt": GRID_PROMPT, "max_seq": GRID_MAX_SEQ,
+        "decode_steps": GRID_STEPS, "params": grid["ranks"][0]["params"],
+        "ranks": [{k: r[k] for k in keys} for r in grid["ranks"]],
+        "fp32": {r["rank"]: {k: r["fp32"][k] for k in ("agree", "control")}
+                 for r in grid["ranks"]},
+        "tolerance": GRID_SERVE_TOLERANCE,
+        "phase_s": {"ranks": grid["ranks_s"], "kernel_times": grid["times_s"]},
+    }
+
+
 def ft_summary(whisper, dp):
     """The fault-tolerance readings for the kernels line (``whisper-small_ft``):
     the phase's, the DP ranks' audit and sdc run, and the training phase's step
@@ -5660,8 +6280,9 @@ def ft_summary(whisper, dp):
     return {
         **ft,
         "train_step_ms_seams_unarmed": whisper["train"]["step_ms"],
-        "dp_ranks": [{k: r[k] for k in ("rank", "integrity_div", "integrity_checksum",
-                                         "audit_ms", "sdc")} for r in dp["ranks"]],
+        "dp_ranks": [{**{k: r[k] for k in ("rank", "integrity_div", "integrity_checksum")},
+                      "beside_tp_ranks": {k: r[k] for k in ("audit_ms", "sdc")}}
+                     for r in dp["ranks"]],
         "dp_nccl_integrity_div": dp["nccl"]["integrity_div"],
     }
 
@@ -5734,7 +6355,7 @@ def ssd_entries(ssd_errs, ssm, tp, cp):
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp):
+                moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp, grid):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -5748,9 +6369,11 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_train_step": whisper["train"]["launches"][0],
                 "whisper_ft": whisper["ft"]["launches"][0],
                 "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
+                "whisper_zero3_train_step": sum(r["zero3"]["launches"][0] for r in dp["ranks"]),
                 "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0],
                 **tp_launches(tp, 0), **cp_launches(cp, 0), **ep_launches(ep, 0),
-                **pp_launches(pp, 0)}
+                **pp_launches(pp, 0),
+                "gemma2_grid_prefill": sum(r["prefill_b1"] for r in grid["ranks"])}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -5800,6 +6423,10 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                                                 for impl in ("overlap", "blocking")),
         "pp_real_inputs_max_err_bf16_ulps": max(r["path"]["real_fwd_ulps"]
                                                 for r in pp["ranks"]),
+        "grid_prefill_shapes": grid["times"],
+        "grid_prefill_body": "flash_fwd_bf16 (hd 256: the first version's mma.sync body)",
+        "grid_real_inputs_max_err_bf16_ulps": max(r["real_fwd_ulps"] for r in grid["ranks"]),
+        "grid_library_covers": "SDPA under the same causal and window mask, no softcap",
         "check": "pass",
     }]
     hybrid_train = ssm[HYBRID_ARCH][1]["launches"]
@@ -5815,6 +6442,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                    f"{WHISPER_ARCH}_ft": whisper["ft"]["launches"][which + 1],
                    f"{WHISPER_ARCH}_dp_train_step": sum(r["launches"][which + 1]
                                                         for r in dp["ranks"]),
+                   f"{WHISPER_ARCH}_zero3_train_step": sum(r["zero3"]["launches"][which + 1]
+                                                           for r in dp["ranks"]),
                    f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1],
                    **tp_launches(tp, which + 1), **cp_launches(cp, which + 1),
                    **ep_launches(ep, which + 1), **pp_launches(pp, which + 1)}
@@ -5951,7 +6580,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                       f"{TRAIN_ARCH}_tp": tp_summary(tp),
                       f"{TRAIN_ARCH}_cp": cp_summary(cp),
                       f"{MOE_ARCH}_ep": ep_summary(ep),
-                      f"{TRAIN_ARCH}_pp": pp_summary(pp)}), flush=True)
+                      f"{TRAIN_ARCH}_pp": pp_summary(pp),
+                      f"{GRID_ARCH}_grid": grid_summary(grid)}), flush=True)
 
 
 def free():
@@ -5993,17 +6623,17 @@ def main():
     free()
     whisper["ft"] = timed(f"{WHISPER_ARCH} fault tolerance", phase_whisper_ft)
     free()
-    dp = timed(f"{WHISPER_ARCH} data parallel", phase_whisper_dp)
-    free()
-    tp = timed("tensor parallel", phase_tp)
+    dp, tp = timed("data and tensor parallel", dp_and_tp)
     free()
     cp = timed("context parallel", phase_cp)
     free()
     ep = timed("expert parallel", phase_ep)
     free()
     pp = timed("pipeline parallel", phase_pp)
+    free()
+    grid = timed("grid serving", phase_grid_serving)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp, grid)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

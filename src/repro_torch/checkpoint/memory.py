@@ -39,7 +39,7 @@ import numpy as np
 
 from repro_torch.core.sharding import local_index, train_state_specs
 from repro_torch.core.tree import named_leaves, stacked_shape
-from .store import (CorruptCheckpointError, _host, _plan_meta, _shard_meta, _verify,
+from .store import (CorruptCheckpointError, _held, _host, _plan_meta, _shard_meta, _verify,
                     fill_tree, layout_diffs)
 
 
@@ -72,7 +72,8 @@ class MemoryCheckpointTier:
         primary: Dict[int, Dict[str, np.ndarray]] = {g: {} for g in range(self.groups)}
         shards: List[List[Dict[str, Any]]] = []
         for i, (name, x) in enumerate(named):
-            a, dtype = _host(x)
+            a, dtype = _host(_held(x, specs[name], mesh.rank, mesh.size)
+                             if specs is not None else x)
             home = i % self.groups
             primary[home][f"a{i}"] = a
             index = (local_index(specs[name], mesh.rank, mesh.size) if specs is not None

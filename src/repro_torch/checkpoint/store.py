@@ -63,6 +63,16 @@ read. ``check_plan`` routes by the reference's rule: replay
 when the recorded layout is the requested one, else reshard when elastic,
 else an error.
 
+Under ZeRO-3 (``plan.dp_shard`` > 1) the params are split as the moments
+are (``core.sharding.fsdp_specs``): each param leaf is written as one member
+per rank with its global ``index``, gathered to rank 0 with the moment
+slices, and the manifest records the plan's ``dp_shard``; a restore takes
+each rank's part of the whole leaf (its own layers of a leaf split on the
+layer dim), so dp_shard 1, 2 and 4 and ZeRO stages 0 and 1 read the same
+file, and the reference's ``CheckpointManager`` reassembles it by the
+indices. A grid under ``dp_over_model`` saves and restores over its flat
+data group (``launch.mesh.data_mesh``).
+
 Under a (data, model) grid with tensor parallelism (``launch.mesh.GridMesh``)
 each rank holds its TP shards of the params and moments, the moments also cut
 to its ZeRO-1 slice over its data group. ``save`` gathers every rank's parts
@@ -119,11 +129,12 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.core.sharding import (LeafSpec, data_size, grid_place, layout_box,
-                                       layout_part, local_index, local_shape, opt_shard_dim,
-                                       train_state_specs, whole_box, whole_shape)
+from repro_torch.core.sharding import (LeafSpec, data_size, fsdp_part, grid_place,
+                                       layout_box, layout_part, local_index, local_shape,
+                                       opt_shard_dim, rank_stack, train_state_specs,
+                                       whole_box, whole_shape)
 from repro_torch.core.tree import named_leaves, stacked_shape
-from repro_torch.launch.mesh import GridMesh, cp_size, model_size, pod_size
+from repro_torch.launch.mesh import GridMesh, cp_size, data_mesh, model_size, pod_size
 
 
 class CorruptCheckpointError(IOError):
@@ -144,11 +155,10 @@ def _inject():
 # the layout axes a manifest records (the reference's store.py:95-145)
 
 # The reference's ParallelPlan layout axes, with each one's value on a plan
-# that lacks it: the port's plan has all of them but dp_shard, which it runs at
-# one device, so the manifest records those values and either package compares
-# them. The reference's PLAN_AXES also records impl and schedule knobs for
-# forensics; of those the port records pp_schedule, never compared (a schedule
-# moves no state).
+# that lacks it (the port's plan has every one): the manifest records the
+# plan's values and either package compares them. The reference's PLAN_AXES
+# also records impl and schedule knobs for forensics; of those the port
+# records pp_schedule, never compared (a schedule moves no state).
 PLAN_LAYOUT_AXES = {"tp": 1, "cp": 1, "dp_shard": 1, "zero_stage": 1, "ep": 1, "pp": 1,
                     "pp_layout": None}
 PLAN_RECORDED = {"pp_schedule": "1f1b"}
@@ -204,13 +214,26 @@ def _refill(tree, get, prefix: str = "", rank: Tuple[int, int] = (0, 1)):
     if isinstance(tree, dict):
         return {k: _refill(v, get, f"{prefix}{k}/", rank) for k, v in tree.items()}
     if isinstance(tree, list):
-        return [_refill(lp, lambda n, i=i: get(n)[i], prefix, rank) for i, lp in enumerate(tree)]
+        return [_refill(lp, lambda n, i=i, L=len(tree): _layer(get(n), i, L, rank[0]),
+                        prefix, rank) for i, lp in enumerate(tree)]
+    if isinstance(tree, torch.Tensor):
+        part = fsdp_part(tree)
+        if part is not None and part.owner is not None and part.owner != rank[0]:
+            return tree                    # another data rank's layer: a placeholder
     value = get(prefix[:-1])
     if isinstance(tree, torch.Tensor):
         with torch.no_grad():
             tree.copy_(_rank_slice(value, tuple(tree.shape), *rank, prefix[:-1]))
         return tree
     return type(tree)(value.item())
+
+
+def _layer(value, i: int, n_layers: int, rank: int):
+    """Layer ``i`` of a layer list's stacked ``value``: the whole list's, or
+    (its layer dim shorter: a ZeRO-3 rank's own layers) this rank's."""
+    if value.shape[0] == n_layers:
+        return value[i]
+    return value[i - rank * value.shape[0]]
 
 
 def _rank_slice(value: torch.Tensor, shape: Tuple[int, ...], rank: int, n: int,
@@ -438,16 +461,17 @@ class CheckpointManager:
                   "mesh_axes": dict(mesh.shape) if mesh is not None else None}
         path = self.dir / f"ckpt_{step:08d}"
         device = host = None
-        if isinstance(mesh, GridMesh) and (model_size(mesh) > 1 or cp_size(mesh) > 1
-                                           or pod_size(mesh) > 1):
+        if isinstance(mesh, GridMesh) and mesh.flat is None and (
+                model_size(mesh) > 1 or cp_size(mesh) > 1 or pod_size(mesh) > 1):
             shapes, host = self._gather_grid(tree, named, plan, mesh)
             self._fence = mesh
             if mesh.rank != 0:
                 return path
-        elif mesh is not None and mesh.size > 1:
-            shapes, host = self._gather_slices(tree, named, plan, mesh)
-            self._fence = mesh
-            if mesh.rank != 0:
+        elif mesh is not None and data_size(mesh) > 1:
+            dmesh = data_mesh(mesh)
+            shapes, host = self._gather_slices(tree, named, plan, dmesh)
+            self._fence = dmesh
+            if dmesh.rank != 0:
                 return path
         elif self.async_snapshot and not blocking and _on_card(leaves):
             if self._stream is None:
@@ -515,6 +539,7 @@ class CheckpointManager:
         host, split = [], []
         for name, x in named:
             spec = specs[name]
+            x = _held(x, spec, mesh.rank, n)
             if stacked_shape(x) != local_shape(spec, n):
                 raise ValueError(f"{name}: {stacked_shape(x)} is not a rank's slice "
                                  f"{local_shape(spec, n)} of {spec.shape} under {mesh}")
@@ -799,11 +824,13 @@ class CheckpointManager:
         whole and each rank takes its slices, as :meth:`restore` does."""
         specs = train_state_specs(tree_like, mesh, plan)
         n = data_size(mesh)
+        rank = data_mesh(mesh).rank if mesh is not None else 0
         for name, x in named_leaves(tree_like):
-            if isinstance(x, (torch.Tensor, list)) and \
-                    stacked_shape(x) != local_shape(specs[name], n):
-                raise ValueError(f"{name}: {stacked_shape(x)} is not the layout of the "
-                                 f"requested plan and mesh, {local_shape(specs[name], n)}")
+            if isinstance(x, (torch.Tensor, list)):
+                x = _held(x, specs[name], rank, n)
+                if stacked_shape(x) != local_shape(specs[name], n):
+                    raise ValueError(f"{name}: {stacked_shape(x)} is not the layout of the "
+                                     f"requested plan and mesh, {local_shape(specs[name], n)}")
         return self.restore(tree_like, step, verify, mesh=mesh, plan=plan)
 
 
@@ -864,8 +891,9 @@ def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mes
     by_name = dict(zip(names, zip(arrays, manifest["dtypes"])))
     if isinstance(mesh, GridMesh):
         place = grid_place(mesh)
+        dmesh = data_mesh(mesh)
         return _refill(tree_like, lambda n: layout_part(n, _to_torch(*by_name[n]), plan, *place),
-                       rank=(mesh.data.rank, mesh.data.size))
+                       rank=(dmesh.rank, dmesh.size))
     rank = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
     return _refill(tree_like, lambda n: _to_torch(*by_name[n]), rank=rank)
 
@@ -879,6 +907,13 @@ def _grid_index(name: str, spec, plan, d_idx: int, n_data: int, place,
     part = layout_box(name, spec.shape, plan, place, sizes)
     return [[base + lo, base + hi] for (base, _), (lo, hi)
             in zip(part, local_index(spec, d_idx, n_data))]
+
+
+def _held(x, spec: LeafSpec, rank: int, n: int):
+    """What this data rank holds of the leaf ``x`` in stacked order: under
+    ZeRO-3 a layer list split on its layer dim is its own layers
+    (``core.sharding.rank_stack``), every other leaf itself."""
+    return rank_stack(x, spec, rank, n) if isinstance(x, list) else x
 
 
 def _stack_dtype(leaf) -> torch.dtype:

@@ -24,8 +24,27 @@ always keeps fp32: ``Model.init`` holds matrices, biases and embeddings in it
 ``ParallelPlan.zero_stage`` (0 or 1) is the reference's: under a data mesh
 (``repro_torch.launch.mesh.DataMesh``) stage 1 shards the AdamW moments over
 the data ranks (ZeRO-1, ``repro_torch.core.sharding.opt_state_specs``), stage 0
-keeps them whole on every rank. Without a mesh it changes nothing. The
-reference's ZeRO-3 ``dp_shard`` is not here (ROADMAP A13.7).
+keeps them whole on every rank. Without a mesh it changes nothing.
+
+``ParallelPlan.dp_shard`` is the reference's ZeRO-3 / FSDP switch (survey
+§4.1.1): any value above 1 splits the params themselves over the whole data
+domain, each leaf on the largest dim the domain's size divides
+(``repro_torch.core.sharding.fsdp_specs``), and the moments on the same slice;
+every layer gathers its params inside its remat boundary and its backward
+reduce-scatters the grads (``repro_torch.train.fsdp``). The reference's
+executor refuses it with tp, cp or ep, and so does the port; the port also
+refuses it with pp (its pipeline takes each stage's params whole).
+
+``ParallelPlan.dp_over_model`` is the reference's remap of a grid's model axis
+to more data parallelism: the batch and the data domain cover the data x model
+ranks (``repro_torch.launch.mesh.data_mesh``, ``batch_axes_for``) and no leaf
+splits on ``model``. It refuses cp > 1 and ep > 1, as the reference does.
+
+``ParallelPlan.seq_shard_decode`` and ``seq_shard_attn`` are the reference's
+serving placement on a grid: the decode cache's sequence dim over the model
+ranks (``repro_torch.serve.attention.decode_attention``'s sharded branch) and
+the prefill's queries over them, K/V gathered whole
+(``repro_torch.models.families``).
 
 ``ParallelPlan.tp`` and ``tp_impl`` are the reference's tensor-parallel
 degree and mode (survey §4.1.2): ``tp`` > 1 on a (data, model) grid
@@ -269,10 +288,8 @@ def warn_shard_local_routing(cfg: ModelConfig) -> None:
 
 @dataclasses.dataclass(frozen=True)
 class ParallelPlan:
-    """The reference's plan, cut to the knobs the port reads (same names and
-    defaults). The reference's other axis, ZeRO-3's dp_shard, comes with the
-    slice that implements it, so a plan cannot ask for a placement the port
-    would quietly ignore."""
+    """The reference's plan: the same fields, names and defaults (module
+    docstring for the knobs that read differently here)."""
     tp: int = 1                    # tensor-parallel degree: the grid's model axis
     tp_impl: str = "auto"          # "auto" | "overlap": the rings of
                                    # train/tensor_parallel.py; "gspmd" raises
@@ -291,7 +308,13 @@ class ParallelPlan:
     microbatches: int = 1          # grad-accumulation / pipeline microbatches
     remat: str = "full"            # "none" | "full" | "selective", per decoder
                                    # or Mamba2 layer (train/executor.py)
+    seq_shard_decode: bool = True  # the decode cache's sequence dim over the
+                                   # grid's model ranks
+    seq_shard_attn: bool = True    # the prefill's queries over the model ranks,
+                                   # K/V gathered whole (module docstring)
     pad_vocab_to_multiple: int = 0 # padded logits are masked to -1e9
+    dp_over_model: bool = False    # the grid's model axis as more data
+                                   # parallelism (module docstring)
     moe_dispatch: str = "einsum"   # "einsum": GShard one-hot dispatch/combine;
                                    # "scatter": index gather/scatter, the same
                                    # routing (models/moe.py)
@@ -306,6 +329,8 @@ class ParallelPlan:
                                    # reference always keeps fp32 masters; a
                                    # serving run asks for the compute dtype
                                    # (the same bits, half the memory).
+    dp_shard: int = 1              # > 1: ZeRO-3 / FSDP, the params split over the
+                                   # data domain (module docstring)
     zero_stage: int = 1            # 0: moments whole on every data rank, 1: sharded
                                    # over the data ranks (ZeRO-1; module docstring)
     integrity: str = "off"         # "off" | "audit": the step's exact uint32
@@ -340,6 +365,8 @@ class ParallelPlan:
             if self.tp > 1 and self.tp_impl == "gspmd":
                 raise ValueError("cp > 1 composes with tp through the rings; set "
                                  "tp_impl='overlap' (or 'auto')")
+            if self.dp_over_model:
+                raise ValueError("cp > 1 is incompatible with dp_over_model")
         check_tp_impl(self.tp_impl)
         if self.ep_impl not in EP_IMPLS:
             raise ValueError(f"ep_impl must be one of {EP_IMPLS}, got {self.ep_impl!r}")
@@ -357,6 +384,8 @@ class ParallelPlan:
         if self.ep > 1:
             if cfg.family != Family.MOE:
                 raise ValueError(f"expert parallelism requires a MoE arch, got {cfg.family}")
+            if self.dp_over_model:
+                raise ValueError("dp_over_model consumes the model axis; EP needs it")
             # MoE parallel folding: the expert ring re-reads the cp x model
             # ranks, so its size is theirs; the ep-only placement (tp == cp
             # == 1) is checked against the grid by executor.resolve_context
@@ -387,6 +416,26 @@ class ParallelPlan:
             raise ValueError(f"pad_vocab_to_multiple must be >= 0, "
                              f"got {self.pad_vocab_to_multiple}")
         self._validate_pp(cfg)
+        self._validate_fsdp()
+
+    def _validate_fsdp(self) -> None:
+        """ZeRO-3 runs with data parallelism alone (with or without the
+        ``dp_over_model`` remap): the reference's executor loss refuses
+        ``dp_shard`` > 1 with tp, cp or ep, and the port's pipeline takes
+        each stage's params whole (ROADMAP queue C)."""
+        if not isinstance(self.dp_shard, int) or self.dp_shard < 1:
+            raise ValueError(f"dp_shard must be an int >= 1, got {self.dp_shard!r}")
+        if self.dp_shard > 1:
+            for knob in ("tp", "cp", "ep", "pp"):
+                if getattr(self, knob) > 1:
+                    raise ValueError(
+                        f"dp_shard={self.dp_shard} (ZeRO-3) runs with data parallelism "
+                        f"alone, got {knob}={getattr(self, knob)}: the executor loss "
+                        f"expects dp_shard == 1 under tp, cp and ep, and the pipeline "
+                        f"takes each stage's params whole")
+        if self.dp_over_model and self.tp > 1:
+            raise ValueError(f"dp_over_model runs the model axis as data parallelism; "
+                             f"tp={self.tp} needs it")
 
     def _validate_pp(self, cfg: ModelConfig) -> None:
         """The reference's pipeline checks, and ``microbatches >= pp`` (its

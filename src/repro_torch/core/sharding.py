@@ -381,8 +381,12 @@ def _layers_like(tree: Any, n: int) -> Any:
 
 
 def data_size(mesh) -> int:
-    """The mesh's data-axis size (1 without a mesh)."""
-    return int(mesh.shape.get("data", 1)) if mesh is not None else 1
+    """The size of the mesh's data domain (1 without a mesh): its data axis,
+    or the data x model ranks of a grid made with ``dp_over_model``."""
+    if mesh is None:
+        return 1
+    flat = getattr(mesh, "flat", None)
+    return flat.size if flat is not None else int(mesh.shape.get("data", 1))
 
 
 def _divisible(size: int, n: int) -> bool:
@@ -397,24 +401,32 @@ def opt_shard_dim(shape: Tuple[int, ...], n: int) -> Optional[int]:
 
 
 def opt_state_specs(params: Any, mesh, plan) -> Dict[str, LeafSpec]:
-    """{name: LeafSpec} of the fp32 moments of ``params`` (a per-layer tree),
-    by name as ``named_leaves`` gives them. ``plan.zero_stage`` 0, or no mesh,
-    keeps every moment whole."""
-    n = data_size(mesh) if plan is None or plan.zero_stage >= 1 else 1
+    """{name: LeafSpec} of the fp32 moments of ``params`` (a per-layer tree,
+    whole or this rank's ZeRO-3 slices), by name as ``named_leaves`` gives
+    them. ``plan.zero_stage`` 0, or no mesh, keeps every moment whole; under
+    ``plan.dp_shard`` > 1 each moment is on its param's slice whatever the
+    stage (the reference's "already data-sharded" case)."""
+    n = data_size(mesh) if (plan is None or plan.zero_stage >= 1
+                            or getattr(plan, "dp_shard", 1) > 1) else 1
     out = {}
     for name, leaf in named_leaves(params):
-        shape = stacked_shape(leaf)
+        shape = whole_stacked_shape(leaf)
         out[name] = LeafSpec(shape, opt_shard_dim(shape, n), torch.float32)
     return out
 
 
 def train_state_specs(state: Any, mesh, plan) -> Dict[str, LeafSpec]:
     """The layout of a whole ``TrainState`` by leaf name (``params/...``,
-    ``opt/step``, ``opt/mu/...``, ``opt/nu/...``): params and the step whole,
+    ``opt/step``, ``opt/mu/...``, ``opt/nu/...``): the params whole, or under
+    ``plan.dp_shard`` > 1 split as :func:`fsdp_specs` says, the step whole,
     the moments as :func:`opt_state_specs`. What a checkpoint records and an
     elastic restore re-slices onto."""
-    out = {f"params/{n}": LeafSpec(stacked_shape(x), None, _dtype(x))
-           for n, x in named_leaves(state.params)}
+    if getattr(plan, "dp_shard", 1) > 1:
+        out = {f"params/{n}": s for n, s in
+               fsdp_specs(state.params, data_size(mesh)).items()}
+    else:
+        out = {f"params/{n}": LeafSpec(whole_stacked_shape(x), None, _dtype(x))
+               for n, x in named_leaves(state.params)}
     out["opt/step"] = LeafSpec((), None, torch.int32)
     moments = opt_state_specs(state.params, mesh, plan)
     for which in ("mu", "nu"):
@@ -474,3 +486,162 @@ def dim_first(shape: Tuple[int, ...], dim: int, dtype: torch.dtype,
     view of it in ``shape``'s own order to write or read through."""
     buf = torch.empty((shape[dim],) + shape[:dim] + shape[dim + 1:], dtype=dtype, device=device)
     return buf, buf.movedim(0, dim)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-3 / FSDP: the params themselves split over the data domain
+
+
+class FsdpPart(NamedTuple):
+    """What a ZeRO-3 param tensor is a part of (the tensor's ``fsdp_part``
+    attribute): ``whole``, the whole tensor's shape (one layer's, for a layer
+    list); ``dim``, its dim split in contiguous blocks over the data ranks in
+    rank order; or, where the rule split a layer list on its layer dim,
+    ``owner``, the data rank that holds this layer whole (the others hold an
+    empty placeholder)."""
+    whole: Tuple[int, ...]
+    dim: Optional[int]
+    owner: Optional[int]
+
+
+FSDP_ATTR = "fsdp_part"
+
+
+def fsdp_part(t) -> Optional[FsdpPart]:
+    """The :class:`FsdpPart` of a ZeRO-3 param tensor, None for a whole one."""
+    return getattr(t, FSDP_ATTR, None)
+
+
+def whole_stacked_shape(leaf) -> Tuple[int, ...]:
+    """The whole leaf's stacked shape, whether ``leaf`` is whole or this
+    rank's ZeRO-3 part of it."""
+    first = leaf[0] if isinstance(leaf, list) else leaf
+    part = fsdp_part(first)
+    if part is None:
+        return stacked_shape(leaf)
+    return ((len(leaf),) if isinstance(leaf, list) else ()) + tuple(part.whole)
+
+
+def fsdp_specs(params: Any, n: int) -> Dict[str, LeafSpec]:
+    """{name: LeafSpec} of the ZeRO-3 placement over a data domain of ``n``
+    ranks (the reference's ``_add_fsdp``, ``repro/core/sharding.py:98``, with
+    no TP): each leaf split on the largest stacked dim, larger than 1, that
+    ``n`` divides, the later one on a tie: :func:`opt_shard_dim`, the ZeRO-1
+    rule, so a param's slice is its moments' slice. ``params`` may be whole
+    or this rank's parts."""
+    out = {}
+    for name, leaf in named_leaves(params):
+        shape = whole_stacked_shape(leaf)
+        out[name] = LeafSpec(shape, opt_shard_dim(shape, n), _dtype(leaf))
+    return out
+
+
+def _tagged(t: torch.Tensor, part: FsdpPart) -> torch.Tensor:
+    setattr(t, FSDP_ATTR, part)
+    return t
+
+
+def fsdp_cut(params: Any, rank: int, n: int) -> Any:
+    """Rank ``rank``'s ZeRO-3 parts of a whole per-layer param tree over
+    ``n`` data ranks (:func:`fsdp_specs`): new contiguous tensors, each
+    tagged with its :class:`FsdpPart`. A leaf split on a layer list's layer
+    dim gives each rank its layers whole and an empty placeholder for the
+    others'; a leaf the rule keeps whole is copied untagged."""
+    specs = fsdp_specs(params, n)
+    out = {}
+    for name, leaf in named_leaves(params):
+        d = specs[name].dim
+        if isinstance(leaf, list):
+            k = len(leaf) // n if d == 0 else 0
+            parts = []
+            for i, p in enumerate(leaf):
+                p = p.detach()
+                whole = tuple(p.shape)
+                if d is None:
+                    parts.append(p.clone())
+                elif d == 0:
+                    owner = i // k
+                    held = p.clone() if owner == rank else p.new_empty((0,))
+                    parts.append(_tagged(held, FsdpPart(whole, None, owner)))
+                else:
+                    m = whole[d - 1] // n
+                    parts.append(_tagged(p.narrow(d - 1, rank * m, m).clone(),
+                                         FsdpPart(whole, d - 1, None)))
+            out[name] = parts
+        else:
+            p = leaf.detach()
+            if d is None:
+                out[name] = p.clone()
+            else:
+                m = p.shape[d] // n
+                out[name] = _tagged(p.narrow(d, rank * m, m).clone(),
+                                    FsdpPart(tuple(p.shape), d, None))
+    n_layers = {len(v) for v in out.values() if isinstance(v, list)}
+    return _unflatten_like(_layers_like(params, max(n_layers, default=0)), out)
+
+
+def rank_stack(leaf, spec: LeafSpec, rank: int, n: int) -> List[torch.Tensor]:
+    """The tensors of ``leaf`` (whole, or this rank's ZeRO-3 parts) that
+    stack into what this rank holds of it in stacked coordinates: its layers
+    of a layer list split on the layer dim, every layer otherwise."""
+    if not isinstance(leaf, list):
+        return [leaf]
+    if spec.dim == 0 and fsdp_part(leaf[0]) is not None:
+        k = spec.shape[0] // n
+        return leaf[rank * k:(rank + 1) * k]
+    return list(leaf)
+
+
+# ---------------------------------------------------------------------------
+# the decode cache on a grid (the reference's kv_cache_spec / cache_specs,
+# repro/core/sharding.py:343-391)
+
+_KV_CACHE_KEYS = {"k", "v", "attn_k", "attn_v"}
+
+
+def _axis_divides(size: int, mesh, axis: str) -> bool:
+    n = int(mesh.shape.get(axis, 1)) if mesh is not None else 1
+    return n > 1 and size % n == 0
+
+
+def kv_cache_spec(plan, batch_axes: Tuple[str, ...] = ("data",),
+                  seq_sharded: bool = True) -> Spec:
+    """(batch, seq, kv_heads, head_dim) decode cache: batch over
+    ``batch_axes``, seq over ``model`` when ``seq_sharded`` and the plan's
+    ``seq_shard_decode`` (the reference's, with the batch axes passed in
+    where the reference reads them off its mesh)."""
+    model = "model" if (seq_sharded and plan.seq_shard_decode) else None
+    return (tuple(batch_axes) if batch_axes else None, model, None, None)
+
+
+def cache_specs(cache: Any, plan, mesh, batch_axes: Tuple[str, ...]) -> Dict[str, Spec]:
+    """{name: spec} of a decode cache of whole shapes (its leaves stacked on a
+    leading layer dim, (L, B, ...); tensors or anything with ``.shape``): the
+    batch dim over ``batch_axes``; a K/V leaf (``k``, ``v``, ``attn_k``,
+    ``attn_v``) splits T over ``model`` when the plan's ``seq_shard_decode``
+    is on, the model axis carries no batch and divides T; the cross caches
+    stay whole, as in the reference. Unlike the reference, the SSM ``state``
+    and the ``conv_*`` tails stay whole on every model rank: the port's
+    serving holds whole params on every model rank and runs the SSM step
+    whole there (they do not grow with the context; ROADMAP queue C). This is
+    the placement the port's models allocate (``models.families``)."""
+    baxes = tuple(batch_axes) if batch_axes else None
+    model_free = "model" not in (batch_axes or ())
+    out = {}
+    for name, leaf in named_leaves(cache):
+        shape = tuple(leaf.shape)
+        if name.split("/")[-1] in _KV_CACHE_KEYS:        # (L, B, T, Hkv, hd)
+            seq = model_free and _axis_divides(shape[2], mesh, "model")
+            out[name] = (None,) + kv_cache_spec(plan, batch_axes, seq)
+            continue
+        spec: List[Any] = [None] * len(shape)
+        if baxes:
+            spec[1] = baxes
+        out[name] = tuple(spec)
+    return out
+
+
+def seq_block(t_loc: int, rank: int) -> Tuple[int, int]:
+    """The positions ``[r T_loc, (r + 1) T_loc)`` of the sequence-sharded
+    decode cache that model rank ``rank`` holds."""
+    return rank * t_loc, (rank + 1) * t_loc

@@ -26,7 +26,8 @@ global sum). :func:`replica_divergence` therefore takes those slices apart,
 all-reduces (SUM) their checksum, then adds the checksum of what every rank
 holds whole (the params after the all-gather, and any grad kept whole), and
 only then compares MAX against MIN: a healthy step reads 0.0, and the value is
-the checksum of the whole state.
+the checksum of the whole state. Under ZeRO-3 the params' parts are counted
+the same way as the grad slices.
 
 The checksum input passes the ``integrity.checksum`` fault point with the
 caller's rank, which is how the tests create a genuinely rank-divergent value
@@ -96,14 +97,22 @@ def replica_divergence(tree, mesh=None, sharded=None) -> Tuple[torch.Tensor, tor
     return mx, (mx - mn).to(torch.float32)
 
 
-def audit(params, grads, mesh=None, specs=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def audit(params, grads, mesh=None, specs=None,
+          sharded_params: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """The train step's audit (``plan.integrity == "audit"``): (checksum,
     divergence) of ``{"params": params, "grads": grads}``. Under a data mesh,
     ``grads`` holds this rank's slices by name and ``specs`` says which are
-    split (``core.sharding``); a grad kept whole is counted once."""
+    split (``core.sharding``); a grad kept whole is counted once. Under
+    ZeRO-3 (``sharded_params``) the params' parts are counted as the grad
+    slices are: summed over the ranks (a layer placeholder holds no bits)."""
     if mesh is None or specs is None:
         return replica_divergence({"params": params, "grads": grads}, mesh)
     named = named_leaves(grads)
     split = [x for n, x in named if specs[n].dim is not None]
     whole = [x for n, x in named if specs[n].dim is None]
-    return replica_divergence({"params": params, "grads": whole}, mesh, sharded=split)
+    if not sharded_params:
+        return replica_divergence({"params": params, "grads": whole}, mesh, sharded=split)
+    pnamed = named_leaves(params)
+    split += [x for n, x in pnamed if specs[n].dim is not None]
+    whole += [x for n, x in pnamed if specs[n].dim is None]
+    return replica_divergence(whole, mesh, sharded=split)

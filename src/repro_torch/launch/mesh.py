@@ -172,6 +172,25 @@ class DataMesh:
         self._run("all_gather", lambda o, i: dist.all_gather_into_tensor(o, i, group=self.group), out, inp)
         return out
 
+    def broadcast_(self, t: torch.Tensor, src: int) -> torch.Tensor:
+        """``t`` (contiguous) replaced in place by data rank ``src``'s: a
+        ZeRO-3 layer's gather from its owner, timed as an all-gather."""
+        if self.group is not None:
+            g = dist.get_global_rank(self.group, src)
+            self._run("all_gather",
+                      lambda o, _: dist.broadcast(o, g, group=self.group), t, t)
+        return t
+
+    def reduce_mean_(self, t: torch.Tensor, dst: int) -> torch.Tensor:
+        """``t`` (contiguous) replaced in place, on data rank ``dst``, by its
+        mean over the ranks (elsewhere left undefined): a ZeRO-3 layer's
+        grad to its owner, timed as a reduce-scatter."""
+        if self.group is not None:
+            g = dist.get_global_rank(self.group, dst)
+            self._run("reduce_scatter",
+                      lambda o, _: dist.reduce(o, g, group=self.group), t, t)
+        return t.div_(self.size)
+
     def barrier_error(self, failed: bool) -> bool:
         """Whether any rank of ``host_group`` passed ``failed``: a barrier that
         also spreads one rank's failure to all."""
@@ -208,23 +227,37 @@ def init_data_mesh(device: Optional[Union[str, torch.device]] = None, *,
     return DataMesh(dist.group.WORLD, device, host_group=dist.new_group(backend="gloo"))
 
 
-def batch_axes_for(mesh, global_batch: int) -> Tuple[str, ...]:
+def batch_axes_for(mesh, global_batch: int, pp: int = 1,
+                   dp_over_model: bool = False) -> Tuple[str, ...]:
     """The reference's rule (``repro/launch/mesh.py:67``) on a data mesh or a
-    grid: the batch shards over ``data`` when its rows divide by the axis, else
-    it is replicated (every rank computes all of it). The ``model`` axis never
-    carries batch (the reference's ``dp_over_model`` remap is not ported): its
-    ranks hold the same rows and split the model. Nor does ``pod``: it carries
-    pipeline stages, as in the reference under ``pp`` > 1, and the port runs
-    no pods as data replicas (``pp`` 1 on a pod axis is refused by
-    ``train.executor.resolve_context``)."""
-    n = int(mesh.shape.get("data", 1))
-    return ("data",) if "data" in mesh.shape and global_batch % n == 0 else ()
+    grid: the mesh axes the global batch shards over, largest-first, each
+    taken while the batch's rows still divide. The candidates are ``pod`` and
+    ``data``, and ``model`` too under ``dp_over_model`` (the remap runs the
+    model axis as more data parallelism); under ``pp`` > 1 ``pod`` carries
+    the pipeline's stages and no batch. Without ``dp_over_model`` the model
+    ranks hold the same rows and split the model. The port runs no pods as
+    data replicas (``pp`` 1 on a pod axis is refused by
+    ``train.executor.resolve_context``), so a pod axis carries stages only."""
+    axes, div = [], 1
+    wanted = ("pod", "data", "model") if dp_over_model else ("pod", "data")
+    candidates = [a for a in wanted if a in mesh.shape]
+    if pp > 1 and "pod" in candidates:
+        candidates.remove("pod")
+    for a in candidates:
+        n = int(mesh.shape[a])
+        if global_batch % (div * n) == 0:
+            axes.append(a)
+            div *= n
+    return tuple(axes)
 
 
 def data_mesh(mesh) -> Optional[DataMesh]:
-    """The :class:`DataMesh` the ZeRO-1 code runs on: a grid's data group, or
+    """The :class:`DataMesh` the ZeRO code runs on: a grid's data group (its
+    data x model ranks when the grid was made with ``dp_over_model``), or
     ``mesh`` itself."""
-    return mesh.data if isinstance(mesh, GridMesh) else mesh
+    if isinstance(mesh, GridMesh):
+        return mesh.flat if mesh.flat is not None else mesh.data
+    return mesh
 
 
 def model_size(mesh) -> int:
@@ -402,12 +435,16 @@ class GridMesh:
     C > 1), the global ``rank`` and ``size``, ``host_group``, a gloo group of
     every rank for host-side traffic, and ``save_group``, the gloo group of
     the ranks at cp index 0 (all of them without a cp axis), which hold every
-    distinct shard of the state."""
+    distinct shard of the state. ``flat`` is the :class:`DataMesh` over the
+    data x model ranks of this rank's pod and cp index (global order: data
+    index major) when the grid was made with ``dp_over_model``, else None."""
 
     def __init__(self, data: DataMesh, model: ModelRing, device, *, host_group=None,
                  cp: Optional[ModelRing] = None, save_group=None,
-                 ep: Optional[ModelRing] = None, pod: Optional[ModelRing] = None):
+                 ep: Optional[ModelRing] = None, pod: Optional[ModelRing] = None,
+                 flat: Optional[DataMesh] = None):
         self.data, self.model, self.cp, self.pod = data, model, cp, pod
+        self.flat = flat
         self.ep = ep if ep is not None else (cp if cp is not None and model.size == 1
                                              else model)
         self.device = torch.device(device)
@@ -450,6 +487,8 @@ class GridMesh:
             dist.destroy_process_group()
         self.host_group = self.save_group = self.data.group = self.data.host_group = None
         self.model.group = self.ep.group = None
+        if self.flat is not None:
+            self.flat.group = self.flat.host_group = None
         for ring in (self.cp, self.pod):
             if ring is not None:
                 ring.group = None
@@ -457,14 +496,17 @@ class GridMesh:
 
 def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.device]] = None,
                    *, cp: int = 1, pod: int = 1, backend: Optional[str] = None,
-                   init_method: str = "env://", rank: Optional[int] = None) -> GridMesh:
+                   init_method: str = "env://", rank: Optional[int] = None,
+                   dp_over_model: bool = False) -> GridMesh:
     """Join the process group of ``pod * data * cp * model`` ranks and return
     this rank's :class:`GridMesh`. ``device`` and ``backend`` as in
     :func:`init_data_mesh` (gloo on CUDA: the host transport, the only way to
     put two ranks on one card). Every rank creates every data, cp and model
     group (one set per pod index), in the same order, as ``dist.new_group``
     requires, then the expert rings where both cp and model are 2 or more,
-    and last the pod rings; an axis of size 1 gets no group."""
+    then the pod rings, and last, with ``dp_over_model``, the flat data groups
+    of the data x model ranks (``GridMesh.flat``); an axis of size 1 gets no
+    group."""
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -533,5 +575,15 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
                     g = dist.new_group(ranks)
                     if (d, c, m) == (d_idx, c_idx, m_idx):
                         pod_ring = ModelRing(g, ranks, device, axis="pod")
+    flat = None
+    for p in range(pod):                        # one flat data group per (pod, cp) index
+        for c in range(cp):
+            ranks = [at(p, d, c, m) for d in range(data) for m in range(model)]
+            if dp_over_model and data * model > 1:
+                g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
+                if (p, c) == (p_idx, c_idx):
+                    flat = DataMesh(g, device, host_group=hg)
+    if dp_over_model and flat is None:
+        flat = DataMesh(device=device)
     return GridMesh(data_mesh_, ring, device, host_group=host_group, cp=cp_ring,
-                    save_group=save_group, ep=fold, pod=pod_ring)
+                    save_group=save_group, ep=fold, pod=pod_ring, flat=flat)

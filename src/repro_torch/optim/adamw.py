@@ -22,7 +22,8 @@ from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
-from repro_torch.core.sharding import (LeafSpec, dim_first, local_shape, rank_views)
+from repro_torch.core.sharding import (LeafSpec, dim_first, local_shape, rank_stack,
+                                       rank_views)
 from repro_torch.core.tree import from_names, leaves, map_tree, named_leaves
 
 
@@ -82,7 +83,8 @@ def adamw_update(grads: Any, state: AdamWState, params: Any, lr, *, b1: float = 
 @torch.no_grad()
 def adamw_update_sharded(grads: Any, state: AdamWState, params: Any, lr, *, mesh,
                          specs: Dict[str, LeafSpec], b1: float = 0.9, b2: float = 0.95,
-                         eps: float = 1e-8, weight_decay: float = 0.1):
+                         eps: float = 1e-8, weight_decay: float = 0.1,
+                         sharded_params: bool = False):
     """ZeRO-1 AdamW (the reference's ``adamw_update_sharded``). ``grads`` and
     the moments are by name, this rank's slices (``train.step`` reduce-scatters
     the grads onto them); ``params`` is the full per-layer tree every rank
@@ -90,7 +92,11 @@ def adamw_update_sharded(grads: Any, state: AdamWState, params: Any, lr, *, mesh
     are all-gathered back into the full params, in place. A leaf the layout
     keeps whole (``spec.dim`` None) has its full grad on every rank and is
     updated whole, the same on each. Returns (params, the state with
-    ``step + 1``)."""
+    ``step + 1``).
+
+    ``sharded_params`` is ZeRO-3: ``params`` holds this rank's parts of the
+    split leaves (``core.sharding.fsdp_cut``), which are updated in place as
+    they are, with no all-gather."""
     step = state.step + 1
     c1 = 1.0 - b1 ** step
     c2 = 1.0 - b2 ** step
@@ -102,11 +108,16 @@ def adamw_update_sharded(grads: Any, state: AdamWState, params: Any, lr, *, mesh
         if tuple(m.shape) != local_shape(spec, n):
             raise ValueError(f"{name}: moment {tuple(m.shape)} is not this rank's slice "
                              f"{local_shape(spec, n)} of {spec.shape}")
-        views = rank_views(leaf, spec, r, n)
+        if sharded_params and spec.dim is not None:
+            held = rank_stack(leaf, spec, r, n)
+            views = ([(p, i) for i, p in enumerate(held)] if isinstance(leaf, list)
+                     else [(leaf, None)])
+        else:
+            views = rank_views(leaf, spec, r, n)
         for p, i in views:
             _update(*(t if i is None else t[i] for t in (g, m, v)), p, lr, c1, c2, b1, b2,
                     eps, weight_decay)
-        if spec.dim is not None:
+        if spec.dim is not None and not sharded_params:
             _gather_params(leaf, views, spec, mesh)
     return params, AdamWState(step, state.mu, state.nu)
 

@@ -70,7 +70,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,6 +89,7 @@ from repro_torch.launch.mesh import (DataMesh, ModelRing, cp_size, data_mesh, mo
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import NEG_INF, mlp_block, qkv_proj, rms_norm, rope
+from .fsdp import gatherer
 from .loss import cross_entropy
 from .tensor_parallel import (all_gather_matmul, all_reduce_replicated, all_reduce_sum,
                               check_overlap_support, decoder_only_support_errors,
@@ -128,13 +129,21 @@ class ParallelContext:
     ("ring" | "gather"), ``ep`` the expert ring and ``ep_impl`` its resolved
     exchange ("blocking" | "overlap"), and ``data`` the data group over which
     the batch's rows are split (``None``: one data rank), which with ``cp``
-    or ``ep`` completes the MoE aux statistics."""
+    or ``ep`` completes the MoE aux statistics. ``gather`` is ZeRO-3's
+    per-layer gather (``train/fsdp.py`` ``gatherer``; None: the params are
+    whole), which the layer bodies run on their params inside their remat
+    boundary; it changes no placement of the math."""
     tp: Optional[ModelRing] = None
     cp: Optional[ModelRing] = None
     cp_impl: str = "ring"
     ep: Optional[ModelRing] = None
     ep_impl: str = "overlap"
     data: Optional[DataMesh] = None
+    gather: Optional[Callable] = None
+
+    def full(self, tree, select=None):
+        """``tree`` with its ZeRO-3 parts gathered (those ``select`` takes)."""
+        return tree if self.gather is None else self.gather(tree, select)
 
     @property
     def is_local(self) -> bool:
@@ -176,9 +185,10 @@ class ParallelContext:
         return t
 
 
-def local_context() -> ParallelContext:
-    """The single-device placement: every block its local body."""
-    return ParallelContext()
+def local_context(gather: Optional[Callable] = None) -> ParallelContext:
+    """The single-device placement: every block its local body (its params
+    gathered by ``gather`` under ZeRO-3)."""
+    return ParallelContext(gather=gather)
 
 
 def _slice_tp(ctx: ParallelContext, p, n_loc: int, axis: int = 0):
@@ -236,16 +246,23 @@ def resolve_context(cfg: ModelConfig, plan: ParallelPlan, mesh) -> ParallelConte
     ``ep``. A plan with ``tp`` 1 on a model axis is refused unless it asks
     for that ep ring, rather than run the whole model on every model rank.
     The MoE family under a data axis alone routes each rank's rows, its aux
-    summed over the data group. ``plan.tp_impl`` "gspmd" is refused by
+    summed over the data group. Under ``plan.dp_shard`` > 1 (data
+    parallelism alone, ``ParallelPlan.validate``) the context carries
+    ZeRO-3's gather over the data group. ``plan.tp_impl`` "gspmd" is refused by
     ``plan.validate``. On a grid with a pod axis, ``plan.pp`` must be its
     size; the stage's (data, cp, model) sub-grid then gives the placement
-    above unchanged (``train/pipeline.py`` runs it)."""
+    above unchanged (``train/pipeline.py`` runs it). Under
+    ``plan.dp_over_model`` the model axis is more data parallelism: the data
+    group is the grid's flat one (``launch.mesh.data_mesh``) and no ring
+    runs."""
     shape = dict(mesh.shape) if mesh is not None else None
     if pod_size(mesh) != plan.pp:
         raise ValueError(f"plan.pp={plan.pp} needs a 'pod' mesh axis of that size (the port "
                          f"runs no pods as data replicas), the mesh has {shape}")
-    tp = model_size(mesh)
-    data = data_mesh(mesh) if mesh is not None and mesh.shape.get("data", 1) > 1 else None
+    tp = 1 if plan.dp_over_model else model_size(mesh)
+    domain = (shape.get("data", 1) * (shape.get("model", 1) if plan.dp_over_model else 1)
+              if mesh is not None else 1)
+    data = data_mesh(mesh) if domain > 1 else None
     if plan.ep > 1 and plan.tp == 1 and plan.cp == 1:
         if tp != plan.ep:
             raise ValueError(f"plan.ep={plan.ep} needs a 'model' mesh axis of exactly that "
@@ -270,9 +287,10 @@ def resolve_context(cfg: ModelConfig, plan: ParallelPlan, mesh) -> ParallelConte
                          f"{tp * cp} (mesh {shape}): the expert axis re-maps those ranks, "
                          "it does not add any")
     if tp == 1 and cp == 1:
+        gather = gatherer(data_mesh(mesh)) if plan.dp_shard > 1 and mesh is not None else None
         if cfg.family == Family.MOE and data is not None:
-            return ParallelContext(data=data)
-        return local_context()
+            return ParallelContext(data=data, gather=gather)
+        return local_context(gather)
     if tp > 1:
         check_overlap_support(cfg, plan, tp)
     if cp > 1:
@@ -454,17 +472,19 @@ def ring_attention(ring: ModelRing, q, k, v, *, impl: str = "auto", softcap: flo
 
 
 def gather_attention(ctx: ParallelContext, q, k, v, *, window: int, softcap: float,
-                     impl: str):
+                     impl: str, return_kv: bool = False):
     """``cp_impl="gather"``: K/V all-gathered over the cp ring (contiguous
     chunks; the backward reduce-scatters their cotangents) and the local
     queries attending the whole context through ``dispatch_attention`` at
     the rank's causal ``q_offset``: O(S) K/V on every rank where the ring
-    holds O(S/cp)."""
+    holds O(S/cp). With ``return_kv`` also the gathered (k, v): the grid
+    prefill writes the positions its rank owns into its cache slice."""
     s_loc = q.shape[1]
     kf = ring_all_gather(ctx.cp, k, seam=None)
     vf = ring_all_gather(ctx.cp, v, seam=None)
-    return dispatch_attention(q, kf, vf, impl=impl, causal=True, window=window,
-                              softcap=softcap, q_offset=ctx.cp.rank * s_loc)
+    o = dispatch_attention(q, kf, vf, impl=impl, causal=True, window=window,
+                           softcap=softcap, q_offset=ctx.cp.rank * s_loc)
+    return (o, (kf, vf)) if return_kv else o
 
 
 # ---------------------------------------------------------------------------
@@ -719,13 +739,45 @@ def ssm_block_ex(ctx: ParallelContext, p, x, cfg: ModelConfig, dtype,
 # ---------------------------------------------------------------------------
 # layer builders
 
+# ZeRO-3 under remat "selective": the leaves each checkpointed piece gathers
+_SSM_OUT = ("D", "scale", "out_proj")
+
+
+def _pre_attn(path):
+    return path[0] == "norm1" or (path[0] == "attn" and path[-1] != "wo")
+
+
+def _post_attn(path):
+    return not _pre_attn(path)
+
+
+def _pre_ssm(path):
+    return path[0] == "norm1" or (path[0] == "ssm" and path[-1] not in _SSM_OUT)
+
+
+def _post_ssm(path):
+    return not _pre_ssm(path)
+
+
+def _mid_cross(path):
+    return (path == ("attn", "wo") or path[0] == "norm2"
+            or (path[0] == "xattn" and path[-1] != "wo"))
+
+
+def _post_cross(path):
+    return path == ("xattn", "wo") or path[0] in ("norm3", "mlp")
+
 
 def decoder_layer(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dtype,
                   collect_kv: bool = False):
     """The decoder-layer body (dense or MoE) under ``ctx``. ``window`` is the
     layer's int window. The layer returns ``(x, aux)``: the MoE sublayer's
     load-balancing loss, or a zero for dense layers (and the layer's (k, v)
-    with ``collect_kv``).
+    with ``collect_kv``: under the cp gather mode the K/V gathered over the
+    ring, the whole sequence's).
+
+    Under ZeRO-3 (``ctx.gather``) the body gathers the layer's params first,
+    inside the remat boundary; ``"selective"`` gathers each piece's own.
 
     ``plan.remat`` (applied only while autograd records):
     ``"none"`` saves every intermediate; ``"full"`` checkpoints the whole layer,
@@ -740,8 +792,10 @@ def decoder_layer(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dt
     moe = cfg.family == Family.MOE
     alternating = bool(cfg.local_global_alternating and cfg.sliding_window)
     impl, remat = plan.attn_impl, plan.remat
+    gather_kv = collect_kv and ctx.cp is not None and ctx.cp_impl == "gather"
 
     def pre(x, lp, positions):
+        lp = ctx.full(lp, _pre_attn)
         h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
         q, k, v = attn_qkv(ctx, lp["attn"], h, cfg, dtype)
         if cfg.pos_emb == "rope":
@@ -750,6 +804,7 @@ def decoder_layer(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dt
         return q, k, v
 
     def post(x, a, lp):
+        lp = ctx.full(lp, _post_attn)
         a = _proj_rows(ctx, a.reshape(a.shape[0], a.shape[1], -1), lp["attn"]["wo"].to(dtype))
         if cfg.post_norm:
             a = rms_norm(a, lp["norm1_post"]["scale"], cfg.rms_eps)
@@ -772,16 +827,23 @@ def decoder_layer(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dt
         if ctx.cp_impl == "ring":
             return ring_attention(ctx.cp, q, k, v, impl=impl, softcap=cfg.attn_logit_softcap)
         return gather_attention(ctx, q, k, v, window=window, softcap=cfg.attn_logit_softcap,
-                                impl=impl)
+                                impl=impl, return_kv=gather_kv)
 
     def body(x, lp, window, positions):
+        lp = ctx.full(lp)
         q, k, v = pre(x, lp, positions)
-        out, aux = post(x, attend(q, k, v, window), lp)
+        a = attend(q, k, v, window)
+        if gather_kv:
+            a, (k, v) = a
+        out, aux = post(x, a, lp)
         return out, aux, (k, v)
 
     def selective(x, lp, window, positions):
         q, k, v = checkpoint(pre, x, lp, positions)
-        out, aux = checkpoint(post, x, attend(q, k, v, window), lp)
+        a = attend(q, k, v, window)
+        if gather_kv:
+            a, (k, v) = a
+        out, aux = checkpoint(post, x, a, lp)
         return out, aux, (k, v)
 
     def layer(x, lp, window, positions):
@@ -809,13 +871,16 @@ def ssm_layer(ctx: ParallelContext, cfg: ModelConfig, plan: ParallelPlan, dtype)
     remat = plan.remat
 
     def pre(x, lp):
+        lp = ctx.full(lp, _pre_ssm)
         h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
         return ssm_in_ex(ctx, lp["ssm"], h, cfg, dtype)
 
     def post(x, y, xh, z, lp):
+        lp = ctx.full(lp, _post_ssm)
         return x + ssm_out_ex(ctx, lp["ssm"], y, xh, z, cfg, dtype)
 
     def body(x, lp):
+        lp = ctx.full(lp)
         h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
         return x + ssm_block_ex(ctx, lp["ssm"], h, cfg, dtype, plan=plan)
 
@@ -863,7 +928,8 @@ def make_executor_loss_fn(cfg: ModelConfig, plan: ParallelPlan, mesh, z_loss: fl
     over the data ranks is the train step's, as under data parallelism alone.
     Returns ``(loss + aux, {"xent", "moe_aux"})``, the same on every rank of
     the tp and cp rings."""
-    from repro_torch.models.families import _embed, _layer_windows, _logits  # noqa: PLC0415
+    from repro_torch.models.families import (_embed, _layer_windows, _logits,  # noqa: PLC0415
+                                             head_params)
     ctx = resolve_context(cfg, plan, mesh)
     if ctx.is_local:
         raise ValueError("the executor loss needs tensor, context or expert parallelism (a "
@@ -893,18 +959,18 @@ def make_executor_loss_fn(cfg: ModelConfig, plan: ParallelPlan, mesh, z_loss: fl
         if ctx.tp is not None:
             x = tp_embed(params, tokens, cfg, dtype, ctx.tp)
         else:
-            x = _embed(params, tokens, cfg, dtype)
+            x = _embed({"embed": ctx.full(params["embed"])}, tokens, cfg, dtype)
         positions = cp_local_positions(ctx, s_loc, zigzag, device=x.device)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for lp, w in zip(params["layers"], windows):
             x, a = layer(x, lp, w, positions)
             aux = aux + a
-        x = rms_norm(x, params["final_norm"]["scale"], cfg.rms_eps)
+        x = rms_norm(x, ctx.full(params["final_norm"])["scale"], cfg.rms_eps)
         if ctx.tp is not None:
             nll = tp_head_nll(params, x, labels, cfg, ctx.tp, dtype, z_loss)
         else:
-            nll = cross_entropy(_logits(params, x, cfg, dtype), labels, z_loss=z_loss,
-                                reduction="none")
+            nll = cross_entropy(_logits(ctx.full(head_params(params, cfg)), x, cfg, dtype),
+                                labels, z_loss=z_loss, reduction="none")
         tot = nll.sum()
         if ctx.cp is not None:
             tot = all_reduce_replicated(ctx.cp, tot)
@@ -914,19 +980,24 @@ def make_executor_loss_fn(cfg: ModelConfig, plan: ParallelPlan, mesh, z_loss: fl
     return loss_fn
 
 
-def encoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
+def encoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype,
+                  gather: Optional[Callable] = None):
     """whisper's encoder layer: ``x + attn(norm1(x))`` with non-causal
     self-attention through ``dispatch_attention``, then ``x + mlp(norm2(x))``.
     ``plan.remat`` as in :func:`decoder_layer`: ``"selective"`` checkpoints
     the norm and projections before the attention call and the output
-    projection and MLP after it, keeping what the kernels saved."""
+    projection and MLP after it, keeping what the kernels saved. ``gather``:
+    ZeRO-3's, as in :func:`decoder_layer`."""
     impl = plan.attn_impl
+    ctx = local_context(gather)
 
     def pre(x, lp):
+        lp = ctx.full(lp, _pre_attn)
         h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
         return qkv_proj(lp["attn"], h, cfg, dtype)
 
     def post(x, lp, a):
+        lp = ctx.full(lp, _post_attn)
         x = x + a.reshape(x.shape[0], x.shape[1], -1) @ lp["attn"]["wo"].to(dtype)
         h = rms_norm(x, lp["norm2"]["scale"], cfg.rms_eps)
         return x + mlp_block(lp["mlp"], h, dtype)
@@ -935,6 +1006,7 @@ def encoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
         return dispatch_attention(q, k, v, impl=impl, causal=False)
 
     def body(x, lp):
+        lp = ctx.full(lp)
         return post(x, lp, attend(*pre(x, lp)))
 
     def selective(x, lp):
@@ -946,7 +1018,8 @@ def encoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
     return layer
 
 
-def cross_decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
+def cross_decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype,
+                        gather: Optional[Callable] = None):
     """whisper's decoder layer: causal self-attention (norm1), cross-attention
     of the queries to the encoder output's keys and values (norm2; k and v
     from ``enc_out @ xattn.wk/wv``, non-causal), then the MLP (norm3). Both
@@ -954,15 +1027,19 @@ def cross_decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
     :func:`decoder_layer`; ``"selective"`` checkpoints the three pieces of glue
     around the two attention calls. ``enc_out`` is an input of the whole layer
     under ``"full"`` and of the middle piece under ``"selective"``, so its
-    gradient flows back through every layer's ``xattn.wk/wv``."""
+    gradient flows back through every layer's ``xattn.wk/wv``. ``gather``:
+    ZeRO-3's, as in :func:`decoder_layer`."""
     impl = plan.attn_impl
     hq, hd = cfg.n_heads, cfg.head_dim
+    ctx = local_context(gather)
 
     def pre(x, lp):
+        lp = ctx.full(lp, _pre_attn)
         h = rms_norm(x, lp["norm1"]["scale"], cfg.rms_eps)
         return qkv_proj(lp["attn"], h, cfg, dtype)
 
     def mid(x, lp, enc_out, a):
+        lp = ctx.full(lp, _mid_cross)
         b, s = x.shape[:2]
         x = x + a.reshape(b, s, -1) @ lp["attn"]["wo"].to(dtype)
         h = rms_norm(x, lp["norm2"]["scale"], cfg.rms_eps)
@@ -970,6 +1047,7 @@ def cross_decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
         return (x, q, *cross_kv(cfg, lp, enc_out, dtype))
 
     def post(x, lp, a):
+        lp = ctx.full(lp, _post_cross)
         x = x + a.reshape(x.shape[0], x.shape[1], -1) @ lp["xattn"]["wo"].to(dtype)
         h = rms_norm(x, lp["norm3"]["scale"], cfg.rms_eps)
         return x + mlp_block(lp["mlp"], h, dtype)
@@ -981,6 +1059,7 @@ def cross_decoder_layer(cfg: ModelConfig, plan: ParallelPlan, dtype):
         return dispatch_attention(q, k, v, impl=impl, causal=False)
 
     def body(x, lp, enc_out):
+        lp = ctx.full(lp)
         x, q, k, v = mid(x, lp, enc_out, self_attend(*pre(x, lp)))
         return post(x, lp, cross_attend(q, k, v))
 

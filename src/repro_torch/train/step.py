@@ -82,6 +82,16 @@ counts each expert block once per fold rank, as it counts TP shards. The
 integrity audit, like under TP, checks each rank's own leaves over its data
 group.
 
+ZeRO-3 (survey §6.2; ``plan.dp_shard`` > 1, data parallelism alone): build
+the model with the step's mesh. :func:`init_train_state` keeps this rank's
+parts of every param (``core.sharding.fsdp_cut``), the model's forward gathers
+each layer's inside its remat boundary and the gathers' backward
+reduce-scatters the grads (``train/fsdp.py``), so after the microbatches a
+split leaf's ``.grad`` is already this rank's slice of the mean and only the
+leaves kept whole are all-reduced; the clip runs on the slices and
+``adamw_update_sharded(sharded_params=True)`` updates the parts in place with
+no all-gather. The audit counts the param parts as it counts the grad slices.
+
 The MoE family under data parallelism alone routes each rank's own rows and
 sums the aux statistics over the data group (the reference executor's
 ``batch_axes`` rule, ``train.executor.ParallelContext``): the same as one
@@ -97,8 +107,9 @@ from typing import Any, Callable, Dict, NamedTuple, Optional
 import torch
 
 from repro_torch.core.config import ParallelPlan
-from repro_torch.core.sharding import (LeafSpec, dim_first, grid_place, opt_state_specs,
-                                       param_spec, shard_layout, spec_axes)
+from repro_torch.core.sharding import (LeafSpec, dim_first, fsdp_cut, grid_place,
+                                       opt_state_specs, param_spec, rank_stack, shard_layout,
+                                       spec_axes)
 from repro_torch.core.tree import from_names, leaves, map_tree, named_leaves, stacked_shape
 from repro_torch.ft.integrity import audit
 from repro_torch.launch.mesh import data_mesh, rank_microbatches
@@ -131,17 +142,22 @@ def init_train_state(model: Model, gen: torch.Generator, mesh=None,
     pipeline parallelism the params are this rank's TP shards, expert blocks
     and stage's layers of the whole draw, and the ZeRO-1 layout is over its
     data group. Every rank must
-    draw the same params: pass generators seeded alike."""
+    draw the same params: pass generators seeded alike. Under
+    ``plan.dp_shard`` > 1 the params are this rank's ZeRO-3 parts of the
+    whole draw (``core.sharding.fsdp_cut``) and the model must be built with
+    the same mesh (``build_model(..., mesh=)``), whose forward gathers them."""
     plan = plan or model.plan
     params = model.init(gen)
     ctx = resolve_context(model.cfg, plan, mesh)
     if ctx.tp is not None or ctx.ep is not None or plan.pp > 1:
         params = shard_layout(params, plan, *grid_place(mesh))
+    dmesh = data_mesh(mesh) if mesh is not None else None
+    if plan.dp_shard > 1 and dmesh is not None:
+        params = fsdp_cut(params, dmesh.rank, dmesh.size)
     for p in leaves(params):
         p.requires_grad_(True)
     if mesh is None:
         return TrainState(params, adamw_init(params))
-    dmesh = data_mesh(mesh)
     specs = opt_state_specs(params, dmesh, plan)
     return TrainState(params, adamw_init(params, mesh=dmesh, specs=specs))
 
@@ -163,15 +179,24 @@ def _split_microbatches(batch: Dict[str, torch.Tensor], n: int):
 
 
 @torch.no_grad()
-def _scatter_grads(params: Any, specs: Dict[str, LeafSpec], mesh) -> Any:
+def _scatter_grads(params: Any, specs: Dict[str, LeafSpec], mesh, fsdp: bool = False) -> Any:
     """This rank's slices of the mean grads over the ranks, by name, with
-    ``.grad`` freed leaf by leaf (module docstring)."""
+    ``.grad`` freed leaf by leaf (module docstring). Under ZeRO-3
+    (``fsdp``) a split leaf's ``.grad`` is that slice already (the gathers'
+    backward reduce-scattered it), stacked as the rank holds it."""
     out = {}
     for name, leaf in named_leaves(params):
         spec = specs[name]
         ps = leaf if isinstance(leaf, list) else [leaf]
+        for p in ps:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
         g0 = ps[0].grad
-        if spec.dim is None:
+        if fsdp and spec.dim is not None:
+            held = rank_stack(leaf, spec, mesh.rank, mesh.size)
+            out[name] = (torch.stack([p.grad for p in held]) if isinstance(leaf, list)
+                         else g0)
+        elif spec.dim is None:
             buf = torch.stack([p.grad for p in ps]) if isinstance(leaf, list) else g0
             out[name] = mesh.all_reduce_mean(buf)
         else:
@@ -261,6 +286,11 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
                          "the step around it")
     ctx = resolve_context(model.cfg, plan, mesh)
     dmesh = data_mesh(mesh)
+    fsdp = plan.dp_shard > 1 and mesh is not None
+    if fsdp and ctx.is_local and getattr(getattr(model, "place", None), "data", None) is not dmesh:
+        raise ValueError("dp_shard > 1 (ZeRO-3): build the model with the step's mesh "
+                         "(build_model(cfg, plan, mesh=mesh)), whose forward gathers the "
+                         "params")
     loss_fn = (make_loss_fn(model, hyper) if ctx.is_local
                else make_executor_loss_fn(model.cfg, plan, mesh, z_loss=hyper.z_loss))
     grid_rings = {} if mesh is None or not hasattr(mesh, "ep") else {
@@ -299,16 +329,17 @@ def make_train_step(model: Model, plan: ParallelPlan, hyper: Hyper = Hyper(),
                                        weight_decay=hyper.weight_decay)
         else:
             specs = opt_state_specs(params, dmesh, plan)
-            grads = _scatter_grads(params, specs, dmesh)
+            grads = _scatter_grads(params, specs, dmesh, fsdp)
             grads, gnorm = clip_by_global_norm(grads, hyper.grad_clip, mesh=dmesh,
                                                specs=specs, splits=splits(axes))
             params, opt = adamw_update_sharded(grads, opt, params, lr, mesh=dmesh,
-                                               specs=specs, weight_decay=hyper.weight_decay)
+                                               specs=specs, weight_decay=hyper.weight_decay,
+                                               sharded_params=fsdp)
             loss, aux = dmesh.all_reduce_mean(torch.stack([loss, aux]))
         metrics = {"loss": loss, "grad_norm": gnorm, "lr": lr, "moe_aux": aux}
         if plan.integrity == "audit":
             metrics["integrity_checksum"], metrics["integrity_div"] = audit(
-                params, grads, dmesh, specs)
+                params, grads, dmesh, specs, sharded_params=fsdp)
         return TrainState(params, opt), metrics
 
     return train_step

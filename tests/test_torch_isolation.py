@@ -147,8 +147,9 @@ def test_plan_has_no_knob_the_port_does_not_implement(knob):
     tensor-parallel slice) runs only the rings: ``tp_impl="gspmd"`` raises,
     ``cp`` (the context-parallel slice) takes its three modes, ``ep``
     (the expert-parallel slice) takes an integer degree on the MoE family
-    and its three exchange modes, and ``pp`` (the pipeline slice) its two
-    schedules."""
+    and its three exchange modes, ``pp`` (the pipeline slice) its two
+    schedules, and ``dp_shard`` (the ZeRO-3 slice) runs with data
+    parallelism alone."""
     if knob == "ep":
         cfg = get_smoke_config("olmoe-1b-7b")
         for impl in ("auto", "blocking", "overlap"):
@@ -193,6 +194,15 @@ def test_plan_has_no_knob_the_port_does_not_implement(knob):
             ParallelPlan(pp=0).validate(cfg)
         with pytest.raises(ValueError, match="pp_schedule"):
             ParallelPlan(pp=2, microbatches=2, pp_schedule="interleaved").validate(cfg)
+        return
+    if knob == "dp_shard":
+        cfg = get_smoke_config("qwen2.5-14b")
+        for kw in ({}, {"dp_over_model": True}, {"zero_stage": 0}):
+            ParallelPlan(dp_shard=2, **kw).validate(cfg)
+        with pytest.raises(ValueError, match=knob):
+            ParallelPlan(dp_shard=0).validate(cfg)
+        with pytest.raises(ValueError, match=knob):
+            ParallelPlan(dp_shard=2, tp=2).validate(cfg)
         return
     with pytest.raises(TypeError, match=knob):
         ParallelPlan(**{knob: 2})
