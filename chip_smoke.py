@@ -255,6 +255,16 @@ B1 at hd 256, which must run the first version's body) must run the Hopper body
 (``check_bodies``, from the wrappers' per-body
 counters); the kernels line reports those counters by body.
 
+The single-device serving and training phases (4-6 and 9-11) take their
+model and their timed train and decode fns from
+``repro_torch.launch.build_step`` (phase 7's 4 of 28 layers are no shape
+name's: it builds its own); each serving phase also runs ``build_step``'s
+prefill fn once on the timed prefill's batch, whose logits must equal the
+timed prefill's bit for bit (whisper's timed prefill is ``fill_cross``: its
+encoder output against the fn's), and each training phase prints a
+``Roofline`` row beside its step time. The multi-rank phases print each
+collective kind's link bytes (``collective_stats()``) beside its seconds.
+
 Any failure raises: the script exits non-zero and prints no final line. The
 last line is ``{"ok": true, "device": {...}}``.
 """
@@ -281,8 +291,10 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 (NVIDIA data sheet)
-PEAK_BYTES = 3.35e12          # H100 SXM HBM3
+# the H100's rates and the reckoned FLOPs of a step: one copy, in the port
+from repro_torch.perf.roofline import (PEAK_BF16_FLOPS, PEAK_BYTES, Roofline,  # noqa: E402
+                                       model_flops_for, n_apps, ssd_flops, train_bytes,
+                                       train_flops)
 
 ARCH = "qwen2.5-14b"
 BATCH, PROMPT, MAX_SEQ, DECODE_STEPS = 4, 1000, 1056, 32
@@ -715,6 +727,55 @@ def to_cuda(tree):
     return tree.cuda()
 
 
+def link_bytes_since(ring, before):
+    """{kind: link bytes} that ``ring`` (a ``DataMesh`` or ``ModelRing``)
+    counted since ``before``, its ``collective_stats()`` then: this rank's
+    bytes over links by the ring model, beside its ``seconds`` by kind."""
+    return (ring.collective_stats() - before).link_bytes
+
+
+def roofline_row(cfg, rows, seq, flops, params, step_s):
+    """One device's ``Roofline`` of a train step of ``rows`` x ``seq`` tokens
+    beside its measured time: the reckoned FLOPs at the bf16 peak, the stated
+    floor of bytes (params, grads and both moments read and written once) at
+    HBM's rate, no collectives. Logged."""
+    from repro_torch.core import InputShape
+    r = Roofline(cfg.arch_id, f"train {rows}x{seq}", "1", 1, flops=flops,
+                 bytes=train_bytes(params), collective_bytes=0.0,
+                 model_flops=model_flops_for(cfg, InputShape("cell", seq, rows, "train")))
+    bound = max(r.t_compute, r.t_memory, r.t_collective)
+    log(f"roofline {json.dumps(r.row())}; step {step_s * 1e3:.1f} ms against the bound "
+        f"{bound * 1e3:.1f} ms ({r.bottleneck}): {bound / step_s:.2%}")
+
+
+def built(arch, shape_name, plan):
+    """``build_step(arch, shape_name, None, plan)`` on the card, its host
+    seconds (the meta-device example args included) logged."""
+    from repro_torch.launch import build_step
+    t0 = time.perf_counter()
+    out = build_step(arch, shape_name, None, plan)
+    log(f"build_step {arch} {shape_name}: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
+def prefill_fn_check(what, fn, params, batch, timed):
+    """``build_step``'s prefill fn once on the timed prefill's ``batch``: its
+    logits must equal ``timed`` (the timed prefill's, on the host) bit for
+    bit, since the same layers run on the same inputs."""
+    t0 = time.perf_counter()
+    logits = fn(params, batch).cpu()
+    same = logits.shape == timed.shape and torch.equal(logits, timed)
+    log(f"{what}: build_step's prefill fn against the timed prefill: logits "
+        f"{tuple(logits.shape)}, bit-identical {same} ({time.perf_counter() - t0:.2f} s)")
+    if not same:
+        diff = (logits - timed).abs() if logits.shape == timed.shape else None
+        raise AssertionError(
+            f"{what}: build_step's prefill fn's logits {tuple(logits.shape)} differ from the "
+            f"timed prefill's {tuple(timed.shape)}" + (
+                "" if diff is None else f" at {int((diff != 0).sum())} entries, max |diff| "
+                f"{diff.max().item():.3e}"))
+
+
 def profile_window(name, fn):
     """Kernel time by name over one call of ``fn``, and the device's busy share
     of the profiled wall time (the profiler's own overhead included). Only the
@@ -894,14 +955,15 @@ def kernel_on_real_inputs(model, plain, params, cfg):
 
 
 def phase_serving():
-    from repro_torch.core import ParallelPlan, get_config
+    from repro_torch.core import ParallelPlan
     from repro_torch.kernels.flash_attention import flash_attention_lse
     from repro_torch.models import build_model
 
     smoke_agreement()
-    cfg = get_config(ARCH)
-    model = build_model(cfg, ParallelPlan(compute_dtype="bfloat16",
-                                         param_dtype="bfloat16"))
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16")
+    prefill_fn, _, _, meta = built(ARCH, "prefill_32k", plan)
+    decode = built(ARCH, "decode_32k", plan)[0]
+    cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
@@ -918,7 +980,7 @@ def phase_serving():
 
     # warm-up: one prefill and one decode step (cuBLAS heuristics, allocator)
     lg, cache = model.prefill(params, batch, max_seq=MAX_SEQ)
-    model.decode_step(params, cache, lg[:, -1].argmax(-1), PROMPT)
+    decode(params, cache, lg[:, -1].argmax(-1), PROMPT)
     del lg, cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -936,11 +998,12 @@ def phase_serving():
     if not torch.isfinite(logits).all():
         raise AssertionError("prefill logits are not finite")
     tok = logits[:, -1].argmax(-1)
+    timed_logits = logits.cpu()
     del logits
     t0 = time.perf_counter()
     out, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
     for i in range(DECODE_STEPS):
-        lg, cache = model.decode_step(params, cache, tok, PROMPT + i)
+        lg, cache = decode(params, cache, tok, PROMPT + i)
         finite &= torch.isfinite(lg).all()      # checked after the loop: no sync
         tok = lg.argmax(-1)
         out.append(tok)
@@ -955,10 +1018,11 @@ def phase_serving():
         f"ms/step (batch {BATCH}); peak memory {peak / 1e9:.2f} GB; "
         f"flash_fwd launches {launches}")
     log(f"generated tokens, row 0: {torch.stack(out, 1)[0, :10].tolist()}")
-    profile_window("decode step", lambda: model.decode_step(
-        params, cache, tok, PROMPT + DECODE_STEPS))
+    profile_window("decode step", lambda: decode(params, cache, tok, PROMPT + DECODE_STEPS))
     del cache
     profile_window("prefill", lambda: model.prefill(params, batch, max_seq=MAX_SEQ))
+    prefill_fn_check(f"{ARCH} prefill", prefill_fn, params, batch, timed_logits)
+    del timed_logits
 
     plain = build_model(cfg, ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16",
                                          attn_impl="plain"))
@@ -1102,63 +1166,6 @@ def train_smoke_agreement(arch=TRAIN_ARCH):
             f"bit-identical {same}")
         if rel > 1e-6:
             raise AssertionError(f"remat={mode} changes the grads")
-
-
-def train_flops(cfg, seq, tokens, params=None):
-    """Reckoned FLOPs of one train step (forward + backward, no recompute): 6 per
-    matmul parameter a token uses, plus causal attention, 6 Hq hd (S + 1) per
-    token and attention layer, plus the SSD scans. Dense and MoE count their
-    parameters analytically (``active_param_count``: for MoE the router, the
-    top-k and shared experts; the embedding gather does none; a tied LM head
-    counts once, as the head). The SSM and hybrid families count the model's
-    real matrices (``params``; the analytic ``param_count`` omits the hybrid's
-    shared MLP), the hybrid's shared block once per application, its attention
-    on those applications only, and each layer's SSD forward and backward
-    (``ssd_flops``); the encoder-decoder by ``encdec_train_flops``. Neither the
-    recompute nor the MoE one-hot dispatch einsums are counted."""
-    from repro_torch.core import Family, leaves
-    if cfg.is_enc_dec:
-        return encdec_train_flops(cfg, seq, tokens)
-    if cfg.family in (Family.SSM, Family.HYBRID):
-        apps = n_apps(cfg)
-        n_matmul = sum(t.numel() for lp in params["layers"] for t in leaves(lp) if t.dim() > 1)
-        if apps:
-            n_matmul += apps * sum(t.numel() for t in leaves(params["shared_attn"])
-                                   if t.dim() > 1)
-        n_matmul += (params["lm_head"]["w"] if "lm_head" in params
-                     else params["embed"]["tok"]).numel()
-        n_attn = apps
-        s = cfg.ssm
-        heads = s.expand * cfg.d_model // s.head_dim
-        b = tokens // seq
-        scan = cfg.n_layers * sum(ssd_flops(b, seq, heads, s.head_dim, s.d_state, s.chunk,
-                                            backward=bw) for bw in (False, True))
-    else:
-        n_matmul = cfg.active_param_count() - cfg.vocab * cfg.d_model
-        if cfg.tie_embeddings:
-            n_matmul += cfg.vocab * cfg.d_model
-        n_attn, scan = cfg.n_layers, 0
-    attn = 6 * n_attn * cfg.n_heads * cfg.head_dim * (seq + 1)
-    return (6 * n_matmul + attn) * tokens + scan
-
-
-def encdec_train_flops(cfg, seq, tokens):
-    """Reckoned FLOPs of one encoder-decoder train step (forward + backward, no
-    recompute): 6 per matmul parameter a frame or a token uses (the encoder's
-    layers and every decoder layer's cross keys and values on the frames; the
-    decoder's self-attention, cross queries and output, MLP and the LM head on
-    the tokens; the embedding gather does none), plus 12 hd FLOP per attended
-    (query, key) pair and head: the encoder's non-causal F^2, the decoder's
-    causal S(S+1)/2 and the cross-attention's S F, per sequence."""
-    d, f, hd = cfg.d_model, cfg.enc_frames, cfg.head_dim
-    kv = 2 * d * cfg.n_kv_heads * hd
-    attn = 2 * d * cfg.n_heads * hd + kv
-    mlp = 3 * d * cfg.d_ff
-    b = tokens // seq
-    per_frame = cfg.enc_layers * (attn + mlp) + cfg.n_layers * kv
-    per_token = cfg.n_layers * (2 * attn - kv + mlp) + d * cfg.vocab
-    pairs = cfg.enc_layers * f * f + cfg.n_layers * (seq * (seq + 1) // 2 + seq * f)
-    return 6 * (per_frame * b * f + per_token * tokens) + 12 * cfg.n_heads * hd * b * pairs
 
 
 def dq_fp64(q, k, v, do, lse, delta, *, causal, window=0, softcap=0.0, scale=None,
@@ -1341,14 +1348,13 @@ def phase_training():
     """Smoke agreement, remat modes, the quickstart recipe, then qwen1.5-4b at
     full width: the real-input backward check, one warm-up step and
     TRAIN_STEPS timed steps with the launches counted, and a profile."""
-    from repro_torch.core import InputShape, ParallelPlan, get_config
+    from repro_torch.core import InputShape, ParallelPlan
     from repro_torch.data import SyntheticDataset
     from repro_torch.examples.quickstart import run as quickstart
     from repro_torch.kernels.flash_attention import flash_attention_bwd, flash_attention_lse
-    from repro_torch.models import build_model
     from repro_torch.optim import adamw_init
     from repro_torch.core.tree import leaves
-    from repro_torch.train import Hyper, TrainState, make_train_step
+    from repro_torch.train import TrainState
 
     train_smoke_agreement()
     t0 = time.perf_counter()
@@ -1358,10 +1364,10 @@ def phase_training():
     if not losses[-1] < 2.5:
         raise AssertionError(f"quickstart loss at step {len(losses) - 1} is {losses[-1]}")
 
-    cfg = get_config(TRAIN_ARCH)
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
                         microbatches=TRAIN_MICRO)
-    model = build_model(cfg, plan)
+    step, _, _, meta = built(TRAIN_ARCH, "train_4k", plan)
+    cfg, model = meta["cfg"], meta["model"]
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     for p in leaves(params):
@@ -1377,7 +1383,6 @@ def phase_training():
 
     state = TrainState(params, adamw_init(params))
     del params
-    step = make_train_step(model, plan, Hyper())
     state, m = step(state, batches[0])                 # warm-up
     log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
     torch.cuda.synchronize()
@@ -1411,6 +1416,7 @@ def phase_training():
         f"{tokens / step_s:.0f} tokens/s, reckoned {flops:.4e} FLOP/step, mfu "
         f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
         f"{peak / 1e9:.2f} GB")
+    roofline_row(cfg, TRAIN_BATCH, TRAIN_SEQ, flops, state.params, step_s)
     profile_window("train step", lambda: step(state, batches[-1]))
     return {"launches": launches, "real_dkv_ulps": real[0], "real_dq_ulps": real[1]}
 
@@ -1676,13 +1682,14 @@ def phase_moe_serving():
     """deepseek-moe-16b at full width and depth: the smoke config against the
     CPU, prefill under both dispatch modes, decode, B4 on every layer's own
     inputs, drift readings, profiles. Returns launches, errors, kept inputs."""
-    from repro_torch.core import ParallelPlan, get_config, leaves
+    from repro_torch.core import ParallelPlan, leaves
     from repro_torch.models import build_model
 
     smoke_agreement(MOE_ARCH)
-    cfg = get_config(MOE_ARCH)
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16")
-    model = build_model(cfg, plan)
+    prefill_fn, _, _, meta = built(MOE_ARCH, "prefill_32k", plan)
+    decode = built(MOE_ARCH, "decode_32k", plan)[0]
+    cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
@@ -1694,7 +1701,7 @@ def phase_moe_serving():
                                      device="cuda")}
 
     lg, cache = model.prefill(params, batch, max_seq=MAX_SEQ)        # warm-up
-    model.decode_step(params, cache, lg[:, -1].argmax(-1), PROMPT)
+    decode(params, cache, lg[:, -1].argmax(-1), PROMPT)
     del lg, cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1714,12 +1721,13 @@ def phase_moe_serving():
         raise AssertionError("MoE prefill logits are not finite")
     last = logits[:, -1].clone()
     tok = last.argmax(-1)
+    timed_logits = logits.cpu()
     del logits
     reset_counts()
     t0 = time.perf_counter()
     out, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
     for i in range(DECODE_STEPS):
-        lg, cache = model.decode_step(params, cache, tok, PROMPT + i)
+        lg, cache = decode(params, cache, tok, PROMPT + i)
         finite &= torch.isfinite(lg).all()
         tok = lg.argmax(-1)
         out.append(tok)
@@ -1741,7 +1749,8 @@ def phase_moe_serving():
         f"decode step B4 {decode_launches[3] // DECODE_STEPS}")
     log(f"generated tokens, row 0: {torch.stack(out, 1)[0, :10].tolist()}")
 
-    scatter = build_model(cfg, dataclasses.replace(plan, moe_dispatch="scatter"))
+    scatter = built(MOE_ARCH, "prefill_32k",
+                    dataclasses.replace(plan, moe_dispatch="scatter"))[3]["model"]
     scatter.prefill(params, batch, max_seq=MAX_SEQ)                   # warm-up
     torch.cuda.synchronize()
     reset_counts()
@@ -1760,12 +1769,13 @@ def phase_moe_serving():
         f"einsum: max diff / max |logit| = {sdrift:.3e} (reading)")
     dispatch_times(cfg, BATCH * PROMPT)
 
-    profile_window("MoE decode step", lambda: model.decode_step(
-        params, cache, tok, PROMPT + DECODE_STEPS))
+    profile_window("MoE decode step", lambda: decode(params, cache, tok, PROMPT + DECODE_STEPS))
     del cache
     profile_window("MoE prefill (einsum)", lambda: model.prefill(params, batch, max_seq=MAX_SEQ))
     profile_window("MoE prefill (scatter)",
                    lambda: scatter.prefill(params, batch, max_seq=MAX_SEQ))
+    prefill_fn_check(f"{MOE_ARCH} prefill", prefill_fn, params, batch, timed_logits)
+    del timed_logits
 
     # B4 on every layer's own inputs of a prefill and a decode step; layer 0's
     # gate (call 0) and down (call 2) GEMMs kept for timing
@@ -1802,6 +1812,9 @@ def phase_moe_training():
     from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
 
     train_smoke_agreement(MOE_ARCH)
+    # MOE_TRAIN_LAYERS of the 28 layers (the fp32 state of all 28 does not fit
+    # on one card): no shape name gives that config, so this phase builds its
+    # model and step itself rather than through build_step
     cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN_LAYERS)
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
                         microbatches=TRAIN_MICRO)
@@ -1873,6 +1886,7 @@ def phase_moe_training():
         f"FLOP/step (active params, no recompute, no dispatch einsums), mfu "
         f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
         f"{peak / 1e9:.2f} GB")
+    roofline_row(cfg, TRAIN_BATCH, TRAIN_SEQ, flops, state.params, step_s)
     profile_window("MoE train step", lambda: step(state, batches[-1]))
     return {"train_b1": launches[0], "train_b4_rows": launches[3],
             "train_b4_contract": launches[4],
@@ -2196,21 +2210,6 @@ def random_conv_taps(params, gen):
                 w.copy_((2 * u - 1) / w.shape[-1] ** 0.5)
 
 
-def ssd_flops(b, l, h, p, n, chunk, backward=False):
-    """The multiply-adds x 2 an SSD pass needs on these shapes, counting only
-    the causal half (j <= i) of each chunk's (q, q) products. Forward per chunk
-    of q real positions: C B^T and scores (x dt) over T = q(q+1)/2 pairs, C
-    state^T and the state update, 2 q P N. Backward: scores and dscores, dxd's,
-    dC's and dB's (q, q) terms (T (3N + 2P)) and five (q, P, N) products."""
-    total = 0
-    for start in range(0, l, chunk):
-        q = min(chunk, l - start)
-        t = q * (q + 1) // 2
-        total += t * (3 * n + 2 * p) + 5 * q * p * n if backward else \
-            t * (n + p) + 2 * q * p * n
-    return 2 * b * h * total
-
-
 def ssd_times(name, kept):
     """B5 and B6 (CUDA events) on a path's kept inputs beside their bounds and
     plain versions: the whole call through the body the rule names (the Hopper
@@ -2315,10 +2314,6 @@ def ssm_smoke_agreement(arch):
         raise AssertionError("the card's smoke-config logits disagree with the CPU's")
 
 
-def n_apps(cfg):
-    return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
-
-
 def phase_ssm_serving(arch):
     """``arch`` (mamba2-370m or zamba2-1.2b) at full width and depth, random bf16
     weights from a seed: the smoke config against the CPU; forward under
@@ -2326,12 +2321,13 @@ def phase_ssm_serving(arch):
     launches counted; a SSM_DECODE_PROMPT-token prompt through decode_step, then
     DECODE_STEPS greedy steps; profiles; B5 held to its plain version on every
     layer's own inputs of the forward; B5 timed on them."""
-    from repro_torch.core import ParallelPlan, get_config, leaves
-    from repro_torch.models import build_model
+    from repro_torch.core import ParallelPlan, leaves
 
     ssm_smoke_agreement(arch)
-    cfg = get_config(arch)
-    model = build_model(cfg, ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16"))
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16")
+    prefill_fn, _, _, meta = built(arch, "prefill_32k", plan)
+    decode = built(arch, "decode_32k", plan)[0]
+    cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
@@ -2361,6 +2357,7 @@ def phase_ssm_serving(arch):
         check_bodies(f"{arch} forward", fwd_launches, f"{arch}_forward")
         if not torch.isfinite(logits).all():
             raise AssertionError(f"{arch} forward logits are not finite")
+        timed_logits = logits.cpu()
         del logits
 
         # the reference's serving flow for these families: the prompt through
@@ -2369,7 +2366,7 @@ def phase_ssm_serving(arch):
         cache = model.init_cache(SSM_BATCH, SSM_DECODE_PROMPT + DECODE_STEPS + 1)
         steps = []
         for t in range(SSM_DECODE_PROMPT):
-            lg, cache = model.decode_step(params, cache, prompt[:, t], t)
+            lg, cache = decode(params, cache, prompt[:, t], t)
             steps.append(lg)
         ref = model.forward(params, {"tokens": prompt})[0]
         drift = ((torch.stack(steps, 1) - ref).abs().max() / ref.abs().max()).item()
@@ -2379,7 +2376,7 @@ def phase_ssm_serving(arch):
         t0 = time.perf_counter()
         out, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
         for i in range(DECODE_STEPS):
-            lg, cache = model.decode_step(params, cache, tok, SSM_DECODE_PROMPT + i)
+            lg, cache = decode(params, cache, tok, SSM_DECODE_PROMPT + i)
             finite &= torch.isfinite(lg).all()
             tok = lg.argmax(-1)
             out.append(tok)
@@ -2397,10 +2394,12 @@ def phase_ssm_serving(arch):
         log(f"reading: {arch} decode-form logits over the {SSM_DECODE_PROMPT}-token prompt "
             f"vs forward's: max diff / max |logit| = {drift:.3e} (bf16)")
         log(f"generated tokens, row 0: {torch.stack(out, 1)[0, :10].tolist()}")
-        profile_window(f"{arch} decode step", lambda: model.decode_step(
+        profile_window(f"{arch} decode step", lambda: decode(
             params, cache, tok, SSM_DECODE_PROMPT + DECODE_STEPS))
         del cache
         profile_window(f"{arch} forward", lambda: model.forward(params, batch))
+        prefill_fn_check(f"{arch} forward", prefill_fn, params, batch, timed_logits)
+        del timed_logits
         with SSDCapture() as cap, FlashFwdCapture() as fwd:
             model.forward(params, batch)
         real = cap.summary(f"{arch} forward ({cfg.n_layers} layers)")
@@ -2418,18 +2417,17 @@ def phase_ssm_training(arch, batch_size):
     (and B2/B3 on the hybrid's attention applications) held to their plain
     versions on every call of one microbatch, B5/B6 timed on them, one warm-up
     and TRAIN_STEPS timed steps with the launches counted, a profile."""
-    from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
+    from repro_torch.core import InputShape, ParallelPlan, leaves
     from repro_torch.data import SyntheticDataset
-    from repro_torch.models import build_model
     from repro_torch.optim import adamw_init, global_norm
     from repro_torch.core.tree import map_tree
-    from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
+    from repro_torch.train import Hyper, TrainState, make_loss_fn
 
     timed(f"{arch} smoke training", train_smoke_agreement, arch)
-    cfg = get_config(arch)
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
                         microbatches=TRAIN_MICRO)
-    model = build_model(cfg, plan)
+    step, _, _, meta = built(arch, "train_4k", plan)
+    cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
@@ -2463,7 +2461,6 @@ def phase_ssm_training(arch, batch_size):
 
     state = TrainState(params, adamw_init(params))
     del params
-    step = make_train_step(model, plan, Hyper())
     state, m = step(state, batches[0])                 # warm-up
     log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
     torch.cuda.synchronize()
@@ -2496,6 +2493,7 @@ def phase_ssm_training(arch, batch_size):
         f"{tokens / step_s:.0f} tokens/s, reckoned {flops:.4e} FLOP/step, mfu "
         f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
         f"{peak / 1e9:.2f} GB")
+    roofline_row(cfg, batch_size, TRAIN_SEQ, flops, state.params, step_s)
     timed(f"{arch} train step profile", profile_window, f"{arch} train step",
           lambda: step(state, batches[-1]))
     return {"launches": launches, "real": real, "real_attn": real_attn, "real_fwd": real_fwd,
@@ -2548,13 +2546,14 @@ def phase_whisper_serving():
     the cross-attention at S = 1); profiles; B1 held to its plain version on
     every encoder layer's own inputs and every decoder layer's cross-attention
     of one decode step."""
-    from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
+    from repro_torch.core import InputShape, ParallelPlan, leaves
     from repro_torch.data import SyntheticDataset
-    from repro_torch.models import build_model
 
     encdec_smoke_agreement()
-    cfg = get_config(WHISPER_ARCH)
-    model = build_model(cfg, ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16"))
+    plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16")
+    prefill_fn, _, _, meta = built(WHISPER_ARCH, "prefill_32k", plan)
+    decode = built(WHISPER_ARCH, "decode_32k", plan)[0]
+    cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     params = model.init(gen)
@@ -2572,7 +2571,7 @@ def phase_whisper_serving():
         cache = model.fill_cross(params, model.init_cache(WHISPER_BATCH, WHISPER_MAX_SEQ),
                                  frames)
         for t in range(WHISPER_PROMPT):
-            lg, cache = model.decode_step(params, cache, prompt[:, t], t)
+            lg, cache = decode(params, cache, prompt[:, t], t)
         return lg, cache
 
     with torch.no_grad():
@@ -2593,13 +2592,13 @@ def phase_whisper_serving():
         if not (torch.isfinite(cache["cross_k"]).all() and torch.isfinite(cache["cross_v"]).all()):
             raise AssertionError("the cross keys or values are not finite")
         for t in range(WHISPER_PROMPT):
-            lg, cache = model.decode_step(params, cache, prompt[:, t], t)
+            lg, cache = decode(params, cache, prompt[:, t], t)
         tok = lg.argmax(-1)
         reset_counts()
         t0 = time.perf_counter()
         out, finite = [], torch.ones((), dtype=torch.bool, device="cuda")
         for i in range(DECODE_STEPS):
-            lg, cache = model.decode_step(params, cache, tok, WHISPER_PROMPT + i)
+            lg, cache = decode(params, cache, tok, WHISPER_PROMPT + i)
             finite &= torch.isfinite(lg).all()
             tok = lg.argmax(-1)
             out.append(tok)
@@ -2622,10 +2621,10 @@ def phase_whisper_serving():
             f"{decode_launches[0] // DECODE_STEPS} per decode step")
         log(f"generated tokens, row 0: {torch.stack(out, 1)[0, :10].tolist()}")
         pos = WHISPER_PROMPT + DECODE_STEPS
-        profile_window(f"{WHISPER_ARCH} decode step", lambda: model.decode_step(
-            params, cache, tok, pos))
+        profile_window(f"{WHISPER_ARCH} decode step", lambda: decode(params, cache, tok, pos))
         profile_window(f"{WHISPER_ARCH} fill_cross", lambda: model.fill_cross(
             params, cache, frames))
+        whisper_prefill_fn_check(model, prefill_fn, params, cache, batch)
         with FlashFwdCapture() as enc:
             model.fill_cross(params, cache, frames)
         real_enc = enc.summary(f"{WHISPER_ARCH} fill_cross ({cfg.enc_layers} encoder layers)",
@@ -2638,6 +2637,32 @@ def phase_whisper_serving():
             "real_fwd": max(real_enc, real_cross)}
 
 
+def whisper_prefill_fn_check(model, prefill_fn, params, cache, batch):
+    """whisper's timed prefill is ``fill_cross``, which returns no logits:
+    ``build_step``'s prefill fn (the model's forward on the prompt and its
+    frames) runs the same encoder on the same frames, so the encoder output
+    of one run of each must be equal bit for bit, and the fn's logits finite
+    of shape (B, prompt, vocab)."""
+    encoded = []
+
+    def encode(p, frames):
+        encoded.append(type(model).encode(model, p, frames))
+        return encoded[-1]
+    model.encode = encode
+    try:
+        model.fill_cross(params, cache, batch["frames"])
+        logits = prefill_fn(params, batch)
+    finally:
+        del model.encode
+    same = len(encoded) == 2 and torch.equal(encoded[0], encoded[1])
+    log(f"{WHISPER_ARCH}: build_step's prefill fn against fill_cross: encoder output "
+        f"{tuple(encoded[0].shape)} bit-identical {same}; logits {tuple(logits.shape)}")
+    want = tuple(batch["tokens"].shape) + (model.cfg.vocab,)
+    if not same or tuple(logits.shape) != want or not torch.isfinite(logits).all():
+        raise AssertionError(f"{WHISPER_ARCH}: build_step's prefill fn disagrees with "
+                             f"fill_cross's encoder, or its logits are not finite {want}")
+
+
 def whisper_cut(cfg):
     """whisper-small at full width on WHISPER_CUT_LAYERS encoder and decoder
     layers."""
@@ -2645,24 +2670,31 @@ def whisper_cut(cfg):
 
 
 def whisper_train_setup(cut=False):
-    """whisper-small's full-width training model (fp32 masters, bf16 compute,
-    remat "full", TRAIN_MICRO microbatches; with ``cut``, ``whisper_cut``'s
-    layers), its params from seed 0 as autograd leaves, and train_4k batches
-    of WHISPER_TRAIN_BATCH sequences with their frames."""
+    """whisper-small's full-width training model and step (fp32 masters, bf16
+    compute, remat "full", TRAIN_MICRO microbatches; ``build_step``'s, or with
+    ``cut`` ``whisper_cut``'s layers, which no shape name gives, built here),
+    its params from seed 0 as autograd leaves, and train_4k batches of
+    WHISPER_TRAIN_BATCH sequences with their frames."""
     from repro_torch.core import InputShape, ParallelPlan, get_config, leaves
     from repro_torch.data import SyntheticDataset
     from repro_torch.models import build_model
-    cfg = whisper_cut(get_config(WHISPER_ARCH)) if cut else get_config(WHISPER_ARCH)
+    from repro_torch.train import Hyper, make_train_step
     plan = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
                         microbatches=TRAIN_MICRO)
-    model = build_model(cfg, plan)
+    if cut:
+        cfg = whisper_cut(get_config(WHISPER_ARCH))
+        model = build_model(cfg, plan)
+        step = make_train_step(model, plan, Hyper())
+    else:
+        step, _, _, meta = built(WHISPER_ARCH, "train_4k", plan)
+        cfg, model = meta["cfg"], meta["model"]
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     for p in leaves(params):
         p.requires_grad_(True)
     ds = SyntheticDataset(cfg, InputShape("train_4k", TRAIN_SEQ, WHISPER_TRAIN_BATCH, "train"))
     batches = [{k: torch.from_numpy(v).cuda() for k, v in ds.batch(i).items()}
                for i in range(TRAIN_STEPS + 2)]
-    return cfg, plan, model, params, batches
+    return cfg, plan, model, params, batches, step
 
 
 def phase_whisper_training():
@@ -2673,11 +2705,11 @@ def phase_whisper_training():
     from repro_torch.core import leaves
     from repro_torch.optim import adamw_init, global_norm
     from repro_torch.core.tree import map_tree
-    from repro_torch.train import Hyper, TrainState, make_loss_fn, make_train_step
+    from repro_torch.train import Hyper, TrainState, make_loss_fn
 
     timed(f"{WHISPER_ARCH} smoke training", train_smoke_agreement, WHISPER_ARCH)
     t0 = time.perf_counter()
-    cfg, plan, model, params, batches = whisper_train_setup()
+    cfg, plan, model, params, batches, step = whisper_train_setup()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in leaves(params))
     log(f"init {WHISPER_ARCH}: {n_params / 1e6:.2f} M params (fp32; param_count "
@@ -2699,7 +2731,6 @@ def phase_whisper_training():
 
     state = TrainState(params, adamw_init(params))
     del params
-    step = make_train_step(model, plan, Hyper())
     state, m = step(state, batches[0])                 # warm-up
     log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
     torch.cuda.synchronize()
@@ -2734,6 +2765,7 @@ def phase_whisper_training():
         f"{tokens / step_s:.0f} tokens/s, reckoned {flops:.4e} FLOP/step, mfu "
         f"{flops / step_s / PEAK_BF16_FLOPS:.2%} of 989 TFLOP/s; peak memory "
         f"{peak / 1e9:.2f} GB")
+    roofline_row(cfg, WHISPER_TRAIN_BATCH, TRAIN_SEQ, flops, state.params, step_s)
     timed(f"{WHISPER_ARCH} train step profile", profile_window, f"{WHISPER_ARCH} train step",
           lambda: step(state, batches[-1]))
     return {"launches": launches, "real_bwd": real_bwd, "real_fwd": real_fwd,
@@ -2767,12 +2799,11 @@ def phase_whisper_checkpoint():
     import tempfile
     from repro_torch.checkpoint import CheckpointManager, MemoryCheckpointTier, store
     from repro_torch.optim import adamw_init
-    from repro_torch.train import Hyper, TrainState, init_train_state, make_train_step
+    from repro_torch.train import TrainState, init_train_state
 
-    cfg, plan, model, params, batches = whisper_train_setup(cut=True)
+    cfg, plan, model, params, batches, step = whisper_train_setup(cut=True)
     state = TrainState(params, adamw_init(params))
     del params
-    step = make_train_step(model, plan, Hyper())
     for i in range(2):
         state, m = step(state, batches[i])
     saved = host_named(state)
@@ -3248,13 +3279,15 @@ class ZeroWatch:
     in units of each leaf's max |value|: the ZeRO-1 update checked apart from
     the sum order of the grads. Under ZeRO-3 the shadow holds the whole
     params and each rank's parts are held to their cut of it (``part_of``).
-    ``own_seconds`` keeps, per watched call, the seconds of the watch's own
-    collectives by kind (a step's reading less them is the step's own)."""
+    ``own_seconds`` and ``own_link_bytes`` keep, per watched call, the seconds
+    and link bytes of the watch's own collectives by kind (a step's reading
+    less them is the step's own)."""
 
     def __init__(self, steps=1, shadow=False):
         self.steps, self.shadow = steps, shadow
         self.grads, self.shadow_err, self.calls = None, [], 0
         self.own_seconds = []             # per watched call: the watch's own collectives
+        self.own_link_bytes = []
         self._params = self._opt = None
 
     def __enter__(self):
@@ -3287,7 +3320,7 @@ class ZeroWatch:
         if self.calls >= self.steps:
             return self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs,
                                  sharded_params=sharded_params, **kw)
-        before = dict(mesh.seconds)
+        before, stats = dict(mesh.seconds), mesh.collective_stats()
         whole = {}
         for name, g in named_leaves(grads):
             d = specs[name].dim
@@ -3305,6 +3338,7 @@ class ZeroWatch:
             del g
         del whole
         self.own_seconds.append({k: mesh.seconds[k] - before[k] for k in before})
+        self.own_link_bytes.append(link_bytes_since(mesh, stats))
         out = self._real[1](grads, opt, params, lr, mesh=mesh, specs=specs,
                             sharded_params=sharded_params, **kw)
         if self.shadow:
@@ -3438,7 +3472,7 @@ def dp_step_counter(cfg, mesh, what, rec, timed_from=DP_WATCHED):
     def around(i):
         reset_counts()
         mesh.timed = i >= timed_from          # the watched steps are not timed
-        before = dict(mesh.seconds)
+        before, stats = dict(mesh.seconds), mesh.collective_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         yield
@@ -3446,6 +3480,7 @@ def dp_step_counter(cfg, mesh, what, rec, timed_from=DP_WATCHED):
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         for k in ("reduce_scatter", "all_gather", "all_reduce"):
             rec[f"{k}_ms"].append((mesh.seconds[k] - before[k]) * 1e3)
+        rec.setdefault("link_bytes", []).append(link_bytes_since(mesh, stats))
         launches = all_counts()
         rec["launches"] = launches[:3]
         if launches != want:
@@ -3712,6 +3747,8 @@ def zero3_run(cfg, plan, batches, mesh, zero1_peak):
         rec["ms"][i] -= 1e3 * sum(o.values())
         for k in ("reduce_scatter", "all_gather", "all_reduce"):
             rec[f"{k}_ms"][i] -= 1e3 * o[k]
+        for k, v in watch.own_link_bytes[i].items():
+            rec["link_bytes"][i][k] -= v
     specs = train_state_specs(state, mesh, plan3)
     pspecs = {k: s for k, s in specs.items() if k.startswith("params/")}
     out = {**rec, "peak_bytes": torch.cuda.max_memory_allocated(), "zero1_peak_bytes": zero1_peak,
@@ -3722,8 +3759,8 @@ def zero3_run(cfg, plan, batches, mesh, zero1_peak):
            "integrity_div": z3["integrity_div"], "bodies": rec.get("bodies")}
     log(f"dp rank {mesh.rank} ZeRO-3: steps {[round(x, 1) for x in rec['ms']]} ms (all-gather "
         f"{[round(x, 1) for x in rec['all_gather_ms']]}, reduce-scatter "
-        f"{[round(x, 1) for x in rec['reduce_scatter_ms']]}; the watch's own collectives "
-        f"taken out), params held {out['param_bytes'] / 1e9:.3f} GB (rule "
+        f"{[round(x, 1) for x in rec['reduce_scatter_ms']]}; link bytes by kind "
+        f"{rec['link_bytes']}; the watch's own collectives taken out), params held {out['param_bytes'] / 1e9:.3f} GB (rule "
         f"{out['param_bytes_rule'] / 1e9:.3f}, ZeRO-1 {out['param_bytes_zero1'] / 1e9:.3f}), "
         f"peak {out['peak_bytes'] / 1e9:.2f} GB (ZeRO-1 {zero1_peak / 1e9:.2f}), losses "
         f"{z3['loss']}, update against adamw_update {watch.shadow_err}")
@@ -3871,7 +3908,7 @@ def dp_report(ranks, nccl):
     r0 = ranks[0]
     for r in ranks:
         timed_ms = {k: r[k][DP_WATCHED:] for k in ("ms", "reduce_scatter_ms", "all_gather_ms",
-                                                  "all_reduce_ms")}
+                                                  "all_reduce_ms", "link_bytes")}
         log(f"dp rank {r['rank']} ({r['mesh']}): timed steps beside the TP ranks (not the "
             f"steps' own time) {timed_ms} (two ranks share one card and their collectives go "
             f"through host memory: no measure of DP scaling); "
@@ -3904,7 +3941,8 @@ def dp_report(ranks, nccl):
             f"RAM restore {r['sdc']['ram_restore_s']:.2f} s ({r['sdc']['ram_rebuilt_members']} "
             f"members rebuilt), bit-equal {r['sdc']['state_bit_equal']}, {r['sdc']['seconds']:.1f} s")
     log(f"nccl ({nccl['mesh']}): seam {nccl['seam_equal']}, step {nccl['ms'][DP_WATCHED:]} ms, "
-        f"all-reduce {nccl['all_reduce_ms'][DP_WATCHED:]} ms; losses {nccl['loss']} / "
+        f"all-reduce {nccl['all_reduce_ms'][DP_WATCHED:]} ms, link bytes by kind "
+        f"{nccl['link_bytes'][DP_WATCHED:]}; losses {nccl['loss']} / "
         f"{nccl['one_device_loss']}, grad norms {nccl['grad_norm']} / "
         f"{nccl['one_device_grad_norm']}; {nccl['agree']}; params bit-identical "
         f"{nccl['params_bit_identical']}; launches {nccl['launches']} a step")
@@ -4247,7 +4285,7 @@ def tp_step_counter(family, cfg, grid, rec):
     def around(i):
         reset_counts()
         grid.model.timed = True
-        before = dict(grid.model.seconds)
+        before, stats = dict(grid.model.seconds), grid.model.collective_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         yield
@@ -4255,6 +4293,7 @@ def tp_step_counter(family, cfg, grid, rec):
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         for k in ("tick", "all_reduce"):
             rec[f"{k}_ms"].append((grid.model.seconds[k] - before[k]) * 1e3)
+        rec.setdefault("link_bytes", []).append(link_bytes_since(grid.model, stats))
         launches = all_counts() + ssd_counts()
         rec["launches"] = launches
         if launches != want:
@@ -4488,7 +4527,8 @@ def tp_report(ranks):
             f = r[family]
             log(f"tp {family} rank {r['rank']} ({r['mesh']}): beside the DP ranks (not the "
                 f"steps' own time) steps {f['ms']} ms, ticks {f['tick_ms']} ms, all-reduces "
-                f"{f['all_reduce_ms']} ms (two ranks share one card and the rings go through "
+                f"{f['all_reduce_ms']} ms, link bytes a step by kind {f['link_bytes']} (two "
+                f"ranks share one card and the rings go through "
                 f"host memory: no measure of TP scaling or overlap); peak {f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} "
                 f"B params a rank; launches {f['launches']} a step; bodies {f['bodies']}; on its "
                 f"own inputs {({k: f[k] for k in f if k.startswith('real_')})}; "
@@ -4662,7 +4702,7 @@ def cp_step_counter(family, cfg, impl, grid, rec):
     def around(i):
         reset_counts()
         grid.cp.timed = True
-        before = dict(grid.cp.seconds)
+        before, stats = dict(grid.cp.seconds), grid.cp.collective_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         yield
@@ -4670,6 +4710,7 @@ def cp_step_counter(family, cfg, impl, grid, rec):
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         for k in ("tick", "all_reduce"):
             rec[f"{k}_ms"].append((grid.cp.seconds[k] - before[k]) * 1e3)
+        rec.setdefault("link_bytes", []).append(link_bytes_since(grid.cp, stats))
         launches = all_counts() + ssd_counts()
         rec["launches"] = launches
         if launches != want:
@@ -4967,7 +5008,8 @@ def cp_report(ranks):
         for r in ranks:
             f = r[family]
             log(f"cp {family} rank {r['rank']} ({r['mesh']}): steps {f['ms']} ms, hops "
-                f"{f['tick_ms']} ms, all-reduces {f['all_reduce_ms']} ms (two ranks share one "
+                f"{f['tick_ms']} ms, all-reduces {f['all_reduce_ms']} ms, link bytes a step by "
+                f"kind {f['link_bytes']} (two ranks share one "
                 f"card and the ring goes through host memory: no measure of CP scaling); peak "
                 f"{f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} B params a "
                 f"rank; launches {f['launches']} a step; bodies {f['bodies']}; on its own inputs "
@@ -5184,7 +5226,7 @@ def ep_step_counter(cfg, impl, grid, rec, fp32=False):
     def around(i):
         reset_counts()
         grid.ep.timed = True
-        before = dict(grid.ep.seconds)
+        before, stats = dict(grid.ep.seconds), grid.ep.collective_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         yield
@@ -5192,6 +5234,7 @@ def ep_step_counter(cfg, impl, grid, rec, fp32=False):
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         for k in ("tick", "a2a", "all_reduce"):
             rec[f"{k}_ms"].append((grid.ep.seconds[k] - before[k]) * 1e3)
+        rec.setdefault("link_bytes", []).append(link_bytes_since(grid.ep, stats))
         launches = all_counts() + ssd_counts()
         rec["launches"] = launches
         if launches != want:
@@ -5402,7 +5445,8 @@ def ep_report(ranks):
             f = r[impl]
             log(f"ep {impl} rank {r['rank']} ({r['mesh']}): steps {f['ms']} ms, exchanges "
                 f"{f['a2a_ms']} ms, ring-attention hops {f['tick_ms']} ms, all-reduces "
-                f"{f['all_reduce_ms']} ms (two ranks share one card and the exchanges go "
+                f"{f['all_reduce_ms']} ms, link bytes a step by kind {f['link_bytes']} (two "
+                f"ranks share one card and the exchanges go "
                 f"through host memory: no measure of EP scaling or overlap); peak "
                 f"{f['peak_bytes'] / 1e9:.2f} GB, {f['params_per_rank'] / 1e9:.3f} B params a "
                 f"rank; launches {f['launches']} a step; bodies {f['bodies']}; on its own inputs "
@@ -5626,7 +5670,7 @@ def pp_steps(cfg, plan, grid, state, batches, rec, fp32=False, watch=None, count
     for i, batch in enumerate(batches):
         reset_counts()
         grid.pod.timed = True
-        before = dict(grid.pod.seconds)
+        before, stats = dict(grid.pod.seconds), grid.pod.collective_stats()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         state, m = step(state, batch)
@@ -5634,6 +5678,7 @@ def pp_steps(cfg, plan, grid, state, batches, rec, fp32=False, watch=None, count
         rec["ms"].append((time.perf_counter() - t0) * 1e3)
         rec["hop_ms"].append((grid.pod.seconds["tick"] - before["tick"]) * 1e3)
         rec["pod_sum_ms"].append((grid.pod.seconds["all_reduce"] - before["all_reduce"]) * 1e3)
+        rec.setdefault("link_bytes", []).append(link_bytes_since(grid.pod, stats))
         grid.pod.timed = False
         rec["loss"].append(float(m["loss"]))
         rec["grad_norm"].append(float(m["grad_norm"]))
@@ -5823,7 +5868,8 @@ def pp_report(ranks):
             f = r["path"][sched]
             log(f"pp {sched} rank {r['rank']} ({r['mesh']}, stage {r['path']['stage']}, "
                 f"{r['path']['stage_layers']} layers): steps {f['ms']} ms, pod hops "
-                f"{f['hop_ms']} ms, pod sums {f['pod_sum_ms']} ms (two ranks share one card "
+                f"{f['hop_ms']} ms, pod sums {f['pod_sum_ms']} ms, link bytes a step by kind "
+                f"{f['link_bytes']} (two ranks share one card "
                 f"and the hops go through host memory: no measure of PP scaling or stage "
                 f"overlap); peak {f['peak_bytes'] / 1e9:.2f} GB, "
                 f"{r['path']['params_per_rank'] / 1e9:.3f} B params a rank; launches "
@@ -6063,13 +6109,14 @@ def grid_serving(grid, out):
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
     ring.timed = True
-    before = dict(ring.seconds)
+    before, stats = dict(ring.seconds), ring.collective_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = model.prefill(params, {"tokens": tokens}, GRID_MAX_SEQ)
     torch.cuda.synchronize()
     out["prefill_ms"] = (time.perf_counter() - t0) * 1e3
     out["prefill_gather_ms"] = (ring.seconds["tick"] - before["tick"]) * 1e3
+    out["prefill_link_bytes"] = link_bytes_since(ring, stats)
     out["prefill_b1"] = flash_attention_lse.launches
     out["bodies"] = grid_bodies()
     if out["prefill_b1"] != cfg.n_layers or out["bodies"]["flash_fwd_bf16"] != cfg.n_layers:
@@ -6082,7 +6129,7 @@ def grid_serving(grid, out):
     tok = model.last_logits(logits, GRID_PROMPT).argmax(-1)
     del logits
     reset_counts()
-    before = dict(ring.seconds)
+    before, stats = dict(ring.seconds), ring.collective_stats()
     finite, toks = torch.ones((), dtype=torch.bool, device="cuda"), []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -6094,6 +6141,8 @@ def grid_serving(grid, out):
     torch.cuda.synchronize()
     out["decode_ms"] = (time.perf_counter() - t0) * 1e3 / GRID_STEPS
     out["combine_ms"] = (ring.seconds["all_reduce"] - before["all_reduce"]) * 1e3 / GRID_STEPS
+    out["decode_link_bytes"] = {k: v / GRID_STEPS
+                                for k, v in link_bytes_since(ring, stats).items()}
     out["decode_b1"] = flash_attention_lse.launches
     out["peak_bytes"] = torch.cuda.max_memory_allocated()
     out["tokens"] = torch.stack(toks, 1).tolist()
@@ -6247,6 +6296,10 @@ def grid_report(ranks):
             bad.append(f"rank {r['rank']}: greedy tokens differ from rank 0's")
         if r["decode_b1"] != 0:
             bad.append(f"rank {r['rank']}: decode launched B1 {r['decode_b1']} times")
+        log(f"grid rank {r['rank']}: prefill {r['prefill_ms']:.1f} ms, K/V gathers "
+            f"{r['prefill_gather_ms']:.1f} ms, link bytes by kind {r['prefill_link_bytes']}; "
+            f"decode {r['decode_ms']:.2f} ms a step, combine {r['combine_ms']:.2f} ms, link "
+            f"bytes a step by kind {r['decode_link_bytes']}")
     if bad:
         raise AssertionError("grid serving phase: " + "; ".join(bad))
     BODY_COUNTS["gemma2_grid_prefill"] = {
@@ -6255,9 +6308,9 @@ def grid_report(ranks):
 
 def grid_summary(grid):
     """The grid serving phase's numbers for the kernels line (``gemma2-9b_grid``)."""
-    keys = ("chunk", "prefill_ms", "prefill_gather_ms", "decode_ms", "combine_ms",
-            "peak_bytes", "cache_bytes_rank", "real_fwd_ulps", "decode_attn_ulps", "serve_s",
-            "fp32_s")
+    keys = ("chunk", "prefill_ms", "prefill_gather_ms", "prefill_link_bytes", "decode_ms",
+            "combine_ms", "decode_link_bytes", "peak_bytes", "cache_bytes_rank", "real_fwd_ulps",
+            "decode_attn_ulps", "serve_s", "fp32_s")
     return {
         "grid": {"data": 1, "model": GRID_RANKS},
         "plan": {"seq_shard_decode": True, "seq_shard_attn": True},

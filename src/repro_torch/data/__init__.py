@@ -1,5 +1,5 @@
-"""Deterministic synthetic data."""
+"""Deterministic synthetic data and its background prefetch."""
 
-from .pipeline import SyntheticDataset
+from .pipeline import Prefetcher, SyntheticDataset
 
-__all__ = ["SyntheticDataset"]
+__all__ = ["Prefetcher", "SyntheticDataset"]

@@ -4,12 +4,13 @@ Batch contents are a pure function of (config, shape, seed, step): a noisy
 order-2 Markov chain over a small state space embedded in the full vocab, so
 models learn and loss falls. Batches are bit-identical to the reference's for
 the same arguments (``tests/test_torch_train.py`` checks it). Batches are numpy
-arrays; the caller moves them to its device. The reference's background
-``Prefetcher`` comes with the launch slice.
+arrays; the caller moves them to its device. :class:`Prefetcher` builds the
+next step's batch on a background thread while the current step runs.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 from typing import Dict
 
 import numpy as np
@@ -60,3 +61,48 @@ class SyntheticDataset:
                             for _ in range(shape.global_batch)])
             batch["vision_pos"] = np.sort(pos, axis=-1).astype(np.int32)
         return batch
+
+
+class Prefetcher:
+    """One-batch-ahead prefetch on a background thread (the reference's,
+    ``repro/data/pipeline.py:88``).
+
+    Batch synthesis is host work (``batch = f(config, step)``), so it can
+    overlap the device step: after serving step ``s`` the batches of ``s + 1
+    .. s + lookahead`` are already being built. Random access stays correct:
+    a step with no prefetch in flight is built at once, so a rollback that
+    jumps back replays the same batches (determinism is the dataset's; the
+    prefetcher only changes when the work happens, never what). ``close()``
+    cancels what is pending and ends the thread; the prefetcher is also a
+    context manager::
+
+        with Prefetcher(ds) as pf:
+            run_with_recovery(..., get_batch=pf.batch, ...)
+    """
+
+    def __init__(self, dataset, lookahead: int = 1):
+        self.dataset = dataset
+        self.lookahead = max(0, int(lookahead))
+        self._pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="data-prefetch")
+        self._pending: Dict[int, concurrent.futures.Future] = {}
+
+    def batch(self, step: int) -> Dict[str, np.ndarray]:
+        fut = self._pending.pop(step, None)
+        out = fut.result() if fut is not None else self.dataset.batch(step)
+        for s in range(step + 1, step + 1 + self.lookahead):
+            if s not in self._pending:
+                self._pending[s] = self._pool.submit(self.dataset.batch, s)
+        return out
+
+    def close(self) -> None:
+        for fut in self._pending.values():
+            fut.cancel()
+        self._pending.clear()
+        self._pool.shutdown(wait=True)
+
+    def __enter__(self) -> "Prefetcher":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

@@ -74,6 +74,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.core.device import resolve_device
+from repro_torch.perf.roofline import CollectiveStats, link_bytes
 
 
 class DataMesh:
@@ -84,7 +85,9 @@ class DataMesh:
     The means are a SUM, then a division by the size (gloo has no AVG). The
     collectives add their wall time to ``seconds[kind]``; with
     ``timed`` set they first wait for the device, so that time is the
-    collective's own."""
+    collective's own. Each also adds its count, its result's bytes and its
+    link bytes (``perf.roofline.link_bytes``) under the same kind:
+    :meth:`collective_stats`."""
 
     def __init__(self, group=None, device: Union[str, torch.device] = "cpu", *,
                  host_group=None):
@@ -100,6 +103,7 @@ class DataMesh:
         self.timed = False
         self.seconds: Dict[str, float] = {"reduce_scatter": 0.0, "all_gather": 0.0,
                                           "all_reduce": 0.0}
+        self._stats = CollectiveStats.zeros(self.seconds)
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -115,9 +119,20 @@ class DataMesh:
         if self.timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
-    def _run(self, kind: str, op, out: torch.Tensor, inp: torch.Tensor) -> None:
+    def collective_stats(self) -> CollectiveStats:
+        """The collectives run so far, by kind: a copy."""
+        return self._stats.copy()
+
+    def _run(self, kind: str, op, out: torch.Tensor, inp: torch.Tensor,
+             link: Optional[float] = None) -> None:
         """``op(out, inp)`` on the main group (``out is inp`` for an in-place
-        collective), through host copies on the host transport."""
+        collective), through host copies on the host transport, counted
+        under ``kind`` with ``link`` bytes (default: the ring model of the
+        kind on ``out``'s bytes)."""
+        size = out.numel() * out.element_size()
+        if link is None:
+            link = link_bytes(kind.replace("_", "-"), size, self.size)
+        self._stats.add(kind, size, link)
         self._sync()
         t0 = time.perf_counter()
         if self.transport == "host":
@@ -174,7 +189,8 @@ class DataMesh:
 
     def broadcast_(self, t: torch.Tensor, src: int) -> torch.Tensor:
         """``t`` (contiguous) replaced in place by data rank ``src``'s: a
-        ZeRO-3 layer's gather from its owner, timed as an all-gather."""
+        ZeRO-3 layer's gather from its owner, timed and costed as an
+        all-gather of ``t``."""
         if self.group is not None:
             g = dist.get_global_rank(self.group, src)
             self._run("all_gather",
@@ -184,11 +200,14 @@ class DataMesh:
     def reduce_mean_(self, t: torch.Tensor, dst: int) -> torch.Tensor:
         """``t`` (contiguous) replaced in place, on data rank ``dst``, by its
         mean over the ranks (elsewhere left undefined): a ZeRO-3 layer's
-        grad to its owner, timed as a reduce-scatter."""
+        grad to its owner, timed and costed as a reduce-scatter of ``t``
+        (a block of 1/size of it per rank)."""
         if self.group is not None:
             g = dist.get_global_rank(self.group, dst)
+            size = t.numel() * t.element_size()
             self._run("reduce_scatter",
-                      lambda o, _: dist.reduce(o, g, group=self.group), t, t)
+                      lambda o, _: dist.reduce(o, g, group=self.group), t, t,
+                      link=link_bytes("reduce-scatter", size / self.size, self.size))
         return t.div_(self.size)
 
     def barrier_error(self, failed: bool) -> bool:
@@ -315,7 +334,9 @@ class ModelRing:
     Each collective adds its wall time to ``seconds[kind]`` ("tick" for a
     shift unless its caller names another kind, "a2a" for an all-to-all,
     "all_reduce"); with ``timed`` set it first waits for the device, so that
-    time is the collective's own."""
+    time is the collective's own. Each also adds its count, its result's
+    bytes and its link bytes (``perf.roofline.link_bytes``: a shift's are the
+    bytes this rank sends) under the same kind: :meth:`collective_stats`."""
 
     def __init__(self, group=None, ranks: Tuple[int, ...] = (0,),
                  device: Union[str, torch.device] = "cpu", axis="model"):
@@ -330,6 +351,7 @@ class ModelRing:
                           else "direct")
         self.timed = False
         self.seconds: Dict[str, float] = {"tick": 0.0, "a2a": 0.0, "all_reduce": 0.0}
+        self._stats = CollectiveStats.zeros(self.seconds)
 
     def __repr__(self) -> str:
         return (f"ModelRing({self.axis}={self.size}, rank={self.rank}, backend={self.backend}, "
@@ -338,6 +360,10 @@ class ModelRing:
     def _sync(self):
         if self.timed and self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    def collective_stats(self) -> CollectiveStats:
+        """The collectives run so far, by kind: a copy."""
+        return self._stats.copy()
 
     def shift(self, t: torch.Tensor, step: int = 1, kind: str = "tick",
               wrap: bool = True) -> torch.Tensor:
@@ -353,6 +379,9 @@ class ModelRing:
         dst_i, src_i = self.rank + step, self.rank - step
         send_ok = wrap or 0 <= dst_i < self.size
         recv_ok = wrap or 0 <= src_i < self.size
+        size = t.numel() * t.element_size()
+        self._stats.add(kind, size, link_bytes("collective-permute", size, self.size)
+                        if send_ok else 0.0)
         self._sync()
         t0 = time.perf_counter()
         send = t.detach().contiguous()
@@ -385,6 +414,8 @@ class ModelRing:
                              f"blocks, got dim 0 of {tuple(t.shape)}")
         if self.group is None:
             return t.clone()
+        size = t.numel() * t.element_size()
+        self._stats.add("a2a", size, link_bytes("all-to-all", size, self.size))
         self._sync()
         t0 = time.perf_counter()
         send = t.detach().contiguous()
@@ -410,6 +441,8 @@ class ModelRing:
         out = t.detach().contiguous().clone()
         if self.group is None:
             return out
+        size = out.numel() * out.element_size()
+        self._stats.add("all_reduce", size, link_bytes("all-reduce", size, self.size))
         self._sync()
         t0 = time.perf_counter()
         if self.transport == "host":
