@@ -109,11 +109,25 @@ prints its seconds):
    schedule (a spike x8 at step 5, kernel.attention NaN'd at 6 and 9, the
    step-8 shard write dropped, a 4 s hang at 10), whose actions, 3 restores
    and 1 corrupt checkpoint skipped are asserted, ending equal to the clean run
-   bit for bit; a run resumed from its last checkpoint with a real SIGTERM at
-   step 9 (just-in-time snapshot, PREEMPTED marker, flight dump) and a resume
-   that ends equal to the clean run bit for bit; B1/B2/B3 counted on every step of these runs (Hopper bodies); the
-   audit's cost;
-14. whisper-small data parallel — ZeRO-1 on torch.distributed at full width
+   bit for bit; B1/B2/B3 counted on every step of these runs (Hopper bodies);
+   the audit's cost. The preemption round is phase 14's: a SIGTERM from
+   another process, at full depth;
+14. the training CLI — ``python -m repro_torch.launch.train`` at whisper-small's
+   full width and depth (``--full``, 12 + 12 layers, 334.52 M parameters,
+   fp32 masters, bf16 compute, remat "none", 2 x 448 tokens with 2 x 1500
+   frames, CLI_STEPS steps, no RAM tier, a checkpoint at step 0 only): a clean
+   run in this process (``build`` and a plain loop of the step fn); a child
+   CLI process on the card, sent a SIGTERM from this process once its step-0
+   manifest is on disk (CLI_SIGNAL_DELAY s after), which must exit 0 after its
+   just-in-time snapshot with the preemption line, the PREEMPTED marker (step
+   k, 1 <= k < CLI_STEPS, SIGTERM, disk) and its flight JSON; then ``run``
+   with ``--resume`` in this
+   process, which must consume the marker, reach the end, and equal the clean
+   run bit for bit (losses from step k, params, both moments, the step count);
+   B1/B2/B3 counted on every step run here (Hopper bodies); the child's start-up,
+   the step-0 and just-in-time persists (its flight log), signal to exit, the
+   restore and the step ms;
+15. whisper-small data parallel — ZeRO-1 on torch.distributed at full width
    on 2 + 2 layers (WHISPER_CUT_LAYERS; fp32 masters, bf16 compute, remat
    "full", ``Hyper()``): two rank
    processes (spawn) on the one card over gloo, the host transport (NCCL
@@ -146,10 +160,10 @@ prints its seconds):
    the ZeRO-1 run's), its params after those steps set beside ZeRO-1's and
    one device's at 2 microbatches after as many; then one NCCL rank at world size 1
    through the same step code against one device's step with 2 microbatches;
-15. tensor parallelism — the overlap rings (A13.2) on a (1, 2) grid: two rank
+16. tensor parallelism — the overlap rings (A13.2) on a (1, 2) grid: two rank
    processes (spawn) on the one card over gloo (each ring tick through host
    memory; no TP scaling or overlap is measured; at the same time as phase
-   14's ranks until ZeRO-3, ``dp_and_tp``, so both phases' step readings
+   15's ranks until ZeRO-3, ``dp_and_tp``, so both phases' step readings
    then are kept apart as taken beside each other; ZeRO-3, the NCCL rank and
    the TP kernel timing run alone), 1 x 4096
    tokens, bf16 compute, remat "full": qwen1.5-4b at full width on 2 of its 40 layers, 3
@@ -165,7 +179,7 @@ prints its seconds):
    fail the grads rule; step, ring tick and
    all-reduce ms, peak memory and the launches by body; the kernels timed at
    the sharded shapes. No checkpoint;
-16. context parallelism — the ring and gather modes (A13.3) on a (1, 2, 1)
+17. context parallelism — the ring and gather modes (A13.3) on a (1, 2, 1)
    (data, cp, model) grid: two rank processes (spawn) on the one card over
    gloo (each hop through host memory; no CP scaling is measured), bf16
    compute, remat "full": qwen1.5-4b at full width on 2 of its 40 layers over
@@ -185,7 +199,7 @@ prints its seconds):
    by body; the kernels timed at the CP shapes (B1 on a diagonal and a full
    4096 x 4096 tile beside SDPA, B2/B3 on each against the row's merged
    statistics, B5/B6 at the rank's chunk). No checkpoint;
-17. expert parallelism — the EP exchange (A13.4) on a (1, 2) grid in the
+18. expert parallelism — the EP exchange (A13.4) on a (1, 2) grid in the
    ep-only placement (ep 2 on the model axis; attention a cp ring over it):
    two rank processes (spawn) on the one card over gloo (every exchange
    through host memory; no EP scaling or overlap is measured),
@@ -204,7 +218,7 @@ prints its seconds):
    must fail the grads rule; step, exchange, hop and all-reduce ms, peak
    memory and the launches by body; B4 timed on the kept chunk and buffer
    inputs and B1-B3 on the ring tiles. No checkpoint;
-18. pipeline parallelism — GPipe and 1F1B (A13.5) on a (pod 2) grid: two rank
+19. pipeline parallelism — GPipe and 1F1B (A13.5) on a (pod 2) grid: two rank
    processes (spawn) on the one card over gloo (every pod hop and the pod sum
    through host memory; no PP scaling or stage overlap is measured),
    qwen1.5-4b at full width on 4 of its 40 layers (2 a stage), 4
@@ -217,7 +231,7 @@ prints its seconds):
    one device's and to an fp64 evaluation by GRID_TOLERANCE, GPipe to 1F1B
    (1e-6), and the control (each stage's outgoing activation rounded to bf16
    in the pod shift), which must fail the grads rule. No checkpoint;
-19. grid serving — the sequence-sharded KV cache and prefill (A13.6) on a
+20. grid serving — the sequence-sharded KV cache and prefill (A13.6) on a
    (1, 2) (data, model) grid: two rank processes (spawn) on the one card over
    gloo (every collective through host memory; no serving scaling is
    measured), gemma2-9b at full width and depth (42 layers, hd 256,
@@ -236,7 +250,7 @@ prints its seconds):
    to bf16 before the combine), which must fail; prefill, decode and combine
    ms, peak memory a rank; B1 timed at the prefill's shapes (a local and a
    global layer) beside its bound, its plain version and SDPA;
-20. times   — each kernel's time at its path's shapes beside its bound, its plain
+21. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -2916,15 +2930,14 @@ def phase_whisper_checkpoint():
 
 
 # ---------------------------------------------------------------------------
-# fault tolerance (phase 13): the seams, the chaos schedule and a preemption
+# fault tolerance (phase 13): the seams and the chaos schedule
 
 # whisper-small at full width and depth under run_with_recovery: the training
 # phase's plan with the batch cut to FT_BATCH x TRAIN_SEQ tokens (FT_BATCH x 1500
 # frames, TRAIN_MICRO microbatches), FT_STEPS steps, a checkpoint every FT_EVERY.
-# Each checkpoint of the 4.0 GB train state writes 4.0 GB to the machine's disk,
-# whose writes a call may not take past 45 GiB (deleted files count): the chaos
-# run's 11 steps save 4 (0, 4, the dropped 8, 8 again), and the preemption run
-# resumes from its last one, so the phase writes 5 and the script 10.
+# Each checkpoint writes the state to the machine's disk, whose writes a call may
+# not take past 45 GiB (deleted files count): the chaos run's 11 steps save 4 (0,
+# 4, the dropped 8, 8 again).
 FT_STEPS, FT_BATCH, FT_EVERY = 11, 4, 4
 # the chaos schedule (tests/test_chaos.py's single-process schedule without its
 # sdc entry, scaled to FT_STEPS): a train.step spike x8 at 5, kernel.attention
@@ -2935,9 +2948,6 @@ FT_SPIKE_AT, FT_NAN_AT, FT_DROP_AT, FT_HANG_AT = 5, (6, 9), 8, 10
 FT_HANG_S, FT_HANG_MIN_S = 4.0, 2.5
 FT_ACTIONS = [(FT_SPIKE_AT, "spike", "rollback"), (FT_NAN_AT[0], "nan", "rollback"),
               (FT_NAN_AT[1], "nan", "rollback"), (FT_HANG_AT, "hang", "ignore")]
-# a real SIGTERM during step 9 of a run resumed from the chaos run's step-8
-# checkpoint: the driver stops before step 10; the policy's default grace
-FT_PREEMPT_AT, FT_GRACE = 9, 30.0
 
 
 def ft_seam_checks():
@@ -3040,24 +3050,20 @@ def phase_whisper_ft():
     """whisper-small at full width and depth through ``run_with_recovery``: the
     seams (``ft_seam_checks``), a clean run of FT_STEPS steps, the chaos
     schedule (FT_ACTIONS, 3 restores, 1 corrupt checkpoint skipped), which must
-    end equal to the clean run bit for bit, losses included; a run resumed
-    from the chaos run's last checkpoint with a real SIGTERM at FT_PREEMPT_AT
-    (a just-in-time snapshot on the tier ``choose_tier`` picks, the PREEMPTED
-    marker, a flight dump), then a resume in a fresh manager that consumes the
-    marker and ends equal to the clean run bit for bit; every
-    step's B1/B2/B3 launches counted on the Hopper bodies; then the audit's
-    cost: 3 steps with ``integrity="audit"`` against 3 without."""
+    end equal to the clean run bit for bit, losses included; every step's
+    B1/B2/B3 launches counted on the Hopper bodies; then the audit's cost: 3
+    steps with ``integrity="audit"`` against 3 without. The preemption round
+    (a real SIGTERM and a resume) is ``phase_cli``'s, from another process at
+    full depth."""
     import shutil
-    import signal
     import tempfile
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.core import InputShape, ParallelPlan, RecoveryPolicy, get_config
     from repro_torch.core.tree import map_tree
     from repro_torch.data import SyntheticDataset
-    from repro_torch.ft import FlightRecorder, Monitor, PreemptionGuard, run_with_recovery
+    from repro_torch.ft import FlightRecorder, Monitor, run_with_recovery
     from repro_torch.ft.inject import FaultSpec, armed, make_injector, trace_with_faults
     from repro_torch.ft.integrity import audit
-    from repro_torch.ft.preempt import read_marker
     from repro_torch.models import build_model
     from repro_torch.train import Hyper, init_train_state, make_train_step
 
@@ -3133,57 +3139,6 @@ def phase_whisper_ft():
             f"{[(s, round(t, 2)) for s, t in disk_restores]}; checks {chaos_ok}")
         del chaos
 
-        pflight = FlightRecorder(maxlen=256, path=str(tmp / "preempt_flight.json"))
-        pdir = tmp / "chaos"
-        pckpt = CheckpointManager(pdir, keep=3, async_snapshot=True, flight=pflight)
-        resumed_from = pckpt.latest_step()
-        if not resumed_from < FT_PREEMPT_AT:
-            raise AssertionError(f"the chaos run left step {resumed_from} to resume from")
-
-        def deliver(s, st):
-            if s == FT_PREEMPT_AT:
-                os.kill(os.getpid(), signal.SIGTERM)
-            return st
-
-        quiet = lambda: Monitor(min_history=1000, hang_min_seconds=600.0)  # noqa: E731
-        t0 = time.perf_counter()
-        with PreemptionGuard(grace=FT_GRACE) as guard:
-            mid, prep = run_with_recovery(
-                fresh(), step, lambda s: batches[s], FT_STEPS, pckpt, quiet(),
-                ckpt_every=FT_EVERY, plan=plan, fault_injector=deliver, preempt=guard,
-                flight=pflight, resume=True)
-        preempt_s = time.perf_counter() - t0
-        marker = read_marker(pdir)
-        exit_s = time.time() - guard.at_time if guard.at_time else None
-        jit_s = pckpt.snapshot_seconds + pckpt.persist_seconds
-        resume_reads = []
-        resumed_ckpt = ft_timed_restores(CheckpointManager(pdir, keep=3, async_snapshot=True),
-                                         resume_reads)
-        t0 = time.perf_counter()
-        resumed, rrep = run_with_recovery(
-            mid, step, lambda s: batches[s], FT_STEPS, resumed_ckpt, quiet(),
-            ckpt_every=FT_EVERY, plan=plan, resume=True)
-        resume_s = time.perf_counter() - t0
-        preempt_ok = {
-            "preempted": prep.preempted and prep.preempt_step == FT_PREEMPT_AT + 1,
-            "marker": marker is not None and marker["step"] == FT_PREEMPT_AT + 1
-            and marker["signum"] == signal.SIGTERM,
-            "flight_dumped": prep.flight_path is not None and Path(prep.flight_path).exists(),
-            "marker_consumed": read_marker(pdir) is None,
-            "resumed_to_end": rrep.steps_done == FT_STEPS and not rrep.preempted,
-            "losses_bit_equal": (prep.losses[resumed_from:] + rrep.losses[FT_PREEMPT_AT + 1:]
-                                 == losses[resumed_from:]),
-            "state_bit_equal": ft_same(resumed, clean),
-        }
-        tier = marker["tier"] if marker else None
-        log(f"preemption: resumed from step {resumed_from}, SIGTERM during step "
-            f"{FT_PREEMPT_AT}, stopped at "
-            f"{prep.preempt_step}; the just-in-time snapshot on {tier}: {jit_s:.2f} s (stall "
-            f"{pckpt.snapshot_seconds:.2f} + persist {pckpt.persist_seconds:.2f}); signal to "
-            f"exit {exit_s:.2f} s (a pending persist's fence included); run {preempt_s:.1f} "
-            f"s; resume (disk reads {[(s, round(t, 2)) for s, t in resume_reads]}) "
-            f"{resume_s:.1f} s; checks {preempt_ok}")
-        del mid, resumed
         total = calls["n"]
         launches = all_counts()
         want = tuple(total * c for c in per_step)
@@ -3218,8 +3173,7 @@ def phase_whisper_ft():
             f"{[round(x, 2) for x in audit_ms]} ms; integrity_div {audit_div}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    bad = {k: v for k, v in {**chaos_ok, **{f"preempt_{k}": v for k, v in preempt_ok.items()},
-                             "audit_div": audit_div == 0.0}.items() if not v}
+    bad = {k: v for k, v in {**chaos_ok, "audit_div": audit_div == 0.0}.items() if not v}
     if bad:
         raise AssertionError(f"fault-tolerance phase: failed {sorted(bad)}")
     return {
@@ -3229,9 +3183,6 @@ def phase_whisper_ft():
                   "ckpt_fallbacks": report.ckpt_fallbacks, "steps_run": chaos_calls,
                   "seconds": chaos_s, "restores_by_tier": restores,
                   "disk_reads": disk_restores, "checks": chaos_ok},
-        "preempt": {"tier": tier, "preempt_step": prep.preempt_step, "seconds": preempt_s,
-                    "jit_snapshot_s": jit_s, "signal_to_exit_s": exit_s, "resume_s": resume_s,
-                    "resume_reads": resume_reads, "checks": preempt_ok},
         "launches": launches, "audit": {"steps_off_ms": timing["off"],
                                         "steps_audit_ms": timing["audit"],
                                         "audit_alone_ms": audit_ms, "div": audit_div},
@@ -3239,7 +3190,181 @@ def phase_whisper_ft():
 
 
 # ---------------------------------------------------------------------------
-# data parallelism with ZeRO-1 (phase 14)
+# the training CLI (phase 14)
+
+# ``python -m repro_torch.launch.train`` at whisper-small's full width and depth:
+# Whisper's decoder context of 448 tokens (arXiv:2212.04356), batch 2 with its 2
+# x 1500 frames, CLI_STEPS steps, remat "none" (a process's first checkpointed
+# step imports ~9 s of modules, which the child would spend before it can stop),
+# no RAM tier (its snapshot of the 4.01 GB state with digests and a mirror would
+# follow every step), a checkpoint at step 0 only (--ckpt-every past --steps) and
+# the just-in-time snapshot: two disk writes, one restore, one child process.
+# The SIGTERM goes CLI_SIGNAL_DELAY s after step 0's manifest lands: the child
+# frees the save's 4 GB of host buffers before its first preemption check, and a
+# signal there would stop it at step 0. The child then sleeps 2 s before step 1
+# (--simulate-hang-at 1), so the signal lands inside the driver before step 1 or
+# during that sleep: it stops at step 1 or 2.
+CLI_STEPS, CLI_SIGNAL_DELAY = 6, 2.0
+CLI_ARGV = ["--arch", WHISPER_ARCH, "--full", "--batch", "2", "--seq", "448",
+            "--steps", str(CLI_STEPS), "--ckpt-every", str(CLI_STEPS + 1),
+            "--ckpt-memory-keep", "0", "--remat", "none"]
+CLI_TIMEOUT = 300                 # seconds: the child's start-up to its exit
+
+
+def cli_per_step(cfg, plan):
+    """B1, B2, B3, B4 rows and B4 contract launches of one whisper train step
+    under ``plan``: one B1 per attention call of each microbatch, twice under
+    remat "full" (its recompute), one B2 and one B3 per call."""
+    calls = plan.microbatches * (cfg.enc_layers + 2 * cfg.n_layers)
+    return (calls * (2 if plan.remat == "full" else 1), calls, calls, 0, 0)
+
+
+def cli_leaf_diffs(a, b):
+    """{leaf: max |a - b|} of the leaves where two train states differ."""
+    from repro_torch.core.tree import named_leaves
+    out = {}
+    for (name, x), (_, y) in zip(named_leaves(a), named_leaves(b)):
+        x, y = (torch.stack(v) if isinstance(v, list) else torch.as_tensor(v) for v in (x, y))
+        if not torch.equal(x, y):
+            out[name] = float((x.detach().double() - y.detach().double()).abs().max())
+    return out
+
+
+def phase_cli():
+    """The CLI preempted by a SIGTERM from another process and resumed
+    (module docstring, phase 14)."""
+    import re
+    import shutil
+    import signal
+    import tempfile
+    import threading
+    from repro_torch.ft.preempt import read_marker
+    from repro_torch.launch import train as cli
+
+    (ROOT / "build").mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix="cli_", dir=ROOT / "build"))
+    ckpt = tmp / "ckpt"
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    lines = []
+    t_spawn = time.perf_counter()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.train", *CLI_ARGV, "--ckpt-dir", str(ckpt),
+         "--flight-path", str(tmp / "flight.json"), "--simulate-hang-at", "1"],
+        cwd=ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    pump = threading.Thread(target=lambda: lines.extend(
+        (time.perf_counter(), line) for line in child.stdout), daemon=True)
+    pump.start()
+    try:
+        # the clean run, while the child starts
+        args = cli.parse(CLI_ARGV + ["--ckpt-dir", str(tmp / "clean")])
+        built = cli.build(args)
+        per_step = cli_per_step(built.cfg, built.plan)
+        reset_counts()
+        clean, losses, ms = built.state, [], []
+        for i in range(CLI_STEPS):
+            batch = {k: torch.from_numpy(v).cuda() for k, v in built.dataset.batch(i).items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            clean, m = built.step_fn(clean, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"cli: clean run in this process, {CLI_STEPS} steps {[round(x, 1) for x in ms]} ms, "
+            f"losses {losses}")
+        del built
+
+        manifest = ckpt / "ckpt_00000000.json"
+        while not manifest.exists():
+            if child.poll() is not None or time.perf_counter() - t_spawn > CLI_TIMEOUT:
+                raise AssertionError("the CLI child wrote no step-0 checkpoint:\n"
+                                     + "".join(line for _, line in lines)[-4000:])
+            time.sleep(0.02)
+        t_manifest = time.perf_counter()
+        time.sleep(CLI_SIGNAL_DELAY)
+        os.kill(child.pid, signal.SIGTERM)
+        t_signal = time.perf_counter()
+        rc = child.wait(timeout=CLI_TIMEOUT)
+        t_exit = time.perf_counter()
+        pump.join(timeout=10)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    out = "".join(line for _, line in lines)
+    log("cli child: " + out.strip().replace("\n", "\ncli child: "))
+    started = next((t for t, line in lines if line.startswith("[train] arch=")), None)
+    said = re.search(r"\[train\] preempted at step (\d+) \(signal (\d+)\)", out)
+    marker = read_marker(ckpt)
+    flight_path = tmp / "flight.json"
+    flight = json.loads(flight_path.read_text()) if flight_path.exists() else {"events": []}
+    saves = [e for e in flight["events"] if e["kind"] == "ckpt.persist"]
+    k = marker["step"] if marker else None
+
+    class TimedManager(cli.CheckpointManager):
+        reads = []
+
+        def restore(self, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return super().restore(*a, **kw)
+            finally:
+                TimedManager.reads.append(time.perf_counter() - t0)
+    rargs = cli.parse(CLI_ARGV + ["--ckpt-dir", str(ckpt), "--resume",
+                                  "--flight-path", str(tmp / "resume_flight.json")])
+    real_manager, cli.CheckpointManager = cli.CheckpointManager, TimedManager
+    try:
+        rbuilt = cli.build(rargs)
+        t0 = time.perf_counter()
+        resumed, rrep = cli.run(rargs, rbuilt)
+        resume_s = time.perf_counter() - t0
+    finally:
+        cli.CheckpointManager = real_manager
+    del rbuilt
+    launches = all_counts()
+    steps_here = CLI_STEPS + (CLI_STEPS - k if k is not None else 0)
+    want = tuple(steps_here * c for c in per_step)
+    diffs = cli_leaf_diffs(resumed, clean)
+    checks = {
+        "exit_0": rc == 0,
+        "preempted": said is not None and k is not None and int(said.group(1)) == k
+        and int(said.group(2)) == signal.SIGTERM,
+        "marker": marker is not None and 1 <= k < CLI_STEPS
+        and marker["signum"] == signal.SIGTERM and marker["tier"] == "disk",
+        "flight_dumped": flight.get("reason") == "preempt",
+        "marker_consumed": read_marker(ckpt) is None,
+        "resumed_to_end": rrep.steps_done == CLI_STEPS and not rrep.preempted,
+        "losses_bit_equal": k is not None and rrep.losses[k:] == losses[k:],
+        "state_bit_equal": ft_same(resumed, clean) and not diffs,
+        "launches": launches == want,
+    }
+    readings = {
+        "child_start_s": started - t_spawn if started else None,
+        "step0_persist_s": saves[0]["seconds"] if saves else None,
+        "spawn_to_step0_manifest_s": t_manifest - t_spawn,
+        "signal_to_exit_s": t_exit - t_signal,
+        "jit_persist_s": saves[-1]["seconds"] if len(saves) > 1 else None,
+        "restore_s": TimedManager.reads,
+        "resume_run_s": resume_s,
+        "step_ms": ms,
+    }
+    log(f"cli: preempted at step {k} (marker {marker}); resumed losses {rrep.losses[k or 0:]}; "
+        f"leaves that differ from the clean run {diffs}; launches B1/B2/B3/B4 rows/B4 "
+        f"contract {launches} (expected {want} for {steps_here} steps); readings {readings}; "
+        f"checks {checks}")
+    del resumed, clean
+    shutil.rmtree(tmp, ignore_errors=True)
+    bad = sorted(c for c, ok in checks.items() if not ok)
+    if bad:
+        raise AssertionError(f"the CLI phase failed {bad}")
+    check_bodies("the CLI's steps in this process", launches, "cli")
+    return {"argv": CLI_ARGV, "preempt_step": k, "launches": launches,
+            "per_step": per_step, "steps_in_process": steps_here, "losses": losses,
+            "readings": readings, "checks": checks}
+
+
+# ---------------------------------------------------------------------------
+# data parallelism with ZeRO-1 (phase 15)
 
 # Two ranks on the one card. NCCL refuses two ranks on one device, so they
 # join a gloo group: the host transport (launch/mesh.py), every collective
@@ -6421,6 +6546,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_decode": whisper["serve"]["decode_b1"],
                 "whisper_train_step": whisper["train"]["launches"][0],
                 "whisper_ft": whisper["ft"]["launches"][0],
+                "cli": whisper["cli"]["launches"][0],
                 "whisper_dp_train_step": sum(r["launches"][0] for r in dp["ranks"]),
                 "whisper_zero3_train_step": sum(r["zero3"]["launches"][0] for r in dp["ranks"]),
                 "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0],
@@ -6493,6 +6619,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                    f"{HYBRID_ARCH}_train_step": hybrid_train[which + 1],
                    f"{WHISPER_ARCH}_train_step": whisper["train"]["launches"][which + 1],
                    f"{WHISPER_ARCH}_ft": whisper["ft"]["launches"][which + 1],
+                   "cli": whisper["cli"]["launches"][which + 1],
                    f"{WHISPER_ARCH}_dp_train_step": sum(r["launches"][which + 1]
                                                         for r in dp["ranks"]),
                    f"{WHISPER_ARCH}_zero3_train_step": sum(r["zero3"]["launches"][which + 1]
@@ -6630,6 +6757,7 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
     print(json.dumps({"kernels": entries, f"{WHISPER_ARCH}_checkpoint": whisper["ckpt"],
                       f"{WHISPER_ARCH}_dp": dp_summary(dp),
                       f"{WHISPER_ARCH}_ft": ft_summary(whisper, dp),
+                      f"{WHISPER_ARCH}_cli": whisper["cli"],
                       f"{TRAIN_ARCH}_tp": tp_summary(tp),
                       f"{TRAIN_ARCH}_cp": cp_summary(cp),
                       f"{MOE_ARCH}_ep": ep_summary(ep),
@@ -6675,6 +6803,8 @@ def main():
     whisper["ckpt"] = timed(f"{WHISPER_ARCH} checkpoint", phase_whisper_checkpoint)
     free()
     whisper["ft"] = timed(f"{WHISPER_ARCH} fault tolerance", phase_whisper_ft)
+    free()
+    whisper["cli"] = timed("training CLI", phase_cli)
     free()
     dp, tp = timed("data and tensor parallel", dp_and_tp)
     free()

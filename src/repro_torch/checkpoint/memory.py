@@ -16,13 +16,21 @@ unverified (digested at save, RAM is trusted between save and restore) and
 verifies every member served from a mirror. On a fleet the mirror exchange is
 a ring of sends across hosts; in one process it is a host-side copy, which
 keeps the semantics: the mirror is a distinct buffer that survives
-``lose_group``.
+``lose_group``. With ``peer_redundancy=False`` no mirror is made (half the
+RAM): a lost group's members are gone, and :meth:`restore` raises
+``CorruptCheckpointError``, which sends the recovery driver to the disk walk,
+as in the reference.
 
-Under a data mesh each rank's tier holds that rank's own state (params whole,
-its ZeRO-1 moment slices, each member with its global index) and restores onto
-the layout it was saved on only: :meth:`restore` refuses a plan or mesh that
-``store.layout_diffs`` finds different (a remesh restores through the disk
-tier's ``restore_resharded``), as the reference's tier does.
+Under a mesh each rank's tier holds that rank's own state, each member with
+its global index: under a data mesh the params whole and its ZeRO-1 moment
+slices; under a (data, model) grid its TP shards or expert blocks of the
+params and moments (the moments also cut to its ZeRO-1 slice over its data
+group), each index the box of the whole leaf the disk tier places that part
+at (``store._grid_index``). It restores onto the layout it was saved on only:
+:meth:`restore` refuses a plan or mesh that ``store.layout_diffs`` finds
+different (a remesh restores through the disk tier's ``restore_resharded``),
+as the reference's tier does. A grid with a cp or pod axis is not served
+(ROADMAP A13.3 and A13.5 leftovers): it raises.
 
 ``flight=`` (a ``FlightRecorder``) logs ``ckpt.persist`` with
 ``tier="memory"``, ``mem.lost_group`` and ``mem.restore``, as the reference's
@@ -37,18 +45,23 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch.core.sharding import local_index, train_state_specs
+from repro_torch.core.sharding import (data_size, grid_place, local_index, train_state_specs,
+                                       whole_shape)
 from repro_torch.core.tree import named_leaves, stacked_shape
-from .store import (CorruptCheckpointError, _held, _host, _plan_meta, _shard_meta, _verify,
-                    fill_tree, layout_diffs)
+from repro_torch.launch.mesh import GridMesh, cp_size, data_mesh, pod_size
+from .store import (CorruptCheckpointError, _grid_index, _held, _host, _plan_meta, _shard_meta,
+                    _verify, fill_held, layout_diffs)
 
 
 class MemoryCheckpointTier:
     """Host-RAM ring of the last ``keep`` snapshots, each member mirrored onto
-    the next of ``groups`` logical host groups."""
+    the next of ``groups`` logical host groups unless ``peer_redundancy`` is
+    False."""
 
-    def __init__(self, keep: int = 2, groups: int = 2, flight=None):
+    def __init__(self, keep: int = 2, peer_redundancy: bool = True, groups: int = 2,
+                 flight=None):
         self.keep = max(1, int(keep))
+        self.peer_redundancy = bool(peer_redundancy)
         self.groups = max(1, int(groups))
         self.flight = flight          # a FlightRecorder, or None
         self._ring: deque = deque(maxlen=self.keep)
@@ -59,31 +72,41 @@ class MemoryCheckpointTier:
     def save(self, step: int, tree: Any, *, plan=None, mesh=None) -> None:
         """Snapshot ``tree`` into the ring (a blocking host copy); the oldest
         entry leaves when the ring is full. ``plan`` and ``mesh`` are recorded
-        as the disk tier records them; under a data mesh of more than one rank
-        ``tree`` is this rank's ZeRO-1 ``TrainState``. A tensor-parallel grid
-        is not served here yet (ROADMAP A13.2): it raises."""
-        if mesh is not None and mesh.shape.get("model", 1) > 1:
-            raise NotImplementedError("the RAM tier under a tensor-parallel grid "
-                                      "(ROADMAP A13.2); save to the disk tier")
+        as the disk tier records them; under a mesh of more than one rank
+        ``tree`` is this rank's ``TrainState`` (module docstring)."""
+        if mesh is not None and (cp_size(mesh) > 1 or pod_size(mesh) > 1):
+            raise NotImplementedError(
+                f"the RAM tier under a grid with a cp or pod axis ({dict(mesh.shape)}; "
+                "ROADMAP A13.3 and A13.5 leftovers); save to the disk tier")
         t0 = time.perf_counter()
         named = named_leaves(tree)
-        specs = (train_state_specs(tree, mesh, plan) if mesh is not None and mesh.size > 1
-                 else None)
+        sharded = mesh is not None and mesh.size > 1
+        if sharded:
+            specs = train_state_specs(tree, mesh, plan)
+            n, rank = data_size(mesh), data_mesh(mesh).rank
+            place, sizes = grid_place(mesh) if isinstance(mesh, GridMesh) else (None, {})
         primary: Dict[int, Dict[str, np.ndarray]] = {g: {} for g in range(self.groups)}
         shards: List[List[Dict[str, Any]]] = []
+        shapes: List[List[int]] = []
         for i, (name, x) in enumerate(named):
-            a, dtype = _host(_held(x, specs[name], mesh.rank, mesh.size)
-                             if specs is not None else x)
+            index = None
+            if sharded:
+                spec = specs[name]
+                x = _held(x, spec, rank, n)
+                index = (_grid_index(name, spec, plan, rank, n, place, sizes)
+                         if place is not None else local_index(spec, rank, n))
+                shapes.append(list(whole_shape(name, spec.shape, plan, sizes)
+                                   if place is not None else spec.shape))
+            else:
+                shapes.append(list(stacked_shape(x)))
+            a, dtype = _host(x)
             home = i % self.groups
             primary[home][f"a{i}"] = a
-            index = (local_index(specs[name], mesh.rank, mesh.size) if specs is not None
-                     else None)
             shards.append([dict(_shard_meta(f"a{i}", a, dtype, index), home=home)])
         manifest = {
             "step": int(step),
             "names": [n for n, _ in named],
-            "shapes": [list(specs[n].shape if specs is not None else stacked_shape(x))
-                       for n, x in named],
+            "shapes": shapes,
             "dtypes": [m[0]["dtype"] for m in shards],
             "shards": shards,
             "plan": _plan_meta(plan),
@@ -91,7 +114,7 @@ class MemoryCheckpointTier:
             "time": time.time(),
         }
         mirror: Dict[int, Dict[str, np.ndarray]] = {g: {} for g in range(self.groups)}
-        if self.groups > 1:
+        if self.peer_redundancy and self.groups > 1:
             for g in range(self.groups):
                 mirror[(g + 1) % self.groups].update(
                     {k: np.array(a, copy=True) for k, a in primary[g].items()})
@@ -100,7 +123,7 @@ class MemoryCheckpointTier:
         if self.flight is not None:
             self.flight.record("ckpt.persist", step, tier="memory",
                                seconds=self.snapshot_seconds, groups=self.groups,
-                               mirrored=self.groups > 1)
+                               mirrored=self.peer_redundancy)
 
     def steps(self, newest_first: bool = False) -> List[int]:
         out = sorted(e["manifest"]["step"] for e in self._ring)
@@ -170,7 +193,7 @@ class MemoryCheckpointTier:
             raise ValueError(f"memory-tier layout mismatch (recorded != requested): {diffs}; "
                              f"a remesh restores through the disk tier")
         arrays = [self._fetch(e, metas[0], verify) for metas in man["shards"]]
-        tree = fill_tree(tree_like, man, arrays, mesh, plan)
+        tree = fill_held(tree_like, man, arrays, mesh)
         self.restore_seconds = time.perf_counter() - t0
         if self.flight is not None:
             self.flight.record("mem.restore", man["step"], rebuilt_shards=self.last_rebuild,

@@ -877,6 +877,16 @@ def _member_spec(name: str, whole, spec: LeafSpec, plan, place, sizes, n_data: i
     return LeafSpec(shape, dim, spec.dtype)
 
 
+def _by_name(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray]):
+    """{leaf name: (array, manifest dtype)}, after checking that
+    ``tree_like``'s names are the manifest's."""
+    names = [n for n, _ in named_leaves(tree_like)]
+    if names != manifest["names"]:
+        raise ValueError("checkpoint tree structure mismatch: "
+                         f"{sorted(set(names) ^ set(manifest['names']))[:5]}")
+    return dict(zip(names, zip(arrays, manifest["dtypes"])))
+
+
 def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None,
               plan=None):
     """``tree_like`` refilled from a manifest's leaves (``_refill``; under a
@@ -884,17 +894,24 @@ def fill_tree(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mes
     layout, TP shards and expert blocks (None: the TP layout), then their
     slices over its data group), after checking that its names are the
     manifest's."""
-    names = [n for n, _ in named_leaves(tree_like)]
-    if names != manifest["names"]:
-        raise ValueError("checkpoint tree structure mismatch: "
-                         f"{sorted(set(names) ^ set(manifest['names']))[:5]}")
-    by_name = dict(zip(names, zip(arrays, manifest["dtypes"])))
+    by_name = _by_name(tree_like, manifest, arrays)
     if isinstance(mesh, GridMesh):
         place = grid_place(mesh)
         dmesh = data_mesh(mesh)
         return _refill(tree_like, lambda n: layout_part(n, _to_torch(*by_name[n]), plan, *place),
                        rank=(dmesh.rank, dmesh.size))
     rank = (mesh.rank, mesh.size) if mesh is not None else (0, 1)
+    return _refill(tree_like, lambda n: _to_torch(*by_name[n]), rank=rank)
+
+
+def fill_held(tree_like, manifest: Dict[str, Any], arrays: List[np.ndarray], mesh=None):
+    """``tree_like`` refilled from a manifest's members that are what this
+    rank holds of each leaf (the RAM tier's entries: under a mesh, its slices,
+    TP shards or expert blocks), after checking that its names are the
+    manifest's."""
+    by_name = _by_name(tree_like, manifest, arrays)
+    dmesh = data_mesh(mesh) if mesh is not None else None
+    rank = (dmesh.rank, dmesh.size) if dmesh is not None else (0, 1)
     return _refill(tree_like, lambda n: _to_torch(*by_name[n]), rank=rank)
 
 

@@ -492,7 +492,7 @@ class RecoveryPolicy:
     rescue_lr_scale: float = 0.1     # LR multiplier of an lr_rescue step
     elastic: bool = True             # check_plan may route "reshard"
     ckpt_memory_keep: int = 2        # RAM tier: snapshots kept (0 disables)
-    peer_redundancy: bool = True     # RAM tier: mirror each group (False refused)
+    peer_redundancy: bool = True     # RAM tier: mirror each group on its neighbour
     preempt_grace: float = 30.0      # seconds between a preemption notice and the kill
     flight_len: int = 256            # flight recorder ring capacity (events)
     straggler_factor: float = 2.0    # slow when above factor x the baseline
@@ -515,10 +515,6 @@ class RecoveryPolicy:
         if self.ckpt_memory_keep < 0:
             raise ValueError(
                 f"ckpt_memory_keep must be >= 0, got {self.ckpt_memory_keep}")
-        if not self.peer_redundancy:
-            raise ValueError(
-                "peer_redundancy=False: the port's RAM tier always mirrors each "
-                "group on its neighbour (ROADMAP A12)")
         if self.preempt_grace <= 0.0:
             raise ValueError(
                 f"preempt_grace must be > 0, got {self.preempt_grace}")

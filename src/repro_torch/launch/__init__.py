@@ -1,5 +1,7 @@
 """Launch: the data-parallel mesh and the (pod, data, cp, model) grid
-(``mesh.py``), and the step builder (``stepbuilder.py``).
+(``mesh.py``), the step builder (``stepbuilder.py``) and the training CLI
+(``train.py``, run as ``python -m repro_torch.launch.train``; it exports
+nothing here).
 
 The step builder's names are loaded on first use: it builds models, which
 import this package's mesh."""

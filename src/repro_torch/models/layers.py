@@ -38,7 +38,11 @@ NEG_INF = -1e30
 def dense_init(gen: torch.Generator, shape, in_axis=-2):
     """Truncated normal on [-2, 2] over sqrt(fan_in), fp32, drawn from ``gen``
     on its device (inverse-CDF sampling, so the draw depends only on the
-    generator)."""
+    generator). On the meta device (``launch.stepbuilder.meta_params``: shapes
+    only) no math runs: ``erfinv`` and the in-place clamp run there through
+    Python refs, whose first call imports seconds of modules."""
+    if gen.device.type == "meta":
+        return torch.empty(shape, dtype=torch.float32, device="meta")
     fan_in = shape[in_axis]
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))
     u = torch.rand(shape, generator=gen, dtype=torch.float32, device=gen.device)

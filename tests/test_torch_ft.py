@@ -89,11 +89,14 @@ def test_policy_validate_refuses_as_the_reference(bad):
 
 
 def test_policy_refuses_an_unmirrored_ram_tier():
-    """The reference's RAM tier can skip its peer mirrors; the port's always
-    writes them, so the policy refuses to say otherwise."""
-    JPolicy(peer_redundancy=False).validate()
-    with pytest.raises(ValueError, match="peer_redundancy"):
-        RecoveryPolicy(peer_redundancy=False).validate()
+    """A RAM tier without peer mirrors: both policies validate it, since the
+    port's tier, as the reference's, skips its mirrors under
+    ``peer_redundancy=False`` (``tests/test_torch_cli.py`` holds the two
+    tiers to each other), and both refuse it with a negative keep."""
+    for cls in (RecoveryPolicy, JPolicy):
+        cls(peer_redundancy=False).validate()
+        with pytest.raises(ValueError, match="ckpt_memory_keep"):
+            cls(peer_redundancy=False, ckpt_memory_keep=-1).validate()
 
 
 def test_plan_integrity_knob_validated():

@@ -18,8 +18,9 @@ preemption, fail-slow, rebalance).
 
 The port's train step updates params and moments in place, so every run here
 starts from its own copy of the weights (``World.state``). The fail-slow
-tests' detector takes a 30 ms floor under the injected 50 ms delay, so a
-loaded host's slower steps are not attributed."""
+tests' detector takes a 30 ms floor under the injected 50 ms delay, and
+their timers and drivers read one deterministic clock (``StepClock``), so no
+host load moves an attribution."""
 
 import json
 import os
@@ -620,12 +621,63 @@ def test_preempt_short_grace_takes_memory_tier(tmp_path):
     assert mem.latest_step() == report.preempt_step
 
 
-def test_slow_data_fetch_is_a_host_io_straggler(tmp_path):
+class StepClock:
+    """One deterministic clock for both packages' straggler timers and
+    recovery drivers (their ``time`` module, patched): every read advances by
+    ``tick`` and a sleep advances by its seconds without waiting. A section
+    then reads ``tick`` plus the injected ``slow`` sleep and a step ``tick``,
+    whatever the host's load. Other names fall through to ``time``."""
+
+    def __init__(self, tick=0.01):
+        self.t, self.tick = 0.0, tick
+
+    def perf_counter(self):
+        self.t += self.tick
+        return self.t
+
+    def sleep(self, seconds):
+        self.t += seconds
+
+    def __getattr__(self, name):
+        import time
+        return getattr(time, name)
+
+
+@pytest.fixture
+def step_clock(monkeypatch):
+    from repro.ft import recovery as jrecovery, straggler as jstraggler
+    from repro_torch.ft import recovery as trecovery, straggler as tstraggler
+    clock = StepClock()
+    for mod in (jrecovery, jstraggler, trecovery, tstraggler):
+        monkeypatch.setattr(mod, "time", clock)
+    return clock
+
+
+def _logged(det):
+    """``det`` (a StragglerDetector) with every observation it gets logged in
+    ``det.seen`` as (step, section, rank, seconds), for assertion messages."""
+    det.seen = []
+    observe, group = det.observe, det.observe_group
+
+    def logged_observe(section, rank, seconds, step):
+        det.seen.append((step, section, rank, round(seconds, 6)))
+        return observe(section, rank, seconds, step)
+
+    def logged_group(section, step, shares, weights=None):
+        det.seen.extend((step, section, r, round(v, 6)) for r, v in shares.items())
+        return group(section, step, shares, weights=weights)
+    det.observe, det.observe_group = logged_observe, logged_group
+    return det
+
+
+def test_slow_data_fetch_is_a_host_io_straggler(tmp_path, step_clock):
     """A ``slow`` fault at ``data.fetch`` from step 6: the timer's section
     confirms it and the driver notes a ``straggler`` anomaly of class host-io,
-    ignored by default; the run still bit-matches (delays corrupt nothing)."""
+    ignored by default; the run still bit-matches (delays corrupt nothing).
+    The sections read ``StepClock``, so the attribution does not depend on the
+    host's load; the assertion message carries every section's seconds."""
     w = World()
-    det = StragglerDetector(factor=2.0, confirm=2, min_seconds=0.03, min_history=3)
+    det = _logged(StragglerDetector(factor=2.0, confirm=2, min_seconds=0.03, min_history=3))
     timer = StragglerTimer(cfg=w.cfg, plan=w.plan, detector=det)
     with armed([FaultSpec("data.fetch", "slow", step=6, span=3, sleep_s=0.05)]):
         final, report = run_with_recovery(
@@ -633,10 +685,8 @@ def test_slow_data_fetch_is_a_host_io_straggler(tmp_path):
             InlineCheckpointManager(tmp_path, keep=3), _quiet(),
             ckpt_every=CKPT_EVERY, plan=w.plan, straggler=timer, policy=RecoveryPolicy())
     stragglers = [a for a in report.anomalies if a.kind == "straggler"]
-    # (a loaded host may also slow a step past the detector's 2x: only the
-    # injected fetch is asserted)
-    assert any(6 <= a.step < 9 and "section=data.fetch class=host-io" in a.detail
-               for a in stragglers), stragglers
+    assert [(a.step, a.detail.split(" slowdown")[0]) for a in stragglers] == [
+        (7, "rank=None section=data.fetch class=host-io")], (stragglers, det.seen)
     assert all(act == "ignore" for _, kind, act in report.actions if kind == "straggler")
     clean, _ = w.clean(12)
     assert_bits_equal(final.params, clean.params)
@@ -645,39 +695,43 @@ def test_slow_data_fetch_is_a_host_io_straggler(tmp_path):
 def _rebalance_run(ft, inject, policy_cls, world, ckpt, remesh):
     """A slow ``data.fetch`` under ``policy.straggler="rebalance"`` through
     ``ft.run_with_recovery`` (``ft``, ``inject``, ``policy_cls``: either
-    package's)."""
+    package's); returns (final state, report, the detector's observations)."""
     plan, step_fn, get_batch, state = world
-    det = ft.StragglerDetector(factor=2.0, confirm=2, min_seconds=0.03, min_history=3)
+    det = _logged(ft.StragglerDetector(factor=2.0, confirm=2, min_seconds=0.03, min_history=3))
     with inject.armed([inject.FaultSpec("data.fetch", "slow", step=6, span=3,
                                         sleep_s=0.05)]):
-        return ft.run_with_recovery(
+        final, report = ft.run_with_recovery(
             state, step_fn, get_batch, 12, ckpt,
             ft.Monitor(min_history=1000, hang_min_seconds=60.0), ckpt_every=CKPT_EVERY,
             plan=plan, straggler=ft.StragglerTimer(plan=plan, detector=det),
             policy=policy_cls(straggler="rebalance", max_restores=4), remesh=remesh)
+    return final, report, det.seen
 
 
 @pytest.mark.parametrize("with_remesh", [False, True])
-def test_rebalance_degrades_as_the_reference_without_a_pipeline(tmp_path, with_remesh):
+def test_rebalance_degrades_as_the_reference_without_a_pipeline(tmp_path, with_remesh,
+                                                               step_clock):
     """``"rebalance"`` on a host-io straggler of a plan without a pipeline:
     both drivers degrade it to ``"remesh"`` when a remesh hook is wired (the
-    hook then runs) and to ``"ignore"`` without one, with the same actions."""
+    hook then runs) and to ``"ignore"`` without one, with the same actions.
+    Both read ``StepClock``; the assertion message carries both drivers'
+    section seconds."""
     jw = _jax_world("dense")
     jremesh = w_remesh = None
     if with_remesh:
         jremesh = lambda: jft.RemeshSpec(train_step=jw[1], state_template=jw[3],  # noqa: E731
                                          plan=jw[0])
-    _, jrep = _rebalance_run(jft, jinject, JPolicy, jw, JaxCheckpointManager(
+    _, jrep, jseen = _rebalance_run(jft, jinject, JPolicy, jw, JaxCheckpointManager(
         tmp_path / "ref", async_persist=False), jremesh)
     w = World()
     if with_remesh:
         w_remesh = lambda: RemeshSpec(train_step=w.step_fn, state_template=w.state(),  # noqa: E731
                                       plan=w.plan, mesh=DataMesh())
-    final, rep = _rebalance_run(tft, tinject, RecoveryPolicy,
-                                (w.plan, w.step_fn, w.get_batch, w.state()),
-                                InlineCheckpointManager(tmp_path / "port"),
-                                w_remesh)
-    assert rep.actions == jrep.actions and rep.actions
+    final, rep, seen = _rebalance_run(tft, tinject, RecoveryPolicy,
+                                      (w.plan, w.step_fn, w.get_batch, w.state()),
+                                      InlineCheckpointManager(tmp_path / "port"), w_remesh)
+    assert rep.actions == jrep.actions and rep.actions, (rep.actions, jrep.actions,
+                                                         {"port": seen, "reference": jseen})
     want = "remesh" if with_remesh else "ignore"
     assert {act for _, kind, act in rep.actions if kind == "straggler"} == {want}
     assert (rep.remeshes, rep.restores) == (jrep.remeshes, jrep.restores)
