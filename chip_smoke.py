@@ -250,7 +250,20 @@ prints its seconds):
    to bf16 before the combine), which must fail; prefill, decode and combine
    ms, peak memory a rank; B1 timed at the prefill's shapes (a local and a
    global layer) beside its bound, its plain version and SDPA;
-21. times   — each kernel's time at its path's shapes beside its bound, its plain
+21. dry run — the estimates (A14.5, ``repro_torch.launch.dryrun.estimate``) of
+   the single-device cells, computed from the end of phase 2 in a child
+   process on the host (``CUDA_VISIBLE_DEVICES`` empty: meta tensors under
+   the kernels' route, nothing built or launched there; its launch counters
+   must stay 0): qwen1.5-4b, deepseek-moe-16b (4 layers), mamba2-370m,
+   zamba2-1.2b and whisper-small training at the phases' own rows and plans,
+   and the qwen2.5-14b and deepseek-moe-16b serving prefill and decode. For
+   each, the estimate's static bytes (params and moments; params and the
+   decode cache for serving) beside what the phase allocated for them
+   (``torch.cuda.memory_allocated()`` around the init and the moments, the
+   batches left out), within DRYRUN_STATIC_REL; the traced peak beside the
+   phase's ``torch.cuda.max_memory_allocated()``, within DRYRUN_PEAK_REL on
+   every training cell (serving peaks are readings);
+22. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -472,6 +485,18 @@ SSM_BATCH, SSM_PROMPT, SSM_DECODE_PROMPT = 4, 8000, 16
 # training: TRAIN_MICRO microbatches of 4 sequences (mamba2; B5's grid 4 x 32 = 128
 # blocks) or 2 (zamba2: 2 x 64) of TRAIN_SEQ tokens
 SSM_TRAIN_BATCH = {SSM_ARCH: 8, HYBRID_ARCH: 4}
+
+# the dry run's estimates of the single-device cells (phase 21): the child's
+# time limit, the holds, and what each phase measured ({cell: {"static",
+# "peak"}}, bytes)
+DRYRUN_TIMEOUT = 1100
+DRYRUN_STATIC_REL, DRYRUN_PEAK_REL = 0.01, 0.15
+MEMORY = {}
+
+
+def note_memory(cell, **readings):
+    """A phase's memory readings (bytes) for the dry run's holds (phase 21)."""
+    MEMORY.setdefault(cell, {}).update(readings)
 # B5/B6 at (b, l, h, p, g, n, chunk): the four path shapes; the first version's
 # (fp32, and bf16 at chunks 16, 24 and 1): the decode check's 16-token prompt and a
 # 16-token prompt at a few heads (chunk 16), chunk 24 with G 4, G 2 on a ragged
@@ -793,22 +818,33 @@ def prefill_fn_check(what, fn, params, batch, timed):
 def profile_window(name, fn):
     """Kernel time by name over one call of ``fn``, and the device's busy share
     of the profiled wall time (the profiler's own overhead included). Only the
-    CUDA activity is traced: the host-side op events add nothing these numbers
-    read and cost ~30 s of trace processing for a step of ~30,000 ops."""
+    CUDA activity is traced, and the device events are summed straight from
+    the profiler's raw results: the host-side op events, and building
+    ``key_averages()``'s Python events from the raw ones, add nothing these
+    numbers read and cost ~30 s and ~10 s of trace processing for a step of
+    ~30,000 kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
+    t_open = time.perf_counter()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    t_read = time.perf_counter()
+    kernels = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.name().startswith("["):
+            ns, count = kernels.get(e.name(), (0, 0))
+            kernels[e.name()] = (ns + e.duration_ns(), count + 1)
+    busy = sum(ns for ns, _ in kernels.values()) / 1e9
     log(f"profile {name}: wall {wall * 1e3:.2f} ms, kernels {busy * 1e3:.2f} ms, "
-        f"device busy {busy / wall:.1%}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
-        log(f"  {e.self_device_time_total / 1e3:9.3f} ms  x{e.count:<5d} {e.key[:100]}")
+        f"device busy {busy / wall:.1%} ({sum(c for _, c in kernels.values())} device events; "
+        f"the profiler's own {t_read - t_open - wall:.2f} s + {time.perf_counter() - t_read:.2f} "
+        f"s to read)")
+    for key, (ns, count) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"  {ns / 1e6:9.3f} ms  x{count:<5d} {key[:100]}")
 
 
 def phase_device():
@@ -980,6 +1016,7 @@ def phase_serving():
     cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     params = model.init(gen)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for lp in params["layers"] for d in lp.values()
@@ -1027,6 +1064,8 @@ def phase_serving():
         raise AssertionError("decode logits are not finite")
     launches = flash_attention_lse.launches
     peak = torch.cuda.max_memory_allocated()
+    # the params and the cache (and a few tokens' logits): the dry run's static bytes
+    note_memory(f"{ARCH} serving", static=torch.cuda.memory_allocated() - base, peak=peak)
     log(f"serving {ARCH}: prefill {BATCH}x{PROMPT} in {t_prefill * 1e3:.1f} ms = "
         f"{BATCH * PROMPT / t_prefill:.0f} tokens/s; decode {t_decode * 1e3:.2f} "
         f"ms/step (batch {BATCH}); peak memory {peak / 1e9:.2f} GB; "
@@ -1383,10 +1422,12 @@ def phase_training():
     step, _, _, meta = built(TRAIN_ARCH, "train_4k", plan)
     cfg, model = meta["cfg"], meta["model"]
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     for p in leaves(params):
         p.requires_grad_(True)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
     n_params = sum(p.numel() for p in leaves(params))
     log(f"init {TRAIN_ARCH}: {n_params / 1e9:.3f} B params (fp32) in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -1395,7 +1436,9 @@ def phase_training():
                for i in range(TRAIN_STEPS + 2)]
     real = backward_on_real_inputs(model, params, cfg, batches[0])
 
+    base = torch.cuda.memory_allocated()
     state = TrainState(params, adamw_init(params))
+    note_memory(f"{TRAIN_ARCH} training", static=held + torch.cuda.memory_allocated() - base)
     del params
     state, m = step(state, batches[0])                 # warm-up
     log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
@@ -1422,6 +1465,7 @@ def phase_training():
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError("the full-width train step's loss or grad norm is not finite")
     peak = torch.cuda.max_memory_allocated()
+    note_memory(f"{TRAIN_ARCH} training", peak=peak)
     step_s = sum(times) / len(times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = train_flops(cfg, TRAIN_SEQ, tokens)
@@ -1706,6 +1750,7 @@ def phase_moe_serving():
     cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     params = model.init(gen)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in leaves(params))
@@ -1756,6 +1801,7 @@ def phase_moe_serving():
     if not finite:
         raise AssertionError("MoE decode logits are not finite")
     peak = torch.cuda.max_memory_allocated()
+    note_memory(f"{MOE_ARCH} serving", static=torch.cuda.memory_allocated() - base, peak=peak)
     log(f"serving {MOE_ARCH}: prefill {BATCH}x{PROMPT} (einsum dispatch) in "
         f"{t_prefill * 1e3:.1f} ms = {BATCH * PROMPT / t_prefill:.0f} tokens/s; decode "
         f"{t_decode * 1e3:.2f} ms/step (batch {BATCH}); peak memory {peak / 1e9:.2f} GB; "
@@ -1834,10 +1880,12 @@ def phase_moe_training():
                         microbatches=TRAIN_MICRO)
     model = build_model(cfg, plan)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
     for p in leaves(params):
         p.requires_grad_(True)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
     n_params = sum(p.numel() for p in leaves(params))
     log(f"init {MOE_ARCH} ({MOE_TRAIN_LAYERS} of 28 layers): {n_params / 1e9:.3f} B params "
         f"(fp32) in {time.perf_counter() - t0:.1f} s, "
@@ -1863,7 +1911,9 @@ def phase_moe_training():
     for p in leaves(params):
         p.grad = None
 
+    base = torch.cuda.memory_allocated()
     state = TrainState(params, adamw_init(params))
+    note_memory(f"{MOE_ARCH} training", static=held + torch.cuda.memory_allocated() - base)
     del params
     step = make_train_step(model, plan, Hyper())
     state, m = step(state, batches[0])                 # warm-up
@@ -1891,6 +1941,7 @@ def phase_moe_training():
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError("the MoE train step's loss or grad norm is not finite")
     peak = torch.cuda.max_memory_allocated()
+    note_memory(f"{MOE_ARCH} training", peak=peak)
     step_s = sum(times) / len(times)
     tokens = TRAIN_BATCH * TRAIN_SEQ
     flops = train_flops(cfg, TRAIN_SEQ, tokens)
@@ -2444,11 +2495,13 @@ def phase_ssm_training(arch, batch_size):
     cfg, model = meta["cfg"], meta["model"]
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     params = model.init(gen)
     random_conv_taps(params, gen)
     for p in leaves(params):
         p.requires_grad_(True)
     torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
     n_params = sum(p.numel() for p in leaves(params))
     log(f"init {arch}: {n_params / 1e6:.1f} M params (fp32) in "
         f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 1e9:.2f} GB")
@@ -2473,7 +2526,9 @@ def phase_ssm_training(arch, batch_size):
     for p in leaves(params):
         p.grad = None
 
+    base = torch.cuda.memory_allocated()
     state = TrainState(params, adamw_init(params))
+    note_memory(f"{arch} training", static=held + torch.cuda.memory_allocated() - base)
     del params
     state, m = step(state, batches[0])                 # warm-up
     log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
@@ -2499,6 +2554,7 @@ def phase_ssm_training(arch, batch_size):
         if not (np.isfinite(loss) and np.isfinite(gnorm)):
             raise AssertionError(f"the {arch} train step's loss or grad norm is not finite")
     peak = torch.cuda.max_memory_allocated()
+    note_memory(f"{arch} training", peak=peak)
     step_s = sum(times_s) / len(times_s)
     tokens = batch_size * TRAIN_SEQ
     flops = train_flops(cfg, TRAIN_SEQ, tokens, params=state.params)
@@ -2723,8 +2779,12 @@ def phase_whisper_training():
 
     timed(f"{WHISPER_ARCH} smoke training", train_smoke_agreement, WHISPER_ARCH)
     t0 = time.perf_counter()
+    base = torch.cuda.memory_allocated()
     cfg, plan, model, params, batches, step = whisper_train_setup()
     torch.cuda.synchronize()
+    # the params: what the setup allocated but its batches
+    held = torch.cuda.memory_allocated() - base - sum(
+        t.numel() * t.element_size() for b in batches for t in b.values())
     n_params = sum(p.numel() for p in leaves(params))
     log(f"init {WHISPER_ARCH}: {n_params / 1e6:.2f} M params (fp32; param_count "
         f"{cfg.param_count() / 1e6:.2f} M) in {time.perf_counter() - t0:.1f} s, "
@@ -2743,7 +2803,9 @@ def phase_whisper_training():
     for p in leaves(params):
         p.grad = None
 
+    base = torch.cuda.memory_allocated()
     state = TrainState(params, adamw_init(params))
+    note_memory(f"{WHISPER_ARCH} training", static=held + torch.cuda.memory_allocated() - base)
     del params
     state, m = step(state, batches[0])                 # warm-up
     log(f"warm-up step: loss {float(m['loss']):.6f}, grad_norm {float(m['grad_norm']):.6f}")
@@ -2770,6 +2832,7 @@ def phase_whisper_training():
             raise AssertionError(f"the {WHISPER_ARCH} train step's loss or grad norm is "
                                  f"not finite")
     peak = torch.cuda.max_memory_allocated()
+    note_memory(f"{WHISPER_ARCH} training", peak=peak)
     step_s = sum(times) / len(times)
     tokens = WHISPER_TRAIN_BATCH * TRAIN_SEQ
     flops = train_flops(cfg, TRAIN_SEQ, tokens)
@@ -3692,6 +3755,9 @@ def dp_sdc_run(model, plan, batches, mesh, clean, clean_opt, out_dir):
            "restores_by_tier": ft_restore_readings(flight),
            "ram_restore_s": mem.restore_seconds, "ram_rebuilt_members": mem.last_rebuild,
            "ram_snapshot_s": mem.snapshot_seconds,
+           # the ranks' agreement on each step's decision (one gloo max a step)
+           "agreements": report.agreements,
+           "agree_ms": report.agree_seconds * 1e3 / max(1, report.agreements),
            "losses_bit_equal": report.losses == clean["loss"],
            "state_bit_equal": (all(np.array_equal(got[n], a) for n, a in clean["params"].items())
                                and all(np.array_equal(got_opt[n], a)
@@ -4064,7 +4130,8 @@ def dp_report(ranks, nccl):
             f"{r['integrity_checksum']}), beside the TP ranks: the audit alone "
             f"{[round(x, 2) for x in r['audit_ms']]} ms; sdc run: actions {r['sdc']['actions']}, restores {r['sdc']['restores_by_tier']}, "
             f"RAM restore {r['sdc']['ram_restore_s']:.2f} s ({r['sdc']['ram_rebuilt_members']} "
-            f"members rebuilt), bit-equal {r['sdc']['state_bit_equal']}, {r['sdc']['seconds']:.1f} s")
+            f"members rebuilt), bit-equal {r['sdc']['state_bit_equal']}, {r['sdc']['seconds']:.1f} s; "
+            f"{r['sdc']['agreements']} agreements, {r['sdc']['agree_ms']:.3f} ms each")
     log(f"nccl ({nccl['mesh']}): seam {nccl['seam_equal']}, step {nccl['ms'][DP_WATCHED:]} ms, "
         f"all-reduce {nccl['all_reduce_ms'][DP_WATCHED:]} ms, link bytes by kind "
         f"{nccl['link_bytes'][DP_WATCHED:]}; losses {nccl['loss']} / "
@@ -4095,6 +4162,9 @@ def dp_report(ranks, nccl):
                 and sdc["mem_restores"] == 1 and sdc["losses_bit_equal"]
                 and sdc["state_bit_equal"]):
             bad.append(f"rank {r['rank']}: the sdc run {sdc}")
+        # every step run, the rolled-back one and its replay included, agreed
+        if sdc["agreements"] != DP_STEPS + 1:
+            bad.append(f"rank {r['rank']}: {sdc['agreements']} agreements in the sdc run")
     if any(r["integrity_checksum"] != r0["integrity_checksum"] for r in ranks[1:]):
         bad.append("the ranks' integrity checksums differ")
     if any(d != 0.0 for d in nccl["integrity_div"]):
@@ -6765,6 +6835,134 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                       f"{GRID_ARCH}_grid": grid_summary(grid)}), flush=True)
 
 
+# ---------------------------------------------------------------------------
+# the dry run's estimates of the single-device cells (phase 21)
+
+
+def dryrun_cells():
+    """{cell: [(config, InputShape, plan), ...]} of the single-device cells at
+    the phases' own configs, rows and plans: a training cell's step, a
+    serving cell's prefill and decode (its cache of MAX_SEQ positions)."""
+    from repro_torch.core import InputShape, ParallelPlan
+    from repro_torch.launch import resolve_config
+    train = ParallelPlan(compute_dtype="bfloat16", param_dtype="float32", remat="full",
+                         microbatches=TRAIN_MICRO)
+    serve = ParallelPlan(compute_dtype="bfloat16", param_dtype="bfloat16")
+
+    def cfg(arch, **cut):
+        return dataclasses.replace(resolve_config(arch, "train_4k"), **cut)
+
+    def rows(n):
+        return InputShape("cell", TRAIN_SEQ, n, "train")
+    cells = {
+        f"{TRAIN_ARCH} training": [(cfg(TRAIN_ARCH), rows(TRAIN_BATCH), train)],
+        f"{MOE_ARCH} training": [(cfg(MOE_ARCH, n_layers=MOE_TRAIN_LAYERS), rows(TRAIN_BATCH),
+                                  train)],
+        f"{SSM_ARCH} training": [(cfg(SSM_ARCH), rows(SSM_TRAIN_BATCH[SSM_ARCH]), train)],
+        f"{HYBRID_ARCH} training": [(cfg(HYBRID_ARCH), rows(SSM_TRAIN_BATCH[HYBRID_ARCH]),
+                                     train)],
+        f"{WHISPER_ARCH} training": [(cfg(WHISPER_ARCH), rows(WHISPER_TRAIN_BATCH), train)],
+    }
+    for arch in (ARCH, MOE_ARCH):
+        cells[f"{arch} serving"] = [(cfg(arch), InputShape("cell", PROMPT, BATCH, "prefill"), serve),
+                                    (cfg(arch), InputShape("cell", MAX_SEQ, BATCH, "decode"), serve)]
+    return cells
+
+
+def dryrun_estimates(out_path):
+    """The dry run's child (phase 21): each cell's estimate on meta tensors
+    (``launch.dryrun.estimate``, no mesh), then the launch counters and the
+    times nvcc or a kernel library was sought, as JSON at ``out_path``."""
+    from repro_torch.kernels import build
+    from repro_torch.launch.dryrun import estimate
+    torch.set_num_threads(1)
+    sought = []
+
+    def refuse(*args):
+        sought.append(repr(args))
+        raise RuntimeError("the dry run's child sought nvcc or a kernel library")
+    build._nvcc, build.load = refuse, refuse
+    out = {}
+    for cell, runs in dryrun_cells().items():
+        t0 = time.perf_counter()
+        out[cell] = [estimate(cfg, shape, None, plan) for cfg, shape, plan in runs]
+        print(f"dry run: {cell} estimated in {time.perf_counter() - t0:.1f} s", flush=True)
+    out["_launches"] = [*all_counts(), *ssd_counts()]
+    out["_sought"] = sought
+    Path(out_path).write_text(json.dumps(out, default=str))
+
+
+def start_dryrun():
+    """The dry run's child process, started at the script's start: on the
+    host, with no card visible, niced. Returns (process, its output path, its
+    log path, its start time)."""
+    work = ROOT / "build"
+    work.mkdir(exist_ok=True)
+    out, log_path = work / "dryrun_estimates.json", work / "dryrun_estimates.log"
+    out.unlink(missing_ok=True)
+    code = ("import os, sys; os.nice(10); sys.path[:0] = sys.argv[1:3]; import chip_smoke; "
+            "chip_smoke.dryrun_estimates(sys.argv[3])")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code, str(ROOT), str(ROOT / "src"),
+                                 str(out)], stdout=f, stderr=subprocess.STDOUT,
+                                env={**os.environ, "CUDA_VISIBLE_DEVICES": "",
+                                     "OMP_NUM_THREADS": "1"})
+    return proc, out, log_path, time.perf_counter()
+
+
+def phase_dryrun(child):
+    """Each cell's estimate beside the phase's readings (module docstring,
+    phase 21): the static bytes within DRYRUN_STATIC_REL on every cell, the
+    traced peak within DRYRUN_PEAK_REL on every training cell; the child
+    built and launched nothing. Logs one JSON line of the readings."""
+    proc, out, log_path, t0 = child
+    try:
+        proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise AssertionError(f"the dry run's child ran past {DRYRUN_TIMEOUT} s:\n"
+                             f"{log_path.read_text()[-3000:]}")
+    text = log_path.read_text()
+    if proc.returncode != 0:
+        raise AssertionError(f"the dry run's child failed ({proc.returncode}):\n{text[-4000:]}")
+    for line in text.splitlines():
+        log(line)
+    est = json.loads(out.read_text())
+    launches, sought = est.pop("_launches"), est.pop("_sought")
+    log(f"dry run: the child's launch counters {launches}, nvcc or a library sought "
+        f"{len(sought)} times")
+    if any(launches) or sought:
+        raise AssertionError(f"the dry run's child launched {launches} or sought {sought}")
+    rows, failures = [], []
+    for cell, recs in est.items():
+        meas = MEMORY[cell]
+        training = len(recs) == 1
+        at = recs[-1]["traced"]["at_start"]
+        static = at["params"] + (at["optimizer"] if training else at["cache"])
+        peaks = [r["traced"]["peak"]["total"] for r in recs]
+        row = {"cell": cell, "static_estimate": static, "static_measured": meas["static"],
+               "static_ratio": static / meas["static"], "peak_traced": max(peaks),
+               "peak_measured": meas["peak"], "peak_ratio": max(peaks) / meas["peak"],
+               "trace_s": [r["trace_s"] for r in recs], "held": "peak" if training else
+               "static only (serving peaks are readings)"}
+        if not training:
+            row["prefill_peak_traced"], row["decode_peak_traced"] = peaks
+        rows.append(row)
+        log(f"dry run {cell}: static {static / 1e9:.4f} GB estimated, "
+            f"{meas['static'] / 1e9:.4f} GB allocated (ratio {row['static_ratio']:.5f}); "
+            f"peak {max(peaks) / 1e9:.3f} GB traced, {meas['peak'] / 1e9:.3f} GB measured "
+            f"(ratio {row['peak_ratio']:.4f}{'' if training else ', a reading'})")
+        if abs(row["static_ratio"] - 1) > DRYRUN_STATIC_REL:
+            failures.append(f"{cell}: static ratio {row['static_ratio']:.5f}")
+        if training and abs(row["peak_ratio"] - 1) > DRYRUN_PEAK_REL:
+            failures.append(f"{cell}: peak ratio {row['peak_ratio']:.4f}")
+    log(json.dumps({"dryrun": rows}))
+    if failures:
+        raise AssertionError("the dry run's estimates miss the card's readings: "
+                             + "; ".join(failures))
+    return rows
+
+
 def free():
     gc.collect()
     torch.cuda.empty_cache()
@@ -6773,9 +6971,23 @@ def free():
 def main():
     t0 = time.perf_counter()
     kind = phase_device()
+    children = []
+    try:
+        run(t0, kind, children)
+    finally:
+        for child in children:
+            if child[0].poll() is None:
+                child[0].kill()
+
+
+def run(t0, kind, children):
     from repro_torch.core import resolve_device
     resolve_device()                       # fp32 matmuls in full fp32
     timed("build", phase_build)
+    # phase 21's estimates on the host, beside the card's phases (after the
+    # build: nvcc takes the host's cores first)
+    children.append(start_dryrun())
+    child = children[0]
     path_errs = timed("kernels (B1)", phase_kernels)
     bwd_errs = timed("kernels (B2, B3)", phase_kernels_bwd)
     gemm_errs = timed("kernels (B4)", phase_kernels_gemm)
@@ -6815,6 +7027,7 @@ def main():
     pp = timed("pipeline parallel", phase_pp)
     free()
     grid = timed("grid serving", phase_grid_serving)
+    timed("dry run", phase_dryrun, child)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
           gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp, grid)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")

@@ -89,6 +89,27 @@ scheduled without touching the clean step.
 After every restore the Monitor's heartbeat is reset: restore wall-time is
 not a step time and must not trip a false hang.
 
+**One decision for every rank.** The reference runs one controller; here
+each rank runs this driver with its own ``Monitor``, straggler timer and
+preemption guard, so a hang, a straggler or a SIGTERM that one rank sees
+would send the ranks different ways (one restores, the other steps on, and
+their next collective never meets). Under a mesh of more than one rank
+(``launch.mesh.host_ranks``) the ranks therefore agree on every step before
+any action: each forms its own verdict (sdc, then ``Monitor.record``'s nan,
+spike or hang, then a straggler event only when nothing else fired) and
+whether its guard has a preemption notice, and one int64 max all-reduce on
+the mesh's gloo ``host_group`` (``launch.mesh.host_max``) gives every rank
+the verdict the driver's own precedence puts first (sdc > nan > spike >
+hang > straggler), the straggler event of the lowest rank that saw one, and
+the notice. Each rank notes what it adopts in its own ``Monitor`` and flight
+recorder, the detail naming the rank it came from. A ``rebalance`` takes the
+layout that the event's rank chose from its own stage times (``agree_layout``:
+one more max all-reduce, only on a step that rebalances). A notice any rank
+received stops every rank before the next step, with the same just-in-time
+tier (the faster, memory, if any rank's grace budget needs it: one more max
+over the ranks at that exit) and signal. One process runs no collective and
+takes no new branch.
+
 **Tiered restore order** (survey §8.3.1, Gemini/CheckFreq): every restore —
 rollback, lr_rescue, resume — tries the hot in-memory tier first when one is
 attached (``mem_ckpt``): (1) RAM primary shards (no verification — digested
@@ -114,12 +135,64 @@ import time
 from contextlib import nullcontext
 from typing import Any, Callable, Dict, List, Optional, Set, Tuple
 
+import struct
+
 from repro_torch.checkpoint.store import CheckpointManager, CorruptCheckpointError
 from repro_torch.core.config import RecoveryPolicy
+from repro_torch.launch.mesh import host_max, host_ranks
 from . import inject as _inject
 from .anomaly import Anomaly, Monitor
 from .preempt import choose_tier, clear_marker, read_marker, write_marker
-from .straggler import choose_pp_layout, effective_layout
+from .straggler import SECTION_CLASSES, Straggler, choose_pp_layout, effective_layout
+
+# a step's verdicts, lowest precedence first: the order in which the driver
+# itself lets one outrank another (module docstring, "One decision")
+PRECEDENCE = ("straggler", "hang", "spike", "nan", "sdc")
+_SECTIONS = tuple(SECTION_CLASSES)
+_SLOT = 5       # a rank's slot: verdict, event seen, event rank + 1, section + 1, slowdown bits
+
+
+def _slot(kind: Optional[str], ev) -> List[int]:
+    """A rank's own verdict and straggler event as ints (``agree``)."""
+    code = PRECEDENCE.index(kind) + 1 if kind is not None else 0
+    if ev is None:
+        return [code, 0, 0, 0, 0]
+    return [code, 1, 0 if ev.rank is None else ev.rank + 1, _SECTIONS.index(ev.section) + 1,
+            struct.unpack("<q", struct.pack("<d", float(ev.slowdown)))[0]]
+
+
+def agree(mesh, kind: Optional[str], ev, signum: int):
+    """The ranks' one decision for a step (module docstring): this rank's
+    verdict ``kind`` (None: none), its straggler event ``ev`` and its guard's
+    signal number (0: no notice) in; ``(kind, kind's lowest rank, event,
+    event's rank, signal)`` out, the same on every rank of ``mesh``'s host
+    group."""
+    me, n = host_ranks(mesh)
+    vals = [0] * (1 + _SLOT * n)
+    vals[0] = int(signum)
+    vals[1 + _SLOT * me:1 + _SLOT * (me + 1)] = _slot(kind, ev)
+    vals = host_max(mesh, vals)
+    slots = [vals[1 + _SLOT * r:1 + _SLOT * (r + 1)] for r in range(n)]
+    code = max(sl[0] for sl in slots)
+    src = next(r for r, sl in enumerate(slots) if sl[0] == code)
+    seen = next((r for r, sl in enumerate(slots) if sl[1]), None)
+    out_ev = None
+    if seen is not None:
+        _, _, rank1, sect1, bits = slots[seen]
+        section = _SECTIONS[sect1 - 1]
+        out_ev = (ev if seen == me else
+                  Straggler(rank=rank1 - 1 if rank1 else None, section=section,
+                            cls=SECTION_CLASSES[section], step=-1,
+                            slowdown=struct.unpack("<d", struct.pack("<q", bits))[0]))
+    return (PRECEDENCE[code - 1] if code else None), src, out_ev, seen, vals[0]
+
+
+def agree_layout(mesh, layout: Tuple[int, ...], src: int) -> Tuple[int, ...]:
+    """The rebalance layout that rank ``src`` of ``mesh``'s host group chose
+    from its own stage times (the rank whose straggler event was agreed), on
+    every rank: one more max all-reduce, the other ranks giving zeros."""
+    mine = list(layout) if host_ranks(mesh)[0] == src else [0] * len(layout)
+    return tuple(host_max(mesh, mine))
 
 
 class RecoveryExhausted(RuntimeError):
@@ -174,6 +247,10 @@ class RunReport:
     preempt_step: Optional[int] = None
     # where the flight recorder dumped its JSON (preemption/crash), if at all
     flight_path: Optional[str] = None
+    # the ranks' agreements on a step's decision, and their host seconds
+    # (0 in one process: module docstring, "One decision")
+    agreements: int = 0
+    agree_seconds: float = 0.0
 
 
 def run_with_recovery(
@@ -287,6 +364,10 @@ def run_with_recovery(
     spike_counts: Dict[int, int] = {}
     rescue_mode: Dict[int, str] = {}   # step -> "rescue" | "skip", sticky
     step = 0
+    # more than one rank: every step's decision is agreed (module docstring)
+    ranked = host_ranks(mesh)[1] > 1
+    agreed_signum = 0                  # a notice any rank received, agreed
+    agreements, agree_seconds = 0, 0.0
 
     def _restore(template, the_plan=None, the_mesh=None):
         """Tiered restore — memory first, then the verified disk walk.
@@ -369,7 +450,8 @@ def run_with_recovery(
         base = dict(steps_done=step, anomalies=monitor.anomalies,
                     restores=restores, losses=losses, remeshes=remeshes,
                     rebalances=rebalances, actions=actions,
-                    ckpt_fallbacks=fallbacks, mem_restores=mem_restores)
+                    ckpt_fallbacks=fallbacks, mem_restores=mem_restores,
+                    agreements=agreements, agree_seconds=agree_seconds)
         base.update(over)
         return RunReport(**base)
 
@@ -391,7 +473,7 @@ def run_with_recovery(
 
     try:
         while step < n_steps:
-            if preempt is not None and preempt.requested:
+            if preempt is not None and (agreed_signum if ranked else preempt.requested):
                 # graceful preemption: flush the in-flight persist first (a
                 # background failure must not pass for a durable
                 # checkpoint), then a just-in-time blocking snapshot on
@@ -402,16 +484,21 @@ def run_with_recovery(
                     monitor.note("ckpt_io", step, repr(e))
                     actions.append((step, "ckpt_io", policy.ckpt_io))
                 tier = choose_tier(preempt, ckpt, mem_ckpt)
+                signum = preempt.signum
+                if ranked:
+                    # every rank the same tier and signal (module docstring)
+                    faster, signum = host_max(mesh, [int(tier == "memory"), agreed_signum])
+                    tier = "memory" if faster else "disk"
                 if tier == "memory":
                     mem_ckpt.save(step, state, plan=plan, mesh=mesh)
                 else:
                     _try_save(step, state, blocking=True)
                 if flight is not None:
                     flight.record("preempt", step, tier=tier,
-                                  signum=preempt.signum,
+                                  signum=signum,
                                   grace_left=preempt.remaining())
                 fp = flight.dump("preempt") if flight is not None else None
-                write_marker(ckpt.dir, step, tier, preempt.signum, fp)
+                write_marker(ckpt.dir, step, tier, signum, fp)
                 return state, _report(preempted=True, preempt_step=step,
                                       flight_path=fp)
 
@@ -465,7 +552,27 @@ def run_with_recovery(
             ev = None
             if straggler is not None:
                 ev = straggler.after_step(step, step_seconds, plan=plan)
-            if ev is not None and anomaly is None:
+            if ranked:
+                # one decision for every rank before any action (module
+                # docstring): the agreed verdict, noted where it is adopted
+                own = anomaly.kind if anomaly is not None else (
+                    "straggler" if ev is not None else None)
+                t_agree = time.perf_counter()
+                kind, src, ev, ev_src, agreed_signum = agree(
+                    mesh, own, ev, (preempt.signum or 0) if preempt is not None
+                    and preempt.requested else 0)
+                agree_seconds += time.perf_counter() - t_agree
+                agreements += 1
+                me = host_ranks(mesh)[0]
+                if kind == "straggler":
+                    anomaly = monitor.note(
+                        "straggler", step,
+                        f"rank={ev.rank} section={ev.section} class={ev.cls} "
+                        f"slowdown={ev.slowdown:.2f}x"
+                        + ("" if ev_src == me else f" (adopted from rank {ev_src})"))
+                elif kind is not None and kind != own:
+                    anomaly = monitor.note(kind, step, f"adopted from rank {src}")
+            elif ev is not None and anomaly is None:
                 anomaly = monitor.note(
                     "straggler", step,
                     f"rank={ev.rank} section={ev.section} class={ev.cls} "
@@ -490,6 +597,10 @@ def run_with_recovery(
                           and ev.rank not in rebalanced_ranks)
                     if ok:
                         new_layout = choose_pp_layout(straggler.stage_times(), lay)
+                        if ranked:
+                            # each rank's stage times are its own: every
+                            # rank takes the event's rank's choice
+                            new_layout = agree_layout(mesh, new_layout, ev_src)
                         if new_layout == tuple(lay):
                             action = "ignore"   # measurement says: balanced
                     else:
@@ -529,6 +640,7 @@ def run_with_recovery(
                                            spec.plan, spec.mesh)
                     train_step = spec.train_step
                     plan, mesh = spec.plan, spec.mesh
+                    ranked = host_ranks(mesh)[1] > 1
                     if spec.rescue_step is not None:
                         rescue_step = spec.rescue_step
                     restores += 1
@@ -555,6 +667,7 @@ def run_with_recovery(
                         plan = spec.plan
                     if spec.mesh is not None:
                         mesh = spec.mesh
+                        ranked = host_ranks(mesh)[1] > 1
                     if spec.rescue_step is not None:
                         rescue_step = spec.rescue_step
                     restores += 1

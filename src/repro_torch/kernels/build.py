@@ -11,12 +11,14 @@ seconds.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import sys
 import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
@@ -67,6 +69,57 @@ def sources(name: str):
                 visit(CSRC / inc.decode())
     visit(CSRC / f"{name}.cu")
     return found
+
+
+def traced(*tensors) -> bool:
+    """Whether any of ``tensors`` holds no data: a meta tensor (the dry run's
+    trace, ``launch/dryrun.py``) or a fake one (``FakeTensorMode``). Each
+    launch function returns before it builds or calls its kernel when one
+    does, with the outputs its wrapper has already allocated, which are what
+    the kernel's launch allocates; nothing is counted as a launch. A real
+    tensor never takes that return."""
+    fake = sys.modules.get("torch._subclasses.fake_tensor")
+    return any(t.is_meta or (fake is not None and isinstance(t, fake.FakeTensor))
+               for t in tensors)
+
+
+_fake_card = False
+
+
+@contextlib.contextmanager
+def fake_card():
+    """While active, tensors without data (:func:`traced`) on any device take
+    the kernels' route, as CUDA tensors do (:func:`on_card`): the dispatchers
+    pick each kernel as on the card, the wrappers check and allocate as for a
+    launch, and the launch functions return before the kernel. The dry run
+    traces its steps on meta tensors under it. Real tensors are never on the
+    card by it."""
+    global _fake_card
+    _fake_card = True
+    try:
+        yield
+    finally:
+        _fake_card = False
+
+
+def fake_card_active() -> bool:
+    """Whether :func:`fake_card` is active."""
+    return _fake_card
+
+
+def on_card(t) -> bool:
+    """Whether ``t`` takes a kernel's route: a CUDA tensor, or one without data
+    under :func:`fake_card`."""
+    return t.device.type == "cuda" or (_fake_card and traced(t))
+
+
+def base_aligned(t) -> bool:
+    """Whether ``t``'s first element sits on a 16-byte boundary. A tensor
+    without data has no address: its storage offset is read instead, on a
+    storage the caching allocator would align to 512 bytes."""
+    if traced(t):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0
 
 
 def library_path(name: str) -> Path:

@@ -63,6 +63,7 @@ from repro_torch.core.config import ATTN_IMPLS, CP_IMPLS, EP_IMPLS, Family, chec
 from repro_torch.ft import inject as _inject
 from repro_torch.models import layers as _layers
 from repro_torch.models.ssm import ssd_scan
+from . import build
 from . import flash_attention as _fa
 from .flash_attention import HEAD_DIMS, flash_attention
 from .grouped_gemm import expert_gemm
@@ -93,7 +94,7 @@ def _resolve(impl: str, knob: str, device) -> str:
     """The three rules of the module docstring -> "plain" | "cuda"."""
     if impl not in ATTN_IMPLS:
         raise ValueError(f"{knob} must be one of {ATTN_IMPLS}, got {impl!r}")
-    on_cuda = torch.device(device).type == "cuda"
+    on_cuda = torch.device(device).type == "cuda" or build.fake_card_active()
     if impl == "plain" or (impl == "auto" and not on_cuda):
         return "plain"
     if not on_cuda:

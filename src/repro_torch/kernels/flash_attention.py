@@ -109,13 +109,13 @@ def _aligned(x) -> bool:
     strides that are multiples of 16 bytes, a 16-byte aligned base."""
     vec = 16 // x.element_size()
     return (x.stride(-1) == 1 and not any(st % vec for st in x.stride()[:3])
-            and x.data_ptr() % 16 == 0)
+            and build.base_aligned(x))
 
 
 def _cuda_args(q, k, v):
     """What the kernels take beyond :func:`_check`: a CUDA device, their dtypes
     and head dims, and layouts that meet the 16-byte rule of :func:`_aligned`."""
-    if q.device.type != "cuda":
+    if not build.on_card(q):
         raise ValueError(f"the flash kernels run on cuda or cpu, not {q.device}")
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernels take float32 or bfloat16, not {q.dtype}")
@@ -161,7 +161,10 @@ def flash_attention_lse(q, k, v, *, causal: bool = True, window: int = 0,
 
 def _fwd_launch(body, q, k, v, o, lse, *, causal, window, softcap, scale, q_offset):
     """Launch the forward's ``body`` on checked inputs and allocated outputs.
-    Counts the launch, in all and per body."""
+    Counts the launch, in all and per body. A tensor without data returns first
+    (``build.traced``)."""
+    if build.traced(q):
+        return
     b, hq, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     err = _fwd_kernel()(
@@ -254,7 +257,10 @@ def flash_attention_bwd(q, k, v, do, lse, delta, *, causal: bool = True,
 def _bwd_launch(which, q, k, v, do, lse, delta, dq, dk, dv, *, causal, window,
                 softcap, scale, q_offset):
     """Launch one backward kernel on checked inputs and allocated outputs:
-    ``which`` 0 writes dq, 1 writes dk and dv. Counts the launch."""
+    ``which`` 0 writes dq, 1 writes dk and dv. Counts the launch. A tensor
+    without data returns first (``build.traced``)."""
+    if build.traced(q):
+        return
     b, hq, s, hd = q.shape
     hkv, t = k.shape[1], k.shape[2]
     err = _bwd_kernel()(

@@ -93,7 +93,7 @@ def _layout(t, k_dim: int, row_dim: int):
     st = t.stride()
     kmaj = not (st[row_dim] == 1 and st[k_dim] != 1)
     unit, other = (k_dim, row_dim) if kmaj else (row_dim, k_dim)
-    vec = (t.dtype == torch.bfloat16 and st[unit] == 1 and t.data_ptr() % 16 == 0
+    vec = (t.dtype == torch.bfloat16 and st[unit] == 1 and build.base_aligned(t)
            and all(t.shape[d] == 1 or st[d] % 8 == 0 for d in (0, other)))
     return int(kmaj), int(vec)
 
@@ -134,7 +134,7 @@ def grouped_gemm(x, w, gs=None, *, mask: str = "rows"):
     _check(x, w, gs, mask)
     if x.device.type == "cpu":
         return grouped_gemm_plain(x, w, gs, mask=mask)
-    if x.device.type != "cuda":
+    if not build.on_card(x):
         raise ValueError(f"the grouped GEMM runs on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPES:
         raise ValueError(f"the kernel takes float32 or bfloat16, not {x.dtype}")
@@ -153,7 +153,10 @@ def grouped_gemm(x, w, gs=None, *, mask: str = "rows"):
 
 def _launch(body, x, w, out, gs, mask):
     """Launch ``body`` on checked inputs and an allocated output; counts the
-    launch by mask mode and by body."""
+    launch by mask mode and by body. A tensor without data returns first
+    (``build.traced``)."""
+    if build.traced(x):
+        return
     e, m, k = x.shape
     n = w.shape[2]
     a_kmaj, a_vec = _layout(x, 2, 1)

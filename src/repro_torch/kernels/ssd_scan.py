@@ -84,7 +84,7 @@ def ssd_chunk_scan_fwd_plain(x, dt, A, Bm, Cm, *, chunk: int):
 
 def _cuda_args(x, dt, A, Bm, Cm, chunk):
     """What the kernels take beyond :func:`_check`."""
-    if x.device.type != "cuda":
+    if not build.on_card(x):
         raise ValueError(f"the SSD kernels run on cuda or cpu, not {x.device}")
     if x.dtype not in _DTYPE_CODE or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise ValueError(f"the kernels take x, B and C in one of float32 and bfloat16, "
@@ -103,7 +103,7 @@ def _rows_aligned(t) -> bool:
     """The last dim contiguous and every row 16-byte aligned (what the Hopper
     bodies' 16-byte loads need)."""
     esz = t.element_size()
-    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and
+    return (t.stride(-1) == 1 and build.base_aligned(t) and
             all(size == 1 or st * esz % 16 == 0
                 for size, st in zip(t.shape[:-1], t.stride()[:-1])))
 
@@ -138,7 +138,10 @@ def _fwd_kernel():
 
 def _fwd_simt(x, dt, A, Bm, Cm, y, enters, final, chunk):
     """One launch of the first-version forward body on checked inputs (fp32 dt and
-    A); ``enters`` may be None. Not counted."""
+    A); ``enters`` may be None. Not counted. A tensor without data returns first
+    (``build.traced``)."""
+    if build.traced(x):
+        return
     b, h, l, p = x.shape
     g, n = Bm.shape[1], Bm.shape[3]
     err = _fwd_kernel()[0](
@@ -153,7 +156,10 @@ def _fwd_simt(x, dt, A, Bm, Cm, y, enters, final, chunk):
 def _fwd_sm90(x, dt, A, Bm, Cm, y, states, final, passes=3):
     """The Hopper forward body's passes on checked inputs (fp32 dt and A): bit 1
     the states pass (the entering states into ``states``, and ``final``), bit 2
-    the output ``y``. Not counted."""
+    the output ``y``. Not counted. A tensor without data returns first
+    (``build.traced``)."""
+    if build.traced(x):
+        return
     b, h, l, _ = x.shape
     g, n = Bm.shape[1], Bm.shape[3]
     err = _fwd_kernel()[1](
@@ -198,6 +204,8 @@ def ssd_chunk_scan_fwd(x, dt, A, Bm, Cm, *, chunk: int = 128, save_enters: bool 
     sm90 = ssd_body(x, Bm, Cm, chunk) == "sm90"
     # the Hopper body writes the entering states either way: its output pass reads them
     y, states, final = _fwd_buffers(x, Bm, chunk, states=sm90 or save_enters)
+    if build.traced(x):                     # no data (the dry run): the buffers, no launch
+        return y, (states if save_enters else None), final
     if sm90:
         _fwd_sm90(x, dt, A, Bm, Cm, y, states, final)
         ssd_chunk_scan_fwd.sm90_launches += 1
@@ -290,7 +298,9 @@ def _bwd_outputs(x, Bm):
 def _bwd_simt(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, chunk):
     """One launch of the first-version backward body into ``outs`` (dx, ddt, dda,
     db, dc) on checked inputs (fp32 dt, A, enters, dy and dfinal; the last dims
-    contiguous). Not counted."""
+    contiguous). Not counted. A tensor without data returns first (``build.traced``)."""
+    if build.traced(x):
+        return
     b, h, l, p = x.shape
     g, n = Bm.shape[1], Bm.shape[3]
     dx, ddt, dda, db, dc = outs
@@ -320,7 +330,9 @@ def _bwd_sm90(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, scratch, passes=7):
     checked inputs (fp32 dt, A, enters, dfinal and dy, dy's rows 16-byte aligned):
     bit 1 the reverse states pass (dS_out of each chunk into ``scratch``'s
     dstate), bit 2 the rows (dC and rowv), bit 4 the columns (dx, dB, ddt, dda).
-    Not counted."""
+    Not counted. A tensor without data returns first (``build.traced``)."""
+    if build.traced(x):
+        return
     b, h, l, _ = x.shape
     g, n = Bm.shape[1], Bm.shape[3]
     dx, ddt, dda, db, dc = outs
@@ -339,14 +351,21 @@ def _bwd_sm90(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, scratch, passes=7):
 def _bwd_launch(body, x, dt, A, Bm, Cm, enters, dy, dfinal, chunk):
     """Launch the backward body ``body`` on checked inputs (fp32 dt, A, enters, dy
     and dfinal; enters and dfinal contiguous) and count the launch. Returns the
-    kernel's per-head fp32 (dx, ddt, dda, db, dc)."""
+    kernel's per-head fp32 (dx, ddt, dda, db, dc). A tensor without data returns
+    them after the body's copies and scratch are allocated (``build.traced``)."""
     outs = _bwd_outputs(x, Bm)
     if body == "sm90":
         dy = dy if _rows_aligned(dy) else dy.contiguous()
-        _bwd_sm90(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, _bwd_scratch(x, Bm))
+        scratch = _bwd_scratch(x, Bm)
+        if build.traced(x):
+            return outs
+        _bwd_sm90(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, scratch)
         ssd_chunk_scan_bwd.sm90_launches += 1
     else:
-        _bwd_simt(x, dt, A, Bm, Cm, enters, _inner_contiguous(dy), dfinal, outs, chunk)
+        dy = _inner_contiguous(dy)
+        if build.traced(x):
+            return outs
+        _bwd_simt(x, dt, A, Bm, Cm, enters, dy, dfinal, outs, chunk)
         ssd_chunk_scan_bwd.simt_launches += 1
     ssd_chunk_scan_bwd.launches += 1
     return outs

@@ -246,6 +246,27 @@ def init_data_mesh(device: Optional[Union[str, torch.device]] = None, *,
     return DataMesh(dist.group.WORLD, device, host_group=dist.new_group(backend="gloo"))
 
 
+def host_ranks(mesh) -> Tuple[int, int]:
+    """(this process's index, the number of ranks) in ``mesh``'s
+    ``host_group``: (0, 1) without a mesh or a host group."""
+    group = getattr(mesh, "host_group", None) if mesh is not None else None
+    if group is None:
+        return 0, 1
+    return dist.get_rank(group), dist.get_world_size(group)
+
+
+def host_max(mesh, values: List[int]) -> List[int]:
+    """The elementwise max of ``values`` (ints, as many on every rank) over the
+    ranks of ``mesh``'s ``host_group``: one int64 all-reduce on that gloo
+    group, so that it never interleaves with the step's collectives on the
+    main group. Not counted in ``collective_stats`` (host traffic). The
+    recovery driver's agreement on each step's decision
+    (``ft.recovery.run_with_recovery``)."""
+    t = torch.tensor(values, dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX, group=mesh.host_group)
+    return t.tolist()
+
+
 def batch_axes_for(mesh, global_batch: int, pp: int = 1,
                    dp_over_model: bool = False) -> Tuple[str, ...]:
     """The reference's rule (``repro/launch/mesh.py:67``) on a data mesh or a
@@ -527,6 +548,10 @@ class GridMesh:
                 ring.group = None
 
 
+# the dry run's fake c10d backend, for the CPU and meta devices
+FAKE_BACKEND = "cpu:fake,meta:fake"
+
+
 def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.device]] = None,
                    *, cp: int = 1, pod: int = 1, backend: Optional[str] = None,
                    init_method: str = "env://", rank: Optional[int] = None,
@@ -539,18 +564,30 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
     requires, then the expert rings where both cp and model are 2 or more,
     then the pod rings, and last, with ``dp_over_model``, the flat data groups
     of the data x model ranks (``GridMesh.flat``); an axis of size 1 gets no
-    group."""
+    group. ``backend="fake"`` joins a fake c10d group of the grid's size as
+    global rank ``rank`` (the dry run, ``launch/dryrun.py``; every group
+    fake, for CPU and meta tensors, the card's runtime untouched): its
+    collectives move nothing."""
     device = resolve_device(device)
+    fake = backend == "fake"
     if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
+        device = torch.device("cuda", 0 if fake else torch.cuda.current_device())
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend == "nccl" and device.type != "cuda":
         raise ValueError("NCCL moves CUDA tensors; a CPU mesh takes gloo")
-    if device.type == "cuda":
+    if device.type == "cuda" and not fake:
         torch.cuda.set_device(device)
     world = pod * data * cp * model
     kwargs = {} if rank is None else {"rank": rank, "world_size": world}
-    dist.init_process_group(backend, init_method=init_method, **kwargs)
+    if fake:
+        # the dry run's group: collectives on meta tensors, no transport
+        from torch.testing._internal.distributed.fake_pg import FakeStore  # noqa: PLC0415
+        kwargs = {"store": FakeStore(), "rank": rank or 0, "world_size": world}
+        backend = FAKE_BACKEND
+    else:
+        kwargs["init_method"] = init_method
+    dist.init_process_group(backend, **kwargs)
+    host = FAKE_BACKEND if fake else "gloo"
     if dist.get_world_size() != world:
         raise ValueError(f"a ({pod}, {data}, {cp}, {model}) grid needs {world} ranks, the "
                          f"group has {dist.get_world_size()}")
@@ -561,16 +598,16 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
     p_idx, rest = divmod(me, data * cp * model)
     d_idx, rest = divmod(rest, cp * model)
     c_idx, m_idx = divmod(rest, model)
-    host_group = dist.new_group(backend="gloo")
+    host_group = dist.new_group(backend=host)
     save_group = (dist.new_group([at(p, d, 0, m) for p in range(pod) for d in range(data)
-                                  for m in range(model)], backend="gloo") if cp > 1 else None)
+                                  for m in range(model)], backend=host) if cp > 1 else None)
     data_mesh_ = DataMesh(device=device)
     for p in range(pod):                        # one data group per (pod, cp, model) index
         for c in range(cp):
             for m in range(model):
                 ranks = [at(p, d, c, m) for d in range(data)]
                 if data > 1:
-                    g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
+                    g, hg = dist.new_group(ranks), dist.new_group(ranks, backend=host)
                     if (p, c, m) == (p_idx, c_idx, m_idx):
                         data_mesh_ = DataMesh(g, device, host_group=hg)
     cp_ring = None
@@ -613,7 +650,7 @@ def init_grid_mesh(data: int, model: int, device: Optional[Union[str, torch.devi
         for c in range(cp):
             ranks = [at(p, d, c, m) for d in range(data) for m in range(model)]
             if dp_over_model and data * model > 1:
-                g, hg = dist.new_group(ranks), dist.new_group(ranks, backend="gloo")
+                g, hg = dist.new_group(ranks), dist.new_group(ranks, backend=host)
                 if (p, c) == (p_idx, c_idx):
                     flat = DataMesh(g, device, host_group=hg)
     if dp_over_model and flat is None:

@@ -128,13 +128,17 @@ def _on_stand_in(*_):
                        "its fn runs on one device, a DataMesh or a GridMesh")
 
 
-def build_step(arch: str, shape_name: str, mesh=None, plan: Optional[ParallelPlan] = None,
+def build_step(arch, shape_name, mesh=None, plan: Optional[ParallelPlan] = None,
                smoke: bool = False, device=None):
     """Returns ``(fn, args, placement, meta)`` (module docstring); ``meta``
     holds ``cfg``, ``shape``, ``batch_axes`` (the reference's rule on the
-    named shape's global batch) and ``model``."""
-    shape = SHAPES_BY_NAME[shape_name]
-    cfg = resolve_config(arch, shape_name, smoke)
+    named shape's global batch) and ``model``. ``arch`` may be a
+    ``ModelConfig`` (a config cut in depth, say) and ``shape_name`` an
+    ``InputShape`` (a cell's own rows), as the dry run's estimator passes
+    them (``launch/dryrun.py``)."""
+    shape = shape_name if isinstance(shape_name, InputShape) else SHAPES_BY_NAME[shape_name]
+    cfg = (arch if isinstance(arch, ModelConfig)
+           else resolve_config(arch, shape.name, smoke))
     reason = skip_reason(cfg, shape)
     if reason:
         raise ValueError(reason)

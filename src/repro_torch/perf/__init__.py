@@ -2,10 +2,10 @@
 floors of a step, the roofline terms and the collective bytes by kind."""
 
 from .roofline import (COLLECTIVE_KINDS, NVLINK_BYTES_PER_DIRECTION, PEAK_BF16_FLOPS,
-                       PEAK_BYTES, CollectiveStats, Roofline, decode_bytes,
+                       PEAK_BYTES, CollectiveStats, Roofline, decode_bytes, decode_flops,
                        encdec_train_flops, link_bytes, model_flops_for, n_apps, ssd_flops,
                        train_bytes, train_flops)
 
 __all__ = ["COLLECTIVE_KINDS", "NVLINK_BYTES_PER_DIRECTION", "PEAK_BF16_FLOPS", "PEAK_BYTES",
-           "CollectiveStats", "Roofline", "decode_bytes", "encdec_train_flops", "link_bytes",
+           "CollectiveStats", "Roofline", "decode_bytes", "decode_flops", "encdec_train_flops", "link_bytes",
            "model_flops_for", "n_apps", "ssd_flops", "train_bytes", "train_flops"]

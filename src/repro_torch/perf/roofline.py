@@ -168,11 +168,14 @@ def _nbytes(tree) -> int:
     return sum(t.numel() * t.element_size() for t in leaves(tree))
 
 
-def train_bytes(params) -> int:
+def train_bytes(params, opt=None) -> int:
     """A train step's floor of bytes: every byte of ``params``, their grads
-    (the params' dtype) and both fp32 moments read once and written once."""
-    n = sum(t.numel() for t in leaves(params))
-    return 2 * (2 * _nbytes(params) + 2 * 4 * n)
+    (the params' dtype) and both fp32 moments read once and written once.
+    ``opt`` (the moments a rank holds, e.g. its ZeRO-1 slices) counts the
+    moments' real bytes instead of two fp32 copies of ``params``."""
+    moments = (_nbytes(opt) if opt is not None
+               else 2 * 4 * sum(t.numel() for t in leaves(params)))
+    return 2 * (2 * _nbytes(params) + moments)
 
 
 def decode_bytes(params, cache) -> int:
@@ -204,41 +207,79 @@ def n_apps(cfg):
     return cfg.n_layers // cfg.shared_attn_every if cfg.shared_attn_every else 0
 
 
-def train_flops(cfg, seq, tokens, params=None):
+def train_flops(cfg, seq, tokens, params=None, backward=True):
     """Reckoned FLOPs of one train step (forward + backward, no recompute): 6 per
     matmul parameter a token uses, plus causal attention, 6 Hq hd (S + 1) per
-    token and attention layer, plus the SSD scans. Dense and MoE count their
-    parameters analytically (``active_param_count``: for MoE the router, the
-    top-k and shared experts; the embedding gather does none; a tied LM head
-    counts once, as the head). The SSM and hybrid families count the model's
-    real matrices (``params``; the analytic ``param_count`` omits the hybrid's
-    shared MLP), the hybrid's shared block once per application, its attention
-    on those applications only, and each layer's SSD forward and backward
-    (``ssd_flops``); the encoder-decoder by ``encdec_train_flops``. Neither the
-    recompute nor the MoE one-hot dispatch einsums are counted."""
+    token and attention layer, plus the SSD scans. With ``backward`` False, a
+    forward pass (a prefill): a third of each term, the scans' forward only.
+    Dense and MoE count their parameters analytically
+    (``active_param_count``: for MoE the router, the top-k and shared experts;
+    the embedding gather does none; a tied LM head counts once, as the head).
+    The SSM and hybrid families count the model's real matrices (``params``;
+    the analytic ``param_count`` omits the hybrid's shared MLP), the hybrid's
+    shared block once per application, its attention on those applications
+    only, and each layer's SSD forward and backward (``ssd_flops``); the
+    encoder-decoder by ``encdec_train_flops``. Neither the recompute nor the
+    MoE one-hot dispatch einsums are counted."""
     if cfg.is_enc_dec:
-        return encdec_train_flops(cfg, seq, tokens)
+        return encdec_train_flops(cfg, seq, tokens) // (1 if backward else 3)
+    n_matmul = _matmul_params(cfg, params)
     if cfg.family in (Family.SSM, Family.HYBRID):
-        apps = n_apps(cfg)
-        n_matmul = sum(t.numel() for lp in params["layers"] for t in leaves(lp) if t.dim() > 1)
-        if apps:
-            n_matmul += apps * sum(t.numel() for t in leaves(params["shared_attn"])
-                                   if t.dim() > 1)
-        n_matmul += (params["lm_head"]["w"] if "lm_head" in params
-                     else params["embed"]["tok"]).numel()
-        n_attn = apps
+        n_attn = n_apps(cfg)
         s = cfg.ssm
         heads = s.expand * cfg.d_model // s.head_dim
         b = tokens // seq
         scan = cfg.n_layers * sum(ssd_flops(b, seq, heads, s.head_dim, s.d_state, s.chunk,
-                                            backward=bw) for bw in (False, True))
+                                            backward=bw) for bw in (False, True)[:1 + backward])
     else:
-        n_matmul = cfg.active_param_count() - cfg.vocab * cfg.d_model
-        if cfg.tie_embeddings:
-            n_matmul += cfg.vocab * cfg.d_model
         n_attn, scan = cfg.n_layers, 0
-    attn = 6 * n_attn * cfg.n_heads * cfg.head_dim * (seq + 1)
-    return (6 * n_matmul + attn) * tokens + scan
+    per = 6 if backward else 2
+    attn = per * n_attn * cfg.n_heads * cfg.head_dim * (seq + 1)
+    return (per * n_matmul + attn) * tokens + scan
+
+
+def _matmul_params(cfg, params):
+    """The matmul parameters a token uses, as :func:`train_flops` counts them
+    (the hybrid's shared block once per application)."""
+    if cfg.family in (Family.SSM, Family.HYBRID):
+        n = sum(t.numel() for lp in params["layers"] for t in leaves(lp) if t.dim() > 1)
+        if n_apps(cfg):
+            n += n_apps(cfg) * sum(t.numel() for t in leaves(params["shared_attn"])
+                                   if t.dim() > 1)
+        return n + (params["lm_head"]["w"] if "lm_head" in params
+                    else params["embed"]["tok"]).numel()
+    n = cfg.active_param_count() - cfg.vocab * cfg.d_model
+    return n + (cfg.vocab * cfg.d_model if cfg.tie_embeddings else 0)
+
+
+def decode_flops(cfg, rows, t, params=None):
+    """Reckoned FLOPs of one decode step of ``rows`` sequences whose new token
+    attends ``t`` positions: 2 per matmul parameter a token uses (as
+    :func:`train_flops` counts them), 4 hd per attended position and head on
+    each attention layer (a local layer's window caps its positions), and on
+    the SSM layers 6 H P N per token (the state's decay, its update and its
+    readout). The encoder-decoder: the decoder's matmuls but the cross keys
+    and values (filled once), self-attention over ``t`` and cross-attention
+    over the frames."""
+    hd, hq = cfg.head_dim, cfg.n_heads
+    if cfg.is_enc_dec:
+        d = cfg.d_model
+        kv = 2 * d * cfg.n_kv_heads * hd
+        # self q/k/v/o, cross q/o, the MLP; the head
+        per_token = cfg.n_layers * (2 * (2 * d * hq * hd + kv) - kv + 3 * d * cfg.d_ff) \
+            + d * cfg.vocab
+        return rows * (2 * per_token + 4 * hq * hd * cfg.n_layers * (t + cfg.enc_frames))
+    if cfg.family in (Family.SSM, Family.HYBRID):
+        s = cfg.ssm
+        heads = s.expand * cfg.d_model // s.head_dim
+        return rows * (2 * _matmul_params(cfg, params) + 4 * hq * hd * n_apps(cfg) * t
+                       + 6 * cfg.n_layers * heads * s.head_dim * s.d_state)
+    alternating = cfg.local_global_alternating and cfg.sliding_window and not cfg.long_context
+    attended = 0
+    for i in range(cfg.n_layers):
+        w = (cfg.sliding_window if i % 2 == 0 else 0) if alternating else cfg.sliding_window
+        attended += min(t, w) if w else t
+    return rows * (2 * _matmul_params(cfg, params) + 4 * hq * hd * attended)
 
 
 def encdec_train_flops(cfg, seq, tokens):

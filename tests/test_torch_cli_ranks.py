@@ -34,8 +34,8 @@ is a flag of the CLI: the MoE config takes a capacity that drops nothing
 at the smoke capacity (``core.config.warn_shard_local_routing``); and the
 floors of the hang watchdog and of the straggler detector are 1.5 s, under
 the injected 2 s sleep, so that only that sleep trips the watchdog and no
-host jitter is attributed (every rank must take the same action, and each
-rank's ``Monitor`` judges its own clock).
+host jitter adds an action to the expected list (the ranks agree on each
+step's decision: ``tests/test_torch_recovery_ranks.py``).
 """
 
 import dataclasses

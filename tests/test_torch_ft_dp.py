@@ -144,7 +144,7 @@ def _sdc(mesh, model, tmp):
     a, b = _host(final), _host(clean)
     return {"actions": report.actions, "restores": report.restores,
             "mem_restores": report.mem_restores, "losses": report.losses,
-            "clean_losses": losses, "equal": all(np.array_equal(a[n], b[n]) for n in b)}
+            "agreements": report.agreements, "clean_losses": losses, "equal": all(np.array_equal(a[n], b[n]) for n in b)}
 
 
 class _Collectives:
@@ -242,6 +242,8 @@ def test_rank_masked_bitflip_is_an_sdc_rollback(ranks):
         sdc = r["sdc"]
         assert sdc["actions"] == [[SDC_AT, "sdc", "rollback"]]
         assert sdc["restores"] == sdc["mem_restores"] == 1
+        # the ranks agreed on every step run: the rolled-back one and its replay
+        assert sdc["agreements"] == SDC_STEPS + 1
         assert sdc["losses"] == sdc["clean_losses"] and sdc["equal"]
 
 
