@@ -13,13 +13,16 @@ prints its seconds):
    relative) on every FLASH_CASES row (the Hopper body's edges at hd 64 and
    128: ragged and short S/T, GQA groups 1/2/5, q_offset with fully masked
    rows, windows on the tile edge with and without softcap, interior tiles,
-   zamba2's serving shape cut in S), and at both training paths' shapes and
+   zamba2's serving shape cut in S) and every HD_CASES row (head dims off the
+   four built bodies: 8, 16, 40, 72, 96, 200, run at the next built one with
+   the columns past hd masked; fp32 and first-version bf16 bodies, masked
+   and windowed rows), and at both training paths' shapes and
    zamba2's serving shape (4 x 32 heads x 8000, hd 64; the plain version in
    blocks of query rows), where two launches must be bit-identical; the
    backward's dq and dk/dv kernels
    (fp32 to 1e-5 of each tensor's largest value, bf16 to 2 bf16 ulps), fully
-   masked rows included, at the paths' own shapes and at the edges of the
-   Hopper body, with merged softmax statistics, and through the autograd
+   masked rows included, at the paths' own shapes, at the edges of the
+   Hopper body and on every HD_CASES row, with merged softmax statistics, and through the autograd
    Function; two launches at each training path's shape (qwen1.5-4b's, hd
    128; zamba2's, hd 64) bit-identical; the grouped expert GEMM (fp32 to 5e-5
    of the tensor's largest value, bf16 to 2 bf16 ulps, padding rows and
@@ -179,6 +182,9 @@ prints its seconds):
    fail the grads rule; step, ring tick and
    all-reduce ms, peak memory and the launches by body; the kernels timed at
    the sharded shapes. No checkpoint;
+17-19 run in one spawn of two rank processes (``phase_cp_ep_pp``: each rank
+   runs the three phases' parts in turn, each on its own process group),
+   which pays one start-up for the three;
 17. context parallelism — the ring and gather modes (A13.3) on a (1, 2, 1)
    (data, cp, model) grid: two rank processes (spawn) on the one card over
    gloo (each hop through host memory; no CP scaling is measured), bf16
@@ -250,7 +256,25 @@ prints its seconds):
    to bf16 before the combine), which must fail; prefill, decode and combine
    ms, peak memory a rank; B1 timed at the prefill's shapes (a local and a
    global layer) beside its bound, its plain version and SDPA;
-21. dry run — the estimates (A14.5, ``repro_torch.launch.dryrun.estimate``) of
+21. examples — the five examples of ``src/repro_torch/examples/`` at their
+   recipes (fp32; the reduced configs): preempt_resume in this process (40
+   steps, a notice before step 23, the resume bit-identical; preempted at 24
+   on the disk tier), then in one set of eight rank processes on the card
+   over gloo train_moe_ep (100 ep-only steps on (data 2, model 4), the fold on
+   (data 2, cp 2, model 2) under both exchanges to 1e-6), pipeline_multipod
+   (GPipe and 1F1B against the non-pipelined loss, 10 steps of 1F1B
+   training, TP x PP and CP x TP x PP, the MoE twin under both exchanges),
+   serve_longcontext (mamba2 and gemma2 on (data 2, model 4), 16-token
+   prompts and 32 greedy steps) and, on four of them, straggler_rebalance
+   (one rebalance from (2, 2) to (3, 1)). Each asserts its reference's
+   readings; the kernels are held to the plain versions on the card at
+   EXAMPLE_REL on the same inputs: the loss and every leaf's grad of each
+   training example's first step, the fold's and the TP, CP and EP losses
+   inside the pipeline's ticks (``ranks.route_check``), and serving's
+   prefill last logits and first decode step's, the plain route launching
+   nothing; every launch must run the fp32 bodies, and every kernel of an
+   example's path must launch; seconds, readings and peak memory a rank;
+22. dry run — the estimates (A14.5, ``repro_torch.launch.dryrun.estimate``) of
    the single-device cells, computed from the end of phase 2 in a child
    process on the host (``CUDA_VISIBLE_DEVICES`` empty: meta tensors under
    the kernels' route, nothing built or launched there; its launch counters
@@ -263,7 +287,7 @@ prints its seconds):
    batches left out), within DRYRUN_STATIC_REL; the traced peak beside the
    phase's ``torch.cuda.max_memory_allocated()``, within DRYRUN_PEAK_REL on
    every training cell (serving peaks are readings);
-22. times   — each kernel's time at its path's shapes beside its bound, its plain
+23. times   — each kernel's time at its path's shapes beside its bound, its plain
    version's time and the library call's (none for B5/B6); B1 at the serving
    and training shapes and at zamba2's serving (4 x 32 heads x 8000, hd 64)
    and training (2 x 32 x 4096) shapes, through the Hopper body and the first
@@ -410,6 +434,27 @@ BWD_CASES = [
     (4, 12, 12, 1500, 1500, 64, False, 0, 0.0, 0),     # whisper's encoder
     (4, 12, 12, 4096, 1500, 64, False, 0, 0.0, 0),     # whisper's training cross-attention
 ]
+# B1-B3 at the head dims the reference's kernel takes beside the four bodies' own
+# (a multiple of 8 up to 256): the fp32 and first-version bf16 bodies at the least
+# HD of 32, 64, 128, 256 that holds hd, the columns past hd masked. hd 16 is the
+# straggler example's (slow-demo), 40, 72, 96 and 200 sit inside 64, 128, 128 and
+# 256 (96 in bf16 on the first-version body, not the Hopper body's 128), 8 is the
+# least. Ragged, windowed, softcapped and fully masked rows among them;
+# phase_kernels and phase_kernels_bwd run each in both dtypes, and
+# tests/test_torch_flash_hd.py runs the same list on the card.
+HD_CASES = [
+    (2, 4, 2, 100, 100, 16, True, 0, 0.0, 0),          # ragged S and T
+    (1, 4, 4, 256, 256, 16, True, 40, 0.0, 0),         # window
+    (1, 2, 1, 64, 16, 16, True, 8, 0.0, 64),           # fully masked rows
+    (1, 4, 2, 130, 130, 40, True, 0, 30.0, 0),         # softcap, ragged
+    (1, 4, 2, 200, 300, 40, True, 48, 0.0, 100),       # window, q_offset
+    (1, 2, 1, 64, 16, 40, True, 8, 0.0, 64),           # fully masked rows
+    (2, 4, 2, 96, 160, 72, False, 0, 0.0, 0),          # cross lengths
+    (1, 4, 1, 128, 128, 72, True, 33, 20.0, 0),        # window and softcap
+    (1, 4, 4, 128, 128, 8, True, 0, 0.0, 0),
+    (1, 4, 2, 150, 150, 96, True, 0, 0.0, 0),
+    (1, 2, 1, 96, 96, 200, True, 40, 0.0, 0),
+]
 # zamba2's shared attention in one training microbatch, where B1/B2/B3 are also
 # timed, and in its 4 x 8000 serving forward, where B1 is timed
 HYBRID_ATTN_CASE = (2, 32, 32, TRAIN_SEQ, TRAIN_SEQ, 64, True, 0, 0.0, 0)
@@ -486,7 +531,7 @@ SSM_BATCH, SSM_PROMPT, SSM_DECODE_PROMPT = 4, 8000, 16
 # blocks) or 2 (zamba2: 2 x 64) of TRAIN_SEQ tokens
 SSM_TRAIN_BATCH = {SSM_ARCH: 8, HYBRID_ARCH: 4}
 
-# the dry run's estimates of the single-device cells (phase 21): the child's
+# the dry run's estimates of the single-device cells (phase 22): the child's
 # time limit, the holds, and what each phase measured ({cell: {"static",
 # "peak"}}, bytes)
 DRYRUN_TIMEOUT = 1100
@@ -495,7 +540,7 @@ MEMORY = {}
 
 
 def note_memory(cell, **readings):
-    """A phase's memory readings (bytes) for the dry run's holds (phase 21)."""
+    """A phase's memory readings (bytes) for the dry run's holds (phase 22)."""
     MEMORY.setdefault(cell, {}).update(readings)
 # B5/B6 at (b, l, h, p, g, n, chunk): the four path shapes; the first version's
 # (fp32, and bf16 at chunks 16, 24 and 1): the decode check's 16-token prompt and a
@@ -901,7 +946,8 @@ def flash_case_check(case, dtype, gen):
 
 
 def phase_kernels():
-    """B1 against its plain version on every FLASH_CASES row in both dtypes and,
+    """B1 against its plain version on every FLASH_CASES and HD_CASES row in both
+    dtypes and,
     in bf16, at the training path's shape (qwen1.5-4b's), zamba2's training and
     serving shapes and whisper's decoder self-attention in training, where two
     launches must also be bit-identical. Returns the bf16 errors at the
@@ -910,7 +956,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     path_errs = {}
     whisper = {case: f"whisper_{name}" for name, case in WHISPER_CASES.items()}
-    for case in FLASH_CASES:
+    for case in FLASH_CASES + HD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             errs = flash_case_check(case, dtype, gen)[0]
             if case == FLASH_CASES[-1] and dtype == torch.bfloat16:
@@ -1084,8 +1130,8 @@ def phase_serving():
 
 
 def phase_kernels_bwd():
-    """The dq and dk/dv kernels against their plain version: every FLASH_CASES
-    and BWD_CASES row and the training paths' shapes (qwen1.5-4b's, hd 128;
+    """The dq and dk/dv kernels against their plain version: every FLASH_CASES,
+    BWD_CASES and HD_CASES row and the training paths' shapes (qwen1.5-4b's, hd 128;
     zamba2's and whisper's encoder, cross- and self-attention, hd 64) in both
     dtypes, merged softmax statistics, and the autograd Function; two launches
     at each path shape bit-identical. Returns the bf16 errors at the path
@@ -1097,7 +1143,7 @@ def phase_kernels_bwd():
     paths = {TRAIN_CASE: "train", HYBRID_ATTN_CASE: "hybrid",
              **{WHISPER_CASES[n]: f"whisper_{n}" for n in ("encoder", "train_cross",
                                                            "train_self")}}
-    for case in dict.fromkeys(FLASH_CASES + BWD_CASES + list(paths)):
+    for case in dict.fromkeys(FLASH_CASES + BWD_CASES + HD_CASES + list(paths)):
         kw = case_kw(case)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v, do, lse, delta = bwd_inputs(gen, case, dtype)
@@ -4632,38 +4678,39 @@ def tp_rank(rank, init_method, out_dir):
     (Path(out_dir) / f"tp_rank{rank}.json").write_text(json.dumps(out))
 
 
+def rank_part(rank, init_method, device, target, out_dir):
+    """One part of a spawn of rank processes (``spawned_ranks``):
+    ``target(rank, init_method, out_dir)``, then the memory freed; returns
+    its seconds."""
+    t0 = time.perf_counter()
+    target(rank, init_method, out_dir)
+    free()
+    return time.perf_counter() - t0
+
+
 @contextlib.contextmanager
-def spawned_ranks(target, n, tag, timeout):
-    """``n`` rank processes of ``target(rank, init_method, out_dir)`` on the
-    card (spawn, not fork: the parent holds a CUDA context), joined within
-    ``timeout`` seconds each; yields (out_dir, the ranks' results from
-    ``out_dir/<tag>_rank<r>.json``, their seconds) once all exited 0. Every
-    process is joined or killed, and ``out_dir`` removed, on the way out."""
-    import multiprocessing
+def spawned_ranks(parts, n, timeout):
+    """The rank functions ``parts`` ({tag: ``target(rank, init_method,
+    out_dir)``}, each writing ``out_dir/<tag>_rank<r>.json``) in turn in one
+    spawn of ``n`` rank processes on the card (``examples.ranks.spawn``: a
+    process group over a ``file://`` store for each part; every process
+    joined within ``timeout`` seconds or killed). Yields (out_dir, {tag: the
+    ranks' results}, {tag: its slowest rank's seconds}, the spawn's seconds)
+    once all exited 0; ``out_dir`` is removed on the way out."""
     import shutil
     import tempfile
-    ctx = multiprocessing.get_context("spawn")
+    from repro_torch.examples import ranks
     (ROOT / "build").mkdir(exist_ok=True)
-    tmp = tempfile.mkdtemp(prefix=f"{tag}_", dir=ROOT / "build")
-    procs = []
+    tmp = tempfile.mkdtemp(prefix="_".join(parts) + "_", dir=ROOT / "build")
     try:
         t0 = time.perf_counter()
-        procs = [ctx.Process(target=target, args=(r, f"file://{tmp}/store", tmp))
-                 for r in range(n)]
-        for p in procs:
-            p.start()
-        for p in procs:
-            p.join(timeout=timeout)
-        codes = [p.exitcode for p in procs]
-        if codes != [0] * n:
-            raise AssertionError(f"the {tag.upper()} ranks exited with {codes}")
-        ranks = [json.loads((Path(tmp) / f"{tag}_rank{r}.json").read_text()) for r in range(n)]
-        yield tmp, ranks, time.perf_counter() - t0
+        seconds = ranks.spawn([(rank_part, {"target": fn, "out_dir": tmp})
+                               for fn in parts.values()], n, "cuda", timeout)
+        spawn_s = time.perf_counter() - t0
+        results = {tag: [json.loads((Path(tmp) / f"{tag}_rank{r}.json").read_text())
+                         for r in range(n)] for tag in parts}
+        yield tmp, results, {tag: max(t) for tag, t in zip(parts, seconds)}, spawn_s
     finally:
-        for p in procs:
-            if p.is_alive():
-                p.kill()
-                p.join()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -4674,7 +4721,8 @@ def phase_tp(ranks_done=None, before_times=None):
     0's kept inputs). Under ``dp_and_tp``: the file ``ranks_done`` is made
     once the ranks have exited, and the kernels are timed once the
     threading.Event ``before_times`` is set."""
-    with spawned_ranks(tp_rank, TP_RANKS, "tp", timeout=480) as (tmp, ranks, ranks_s):
+    with spawned_ranks({"tp": tp_rank}, TP_RANKS, timeout=480) as (tmp, res, _, ranks_s):
+        ranks = res["tp"]
         if ranks_done is not None:
             ranks_done.touch()
         tp_report(ranks)
@@ -5127,21 +5175,6 @@ def cp_rank(rank, init_method, out_dir):
     out["fp32"]["seconds"] = time.perf_counter() - t0
     grid.close()
     (Path(out_dir) / f"cp_rank{rank}.json").write_text(json.dumps(out))
-
-
-def phase_cp():
-    """The CP phase: CP_RANKS spawned ranks on the one card over gloo
-    (``cp_rank``); their results checked here, then the kernels timed at the
-    CP shapes (B1 on a diagonal and a full ring tile, B2/B3 on each against
-    the statistics merged over the whole row, B5/B6 on rank 0's kept
-    inputs)."""
-    with spawned_ranks(cp_rank, CP_RANKS, "cp", timeout=600) as (tmp, ranks, ranks_s):
-        cp_report(ranks)
-        t0 = time.perf_counter()
-        times = cp_times(tmp)
-        times_s = time.perf_counter() - t0
-    log(f"phase CP: ranks {ranks_s:.1f} s, kernel times {times_s:.1f} s")
-    return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
 
 
 def cp_bwd_inputs(gen, cases=CP_CASES):
@@ -5599,20 +5632,6 @@ def ep_rank(rank, init_method, out_dir):
     (Path(out_dir) / f"ep_rank{rank}.json").write_text(json.dumps(out))
 
 
-def phase_ep():
-    """The EP phase: EP_RANKS spawned ranks on the one card over gloo
-    (``ep_rank``); their results checked here, then the kernels timed at the
-    EP shapes (B4 on rank 0's kept inputs of both modes, B1-B3 on a diagonal
-    and a full ring tile)."""
-    with spawned_ranks(ep_rank, EP_RANKS, "ep", timeout=480) as (tmp, ranks, ranks_s):
-        ep_report(ranks)
-        t0 = time.perf_counter()
-        times = ep_times(tmp)
-        times_s = time.perf_counter() - t0
-    log(f"phase EP: ranks {ranks_s:.1f} s, kernel times {times_s:.1f} s")
-    return {"ranks": ranks, "times": times, "ranks_s": ranks_s, "times_s": times_s}
-
-
 def ep_times(keep_dir):
     """The kernels at the EP path's shapes: B4 (gemm_times) on rank 0's kept
     inputs, a ring tick's chunk (32, C, 2048) and the blocking exchange's
@@ -6041,14 +6060,32 @@ def pp_rank(rank, init_method, out_dir):
     (Path(out_dir) / f"pp_rank{rank}.json").write_text(json.dumps(out))
 
 
-def phase_pp():
-    """The PP phase: PP_RANKS spawned ranks on the one card over gloo
-    (``pp_rank``), their results checked here (``pp_report``). The stage
-    tick's kernels run at the training shapes, timed by the training phase."""
-    with spawned_ranks(pp_rank, PP_RANKS, "pp", timeout=480) as (tmp, ranks, ranks_s):
-        pp_report(ranks)
-    log(f"phase PP: ranks {ranks_s:.1f} s")
-    return {"ranks": ranks, "ranks_s": ranks_s}
+def phase_cp_ep_pp():
+    """The CP, EP and PP phases in one spawn of CP_RANKS (= EP_RANKS =
+    PP_RANKS) processes on the one card over gloo: ``cp_rank``, ``ep_rank``
+    and ``pp_rank`` in turn, each on a process group of its own, so that the
+    three pay one process's start-up (Python, PyTorch, the CUDA context, the
+    kernels' load). Each phase's results are checked as it was alone
+    (``cp_report``, ``ep_report``, ``pp_report``), then the kernels timed at
+    the CP and EP shapes (``cp_times``, ``ep_times``). Returns the three
+    phases' results."""
+    assert CP_RANKS == EP_RANKS == PP_RANKS
+    parts = {"cp": cp_rank, "ep": ep_rank, "pp": pp_rank}
+    with spawned_ranks(parts, CP_RANKS, timeout=1500) as (tmp, res, part_s, ranks_s):
+        out = {}
+        for tag, report, times in (("cp", cp_report, cp_times), ("ep", ep_report, ep_times),
+                                   ("pp", pp_report, None)):
+            report(res[tag])
+            t0 = time.perf_counter()
+            out[tag] = {"ranks": res[tag], "ranks_s": part_s[tag]}
+            if times is not None:
+                out[tag]["times"] = times(tmp)
+                out[tag]["times_s"] = time.perf_counter() - t0
+                free()
+    log(f"phase CP, EP, PP: ranks {ranks_s:.1f} s in one spawn (rank parts: " + ", ".join(
+        f"{t} {out[t]['ranks_s']:.1f} s" for t in ("cp", "ep", "pp")) + "), kernel times "
+        f"CP {out['cp']['times_s']:.1f} s, EP {out['ep']['times_s']:.1f} s")
+    return out["cp"], out["ep"], out["pp"]
 
 
 def pp_report(ranks):
@@ -6468,7 +6505,8 @@ def phase_grid_serving():
     """The grid serving phase: GRID_RANKS spawned ranks on the one card over
     gloo (``grid_rank``), their results checked here, then B1 timed at the
     grid prefill's shapes."""
-    with spawned_ranks(grid_rank, GRID_RANKS, "grid", timeout=480) as (_, ranks, ranks_s):
+    with spawned_ranks({"grid": grid_rank}, GRID_RANKS, timeout=480) as (_, res, _, ranks_s):
+        ranks = res["grid"]
         grid_report(ranks)
     t0 = time.perf_counter()
     times = grid_times()
@@ -6518,6 +6556,242 @@ def grid_summary(grid):
         "tolerance": GRID_SERVE_TOLERANCE,
         "phase_s": {"ranks": grid["ranks_s"], "kernel_times": grid["times_s"]},
     }
+
+
+# ---------------------------------------------------------------------------
+# the examples (phase 21)
+
+# The five examples of src/repro_torch/examples/ at their recipes (each module's
+# docstring): preempt_resume in this process, then train_moe_ep,
+# pipeline_multipod, serve_longcontext and straggler_rebalance (on the first
+# STRAGGLER_RANKS) one after another in one set of EXAMPLE_RANKS rank processes on
+# the card over gloo: one start-up of Python, PyTorch, the CUDA context and the
+# kernels' load for the four. Every example runs fp32 (head dims 64, 32 and 16: B1-B3's and
+# B4's fp32 bodies). The kernels are held to the plain versions (attn_impl and
+# moe_gemm_impl "plain", which must launch no kernel) on the card, at EXAMPLE_REL,
+# on the same inputs: serve_longcontext's first logits (gemma2's prefill's last
+# position, and both models' first decode step), and the route checks
+# (``ranks.route_check``: a loss and its backward through both routes on the same
+# params and batch; the loss and every leaf's grad compared) of each training
+# example's first step, train_moe_ep's fold and pipeline_multipod's TP, CP and EP
+# losses (each exchange), which the recipes run forward only.
+EXAMPLE_RANKS = 8
+STRAGGLER_RANKS = 4
+EXAMPLE_REL = 1e-4
+EXAMPLE_TOLERANCE = ("the kernels against the plain versions on the card (which launch no "
+                     "kernel), on the same inputs: each route check's loss (a training "
+                     "example's first step, the fold, the pipeline's TP, CP and EP) to 1e-4 "
+                     "relative and every leaf's grad to 1e-4 of the leaf's max |value|; "
+                     "serving's prefill last-position and first decode step logits to 1e-4 "
+                     "of the tensor's max |value|")
+EXAMPLE_TIMEOUT = 600
+EXAMPLE_SLEEP_S = 0.04            # the reference's delay a layer on the slowed stage
+EXAMPLE_KERNELS = {"preempt_resume": ("B1", "B2", "B3"), "train_moe_ep": ("B1", "B2", "B3", "B4"),
+                   "pipeline_multipod": ("B1", "B2", "B3", "B4"),
+                   "serve_longcontext": ("B1",), "straggler_rebalance": ("B1", "B2", "B3")}
+
+
+def example_launches(ranks):
+    """Launches summed over an example's ranks (their ``launches`` readings)."""
+    return {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+
+
+def logits_failures(name, firsts, out):
+    """Serving's first logits through the kernels against the plain route's
+    on each rank (the prefill's last position, the first decode step), of
+    each tensor's max |value|: ``out["logits_max_rel"]`` / ``_abs`` the
+    largest; a failure line for each rank past EXAMPLE_REL or whose plain
+    route launched."""
+    bad = []
+    for r, f in enumerate(firsts):
+        pairs = list(zip(f["kernel"], f["plain"]))
+        rel = max(float(np.abs(x - y).max() / max(np.abs(y).max(), 1e-30)) for x, y in pairs)
+        out["logits_max_rel"] = max(rel, out.get("logits_max_rel", 0.0))
+        out["logits_max_abs"] = max([float(np.abs(x - y).max()) for x, y in pairs]
+                                    + [out.get("logits_max_abs", 0.0)])
+        if not rel <= EXAMPLE_REL:
+            bad.append(f"{name} rank {r}: the first logits through the kernels {rel:.3e} off "
+                       f"the plain route's")
+        if f["plain_launches"]:
+            bad.append(f"{name} rank {r}: the plain route launched {f['plain_launches']} kernels")
+    return bad
+
+
+def example_check_failures(name, checks_by_rank, out):
+    """Each rank's route checks (``ranks.route_check``) held at EXAMPLE_REL:
+    the loss, and the worst leaf's grad of its max |value|; the kernel route
+    must have launched, the plain route not. ``out["checks"]``: each check's
+    worst over the ranks."""
+    bad, worst = [], out.setdefault("checks", {})
+    for r, checks in enumerate(checks_by_rank):
+        for part, c in checks.items():
+            k, p = c["loss"]
+            loss_rel = abs(k - p) / max(abs(p), 1e-30)
+            w = worst.setdefault(part, {"loss_rel": 0.0, "grad_rel": 0.0})
+            w["loss_rel"] = max(w["loss_rel"], loss_rel)
+            if c["grad_rel"] >= w["grad_rel"]:
+                w.update(grad_rel=c["grad_rel"], grad_abs=c["grad_abs"], leaf=c["grad_leaf"],
+                         rank=r)
+            if not (loss_rel <= EXAMPLE_REL and c["grad_rel"] <= EXAMPLE_REL):
+                bad.append(f"{name} rank {r} {part}: through the kernels the loss "
+                           f"{loss_rel:.3e} and the grad of {c['grad_leaf']} {c['grad_rel']:.3e} "
+                           f"off the plain route's")
+            if c["grad_leaf"] is None:
+                bad.append(f"{name} rank {r} {part}: no grad to compare")
+            if not count_launches(c["launched"]) or c["plain_launches"]:
+                bad.append(f"{name} rank {r} {part}: the check launched "
+                           f"{count_launches(c['launched'])} kernels, {c['plain_launches']} of "
+                           f"them on the plain route")
+    return bad
+
+
+def checks_text(out):
+    """The worst of each route check, for the log."""
+    return "route checks (kernels against plain, worst rank): " + ", ".join(
+        f"{part} loss {w['loss_rel']:.3e}, grad {w['grad_rel']:.3e} of {w['leaf']}'s max "
+        f"({w['grad_abs']:.3e} absolute)" for part, w in out["checks"].items())
+
+
+def count_launches(launched):
+    """B1-B4's launches in a ``ranks.launches_since`` reading."""
+    return sum(launched[k] for k in ("B1", "B2", "B3", "B4_rows", "B4_contract"))
+
+
+def phase_examples():
+    """Phase 21: the five examples on the card (above). Returns each one's
+    seconds, readings, launches by kernel and by body and peak memory a rank;
+    fails on a broken recipe assert, a kernel route off the plain route's,
+    a kernel of the path not launched or a launch off the fp32 bodies."""
+    from repro_torch.examples import (pipeline_multipod, preempt_resume, ranks,
+                                      serve_longcontext, straggler_rebalance, train_moe_ep)
+    out, bad = {}, []
+    reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()    # what earlier phases still hold
+    t0 = time.perf_counter()
+    pr = preempt_resume.run(log=False)
+    counts = all_counts()
+    pr_peak = torch.cuda.max_memory_allocated() - held
+    pr_s = time.perf_counter() - t0
+    check_bodies("preempt_resume", counts, window="example_preempt_resume", fp32=True)
+    pr_check = preempt_resume.first_check()
+    if (pr["preempt_step"], pr["marker_tier"]) != (24, "disk"):
+        bad.append(f"preempt_resume: preempted at {pr['preempt_step']} on "
+                   f"{pr['marker_tier']!r}, the reference's 24 on 'disk'")
+    launches = dict(zip(("B1", "B2", "B3", "B4_rows", "B4_contract"), counts))
+    out["preempt_resume"] = {
+        "seconds": pr_s, "ranks": 1, "launches": launches,
+        "peak_bytes": [pr_peak], "held_bytes": held,
+        "readings": {k: pr[k] for k in ("preempt_step", "marker_tier", "marker_consumed",
+                                        "bit_identical", "steps_done")}}
+    bad += example_check_failures("preempt_resume", [{"first": pr_check}],
+                                  out["preempt_resume"])
+    log(f"example preempt_resume: {pr_s:.1f} s, preempted at step {pr['preempt_step']} "
+        f"({pr['marker_tier']} snapshot), marker consumed {pr['marker_consumed']}, resumed "
+        f"params bit-identical {pr['bit_identical']}, loss {pr['losses'][0]:.4f} -> "
+        f"{pr['losses'][-1]:.4f}; peak {pr_peak / 1e6:.1f} MB above the {held / 1e6:.1f} MB "
+        f"the script held; "
+        f"launches {launches}; {checks_text(out['preempt_resume'])}")
+    free()
+
+    kw = {"check_plain": True}
+    t0 = time.perf_counter()
+    moe, pipe, serve, strag = ranks.spawn(
+        [(train_moe_ep.rank_job, kw), (pipeline_multipod.rank_job, kw),
+         (serve_longcontext.rank_job, kw),
+         (straggler_rebalance.rank_job, {**kw, "sleep_s": EXAMPLE_SLEEP_S}, STRAGGLER_RANKS)],
+        EXAMPLE_RANKS, "cuda", EXAMPLE_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    r0 = moe[0]
+    out["train_moe_ep"] = {
+        "readings": {"placement": r0["placement"], "loss": [r0["loss"][0], r0["loss"][-1]],
+                     "moe_aux": [r0["moe_aux"][0], r0["moe_aux"][-1]], "fold": r0["fold"],
+                     "steps": len(r0["loss"])}}
+    bad += example_check_failures("train_moe_ep", [r["checks"] for r in moe],
+                                  out["train_moe_ep"])
+    log(f"example train_moe_ep: {r0['seconds']:.1f} s on rank 0, {len(r0['loss'])} steps, "
+        f"experts {r0['placement']}, loss {r0['loss'][0]:.4f} -> {r0['loss'][-1]:.4f}, "
+        f"moe_aux {r0['moe_aux'][-1]:.4f}; fold blocking {r0['fold']['blocking']:.6f}, overlap "
+        f"{r0['fold']['overlap']:.6f}")
+    p0 = pipe[0]
+    out["pipeline_multipod"] = {"readings": {k: p0[k] for k in (
+        "ref_loss", "sched", "base_loss", "tp_loss", "cp_loss", "ep_loss")}}
+    bad += example_check_failures("pipeline_multipod", [r["checks"] for r in pipe],
+                                  out["pipeline_multipod"])
+    out["pipeline_multipod"]["readings"]["train_loss"] = p0["train"]["loss"]
+    sched_peaks = {s: [r["sched"][s]["peak_bytes"] for r in pipe] for s in ("gpipe", "1f1b")}
+    log(f"example pipeline_multipod: {p0['seconds']:.1f} s on rank 0; non-pipelined "
+        f"{p0['ref_loss']:.6f}, gpipe {p0['sched']['gpipe']['loss']:.6f}, 1f1b "
+        f"{p0['sched']['1f1b']['loss']:.6f}; peaks a rank (MB) gpipe "
+        f"{[round(b / 1e6, 2) for b in sched_peaks['gpipe']]}, 1f1b "
+        f"{[round(b / 1e6, 2) for b in sched_peaks['1f1b']]}; training "
+        f"{p0['train']['loss'][0]:.4f} -> {p0['train']['loss'][-1]:.4f}; TP x PP "
+        f"{p0['tp_loss']:.6f}, CP x TP x PP {p0['cp_loss']:.6f} (pp-only "
+        f"{p0['base_loss']:.6f}); EP blocking {p0['ep_loss']['blocking']:.6f}, overlap "
+        f"{p0['ep_loss']['overlap']:.6f}")
+    s0 = serve[0]
+    out["serve_longcontext"] = {"readings": {arch: {
+        "placement": {k: [list(v[0]), str(v[1])] for k, v in s0[arch]["placement"].items()},
+        "tokens_rank0_row0": s0[arch]["tokens"][0][:10].tolist()}
+        for arch in serve_longcontext.ARCHS}}
+    for arch in serve_longcontext.ARCHS:
+        bad += logits_failures(f"serve_longcontext {arch}", [r[arch]["first"] for r in serve],
+                               out["serve_longcontext"])
+    log(f"example serve_longcontext: {s0['seconds']:.1f} s on rank 0; " + "; ".join(
+        f"{arch} cache {out['serve_longcontext']['readings'][arch]['placement']}, first "
+        f"tokens {out['serve_longcontext']['readings'][arch]['tokens_rank0_row0']}"
+        for arch in serve_longcontext.ARCHS))
+    g0 = strag[0]
+    for r, rep in enumerate(strag):
+        if rep["rebalances"] != 1 or rep["applied"] != [(3, 1)] or rep["steps_done"] != 18:
+            bad.append(f"straggler_rebalance rank {r}: rebalances {rep['rebalances']} to "
+                       f"{rep['applied']}, {rep['steps_done']} steps")
+    out["straggler_rebalance"] = {"readings": {
+        "first_attribution": g0["stragglers"][0], "actions": g0["actions"],
+        "rebalances": g0["rebalances"], "restores": g0["restores"],
+        "final_loss": g0["losses"][-1], "sleep_s": EXAMPLE_SLEEP_S}}
+    bad += example_check_failures("straggler_rebalance", [r["checks"] for r in strag],
+                                  out["straggler_rebalance"])
+    log(f"example straggler_rebalance: {g0['seconds']:.1f} s on rank 0 (sleep_s "
+        f"{EXAMPLE_SLEEP_S}); first attribution {g0['stragglers'][0]}; actions "
+        f"{g0['actions']}; rebalances {g0['rebalances']}, restores {g0['restores']}")
+    for name, rks in (("train_moe_ep", moe), ("pipeline_multipod", pipe),
+                      ("serve_longcontext", serve), ("straggler_rebalance", strag)):
+        lc = example_launches(rks)
+        out[name].update(seconds=[r["seconds"] for r in rks], ranks=len(rks),
+                         launches={k: lc[k] for k in ("B1", "B2", "B3", "B4_rows",
+                                                      "B4_contract")},
+                         peak_bytes=[r["peak_bytes"] for r in rks])
+        b4 = lc["B4_rows"] + lc["B4_contract"]
+        bodies = {**dict.fromkeys(body_counts(), 0),
+                  **{k: v for k, v in lc.items() if k.startswith(("flash_fwd", "gg_"))}}
+        if bodies["flash_fwd_f32"] != lc["B1"] or bodies["gg_f32"] != b4:
+            bad.append(f"{name}: launches by body {bodies}, expected the fp32 bodies' only")
+        BODY_COUNTS[f"example_{name}"] = bodies
+        log(f"example {name}: launches {out[name]['launches']}, peak a rank (MB) "
+            f"{[round(b / 1e6, 1) for b in out[name]['peak_bytes']]}; " + (
+                checks_text(out[name]) if "checks" in out[name] else
+                f"first logits through the kernels {out[name]['logits_max_rel']:.3e} of their "
+                f"max ({out[name]['logits_max_abs']:.3e} absolute) off the plain route's"))
+    for name, kernels in EXAMPLE_KERNELS.items():
+        lc = out[name]["launches"]
+        lc = {**lc, "B4": lc["B4_rows"] + lc["B4_contract"]}
+        if any(lc[k] == 0 for k in kernels):
+            bad.append(f"{name}: a kernel of its path did not launch: {lc}")
+    log(f"phase examples: preempt_resume {pr_s:.1f} s in this process, the rank processes "
+        f"{spawn_s:.1f} s (" + ", ".join(f"{n} {out[n]['seconds'][0]:.1f} s on rank 0" for n in (
+            "train_moe_ep", "pipeline_multipod", "serve_longcontext", "straggler_rebalance"))
+        + ")")
+    if bad:
+        raise AssertionError("examples: " + "; ".join(bad))
+    out["phase_s"] = {"preempt_resume": pr_s, "rank_processes": spawn_s}
+    return out
+
+
+def example_path_launches(examples, key):
+    """{"example_<name>": launches of ``key``} for the kernels line."""
+    return {f"example_{n}": v["launches"][key] for n, v in examples.items()
+            if n != "phase_s" and v["launches"][key]}
 
 
 def ft_summary(whisper, dp):
@@ -6603,7 +6877,7 @@ def ssd_entries(ssd_errs, ssm, tp, cp):
 
 
 def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_serve,
-                moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp, grid):
+                moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp, grid, examples):
     ft = forward_times()
     bt = backward_times()
     b1_train, b2_train, b3_train = train["launches"]
@@ -6622,7 +6896,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                 "whisper_dp_nccl_train_step": dp["nccl"]["launches"][0],
                 **tp_launches(tp, 0), **cp_launches(cp, 0), **ep_launches(ep, 0),
                 **pp_launches(pp, 0),
-                "gemma2_grid_prefill": sum(r["prefill_b1"] for r in grid["ranks"])}
+                "gemma2_grid_prefill": sum(r["prefill_b1"] for r in grid["ranks"]),
+                **example_path_launches(examples, "B1")}
     b1_bodies = launches_by_body("flash_fwd", b1_paths)
     if sum(b1_bodies.values()) != sum(b1_paths.values()):
         raise AssertionError(f"B1's launches by body {b1_bodies} do not add up to its "
@@ -6696,7 +6971,8 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                                                            for r in dp["ranks"]),
                    f"{WHISPER_ARCH}_dp_nccl_train_step": dp["nccl"]["launches"][which + 1],
                    **tp_launches(tp, which + 1), **cp_launches(cp, which + 1),
-                   **ep_launches(ep, which + 1), **pp_launches(pp, which + 1)}
+                   **ep_launches(ep, which + 1), **pp_launches(pp, which + 1),
+                   **example_path_launches(examples, ("B2", "B3")[which])}
         hy = bt["hybrid"]
         wh = {}
         for n in ("encoder", "train_cross", "train_self"):
@@ -6784,10 +7060,13 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
     tp_b4 = tuple(tp_launches(tp, i).get("tp_moe_train_step", 0) for i in (3, 4))
     ep_b4 = {f"{w}_{mode}": n for i, mode in ((3, "rows"), (4, "contract"))
              for w, n in ep_launches(ep, i).items()}
+    ex_b4 = {f"{w}_{mode}": n for mode in ("rows", "contract")
+             for w, n in example_path_launches(examples, f"B4_{mode}").items()}
     b4_bodies = launches_by_body("gg_", ("moe_prefill", "moe_decode", "moe_train_step",
-                                         "tp_moe_train_step", *ep_launches(ep, 3)))
+                                         "tp_moe_train_step", *ep_launches(ep, 3),
+                                         *example_path_launches(examples, "B4_rows")))
     if sum(b4_bodies.values()) != (moe_serve["prefill_b4"] + decode_steps + train_b4
-                                   + sum(tp_b4) + sum(ep_b4.values())):
+                                   + sum(tp_b4) + sum(ep_b4.values()) + sum(ex_b4.values())):
         raise AssertionError(f"B4's launches by body {b4_bodies} do not add up to its "
                              f"launches by path")
     entries.append({
@@ -6796,14 +7075,14 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
         "source": "src/repro_torch/kernels/csrc/grouped_gemm.cu",
         "replaces": "src/repro/kernels/grouped_gemm.py:50",
         "launches": (moe_serve["prefill_b4"] + decode_steps + train_b4 + sum(tp_b4)
-                     + sum(ep_b4.values())),
+                     + sum(ep_b4.values()) + sum(ex_b4.values())),
         "launches_by_path": {"prefill": moe_serve["prefill_b4"],
                              "decode_step": decode_steps // DECODE_STEPS,
                              f"decode_{DECODE_STEPS}_steps": decode_steps,
                              "train_step_rows": moe_train["train_b4_rows"],
                              "train_step_contract": moe_train["train_b4_contract"],
                              "tp_moe_train_step_rows": tp_b4[0],
-                             "tp_moe_train_step_contract": tp_b4[1], **ep_b4},
+                             "tp_moe_train_step_contract": tp_b4[1], **ep_b4, **ex_b4},
         "launches_by_body": b4_bodies,
         "max_abs_err": gemm_errs[0],
         "max_err_bf16_ulps": gemm_errs[1],
@@ -6832,11 +7111,12 @@ def phase_times(launches, path_errs, real_ulps, bwd_errs, train, gemm_errs, moe_
                       f"{TRAIN_ARCH}_cp": cp_summary(cp),
                       f"{MOE_ARCH}_ep": ep_summary(ep),
                       f"{TRAIN_ARCH}_pp": pp_summary(pp),
-                      f"{GRID_ARCH}_grid": grid_summary(grid)}), flush=True)
+                      f"{GRID_ARCH}_grid": grid_summary(grid),
+                      "examples": {**examples, "tolerance": EXAMPLE_TOLERANCE}}), flush=True)
 
 
 # ---------------------------------------------------------------------------
-# the dry run's estimates of the single-device cells (phase 21)
+# the dry run's estimates of the single-device cells (phase 22)
 
 
 def dryrun_cells():
@@ -6870,7 +7150,7 @@ def dryrun_cells():
 
 
 def dryrun_estimates(out_path):
-    """The dry run's child (phase 21): each cell's estimate on meta tensors
+    """The dry run's child (phase 22): each cell's estimate on meta tensors
     (``launch.dryrun.estimate``, no mesh), then the launch counters and the
     times nvcc or a kernel library was sought, as JSON at ``out_path``."""
     from repro_torch.kernels import build
@@ -6912,7 +7192,7 @@ def start_dryrun():
 
 def phase_dryrun(child):
     """Each cell's estimate beside the phase's readings (module docstring,
-    phase 21): the static bytes within DRYRUN_STATIC_REL on every cell, the
+    phase 22): the static bytes within DRYRUN_STATIC_REL on every cell, the
     traced peak within DRYRUN_PEAK_REL on every training cell; the child
     built and launched nothing. Logs one JSON line of the readings."""
     proc, out, log_path, t0 = child
@@ -6984,7 +7264,7 @@ def run(t0, kind, children):
     from repro_torch.core import resolve_device
     resolve_device()                       # fp32 matmuls in full fp32
     timed("build", phase_build)
-    # phase 21's estimates on the host, beside the card's phases (after the
+    # phase 22's estimates on the host, beside the card's phases (after the
     # build: nvcc takes the host's cores first)
     children.append(start_dryrun())
     child = children[0]
@@ -7020,16 +7300,16 @@ def run(t0, kind, children):
     free()
     dp, tp = timed("data and tensor parallel", dp_and_tp)
     free()
-    cp = timed("context parallel", phase_cp)
-    free()
-    ep = timed("expert parallel", phase_ep)
-    free()
-    pp = timed("pipeline parallel", phase_pp)
+    cp, ep, pp = timed("context, expert and pipeline parallel", phase_cp_ep_pp)
     free()
     grid = timed("grid serving", phase_grid_serving)
+    free()
+    examples = timed("examples", phase_examples)
+    free()
     timed("dry run", phase_dryrun, child)
     timed("times", phase_times, launches, path_errs, real_ulps, bwd_errs, train,
-          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp, grid)
+          gemm_errs, moe_serve, moe_train, ssd_errs, ssm, whisper, dp, tp, cp, ep, pp, grid,
+          examples)
     log(f"chip_smoke: {time.perf_counter() - t0:.1f} s in all")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),

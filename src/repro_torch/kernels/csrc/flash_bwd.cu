@@ -46,8 +46,9 @@
 //    and dS never touch shared memory) and B read MN-major through the
 //    descriptor, so K, Q and dO serve untransposed. Grids put the tile index
 //    on y, heaviest causal tiles first across all heads.
-//  - bf16 at hd 32 and 256 (gemma2's head dims, on no path of the port yet):
-//    the mma.sync m16n8k16 body of the first version, 4 warps of 16 rows, 64-row
+//  - bf16 at every other head dim the reference's kernel takes (a multiple of 8
+//    up to 256; gemma2's 256): the mma.sync m16n8k16 body of the first version,
+//    4 warps of 16 rows, 64-row
 //    tiles, cp.async loads waited out per tile; at hd 256 two warps share a key
 //    row block, each keeping half of the head dim, so no thread holds more than
 //    128 accumulators.
@@ -55,6 +56,9 @@
 //    tolerance): 32-row / 32-key tiles, 4 warps of 8 rows (dq) or 8 keys (dk/dv);
 //    lanes own keys (dq) or queries (dk/dv) for the scores and head-dim columns
 //    for the accumulators.
+// The mma.sync and fp32 bodies are built at HD 32, 64, 128 and 256; a head dim
+// hd below HD runs at the least HD that holds it with the columns past hd loaded
+// as zeros and never stored (no padded copy; hd 40 pays for 64).
 // In both bf16 bodies the reference's fp32 p and ds enter the second products
 // as two bf16 terms (head + remainder, ~16 bits), which doubles those products'
 // tensor-core work: one bf16 rounding was measured at the training shape (H100
@@ -122,6 +126,7 @@ struct Params {
   long long dk_sb, dk_sh, dk_ss;
   long long dv_sb, dv_sh, dv_ss;
   int b, hq, hkv, s, t;
+  int hd;                           // the true head dim; the body's HD may be larger
   int causal, window, q_offset;
   float softcap, scale;
 };
@@ -176,17 +181,18 @@ __device__ __forceinline__ void cp_async_commit_wait() {
 }
 
 // Start copying rows [row0, row0 + rows) of one (batch, head) slice into a padded
-// shared tile, zero-filling rows at or past n_rows.
+// shared tile, zero-filling rows at or past n_rows and the columns at or past hd (a
+// multiple of 8, so a 16-byte chunk is wholly in or out).
 template <int HD>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                                 long long row_stride, int row0, int rows,
-                                                int n_rows) {
+                                                int n_rows, int hd) {
   constexpr int kChunks = HD / 8;        // 16-byte chunks per row
   constexpr int kPitch = HD + 8;
   for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
-    const bool in = row0 + r < n_rows;
+    const bool in = row0 + r < n_rows && c * 8 < hd;
     const __nv_bfloat16* g = in ? src + (long long)(row0 + r) * row_stride + c * 8 : src;
     cp_async16(dst + r * kPitch + c * 8, g, in);
   }
@@ -276,8 +282,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
   const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
   const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
 
-  load_tile_async<HD>(sQ, Q, p.q_ss, q_start, kBq, p.s);
-  load_tile_async<HD>(sdO, dO, p.do_ss, q_start, kBq, p.s);
+  load_tile_async<HD>(sQ, Q, p.q_ss, q_start, kBq, p.s, p.hd);
+  load_tile_async<HD>(sdO, dO, p.do_ss, q_start, kBq, p.s, p.hd);
   cp_async_commit_wait();                      // visible to all after the loop's barrier
 
   const int row_a = q_start + warp * 16 + g;   // rows of fragment elements 0,1 / 2,3
@@ -299,8 +305,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
   for (int kt = k_lo; kt < k_hi; ++kt) {
     const int k_start = kt * kBk;
     __syncthreads();                           // every warp is done with K/V of kt-1
-    load_tile_async<HD>(sK, K, p.k_ss, k_start, kBk, p.t);
-    load_tile_async<HD>(sV, V, p.v_ss, k_start, kBk, p.t);
+    load_tile_async<HD>(sK, K, p.k_ss, k_start, kBk, p.t, p.hd);
+    load_tile_async<HD>(sV, V, p.v_ss, k_start, kBk, p.t, p.hd);
     cp_async_commit_wait();
     __syncthreads();
 
@@ -329,8 +335,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_bf16(Params p) {
     __nv_bfloat16* out = dQ + (long long)row * p.dq_ss + tig * 2;
 #pragma unroll
     for (int dt = 0; dt < kDt; ++dt) {
-      *reinterpret_cast<__nv_bfloat162*>(out + dt * 8) = __floats2bfloat162_rn(
-          acc[dt][2 * r] * p.scale, acc[dt][2 * r + 1] * p.scale);
+      if (dt * 8 < p.hd)                     // not the masked columns past hd
+        *reinterpret_cast<__nv_bfloat162*>(out + dt * 8) = __floats2bfloat162_rn(
+            acc[dt][2 * r] * p.scale, acc[dt][2 * r + 1] * p.scale);
     }
   }
 }
@@ -372,8 +379,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(Params p) {
 
   const __nv_bfloat16* K = static_cast<const __nv_bfloat16*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
   const __nv_bfloat16* V = static_cast<const __nv_bfloat16*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
-  load_tile_async<HD>(sK, K, p.k_ss, k_start, Sh::kBkv, p.t);
-  load_tile_async<HD>(sV, V, p.v_ss, k_start, Sh::kBkv, p.t);
+  load_tile_async<HD>(sK, K, p.k_ss, k_start, Sh::kBkv, p.t, p.hd);
+  load_tile_async<HD>(sV, V, p.v_ss, k_start, Sh::kBkv, p.t, p.hd);
   cp_async_commit_wait();
 
   float dk[kNt][4], dv[kNt][4];
@@ -396,8 +403,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(Params p) {
     for (int qt = q_lo; qt < q_hi; ++qt) {
       const int q_start = qt * kBq;
       __syncthreads();                         // every warp is done with the last Q/dO
-      load_tile_async<HD>(sQ, Q, p.q_ss, q_start, kBq, p.s);
-      load_tile_async<HD>(sdO, dO, p.do_ss, q_start, kBq, p.s);
+      load_tile_async<HD>(sQ, Q, p.q_ss, q_start, kBq, p.s, p.hd);
+      load_tile_async<HD>(sdO, dO, p.do_ss, q_start, kBq, p.s, p.hd);
       if (threadIdx.x < kBq) {
         const int row = q_start + threadIdx.x;
         sLse[threadIdx.x] = row < p.s ? lse[row] : 0.f;
@@ -437,6 +444,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_bf16(Params p) {
     __nv_bfloat16* ov = dV + (long long)key * p.dv_ss + col0 + tig * 2;
 #pragma unroll
     for (int dt = 0; dt < kNt; ++dt) {
+      if (col0 + dt * 8 >= p.hd) break;      // the masked columns past hd
       *reinterpret_cast<__nv_bfloat162*>(ok_ + dt * 8) = __floats2bfloat162_rn(
           dk[dt][2 * r] * p.scale, dk[dt][2 * r + 1] * p.scale);
       *reinterpret_cast<__nv_bfloat162*>(ov + dt * 8) =
@@ -452,13 +460,15 @@ constexpr int kRowsF = 8;                 // rows (dq) or keys (dk/dv) per warp
 constexpr int kBF = 4 * kRowsF;           // 32: q tile and KV tile
 
 // Rows [row0, row0 + kBF) of one slice into shared memory with the given pitch,
-// zero-filling rows at or past n_rows.
+// zero-filling rows at or past n_rows and the columns at or past hd.
 template <int HD>
 __device__ __forceinline__ void load_tile_f32(float* dst, int pitch, const float* src,
-                                              long long row_stride, int row0, int n_rows) {
+                                              long long row_stride, int row0, int n_rows,
+                                              int hd) {
   for (int idx = threadIdx.x; idx < kBF * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
-    dst[r * pitch + d] = row0 + r < n_rows ? src[(long long)(row0 + r) * row_stride + d] : 0.f;
+    dst[r * pitch + d] =
+        row0 + r < n_rows && d < hd ? src[(long long)(row0 + r) * row_stride + d] : 0.f;
   }
 }
 
@@ -485,8 +495,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(Params p) {
   const float* dO = static_cast<const float*>(p.dout) + bi * p.do_sb + h * p.do_sh;
   const float* K = static_cast<const float*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
   const float* V = static_cast<const float*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
-  load_tile_f32<HD>(sQ, HD, Q, p.q_ss, q_start, p.s);
-  load_tile_f32<HD>(sdO, HD, dO, p.do_ss, q_start, p.s);
+  load_tile_f32<HD>(sQ, HD, Q, p.q_ss, q_start, p.s, p.hd);
+  load_tile_f32<HD>(sdO, HD, dO, p.do_ss, q_start, p.s, p.hd);
 
   const int row0 = q_start + warp * kRowsF;
   float lse[kRowsF], dl[kRowsF], acc[kRowsF][kCols];
@@ -507,8 +517,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(Params p) {
   for (int kt = k_lo; kt < k_hi; ++kt) {
     const int k_start = kt * kBF;
     __syncthreads();
-    load_tile_f32<HD>(sK, HD + 1, K, p.k_ss, k_start, p.t);
-    load_tile_f32<HD>(sV, HD + 1, V, p.v_ss, k_start, p.t);
+    load_tile_f32<HD>(sK, HD + 1, K, p.k_ss, k_start, p.t, p.hd);
+    load_tile_f32<HD>(sV, HD + 1, V, p.v_ss, k_start, p.t, p.hd);
     __syncthreads();
 
     float s[kRowsF], dp[kRowsF];
@@ -549,7 +559,9 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq_f32(Params p) {
     const int row = row0 + r;
     if (row >= p.s) continue;
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) dQ[(long long)row * p.dq_ss + lane + 32 * c] = acc[r][c] * p.scale;
+    for (int c = 0; c < kCols; ++c) {
+      if (lane + 32 * c < p.hd) dQ[(long long)row * p.dq_ss + lane + 32 * c] = acc[r][c] * p.scale;
+    }
   }
 }
 
@@ -577,8 +589,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(Params p) {
 
   const float* K = static_cast<const float*>(p.k) + bi * p.k_sb + kvh * p.k_sh;
   const float* V = static_cast<const float*>(p.v) + bi * p.v_sb + kvh * p.v_sh;
-  load_tile_f32<HD>(sK, HD, K, p.k_ss, k_start, p.t);
-  load_tile_f32<HD>(sV, HD, V, p.v_ss, k_start, p.t);
+  load_tile_f32<HD>(sK, HD, K, p.k_ss, k_start, p.t, p.hd);
+  load_tile_f32<HD>(sV, HD, V, p.v_ss, k_start, p.t, p.hd);
 
   float dk[kRowsF][kCols], dv[kRowsF][kCols];
 #pragma unroll
@@ -601,8 +613,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(Params p) {
     for (int qt = q_lo; qt < q_hi; ++qt) {
       const int q_start = qt * kBF;
       __syncthreads();
-      load_tile_f32<HD>(sQ, HD + 1, Q, p.q_ss, q_start, p.s);
-      load_tile_f32<HD>(sdO, HD + 1, dO, p.do_ss, q_start, p.s);
+      load_tile_f32<HD>(sQ, HD + 1, Q, p.q_ss, q_start, p.s, p.hd);
+      load_tile_f32<HD>(sdO, HD + 1, dO, p.do_ss, q_start, p.s, p.hd);
       if (threadIdx.x < kBF) {
         const int row = q_start + threadIdx.x;
         sLse[threadIdx.x] = row < p.s ? lse[row] : 0.f;
@@ -658,6 +670,7 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dkv_f32(Params p) {
     if (key >= p.t) continue;
 #pragma unroll
     for (int c = 0; c < kCols; ++c) {
+      if (lane + 32 * c >= p.hd) break;      // the masked columns past hd
       dK[(long long)key * p.dk_ss + lane + 32 * c] = dk[r][c] * p.scale;
       dV[(long long)key * p.dv_ss + lane + 32 * c] = dv[r][c];
     }
@@ -1047,22 +1060,23 @@ cudaError_t launch(Kernel kernel, const Params& p, dim3 grid, size_t smem,
   return cudaGetLastError();
 }
 
+// The bodies at HD for a head dim p.hd <= HD (body_hd): bf16 at exactly 64 or 128
+// runs the Hopper body, bf16 at any other the mma.sync body, fp32 the FMA body.
 template <int HD>
 int launch_hd(const Params& p, int which, int dtype, cudaStream_t st) {
   if constexpr (HD == 64 || HD == 128) {
-    if (dtype == 1) return launch_sm90<HD>(p, which, st);
-  } else {
-    constexpr size_t kPitchBytes = (HD + 8) * sizeof(__nv_bfloat16);
-    if (dtype == 1 && which == 0) {
-      const dim3 grid((p.s + kBq - 1) / kBq, p.hq, p.b);
-      return launch(flash_bwd_dq_bf16<HD>, p, grid, (2 * kBq + 2 * kBk) * kPitchBytes, st);
-    }
-    if (dtype == 1) {
-      using Sh = DkvShape<HD>;
-      const dim3 grid((p.t + Sh::kBkv - 1) / Sh::kBkv, p.hkv, p.b);
-      const size_t smem = (2 * Sh::kBkv + 2 * kBq) * kPitchBytes + 2 * kBq * sizeof(float);
-      return launch(flash_bwd_dkv_bf16<HD>, p, grid, smem, st);
-    }
+    if (dtype == 1 && p.hd == HD) return launch_sm90<HD>(p, which, st);
+  }
+  constexpr size_t kPitchBytes = (HD + 8) * sizeof(__nv_bfloat16);
+  if (dtype == 1 && which == 0) {
+    const dim3 grid((p.s + kBq - 1) / kBq, p.hq, p.b);
+    return launch(flash_bwd_dq_bf16<HD>, p, grid, (2 * kBq + 2 * kBk) * kPitchBytes, st);
+  }
+  if (dtype == 1) {
+    using Sh = DkvShape<HD>;
+    const dim3 grid((p.t + Sh::kBkv - 1) / Sh::kBkv, p.hkv, p.b);
+    const size_t smem = (2 * Sh::kBkv + 2 * kBq) * kPitchBytes + 2 * kBq * sizeof(float);
+    return launch(flash_bwd_dkv_bf16<HD>, p, grid, smem, st);
   }
   const size_t smem = (size_t)(2 * kBF * HD + 2 * kBF * (HD + 1)) * sizeof(float) +
                       (which == 0 ? 0 : 2 * kBF * sizeof(float));
@@ -1105,13 +1119,16 @@ extern "C" int flash_bwd(const void* q, const void* k, const void* v, const void
   p.dq_sb = dq_sb; p.dq_sh = dq_sh; p.dq_ss = dq_ss;
   p.dk_sb = dk_sb; p.dk_sh = dk_sh; p.dk_ss = dk_ss;
   p.dv_sb = dv_sb; p.dv_sh = dv_sh; p.dv_ss = dv_ss;
-  p.b = b; p.hq = hq; p.hkv = hkv; p.s = s; p.t = t;
+  p.b = b; p.hq = hq; p.hkv = hkv; p.s = s; p.t = t; p.hd = hd;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.softcap = softcap; p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaGetLastError();   // start from a clean error state
   if ((dtype != 0 && dtype != 1) || (which != 0 && which != 1)) return (int)cudaErrorInvalidValue;
-  switch (hd) {
+  // the least of HD 32, 64, 128 and 256 that holds hd, a multiple of 8 up to 256
+  // (the reference's rule for its kernel); the columns past hd are masked
+  if (hd < 8 || hd > 256 || hd % 8) return (int)cudaErrorInvalidValue;
+  switch (hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256) {
     case 32: return launch_hd<32>(p, which, dtype, st);
     case 64: return launch_hd<64>(p, which, dtype, st);
     case 128: return launch_hd<128>(p, which, dtype, st);

@@ -41,7 +41,8 @@
 //    there p = 2^(q.k * scale log2 e - m log2 e) is one FFMA and one MUFU.EX2;
 //    softcap keeps the per-element path (tanh, mask, expf). The grid puts the
 //    tile index on y, heaviest causal tiles first across all heads.
-//  - flash_fwd_bf16<HD>: bf16 at hd 32 and 256 (on no path), the first version.
+//  - flash_fwd_bf16<HD>: bf16 at every other head dim the reference's kernel takes
+//    (a multiple of 8 up to 256: gemma2's 256 on the grid prefill), the first version.
 //    4 warps x 16 query rows = 64-row q tile, 64-key KV tiles. Q.K^T and P.V run
 //    on the tensor cores with mma.sync m16n8k16 (bf16 in, fp32 accumulate). Tiles
 //    sit in padded shared memory (conflict-free fragment loads; V fragments via
@@ -52,6 +53,9 @@
 //    computes in fp32, and TF32 would miss its 3e-5 tolerance). 4 warps x 8 rows,
 //    32-key tiles; lane j owns key j for the scores and head-dim columns j, j+32, ...
 //    for the output. Bound by the 67 TFLOP/s fp32 rate at best; not on the paths.
+//  Both bodies are built at HD 32, 64, 128 and 256 and take a head dim hd that is a
+//  multiple of 8 up to 256 at the least HD that holds it (body_hd): columns past hd
+//  load as zeros and are never stored, so no padded copy is made (hd 40 pays for 64).
 //
 // Rounding. The reference keeps P in fp32; both bf16 bodies pass P to P.V as two
 // bf16 terms (head + remainder, ~16 bits), which doubles that product's tensor-core
@@ -96,6 +100,7 @@ struct Params {
   long long v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int b, hq, hkv, s, t;
+  int hd;                           // the true head dim; the body's HD may be larger
   int causal, window, q_offset;
   float softcap, scale;
 };
@@ -171,17 +176,18 @@ __device__ __forceinline__ void cp_async_wait_all() {
 }
 
 // Start copying rows [row0, row0 + rows) of one (batch, head) slice into a padded
-// shared tile with 16-byte cp.async copies, zero-filling rows at or past n_rows.
+// shared tile with 16-byte cp.async copies, zero-filling rows at or past n_rows and
+// the columns at or past hd (a multiple of 8, so a chunk is wholly in or out).
 template <int HD>
 __device__ __forceinline__ void load_tile_async(__nv_bfloat16* dst, const __nv_bfloat16* src,
                                                 long long row_stride, int row0, int rows,
-                                                int n_rows) {
+                                                int n_rows, int hd) {
   constexpr int kChunks = HD / 8;        // 16-byte chunks per row
   constexpr int kPitch = HD + 8;
   for (int idx = threadIdx.x; idx < rows * kChunks; idx += kThreads) {
     const int r = idx / kChunks;
     const int c = idx % kChunks;
-    const bool in = row0 + r < n_rows;
+    const bool in = row0 + r < n_rows && c * 8 < hd;
     const __nv_bfloat16* g = in ? src + (long long)(row0 + r) * row_stride + c * 8 : src;
     cp_async16(dst + r * kPitch + c * 8, g, in);
   }
@@ -220,8 +226,8 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
   while (k_hi < nk && tile_relevant(p, q_start, kBq, k_hi * kBk, kBk)) ++k_hi;
 
   // Pipeline: V_kt is in flight while S_kt is computed, K_kt+1 while P.V_kt is.
-  load_tile_async<HD>(sQ, Q, p.q_ss, q_start, kBq, p.s);
-  if (k_lo < k_hi) load_tile_async<HD>(sK, K, p.k_ss, k_lo * kBk, kBk, p.t);
+  load_tile_async<HD>(sQ, Q, p.q_ss, q_start, kBq, p.s, p.hd);
+  if (k_lo < k_hi) load_tile_async<HD>(sK, K, p.k_ss, k_lo * kBk, kBk, p.t, p.hd);
   cp_async_commit();
 
   float acc[kDt][4];
@@ -238,7 +244,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     const int k_start = kt * kBk;
     cp_async_wait_all();
     __syncthreads();                       // K_kt landed; every warp is done with V_kt-1
-    load_tile_async<HD>(sV, V, p.v_ss, k_start, kBk, p.t);
+    load_tile_async<HD>(sV, V, p.v_ss, k_start, kBk, p.t, p.hd);
     cp_async_commit();
 
     // S = Q K^T for this warp's 16 rows x 64 keys
@@ -308,7 +314,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
     cp_async_wait_all();
     __syncthreads();                       // V_kt landed; every warp is done with K_kt
     if (kt + 1 < k_hi) {
-      load_tile_async<HD>(sK, K, p.k_ss, k_start + kBk, kBk, p.t);
+      load_tile_async<HD>(sK, K, p.k_ss, k_start + kBk, kBk, p.t, p.hd);
       cp_async_commit();
     }
 
@@ -345,8 +351,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_bf16(Params p) {
       __nv_bfloat16* orow = O + (long long)row * p.o_ss + tig * 2;
 #pragma unroll
       for (int dt = 0; dt < kDt; ++dt) {
-        *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
-            __floats2bfloat162_rn(acc[dt][2 * r] / lc, acc[dt][2 * r + 1] / lc);
+        if (dt * 8 < p.hd)                 // not the masked columns past hd
+          *reinterpret_cast<__nv_bfloat162*>(orow + dt * 8) =
+              __floats2bfloat162_rn(acc[dt][2 * r] / lc, acc[dt][2 * r + 1] / lc);
       }
       if (tig == 0) p.lse[((long long)bi * p.hq + h) * p.s + row] = m[r] + logf(lc);
     }
@@ -607,7 +614,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
 
   for (int idx = threadIdx.x; idx < kBqF * HD; idx += kThreads) {
     const int r = idx / HD, d = idx % HD;
-    sQ[idx] = (q_start + r < p.s) ? Q[(long long)(q_start + r) * p.q_ss + d] : 0.f;
+    sQ[idx] = (q_start + r < p.s && d < p.hd) ? Q[(long long)(q_start + r) * p.q_ss + d] : 0.f;
   }
 
   float acc[kRowsPerWarp][kCols];
@@ -629,7 +636,7 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
     __syncthreads();
     for (int idx = threadIdx.x; idx < kBkF * HD; idx += kThreads) {
       const int r = idx / HD, d = idx % HD;
-      const bool in = k_start + r < p.t;
+      const bool in = k_start + r < p.t && d < p.hd;
       sK[r * (HD + 1) + d] = in ? K[(long long)(k_start + r) * p.k_ss + d] : 0.f;
       sV[idx] = in ? V[(long long)(k_start + r) * p.v_ss + d] : 0.f;
     }
@@ -678,7 +685,9 @@ __global__ void __launch_bounds__(kThreads) flash_fwd_f32(Params p) {
     if (row >= p.s) continue;
     const float lc = fmaxf(l[r], 1e-30f);
 #pragma unroll
-    for (int c = 0; c < kCols; ++c) O[(long long)row * p.o_ss + lane + 32 * c] = acc[r][c] / lc;
+    for (int c = 0; c < kCols; ++c) {
+      if (lane + 32 * c < p.hd) O[(long long)row * p.o_ss + lane + 32 * c] = acc[r][c] / lc;
+    }
     if (lane == 0) p.lse[((long long)bi * p.hq + h) * p.s + row] = m[r] + logf(lc);
   }
 }
@@ -726,6 +735,16 @@ int launch_sm90(const Params& p, cudaStream_t st) {
   return (int)cudaGetLastError();
 }
 
+// The body's HD for a head dim hd (a multiple of 8 up to 256, the reference's rule
+// for its kernel): the least of 32, 64, 128 and 256 that holds it. The fp32 and
+// mma.sync bodies run at that HD with the columns past hd masked: loaded as zeros
+// (they add nothing to q.k, and o's columns there are never stored), so nothing is
+// copied to a padded tensor and the caller's scale stays hd^-0.5 of the true hd.
+int body_hd(int hd) {
+  if (hd < 8 || hd > 256 || hd % 8) return 0;
+  return hd <= 32 ? 32 : hd <= 64 ? 64 : hd <= 128 ? 128 : 256;
+}
+
 }  // namespace
 
 // One launch of the body the caller names: 0 = fp32 (flash_fwd_f32), 1 = bf16
@@ -746,7 +765,7 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
   p.o_sb = o_sb; p.o_sh = o_sh; p.o_ss = o_ss;
-  p.b = b; p.hq = hq; p.hkv = hkv; p.s = s; p.t = t;
+  p.b = b; p.hq = hq; p.hkv = hkv; p.s = s; p.t = t; p.hd = hd;
   p.causal = causal; p.window = window; p.q_offset = q_offset;
   p.softcap = softcap; p.scale = scale;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -757,14 +776,14 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o, v
       case 128: return launch_sm90<128>(p, st);
     }
   } else if (body == 1) {
-    switch (hd) {
+    switch (body_hd(hd)) {
       case 32: return launch_bf16<32>(p, st);
       case 64: return launch_bf16<64>(p, st);
       case 128: return launch_bf16<128>(p, st);
       case 256: return launch_bf16<256>(p, st);
     }
   } else if (body == 0) {
-    switch (hd) {
+    switch (body_hd(hd)) {
       case 32: return launch_f32<32>(p, st);
       case 64: return launch_f32<64>(p, st);
       case 128: return launch_f32<128>(p, st);

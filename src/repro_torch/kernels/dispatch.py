@@ -31,9 +31,11 @@ of the tensor-parallel rings (``train/tensor_parallel.py``).
 GEMMs (``ParallelPlan.ep_impl``, resolved by :func:`select_ep_impl`): the
 blocking all-to-all or the overlap ring of ticks.
 
-On CUDA the kernel takes the head dims it has bodies for
-(``flash_attention.HEAD_DIMS``) and the call raises for any other; it never
-falls back to the twin.
+On CUDA the kernel takes the head dims the reference's ``select_impl`` sends
+to its kernel under ``auto``, a multiple of 8 up to 256
+(``flash_attention.HEAD_DIMS``), and the call raises for any other; it never
+falls back to the twin. (The reference's explicit ``"pallas"`` also takes the
+other head dims; the port's ``"cuda"`` does not.)
 
 In the reference, gemma2's local/global alternation makes the window a traced
 scan value, so the reference falls back to XLA there. The port runs its layers
@@ -108,8 +110,9 @@ def select_impl(impl: str, *, head_dim: int, device) -> str:
     if _resolve(impl, "attn_impl", device) == "plain":
         return "plain"
     if head_dim not in HEAD_DIMS:
-        raise ValueError(f"attn_impl={impl!r}: the CUDA kernel takes head dims "
-                         f"{HEAD_DIMS}, not {head_dim}; use attn_impl='plain'")
+        raise ValueError(f"attn_impl={impl!r}: the CUDA kernel takes head dims that "
+                         f"are multiples of 8 up to 256, not {head_dim}; use "
+                         f"attn_impl='plain'")
     return "cuda"
 
 

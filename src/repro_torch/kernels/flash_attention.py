@@ -18,7 +18,9 @@ a CUDA tensor launches the kernel (or the call raises), a CPU tensor takes
 PyTorch versions of the same functions. There is no fall-back from one to the
 other. On the card, the forward's body is a static rule (:func:`fwd_body`):
 bf16 at the head dims in ``SM90_HEAD_DIMS`` (every path's) runs the Hopper body,
-other bf16 head dims the first-version ``mma.sync`` body, fp32 the FMA body.
+other bf16 head dims the first-version ``mma.sync`` body, fp32 the FMA body. The
+kernels take every head dim in ``HEAD_DIMS`` (a multiple of 8 up to 256, as the
+reference's kernel does) and raise for any other on a CUDA tensor.
 :func:`flash_attention` is differentiable through :class:`FlashAttention`,
 whose forward runs :func:`flash_attention_lse` and whose backward runs
 :func:`flash_attention_bwd`. Tiles are the kernels' own choice, so the
@@ -36,7 +38,10 @@ import torch
 from repro_torch.models.layers import NEG_INF, attention_chunk_grads, attn_mask
 from . import build
 
-HEAD_DIMS = (32, 64, 128, 256)
+# the reference's rule for its kernel (``select_impl``: a multiple of 8 up to 256);
+# the fp32 and first-version bodies run at the least of 32, 64, 128, 256 that holds
+# the head dim, its columns past hd masked (csrc/flash_fwd.cu ``body_hd``)
+HEAD_DIMS = tuple(range(8, 257, 8))
 SM90_HEAD_DIMS = (64, 128)        # bf16 head dims of the forward's Hopper body
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _FWD_BODIES = {"f32": 0, "mma": 1, "sm90": 2}     # csrc/flash_fwd.cu's body codes
@@ -120,7 +125,8 @@ def _cuda_args(q, k, v):
     if q.dtype not in _DTYPE_CODE:
         raise ValueError(f"the kernels take float32 or bfloat16, not {q.dtype}")
     if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"the kernels take head dims {HEAD_DIMS}, not {q.shape[-1]}")
+        raise ValueError(f"the kernels take head dims that are multiples of 8 up to "
+                         f"256, not {q.shape[-1]}")
     for name, x in (("q", q), ("k", k), ("v", v)):
         if not _aligned(x):
             raise ValueError(f"{name} needs a contiguous head dim, strides that are "

@@ -79,7 +79,7 @@ def test_dispatch_takes_plain_attention_on_cpu():
     ("auto", 64, "cpu", "plain"),
     ("cuda", 256, "cuda", "cuda"),
     ("cuda", 64, "cpu", ValueError),      # "cuda" forces the kernel: no CPU mode
-    ("auto", 96, "cuda", ValueError),     # no kernel body for hd 96
+    ("auto", 96, "cuda", "cuda"),         # hd 96 runs at the 128 body, columns masked
     ("auto", 100, "cuda", ValueError),    # no fall-back to the twin
     ("cuda", 512, "cuda", ValueError),
     ("pallas", 64, "cpu", ValueError),
